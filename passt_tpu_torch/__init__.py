@@ -1,0 +1,35 @@
+"""passt_tpu_torch — the PyTorch/CUDA port of passt_tpu for NVIDIA Hopper.
+
+It mirrors the JAX package's module names and keeps its numerics; every
+Pallas kernel the JAX package runs on a TPU becomes a kernel written by hand
+for Hopper (``csrc/``), built with ``nvcc`` at first use, with a plain
+PyTorch version beside it that CPU tensors take. It imports ``torch`` and
+never ``jax``.
+
+Layout
+------
+- ``passt_tpu_torch.ops``    : STFT/mel frontend and attention, with the
+  mel and attention kernels (``ops/_build.py`` builds and binds them)
+- ``passt_tpu_torch.models`` : the PaSST transformer, arch registry, weights
+- ``passt_tpu_torch.hear``   : the waveform-in ``Predictor`` and the HEAR API
+
+This slice covers serving (eval); training is queued in ROADMAP.md.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name in ("PaSST", "PaSSTConfig", "get_model"):
+        from passt_tpu_torch import models
+
+        return getattr(models, name)
+    if name == "Predictor":
+        from passt_tpu_torch.hear import Predictor
+
+        return Predictor
+    if name in ("MelConfig", "log_mel_spectrogram"):
+        from passt_tpu_torch import ops
+
+        return getattr(ops, name)
+    raise AttributeError(f"module 'passt_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,23 @@
+"""The PaSST model, arch registry and weight loading of the port."""
+
+from passt_tpu_torch.models.passt import PaSST, PaSSTConfig
+from passt_tpu_torch.models.pretrained import (
+    load_params_npz,
+    load_pretrained,
+    load_torch_checkpoint,
+    state_dict_from_flax,
+)
+from passt_tpu_torch.models.registry import ARCHS, DEFAULT_CFGS, get_model, get_model_config
+
+__all__ = [
+    "ARCHS",
+    "DEFAULT_CFGS",
+    "PaSST",
+    "PaSSTConfig",
+    "get_model",
+    "get_model_config",
+    "load_params_npz",
+    "load_pretrained",
+    "load_torch_checkpoint",
+    "state_dict_from_flax",
+]

@@ -1,0 +1,375 @@
+"""PaSST — Patchout faSt Spectrogram Transformer, in PyTorch
+(port of passt_tpu/models/passt.py, eval forward).
+
+Module and parameter names are the reference's torch names
+(``patch_embed.proj``, ``blocks.{i}.norm1|attn.qkv|attn.proj|norm2|mlp.fc1|
+mlp.fc2``, ``norm``, ``head.0``/``head.1``, ``head_dist``, ``cls_token``,
+``dist_token``, ``new_pos_embed``, ``freq_new_pos_embed`` (1, D, F, 1) and
+``time_new_pos_embed`` (1, D, 1, T)), so a published ``.pt`` state dict loads
+with a plain ``load_state_dict``.
+
+The numerics follow the JAX package rather than torch habit:
+
+- parameters stay fp32 and every Dense casts them to the compute dtype; the
+  product is rounded to that dtype first and the bias added after (flax
+  ``nn.Dense`` order, see :class:`Linear`);
+- LayerNorms compute in fp32 with the fast variance ``E[x^2] - mean^2``
+  clamped at 0 and return fp32; block norms use eps 1e-6, the head's 1e-5;
+- under bf16 the residual stream is bf16 from the patch embedding on, the
+  features are the fp32 mean of tokens 0 and 1, and the head runs in fp32;
+- ``gelu="auto"`` is erf under fp32 and tanh under bf16.
+
+Training mode (patchout, the time-offset crop, drop_path) belongs to the
+port's training slice; so do the ``blocks_impl`` "scan"/"stacked",
+``ln_impl="fused"`` and ``fuse_ln_qkv`` variants. They raise when set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from passt_tpu_torch.ops.activations import tanh_gelu
+from passt_tpu_torch.ops.attention import (
+    flat_kernel_supports,
+    fused_attention,
+    fused_attention_qkv,
+)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class PaSSTConfig:
+    """Model hyperparameters; the same fields and defaults as the JAX
+    package's ``PaSSTConfig``."""
+
+    input_fdim: int = 128
+    input_tdim: int = 998
+    patch_size: Tuple[int, int] = (16, 16)
+    stride: Tuple[int, int] = (10, 10)
+    in_chans: int = 1
+    num_classes: int = 527
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    distilled: bool = True
+    representation_size: Optional[int] = None
+    u_patchout: int = 0
+    s_patchout_t: int = 0
+    s_patchout_f: int = 0
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    dtype: str = "float32"  # compute dtype
+    gelu: str = "auto"  # "erf", "tanh", or "auto": erf under fp32, tanh under bf16
+    gelu_saved_deriv: bool = True  # training only (the tanh-GELU VJP)
+    ln_impl: str = "auto"  # "auto"/"xla"; "fused" waits for the training slice
+    remat: bool = False  # training only
+    softmax_fp32: bool = True  # "xla" attention: fp32 softmax
+    patch_embed_impl: str = "unfold"  # "unfold" or "conv": the same function here
+    attn_impl: str = "auto"  # "fused": the Hopper kernel (its plain version on
+    # CPU tensors); "xla": the einsum composition; "auto": fused where CUDA is
+    plus1_attn: bool = False
+    verbose_shapes: bool = False
+    fuse_ln_qkv: bool = False  # waits for the port of ln_qkv.py
+    blocks_impl: str = "loop"  # "scan"/"stacked" wait for a later slice
+
+    @property
+    def grid_size(self) -> Tuple[int, int]:
+        """(F_grid, T_grid) of the patch-embedding output at the nominal size."""
+        return (
+            (self.input_fdim - self.patch_size[0]) // self.stride[0] + 1,
+            (self.input_tdim - self.patch_size[1]) // self.stride[1] + 1,
+        )
+
+    @property
+    def num_tokens(self) -> int:
+        return 2 if self.distilled else 1
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {self.dtype!r}")
+        return _DTYPES[self.dtype]
+
+    @property
+    def use_fused_attn(self) -> bool:
+        """Resolve ``attn_impl``; "auto" is the kernel wherever CUDA is."""
+        if self.attn_impl == "auto":
+            return torch.cuda.is_available()
+        if self.attn_impl not in ("fused", "xla"):
+            raise ValueError(f"attn_impl must be 'auto'|'fused'|'xla', got {self.attn_impl!r}")
+        return self.attn_impl == "fused"
+
+    @property
+    def gelu_approximate(self) -> bool:
+        if self.gelu == "auto":
+            return self.compute_dtype == torch.bfloat16
+        if self.gelu not in ("erf", "tanh"):
+            raise ValueError(f"gelu must be 'auto'|'erf'|'tanh', got {self.gelu!r}")
+        return self.gelu == "tanh"
+
+    def seq_len(self, train: bool, f_grid: Optional[int] = None, t_grid: Optional[int] = None) -> int:
+        """Transformer sequence length (incl. CLS/DIST tokens)."""
+        f = self.grid_size[0] if f_grid is None else f_grid
+        t = self.grid_size[1] if t_grid is None else t_grid
+        if train:
+            f = f - self.s_patchout_f
+            t = t - self.s_patchout_t
+            return f * t - self.u_patchout + self.num_tokens
+        return f * t + self.num_tokens
+
+
+def _check_supported(cfg: PaSSTConfig) -> None:
+    if cfg.blocks_impl != "loop":
+        raise NotImplementedError(
+            f"blocks_impl={cfg.blocks_impl!r} is not ported yet (ROADMAP.md); use 'loop'"
+        )
+    if cfg.ln_impl not in ("auto", "xla"):
+        raise NotImplementedError(
+            f"ln_impl={cfg.ln_impl!r} is not ported yet (ROADMAP.md: layernorm kernel)"
+        )
+    if cfg.fuse_ln_qkv:
+        raise NotImplementedError("fuse_ln_qkv is not ported yet (ROADMAP.md: ln_qkv kernels)")
+    if cfg.patch_embed_impl not in ("unfold", "conv"):
+        raise ValueError(f"patch_embed_impl must be 'unfold'|'conv', got {cfg.patch_embed_impl!r}")
+    if cfg.representation_size and not cfg.distilled:
+        raise NotImplementedError(
+            "representation_size (the in21k ViT pre-logits layer) is not ported: no PaSST arch uses it"
+        )
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense`` numerics: the fp32 weight is cast
+    to the input's dtype, the product is rounded to that dtype, then the
+    (cast) bias is added."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax ``nn.LayerNorm(dtype=float32)`` numerics:
+    fp32 compute and output, fast variance clamped at 0."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean) * mul + self.bias
+
+
+class PatchEmbed(nn.Module):
+    """Strided patch embedding; ``proj`` is an ``nn.Conv2d`` (OIHW weight).
+
+    The product runs as im2col plus one fp32 matmul of the inputs rounded to
+    the compute dtype (the JAX package's fp32 accumulation), so it does not
+    go through cuDNN's TF32 convolution. Output ``[B, D, F', T']``.
+    """
+
+    def __init__(self, embed_dim: int, patch_size, stride, in_chans: int):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.stride = tuple(stride)
+        self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=self.patch_size, stride=self.stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        b, _, f, t = x.shape
+        fg = (f - self.patch_size[0]) // self.stride[0] + 1
+        tg = (t - self.patch_size[1]) // self.stride[1] + 1
+        cols = F.unfold(x.float(), self.patch_size, stride=self.stride)  # [B, C*ph*pw, L]
+        w = self.proj.weight.to(dtype).float().reshape(self.proj.out_channels, -1)
+        out = torch.matmul(w, cols) + self.proj.bias[:, None]
+        return out.reshape(b, -1, fg, tg).to(dtype)
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head self-attention (JAX ``Attention``, eval).
+
+    ``fused``: the Hopper kernel through the same entry the JAX package
+    takes at this geometry (the qkv entry where its gate holds, else
+    ``[B, N, H, D]`` views of the qkv output); otherwise the einsum
+    composition of the JAX package's "xla" path.
+    """
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, softmax_fp32: bool,
+                 plus1: bool, fused: bool):
+        super().__init__()
+        self.num_heads = num_heads
+        self.softmax_fp32 = softmax_fp32
+        self.plus1 = plus1
+        self.fused = fused
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, c = x.shape
+        heads = self.num_heads
+        head_dim = c // heads
+        scale = head_dim ** -0.5
+        qkv = self.qkv(x)
+        if self.fused:
+            if flat_kernel_supports(n, heads, head_dim, backward=False,
+                                    itemsize=x.element_size(), batch=b):
+                out = fused_attention_qkv(qkv, heads=heads, head_dim=head_dim,
+                                          scale=scale, plus1=self.plus1)
+            else:
+                q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
+                out = fused_attention(q, k, v, scale=scale, plus1=self.plus1).reshape(b, n, c)
+            return self.proj(out)
+
+        q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
+        attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+        if self.plus1:
+            attn = torch.cat([attn, attn.new_zeros(attn.shape[:-1] + (1,))], dim=-1)
+        if self.softmax_fp32:
+            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        else:
+            attn = torch.softmax(attn, dim=-1)
+        if self.plus1:
+            attn = attn[..., :-1]
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, gelu_approximate: bool):
+        super().__init__()
+        self.gelu_approximate = gelu_approximate
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.fc1(x)
+        if self.gelu_approximate:
+            h = tanh_gelu(h)
+        else:
+            h = F.gelu(h.float()).to(h.dtype)
+        return self.fc2(h)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block; the residual stream stays in the compute
+    dtype, the norms output fp32 and are cast before attn/MLP."""
+
+    def __init__(self, cfg: PaSSTConfig):
+        super().__init__()
+        d = cfg.embed_dim
+        self.norm1 = LayerNorm(d, eps=1e-6)
+        self.attn = Attention(d, cfg.num_heads, cfg.qkv_bias, cfg.softmax_fp32,
+                              cfg.plus1_attn, cfg.use_fused_attn)
+        self.norm2 = LayerNorm(d, eps=1e-6)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), cfg.gelu_approximate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x).to(x.dtype))
+        return x + self.mlp(self.norm2(x).to(x.dtype))
+
+
+class PaSST(nn.Module):
+    """Input ``[B, C, F, T]`` spectrogram; returns ``(logits [B, num_classes],
+    features [B, D])`` like the reference forward."""
+
+    def __init__(self, cfg: PaSSTConfig):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        d = cfg.embed_dim
+        f_grid, t_grid = cfg.grid_size
+        self.patch_embed = PatchEmbed(d, cfg.patch_size, cfg.stride, cfg.in_chans)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.dist_token = nn.Parameter(torch.zeros(1, 1, d)) if cfg.distilled else None
+        self.new_pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens, d))
+        self.freq_new_pos_embed = nn.Parameter(torch.zeros(1, d, f_grid, 1))
+        self.time_new_pos_embed = nn.Parameter(torch.zeros(1, d, 1, t_grid))
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(d, eps=1e-6)
+        self.head = nn.Sequential(LayerNorm(d, eps=1e-5), Linear(d, cfg.num_classes))
+        # in checkpoints, unused by the reference forward
+        self.head_dist = Linear(d, cfg.num_classes) if cfg.distilled else None
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        if train:
+            raise NotImplementedError(
+                "train=True (patchout, time-offset crop, drop_path) is in the port's "
+                "training slice, queued in ROADMAP.md"
+            )
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        b = x.shape[0]
+        f_grid, t_grid = cfg.grid_size
+
+        if cfg.verbose_shapes:
+            print(f" input: {tuple(x.shape)}")
+        x = self.patch_embed(x.to(dtype))  # [B, D, F', T']
+        _, _, f_cur, t_cur = x.shape
+        # eval: a prefix of the time embedding for shorter inputs, longer
+        # inputs are cropped to the embedding
+        if t_cur < t_grid:
+            tpe = self.time_new_pos_embed[:, :, :, :t_cur]
+        else:
+            x = x[:, :, :, :t_grid]
+            tpe = self.time_new_pos_embed
+        x = x + tpe.to(dtype)
+        if f_cur != f_grid:
+            raise ValueError(f"input frequency grid {f_cur} != positional embedding grid {f_grid}")
+        x = x + self.freq_new_pos_embed.to(dtype)
+        x = x.flatten(2).transpose(1, 2)  # [B, F'*T', D], frequency-major
+
+        tokens = [(self.cls_token + self.new_pos_embed[:, :1]).to(dtype).expand(b, -1, -1)]
+        if cfg.distilled:
+            tokens.append((self.dist_token + self.new_pos_embed[:, 1:]).to(dtype).expand(b, -1, -1))
+        x = torch.cat(tokens + [x], dim=1)
+        if cfg.verbose_shapes:
+            print(f" final sequence: {tuple(x.shape)}")
+
+        for block in self.blocks:
+            x = block(x)
+        x = self.norm(x)  # fp32
+
+        features = (x[:, 0] + x[:, 1]) / 2.0 if cfg.distilled else x[:, 0]
+        logits = self.head(features)
+        return logits, features
+
+
+@torch.no_grad()
+def init_weights(model: PaSST, generator: torch.Generator) -> PaSST:
+    """Seeded random init with the JAX package's initialisers: N(0, 0.02)
+    for tokens, position embeddings and Dense weights (the reference's
+    truncation at +-2 is +-100 sigma), zero biases, unit LayerNorm scales,
+    and PyTorch's Conv2d default for the patch embedding. Draws on the CPU
+    from ``generator`` (a CPU generator), so the same seed gives the same
+    weights on any device."""
+
+    def normal_(p):
+        p.copy_(torch.empty(p.shape).normal_(0.0, 0.02, generator=generator).clamp_(-2.0, 2.0))
+
+    def uniform_(p, bound):
+        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+    conv = model.patch_embed.proj.weight
+    conv_bound = (conv.shape[1] * conv.shape[2] * conv.shape[3]) ** -0.5
+    for name, p in model.named_parameters():
+        if name.startswith("patch_embed.proj."):
+            uniform_(p, conv_bound)
+        elif name.endswith("norm1.weight") or name.endswith("norm2.weight") or name in (
+            "norm.weight", "head.0.weight",
+        ):
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            normal_(p)
+    return model

@@ -1,0 +1,191 @@
+"""Architecture registry and pretrained zoo metadata (port of
+passt_tpu/models/registry.py): the same data, and ``get_model`` building a
+PyTorch module from a seeded ``torch.Generator`` or a local checkpoint."""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from passt_tpu_torch.models.passt import PaSST, PaSSTConfig, init_weights
+
+_PASST_RELEASES = "https://github.com/kkoutini/PaSST/releases/download"
+
+
+def _zoo(url, num_classes=527, input_size=(1, 128, 998), classifier=("head.1", "head_dist")):
+    return {
+        "url": url,
+        "num_classes": num_classes,
+        "input_size": input_size,
+        "classifier": classifier,
+    }
+
+
+#: Pretrained checkpoint zoo, as published by the reference (metadata only:
+#: nothing is downloaded).
+DEFAULT_CFGS: Dict[str, dict] = {
+    "passt_s_swa_p16_128_ap476": _zoo(f"{_PASST_RELEASES}/v0.0.1-audioset/passt-s-f128-p16-s10-ap.476-swa.pt"),
+    "passt_s_kd_p16_128_ap486": _zoo(f"{_PASST_RELEASES}/v.0.0.9/passt-s-kd-ap.486.pt"),
+    "passt_l_kd_p16_128_ap47": _zoo(f"{_PASST_RELEASES}/v.0.0.10/passt-l-kd-ap.47.pt"),
+    "passt_s_swa_p16_128_ap4761": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s10-ap.4761-swa.pt"),
+    "passt_s_p16_128_ap472": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s10-ap.472.pt"),
+    "passt_s_p16_s16_128_ap468": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s16-ap.468.pt"),
+    "passt_s_swa_p16_s16_128_ap473": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s16-ap.473-swa.pt"),
+    "passt_s_swa_p16_s14_128_ap471": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s14-ap.471-swa.pt"),
+    "passt_s_p16_s14_128_ap469": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s14-ap.469.pt"),
+    "passt_s_swa_p16_s12_128_ap473": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s12-ap.473-swa.pt"),
+    "passt_s_p16_s12_128_ap470": _zoo(f"{_PASST_RELEASES}/v0.0.2-audioset/passt-s-f128-p16-s12-ap.470.pt"),
+    "passt_s_swa_f128_stfthop100_p16_s10_ap473": _zoo(
+        f"{_PASST_RELEASES}/v0.0.3-audioset/passt-s-f128-stfthop100-p16-s10-ap.473-swa.pt",
+        input_size=(1, 128, 3200),
+    ),
+    "passt_s_swa_f128_stfthop160_p16_s10_ap473": _zoo(
+        f"{_PASST_RELEASES}/v0.0.3-audioset/passt-s-f128-stfthop160-p16-s10-ap.473-swa.pt",
+        input_size=(1, 128, 2000),
+    ),
+    "passt-s-f128-20sec-p16-s10-ap474-swa": _zoo(
+        f"{_PASST_RELEASES}/v0.0.5/passt-s-f128-20sec-p16-s10-ap.474-swa.pt", input_size=(1, 128, 2000)
+    ),
+    "passt-s-f128-30sec-p16-s10-ap473-swa": _zoo(
+        f"{_PASST_RELEASES}/v0.0.5/passt-s-f128-30sec-p16-s10-ap.473-swa.pt", input_size=(1, 128, 3000)
+    ),
+    "openmic2008_passt_u_f128_p16_s10_ap85_swa": _zoo(
+        f"{_PASST_RELEASES}/v0.0.4-openmic/openmic2008.passt-u-f128-p16-s10-ap.85-swa.pt",
+        num_classes=20, input_size=(1, 128, 3200),
+    ),
+    "openmic2008_passt_u_f128_p16_s10_ap85": _zoo(
+        f"{_PASST_RELEASES}/v0.0.4-openmic/openmic2008.passt-u-f128-p16-s10-ap.85.pt",
+        num_classes=20, input_size=(1, 128, 2000),
+    ),
+    "deit_base_distilled_patch16_384": {
+        "url": "https://dl.fbaipublicfiles.com/deit/deit_base_distilled_patch16_384-d0272ac0.pth",
+        "num_classes": 1000,
+        "input_size": (3, 384, 384),
+        "classifier": ("head", "head_dist"),
+    },
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """Static architecture description behind an arch name."""
+
+    depth: int = 12
+    embed_dim: int = 768
+    num_heads: int = 12
+    distilled: bool = True
+    expected_stride: Optional[Tuple[int, int]] = (10, 10)
+    pretrained_name: Optional[str] = None  # key into DEFAULT_CFGS
+    input_tdim: int = 998  # time grid the checkpoint was trained with
+    hopsize: int = 320  # STFT hop of the checkpoint's frontend
+
+
+#: Arch name -> spec (the reference builder functions' surface).
+ARCHS: Dict[str, ArchSpec] = {
+    "passt_deit_bd_p16_384": ArchSpec(expected_stride=None, pretrained_name="deit_base_distilled_patch16_384"),
+    "passt_s_kd_p16_128_ap486": ArchSpec(pretrained_name="passt_s_kd_p16_128_ap486"),
+    "passt_l_kd_p16_128_ap47": ArchSpec(depth=7, pretrained_name="passt_l_kd_p16_128_ap47"),
+    "passt_s_swa_p16_128_ap476": ArchSpec(pretrained_name="passt_s_swa_p16_128_ap476"),
+    "passt_s_swa_p16_128_ap4761": ArchSpec(pretrained_name="passt_s_swa_p16_128_ap4761"),
+    "passt_s_p16_128_ap472": ArchSpec(pretrained_name="passt_s_p16_128_ap472"),
+    "passt_s_p16_s16_128_ap468": ArchSpec(expected_stride=(16, 16), pretrained_name="passt_s_p16_s16_128_ap468"),
+    "passt_s_swa_p16_s16_128_ap473": ArchSpec(expected_stride=(16, 16), pretrained_name="passt_s_swa_p16_s16_128_ap473"),
+    "passt_s_swa_p16_s14_128_ap471": ArchSpec(expected_stride=(14, 14), pretrained_name="passt_s_swa_p16_s14_128_ap471"),
+    "passt_s_p16_s14_128_ap469": ArchSpec(expected_stride=(14, 14), pretrained_name="passt_s_p16_s14_128_ap469"),
+    "passt_s_swa_p16_s12_128_ap473": ArchSpec(expected_stride=(12, 12), pretrained_name="passt_s_swa_p16_s12_128_ap473"),
+    "passt_s_p16_s12_128_ap470": ArchSpec(expected_stride=(12, 12), pretrained_name="passt_s_p16_s12_128_ap470"),
+    "passt_s_f128_20sec_p16_s10_ap474": ArchSpec(pretrained_name="passt-s-f128-20sec-p16-s10-ap474-swa", input_tdim=2000),
+    "passt_s_f128_30sec_p16_s10_ap473": ArchSpec(pretrained_name="passt-s-f128-30sec-p16-s10-ap473-swa", input_tdim=3000),
+    "passt_s_swa_f128_stfthop100_p16_s10_ap473": ArchSpec(
+        pretrained_name="passt_s_swa_f128_stfthop100_p16_s10_ap473", input_tdim=3200, hopsize=100
+    ),
+    "passt_s_swa_f128_stfthop160_p16_s10_ap473": ArchSpec(
+        pretrained_name="passt_s_swa_f128_stfthop160_p16_s10_ap473", input_tdim=2000, hopsize=160
+    ),
+}
+
+
+def get_model_config(
+    arch: str = "passt_s_kd_p16_128_ap486",
+    n_classes: int = 527,
+    in_channels: int = 1,
+    fstride: int = 10,
+    tstride: int = 10,
+    input_fdim: int = 128,
+    input_tdim: int = 998,
+    u_patchout: int = 0,
+    s_patchout_t: int = 0,
+    s_patchout_f: int = 0,
+    dtype: str = "float32",
+    gelu: str = "auto",
+    plus1_attn: bool = False,
+    attn_impl: str = "auto",
+    ln_impl: str = "auto",
+    patch_embed_impl: str = "unfold",
+    blocks_impl: str = "loop",
+    fuse_ln_qkv: bool = False,
+) -> PaSSTConfig:
+    """Resolve an arch name + overrides to a :class:`PaSSTConfig`."""
+    if arch not in ARCHS:
+        raise RuntimeError(f"Unknown model {arch}")
+    spec = ARCHS[arch]
+    if spec.expected_stride is not None and (fstride, tstride) != spec.expected_stride:
+        warnings.warn(
+            f"{arch} was pre-trained with strides {spec.expected_stride}, "
+            f"but (fstride, tstride) is {(fstride, tstride)}."
+        )
+    return PaSSTConfig(
+        input_fdim=input_fdim,
+        input_tdim=input_tdim,
+        stride=(fstride, tstride),
+        in_chans=in_channels,
+        num_classes=n_classes,
+        embed_dim=spec.embed_dim,
+        depth=spec.depth,
+        num_heads=spec.num_heads,
+        distilled=spec.distilled,
+        u_patchout=u_patchout,
+        s_patchout_t=s_patchout_t,
+        s_patchout_f=s_patchout_f,
+        dtype=dtype,
+        gelu=gelu,
+        plus1_attn=plus1_attn,
+        attn_impl=attn_impl,
+        ln_impl=ln_impl,
+        patch_embed_impl=patch_embed_impl,
+        blocks_impl=blocks_impl,
+        fuse_ln_qkv=fuse_ln_qkv,
+    )
+
+
+def get_model(
+    arch: str = "passt_s_kd_p16_128_ap486",
+    pretrained: bool = True,
+    checkpoint_path: Optional[str] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    dtype: str = "float32",
+    **overrides,
+) -> PaSST:
+    """Build the model for an arch in eval mode on ``device``: random
+    weights from ``generator`` (a CPU generator; seed 0 when None), then the
+    checkpoint when ``pretrained``. ``dtype`` is the compute dtype; the
+    parameters stay fp32. Nothing is downloaded: ``pretrained=True`` needs
+    ``checkpoint_path`` (a reference ``.pt`` or a ``passt_tpu`` ``.npz``)."""
+    cfg = get_model_config(arch, dtype=dtype, **overrides)
+    model = PaSST(cfg)
+    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    if pretrained:
+        if checkpoint_path is None:
+            url = DEFAULT_CFGS.get(ARCHS[arch].pretrained_name, {}).get("url", "?")
+            raise FileNotFoundError(
+                f"pretrained weights for {arch} must be given as checkpoint_path "
+                f"(download {url} on a machine with network access)."
+            )
+        from passt_tpu_torch.models.pretrained import load_pretrained
+
+        load_pretrained(model, checkpoint_path)
+    return model.eval().to(device)

@@ -1,0 +1,98 @@
+"""The log-mel frontend: waveform -> normalised log-mel spectrogram
+(port of passt_tpu/ops/frontend.py, eval mode).
+
+waveform [B, T]
+  -> pre-emphasis ``y[t] = x[t+1] - 0.97 * x[t]``
+  -> power STFT, n_fft 1024 / hop 320 / win 800 Hann
+  -> Kaldi triangular mel bank (fp32), ``log(mel + 1e-5)``
+  -> fixed affine normalisation ``(x + 4.5) / 5``
+
+On a CUDA tensor the middle runs as the Hopper mel kernel
+(:func:`passt_tpu_torch.ops.mel_kernel.fused_log_mel`, un-normalised) and
+the normalisation follows it, as on the TPU. Training mode (mel-range jitter
+and SpecAugment) belongs to the training slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from passt_tpu_torch.ops.mel import kaldi_mel_banks
+from passt_tpu_torch.ops.mel_kernel import fused_log_mel, fused_log_mel_plain
+from passt_tpu_torch.ops.stft import num_stft_frames
+
+LOG_OFFSET = 1e-5  # preprocess.py:78
+NORM_SHIFT = 4.5  # preprocess.py:84
+NORM_SCALE = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MelConfig:
+    """Frontend hyperparameters (defaults = reference AugmentMelSTFT defaults;
+    the AudioSet recipe overrides fmin_aug_range=10, fmax_aug_range=2000)."""
+
+    n_mels: int = 128
+    sr: int = 32000
+    win_length: int = 800
+    hopsize: int = 320
+    n_fft: int = 1024
+    freqm: int = 48
+    timem: int = 192
+    fmin: float = 0.0
+    fmax: Optional[float] = None  # None -> sr//2 - fmax_aug_range//2
+    fmin_aug_range: int = 1
+    fmax_aug_range: int = 1000
+    iid_masks: bool = False
+    stft_method: str = "auto"  # "auto": the mel kernel (its plain version
+    # for a CPU tensor); "matmul": the plain version on any device
+
+    def __post_init__(self):
+        if self.fmin_aug_range < 1 or self.fmax_aug_range < 1:
+            raise ValueError("fmin_aug_range and fmax_aug_range must be >= 1 (1 = no augmentation)")
+        if self.stft_method not in ("auto", "matmul"):
+            raise ValueError(f"stft_method must be 'auto' or 'matmul', got {self.stft_method!r}")
+
+    @property
+    def effective_fmax(self) -> float:
+        if self.fmax is None:
+            return self.sr // 2 - self.fmax_aug_range // 2
+        return self.fmax
+
+    def frames(self, num_samples: int) -> int:
+        """Output frame count for a waveform of ``num_samples`` samples
+        (pre-emphasis shortens the signal by one sample)."""
+        return num_stft_frames(num_samples - 1, self.n_fft, self.hopsize)
+
+
+def log_mel_spectrogram(
+    wave: torch.Tensor, cfg: MelConfig = MelConfig(), *, train: bool = False
+) -> torch.Tensor:
+    """[B, T] float waveform -> [B, n_mels, frames] normalised log-mel (fp32)."""
+    if wave.ndim != 2:
+        raise ValueError(f"expected [B, T], got {tuple(wave.shape)}")
+    if train:
+        raise NotImplementedError(
+            "train=True (mel-range jitter and SpecAugment) is in the port's training "
+            "slice, queued in ROADMAP.md"
+        )
+    bank = kaldi_mel_banks(
+        cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin, cfg.effective_fmax, device=wave.device
+    )
+    mel_fn = fused_log_mel if cfg.stft_method == "auto" else fused_log_mel_plain
+    mel = mel_fn(
+        wave.float(), bank, n_fft=cfg.n_fft, hop=cfg.hopsize, win_length=cfg.win_length,
+        log_offset=LOG_OFFSET, norm_shift=0.0, norm_scale=1.0,
+    )
+    return (mel + NORM_SHIFT) / NORM_SCALE
+
+
+def mel_frontend(
+    wave: torch.Tensor, cfg: MelConfig = MelConfig(), *, train: bool = False
+) -> torch.Tensor:
+    """[B, C, T] -> [B, C, n_mels, frames]; the model-facing wrapper."""
+    b, c, t = wave.shape
+    mel = log_mel_spectrogram(wave.reshape(b * c, t), cfg, train=train)
+    return mel.reshape(b, c, *mel.shape[1:])

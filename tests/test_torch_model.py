@@ -1,0 +1,154 @@
+"""Port model (passt_tpu_torch.models) vs the JAX PaSST, on the CPU.
+
+Weights go from the JAX params to the port through the bridge
+(``state_dict_from_flax``); the spectrogram input comes from a numpy seed.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from passt_tpu.models.passt import PaSSTConfig as JaxConfig
+from passt_tpu.models.passt import init_passt
+from passt_tpu.models.pretrained import convert_torch_state_dict, save_params_npz
+from passt_tpu_torch.models import get_model_config
+from passt_tpu_torch.models.passt import PaSST, PaSSTConfig
+from passt_tpu_torch.models.pretrained import load_pretrained, state_dict_from_flax
+
+FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
+TINY = dict(embed_dim=64, depth=2, num_heads=4, input_tdim=98)
+
+
+def _jax_params(cfg, seed=1):
+    model, params = init_passt(cfg, jax.random.PRNGKey(seed))
+    return model, jax.tree.map(np.asarray, params)
+
+
+def _port(cfg_kwargs, params):
+    model = PaSST(PaSSTConfig(**cfg_kwargs))
+    model.load_state_dict(state_dict_from_flax(params))
+    return model.eval()
+
+
+def test_bridge_round_trip_is_exact():
+    cfg = JaxConfig(**TINY)
+    _, params = _jax_params(cfg)
+    back = convert_torch_state_dict(state_dict_from_flax(params), cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+# fp32: the same ops in the same order on CPU kernels of two frameworks;
+# 2e-4 is the bound the JAX package holds to the reference torch model
+# (tests/test_golden_fixtures.py), observed < 1e-6.
+# bf16: the port rounds where flax rounds (Dense product before the bias,
+# LayerNorm in fp32, bf16 residual adds, tanh-GELU from fp32), so the bf16
+# values mostly agree bit for bit; 2e-2 is about two bf16 ulps of logits of
+# magnitude < 1 (observed < 1e-6).
+MODEL_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn_impl", ["xla", "fused"])
+@pytest.mark.parametrize("plus1", [False, True])
+def test_tiny_passt_matches_jax(plus1, attn_impl, dtype):
+    kwargs = dict(TINY, dtype=dtype, attn_impl=attn_impl, plus1_attn=plus1)
+    jmodel, params = _jax_params(JaxConfig(**kwargs))
+    x = np.random.default_rng(7).standard_normal((2, 1, 128, 98)).astype(np.float32)
+    jl, jf = jmodel.apply({"params": params}, jnp.asarray(x), train=False)
+    with torch.inference_mode():
+        logits, features = _port(kwargs, params)(torch.from_numpy(x))
+    assert logits.dtype == features.dtype == torch.float32
+    assert tuple(logits.shape) == (2, 527) and tuple(features.shape) == (2, 64)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=MODEL_TOL[dtype], rtol=0)
+    np.testing.assert_allclose(features.numpy(), np.asarray(jf), atol=MODEL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tanh_gelu_matches_jax(dtype):
+    """The value JAX computes (fp32 math, one cast): fp32 to a few ulps of
+    the fp32 formula (2e-6 at |x| < 8), bf16 to one bf16 ulp where the
+    fp32 values straddle a rounding boundary (2**-8 relative)."""
+    from passt_tpu.ops.activations import _fwd_value
+    from passt_tpu_torch.ops.activations import tanh_gelu
+
+    x = (np.random.default_rng(9).standard_normal(4096) * 3).astype(np.float32)
+    ref = np.asarray(_fwd_value(jnp.asarray(x, dtype=jnp.dtype(dtype))).astype(jnp.float32))
+    got = tanh_gelu(torch.from_numpy(x).to(getattr(torch, dtype))).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    else:
+        np.testing.assert_allclose(got, ref, atol=1e-6, rtol=2.0**-8)
+
+
+def test_short_input_uses_time_embedding_prefix():
+    """Eval on a shorter clip than input_tdim takes a prefix of the time
+    embedding (the timestamp windows: 16 frames -> t-grid 1, N = 14)."""
+    kwargs = dict(TINY, attn_impl="fused")
+    jmodel, params = _jax_params(JaxConfig(**kwargs))
+    x = np.random.default_rng(8).standard_normal((3, 1, 128, 16)).astype(np.float32)
+    jl, jf = jmodel.apply({"params": params}, jnp.asarray(x), train=False)
+    with torch.inference_mode():
+        logits, features = _port(kwargs, params)(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(features.numpy(), np.asarray(jf), atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "fused"])
+def test_full_geometry_fixture_loads_with_load_state_dict(attn_impl):
+    """The reference torch state dict (embed 128, depth 3, 2 heads, N = 1190)
+    loads with a plain load_state_dict and reproduces the stored reference
+    logits and features (the JAX package's bound: 2e-4 / rtol 1e-4)."""
+    fix = np.load(os.path.join(FIXDIR, "model_fullgeom.npz"))
+    sd = {k[3:]: torch.from_numpy(fix[k]) for k in fix.files if k.startswith("sd.")}
+    cfg = PaSSTConfig(embed_dim=128, depth=3, num_heads=2, attn_impl=attn_impl)
+    assert cfg.seq_len(train=False) == 1190
+    model = PaSST(cfg)
+    model.load_state_dict(sd)
+    with torch.inference_mode():
+        logits, features = model.eval()(torch.from_numpy(fix["x"]))
+    np.testing.assert_allclose(features.numpy(), fix["features"], atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), fix["logits"], atol=2e-4, rtol=1e-4)
+
+
+def test_load_pretrained_npz_and_pt(tmp_path):
+    """passt_tpu's .npz tree and a reference-layout .pt both load into the
+    port, to the bridged weights bit for bit; a longer time embedding is
+    cropped to the model's grid."""
+    _, params = _jax_params(JaxConfig(**TINY))
+    want = state_dict_from_flax(params)
+    npz = str(tmp_path / "w.npz")
+    save_params_npz(npz, params)
+    pt = str(tmp_path / "w.pt")
+    longer = dict(want)
+    longer["time_new_pos_embed"] = torch.cat([want["time_new_pos_embed"]] * 2, dim=-1)
+    torch.save(longer, pt)
+    for path in (npz, pt):
+        model = PaSST(PaSSTConfig(**TINY))
+        if path == pt:
+            with pytest.warns(UserWarning, match="cropping"):
+                load_pretrained(model, path)
+        else:
+            load_pretrained(model, path)
+        got = model.state_dict()
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_config_matches_jax_and_unported_options_raise():
+    cfg = get_model_config("passt_s_swa_p16_128_ap476", dtype="bfloat16")
+    assert cfg.grid_size == (12, 99) and cfg.seq_len(train=False) == 1190
+    assert cfg.gelu_approximate and not PaSSTConfig().gelu_approximate
+    assert not PaSSTConfig(attn_impl="xla").use_fused_attn
+    assert PaSSTConfig(attn_impl="fused").use_fused_attn
+    for bad in (dict(blocks_impl="scan"), dict(ln_impl="fused"), dict(fuse_ln_qkv=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PaSST(PaSSTConfig(**dict(TINY, **bad)))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        PaSST(PaSSTConfig(**TINY))(torch.zeros(1, 1, 128, 98), train=True)
