@@ -12,8 +12,15 @@ Layout
   mel and attention kernels (``ops/_build.py`` builds and binds them)
 - ``passt_tpu_torch.models`` : the PaSST transformer, arch registry, weights
 - ``passt_tpu_torch.hear``   : the waveform-in ``Predictor`` and the HEAR API
+- ``passt_tpu_torch.train``  : the train and eval steps, losses, mixup,
+  schedules and the AdamW variants (the attention backward kernel runs
+  under the train step)
+- ``passt_tpu_torch.bench``  : training throughput on the card
+  (``python3 -m passt_tpu_torch.bench``)
 
-This slice covers serving (eval); training is queued in ROADMAP.md.
+Entry points put their models on the card unless the caller asks for the
+CPU (``device="cpu"``). The training loop, recipes, CLI, DDP and export are
+queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

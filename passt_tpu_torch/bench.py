@@ -1,0 +1,147 @@
+"""Training throughput of the port on one CUDA card.
+
+    python3 -m passt_tpu_torch.bench [--steps 20] [--warmup 2]
+
+The workload of the JAX package's root ``bench.py``: PaSST-S (12 x 768, 12
+heads, 527 classes) in bf16 with structured patchout 40/4 (N = 474 tokens),
+B = 12 ten-second 32 kHz clips of noise with 5%-positive targets, the
+train-mode frontend, mixup, BCE, AdamW with bf16 moments and a
+stochastically rounded second moment, and bf16 parameters applied with
+stochastic rounding. Random weights from seed 0; no checkpoint is read.
+
+The steps are timed with CUDA events around ``--steps`` back-to-back calls
+after ``--warmup`` calls, so the time includes whatever the card waits on
+the host. Prints one JSON line: specs/s, ms/step, ``"platform": "cuda"``
+and the card's name (``device_kind``). There is no TPU baseline to divide by.
+
+``--profile N`` runs N more steps under ``torch.profiler`` and prints, before
+the JSON line, where their device time goes: per kernel group and per
+kernel, and the share of the wall time the card sat idle.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from passt_tpu_torch.models.passt import PaSSTConfig
+from passt_tpu_torch.ops.frontend import MelConfig
+from passt_tpu_torch.train.steps import TrainState, create_train_state, make_optimizer, make_train_step
+
+BATCH = 12
+CLIP = 320000  # 10 s at 32 kHz
+SEED = 42  # the runs' base seed for the per-step draws
+
+
+def setup(device="cuda"):
+    """The bench configuration: returns (model, state, step, batch)."""
+    cfg = PaSSTConfig(dtype="bfloat16", s_patchout_t=40, s_patchout_f=4)
+    mel_cfg = MelConfig(fmin_aug_range=10, fmax_aug_range=2000)
+    tx = make_optimizer(lr=2e-5, steps_per_epoch=1000, moments_dtype="bfloat16_sr")
+    model, state = create_train_state(cfg, tx, torch.Generator().manual_seed(0),
+                                      param_dtype="bfloat16_sr", device=device)
+    step = make_train_step(model, tx, mel_cfg, loss_type="multilabel", use_mixup=True, param_sr=True)
+    rng = np.random.default_rng(0)
+    batch = {
+        "wave": torch.from_numpy(rng.standard_normal((BATCH, CLIP)).astype(np.float32)).to(device),
+        "target": torch.from_numpy((rng.uniform(size=(BATCH, 527)) < 0.05).astype(np.float32)).to(device),
+    }
+    return model, state, step, batch
+
+
+def timed_steps(step, state: TrainState, batch: Dict[str, torch.Tensor], steps: int,
+                warmup: int) -> Tuple[TrainState, float, torch.Tensor]:
+    """Run ``warmup`` then ``steps`` train steps; returns the state, the mean
+    ms per timed step (CUDA events) and the mean loss of the timed steps (a
+    device scalar)."""
+    for _ in range(warmup):
+        state, _ = step(state, batch, SEED)
+    device = batch["target"].device
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    loss_sum = torch.zeros((), device=device)
+    start.record()
+    for _ in range(steps):
+        state, metrics = step(state, batch, SEED)
+        loss_sum += metrics["loss"]
+    end.record()
+    end.synchronize()
+    return state, start.elapsed_time(end) / steps, loss_sum / steps
+
+
+#: kernel name patterns -> group, first match wins
+GROUPS = (
+    ("attention backward kernel", r"attention_bwd"),
+    ("attention forward kernel", r"attention_fwd"),
+    ("mel kernel", r"log_mel|mel_kernel"),
+    ("GEMMs (cuBLAS/CUTLASS)", r"gemm|sm90_|cutlass|nvjet|cublas|xmma"),
+    ("reductions (LayerNorm means, sums)", r"reduce"),
+    ("copies, casts, indexing, cat", r"copy|cast|index|scatter|gather|cat|fill"),
+    ("elementwise (adds, muls, GELU, optimizer)", r"elementwise|foreach|multi_tensor|vectorized"),
+)
+
+
+def profile_steps(step, state, batch, steps: int):
+    """Run ``steps`` train steps under ``torch.profiler``; returns the state
+    and a report: kernel device time per group and per kernel (ms per step),
+    the wall time per step and the card's idle share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, ms, _ = timed_steps(step, state, batch, steps, 0)
+    kernels = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.setdefault(event.name, [0.0, 0])
+            kernels[event.name][0] += event.time_range.elapsed_us() / 1000.0 / steps
+            kernels[event.name][1] += 1
+    groups = {}
+    for name, (t, _) in kernels.items():
+        group = next((g for g, pat in GROUPS if re.search(pat, name, re.I)), "other")
+        groups[group] = groups.get(group, 0.0) + t
+    busy = sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    return state, {
+        "wall_ms_per_step": ms,
+        "kernel_ms_per_step": busy,
+        "idle_share": 1.0 - busy / ms,
+        "kernel_launches_per_step": sum(n for _, n in kernels.values()) / steps,
+        "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [(name[:120], t, n // steps) for name, (t, n) in top],
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--profile", type=int, default=0, metavar="N",
+                        help="profile N more steps and print where their device time goes")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("passt_tpu_torch.bench: no CUDA device; the bench runs on the card only")
+    _, state, step, batch = setup("cuda")
+    state, ms, loss = timed_steps(step, state, batch, args.steps, args.warmup)
+    if args.profile:
+        state, report = profile_steps(step, state, batch, args.profile)
+        print(json.dumps({"profile": report}, indent=1))
+    print(json.dumps({
+        "metric": "train_throughput_b12_fwd_bwd_adamw_incl_mel",
+        "value": BATCH * 1000.0 / ms,
+        "unit": "specs/second",
+        "ms_per_step": ms,
+        "loss": float(loss),
+        "steps": args.steps,
+        "platform": "cuda",
+        "device_kind": torch.cuda.get_device_name(0),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -41,6 +41,7 @@
 // - Ragged N is masked: keys past N get p = 0 and zero V rows, queries past
 //   N are not stored. There is no cap on N.
 #include "common.cuh"
+#include "attention_common.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -49,55 +50,9 @@
 
 namespace {
 
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int THREADS = 256;
+using namespace passt_attn;
 
-struct Strides {
-    long long b, n, h;  // elements between batches, tokens and heads; d is contiguous
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
-
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                                          long long row_stride, int row0, int n, int d) {
-    for (int idx = threadIdx.x; idx < BK * d; idx += THREADS) {
-        const int r = idx / d;
-        const int c = idx - r * d;
-        const int row = row0 + r;
-        dst[r * ld + c] = row < n ? to_f(src[(long long)row * row_stride + c]) : 0.f;
-    }
-}
-
-// s[i][j] = q[tq + 16 i] . k[tk + 16 j] over the tile in shared memory.
-__device__ __forceinline__ void tile_scores(float (&s)[4][4], const float* Qs, const float* Ks,
-                                            int ld, int d, int tq, int tk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-        float qa[4], ka[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qa[i] = Qs[(tq + 16 * i) * ld + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ka[j] = Ks[(tk + 16 * j) * ld + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-}
+constexpr int THREADS = FMA_THREADS;
 
 template <typename T, int DJ>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
@@ -254,78 +209,7 @@ int launch_d(int dj, const void* q, const void* k, const void* v, void* o, int b
 
 // ---- tensor-core path (bf16 / fp16, D % 16 == 0) ---------------------------
 
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-        __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-        return *reinterpret_cast<uint32_t*>(&v);
-    }
-    static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-    }
-};
-
-template <> struct Mma<__half> {
-    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-        __half2 v = __floats2half2_rn(lo, hi);
-        return *reinterpret_cast<uint32_t*>(&v);
-    }
-    static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-    }
-};
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(r0), "=r"(r1)
-                 : "r"(addr));
-}
-
-// Two elements (c, c + 1) of a row as one 32-bit word; 0 past the last row.
-template <typename T>
-__device__ __forceinline__ uint32_t load_pair(const T* base, long long row_stride, int row, int n,
-                                              int c) {
-    return row < n ? *reinterpret_cast<const uint32_t*>(base + (long long)row * row_stride + c) : 0u;
-}
-
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 queries
-
-// Start copying a [64 keys][D] tile into shared memory (row pitch D + 8
-// elements) with 16-byte cp.async; rows past n are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src,
-                                                long long row_stride, int row0, int n) {
-    constexpr int C = D / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < BK * C; idx += MMA_THREADS) {
-        const int r = idx / C;
-        const int c = idx - r * C;
-        const bool valid = row0 + r < n;
-        const T* from = valid ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
-        const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * (D + 8) + c * 8));
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(to), "l"(from), "r"(valid ? 16 : 0));
-    }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most `pending` committed groups are still in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
-}
 
 // s[j] (keys j*8 .. j*8+7 of the tile) = q (16 rows of this warp) . k
 template <typename T, int D>
@@ -381,11 +265,11 @@ __global__ void __launch_bounds__(MMA_THREADS) attention_fwd_mma_kernel(
     // Tile i + 1 is copied while tile i is computed.
     const int tiles = (n + BK - 1) / BK;
     float m0 = -INFINITY, m1 = -INFINITY;
-    load_tile_async<T, D>(Kbuf, kb, ks.n, 0, n);
+    load_tile_async<T, D, MMA_THREADS>(Kbuf, kb, ks.n, 0, n);
     cp_async_commit();
     for (int i = 0; i < tiles; ++i) {
         const int k0 = i * BK;
-        if (i + 1 < tiles) load_tile_async<T, D>(Kbuf + ((i + 1) & 1) * BK * LD, kb, ks.n, k0 + BK, n);
+        if (i + 1 < tiles) load_tile_async<T, D, MMA_THREADS>(Kbuf + ((i + 1) & 1) * BK * LD, kb, ks.n, k0 + BK, n);
         cp_async_commit();
         cp_async_wait<1>();
         __syncthreads();
@@ -415,14 +299,14 @@ __global__ void __launch_bounds__(MMA_THREADS) attention_fwd_mma_kernel(
     float acc[D / 8][4];
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    load_tile_async<T, D>(Kbuf, kb, ks.n, 0, n);
-    load_tile_async<T, D>(Vbuf, vb, vs.n, 0, n);
+    load_tile_async<T, D, MMA_THREADS>(Kbuf, kb, ks.n, 0, n);
+    load_tile_async<T, D, MMA_THREADS>(Vbuf, vb, vs.n, 0, n);
     cp_async_commit();
     for (int i = 0; i < tiles; ++i) {
         const int k0 = i * BK;
         if (i + 1 < tiles) {
-            load_tile_async<T, D>(Kbuf + ((i + 1) & 1) * BK * LD, kb, ks.n, k0 + BK, n);
-            load_tile_async<T, D>(Vbuf + ((i + 1) & 1) * BK * LD, vb, vs.n, k0 + BK, n);
+            load_tile_async<T, D, MMA_THREADS>(Kbuf + ((i + 1) & 1) * BK * LD, kb, ks.n, k0 + BK, n);
+            load_tile_async<T, D, MMA_THREADS>(Vbuf + ((i + 1) & 1) * BK * LD, vb, vs.n, k0 + BK, n);
         }
         cp_async_commit();
         cp_async_wait<1>();
@@ -512,13 +396,6 @@ int launch_mma_d(int d, const void* q, const void* k, const void* v, void* o, in
     }
 #undef PASST_MMA_CASE
     return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The tensor-core path copies K and V in 16-byte pieces (and reads Q,
-// writes O in 32-bit pairs): base pointers 16-byte aligned, strides whole
-// multiples of 8 elements.
-bool vectors_aligned(const void* p, Strides s) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
 }
 
 }  // namespace

@@ -71,12 +71,13 @@ class Predictor:
         mel_cfg: Optional[MelConfig] = None,
         dtype: str = "bfloat16",
         mode: str = "all",
-        device=None,
+        device="cuda",
         generator: Optional[torch.Generator] = None,
         **overrides,
     ) -> "Predictor":
-        """Build the model on ``device`` (CUDA where available when None):
-        random weights from ``generator`` unless ``checkpoint_path`` is given."""
+        """Build the model on ``device`` (the card by default; without a
+        CUDA device pass ``device="cpu"``): random weights from
+        ``generator`` unless ``checkpoint_path`` is given."""
         from passt_tpu_torch.models.registry import ARCHS, get_model
 
         if mel_cfg is None:
@@ -84,8 +85,6 @@ class Predictor:
         if arch in ARCHS:
             # the checkpoint's own time grid (20/30-sec and stfthop archs)
             overrides.setdefault("input_tdim", ARCHS[arch].input_tdim)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
         model = get_model(
             arch=arch,
             pretrained=checkpoint_path is not None,

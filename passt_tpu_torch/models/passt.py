@@ -1,5 +1,5 @@
 """PaSST — Patchout faSt Spectrogram Transformer, in PyTorch
-(port of passt_tpu/models/passt.py, eval forward).
+(port of passt_tpu/models/passt.py).
 
 Module and parameter names are the reference's torch names
 (``patch_embed.proj``, ``blocks.{i}.norm1|attn.qkv|attn.proj|norm2|mlp.fc1|
@@ -19,16 +19,26 @@ The numerics follow the JAX package rather than torch habit:
   features are the fp32 mean of tokens 0 and 1, and the head runs in fp32;
 - ``gelu="auto"`` is erf under fp32 and tanh under bf16.
 
-Training mode (patchout, the time-offset crop, drop_path) belongs to the
-port's training slice; so do the ``blocks_impl`` "scan"/"stacked",
-``ln_impl="fused"`` and ``fuse_ln_qkv`` variants. They raise when set.
+Training mode (``train=True``) adds, as the JAX package does: a random
+offset into the time embedding for inputs shorter than its grid, structured
+patchout (time, then frequency) and unstructured patchout, each a sorted
+random subset of indices (:func:`_sorted_keep_indices`), dropout and
+stochastic depth. The draws come from explicit ``torch.Generator``s, one per
+stream of the JAX package (``generators={"patchout", "dropout",
+"droppath"}``), on the input's device. Attention takes its entry with the
+backward's rule (``backward=train``) and leaves the kernels when attention
+dropout is on.
+
+The ``blocks_impl`` "scan"/"stacked", ``ln_impl="fused"``, ``fuse_ln_qkv``
+and ``remat`` variants are not ported; they raise when set.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -69,9 +79,9 @@ class PaSSTConfig:
     drop_path_rate: float = 0.0
     dtype: str = "float32"  # compute dtype
     gelu: str = "auto"  # "erf", "tanh", or "auto": erf under fp32, tanh under bf16
-    gelu_saved_deriv: bool = True  # training only (the tanh-GELU VJP)
-    ln_impl: str = "auto"  # "auto"/"xla"; "fused" waits for the training slice
-    remat: bool = False  # training only
+    gelu_saved_deriv: bool = True  # tanh GELU: the backward multiplies by the saved derivative
+    ln_impl: str = "auto"  # "auto"/"xla"; "fused" waits for the layernorm kernel
+    remat: bool = False  # not ported
     softmax_fp32: bool = True  # "xla" attention: fp32 softmax
     patch_embed_impl: str = "unfold"  # "unfold" or "conv": the same function here
     attn_impl: str = "auto"  # "fused": the Hopper kernel (its plain version on
@@ -138,6 +148,8 @@ def _check_supported(cfg: PaSSTConfig) -> None:
         )
     if cfg.fuse_ln_qkv:
         raise NotImplementedError("fuse_ln_qkv is not ported yet (ROADMAP.md: ln_qkv kernels)")
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported yet (ROADMAP.md: off-path variants)")
     if cfg.patch_embed_impl not in ("unfold", "conv"):
         raise ValueError(f"patch_embed_impl must be 'unfold'|'conv', got {cfg.patch_embed_impl!r}")
     if cfg.representation_size and not cfg.distilled:
@@ -195,40 +207,85 @@ class PatchEmbed(nn.Module):
         return out.reshape(b, -1, fg, tg).to(dtype)
 
 
-class Attention(nn.Module):
-    """Fused-qkv multi-head self-attention (JAX ``Attention``, eval).
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Stochastic depth on the batch axis: a whole sample's branch is kept
+    with probability ``1 - rate`` and scaled by its inverse."""
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
-    ``fused``: the Hopper kernel through the same entry the JAX package
-    takes at this geometry (the qkv entry where its gate holds, else
-    ``[B, N, H, D]`` views of the qkv output); otherwise the einsum
-    composition of the JAX package's "xla" path.
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale by its
+    inverse; the identity at rate 0 (no generator needed then)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training draws from the 'dropout' generator; pass one")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def _sorted_keep_indices(generator: torch.Generator, size: int, keep: int) -> torch.Tensor:
+    """A sorted random subset of ``keep`` indices out of ``size``, on the
+    generator's device: the patchout selection (``randperm[:keep].sort()``)."""
+    perm = torch.randperm(size, generator=generator, device=generator.device)
+    return torch.sort(perm[:keep]).values
+
+
+Generators = Dict[str, torch.Generator]
+
+
+def _stream(generators: Generators, name: str) -> torch.Generator:
+    """The named generator of a training forward; a missing one raises."""
+    if name not in generators:
+        raise ValueError(f"train=True draws from the {name!r} generator; pass generators={{{name!r}: ...}}")
+    return generators[name]
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head self-attention (JAX ``Attention``).
+
+    ``fused``: the Hopper kernels through the same entry the JAX package
+    takes at this geometry (the qkv entry where its gate holds, with the
+    backward's rule in training, else ``[B, N, H, D]`` views of the qkv
+    output), except in training with attention dropout; otherwise the
+    einsum composition of the JAX package's "xla" path.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, softmax_fp32: bool,
-                 plus1: bool, fused: bool):
+                 plus1: bool, fused: bool, attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.softmax_fp32 = softmax_fp32
         self.plus1 = plus1
         self.fused = fused
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
         b, n, c = x.shape
         heads = self.num_heads
         head_dim = c // heads
         scale = head_dim ** -0.5
+        drop_gen = (generators or {}).get("dropout")
+        proj_drop = self.proj_drop if train else 0.0
         qkv = self.qkv(x)
-        if self.fused:
-            if flat_kernel_supports(n, heads, head_dim, backward=False,
+        if self.fused and not (train and self.attn_drop > 0.0):
+            if flat_kernel_supports(n, heads, head_dim, backward=train,
                                     itemsize=x.element_size(), batch=b):
                 out = fused_attention_qkv(qkv, heads=heads, head_dim=head_dim,
                                           scale=scale, plus1=self.plus1)
             else:
                 q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
                 out = fused_attention(q, k, v, scale=scale, plus1=self.plus1).reshape(b, n, c)
-            return self.proj(out)
+            return dropout(self.proj(out), proj_drop, drop_gen)
 
         q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
@@ -240,42 +297,58 @@ class Attention(nn.Module):
             attn = torch.softmax(attn, dim=-1)
         if self.plus1:
             attn = attn[..., :-1]
+        attn = dropout(attn, self.attn_drop if train else 0.0, drop_gen)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
-        return self.proj(out)
+        return dropout(self.proj(out), proj_drop, drop_gen)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, gelu_approximate: bool):
+    def __init__(self, dim: int, hidden: int, gelu_approximate: bool, gelu_saved_deriv: bool = True,
+                 drop: float = 0.0):
         super().__init__()
         self.gelu_approximate = gelu_approximate
+        self.gelu_saved_deriv = gelu_saved_deriv
+        self.drop = drop
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
+        drop = self.drop if train else 0.0
+        gen = (generators or {}).get("dropout")
         h = self.fc1(x)
-        if self.gelu_approximate:
+        if self.gelu_approximate and self.gelu_saved_deriv:
             h = tanh_gelu(h)
         else:
-            h = F.gelu(h.float()).to(h.dtype)
-        return self.fc2(h)
+            approximate = "tanh" if self.gelu_approximate else "none"
+            h = F.gelu(h.float(), approximate=approximate).to(h.dtype)
+        h = dropout(h, drop, gen)
+        return dropout(self.fc2(h), drop, gen)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block; the residual stream stays in the compute
     dtype, the norms output fp32 and are cast before attn/MLP."""
 
-    def __init__(self, cfg: PaSSTConfig):
+    def __init__(self, cfg: PaSSTConfig, drop_path_rate: float = 0.0):
         super().__init__()
         d = cfg.embed_dim
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(d, eps=1e-6)
         self.attn = Attention(d, cfg.num_heads, cfg.qkv_bias, cfg.softmax_fp32,
-                              cfg.plus1_attn, cfg.use_fused_attn)
+                              cfg.plus1_attn, cfg.use_fused_attn,
+                              attn_drop=cfg.attn_drop_rate, proj_drop=cfg.drop_rate)
         self.norm2 = LayerNorm(d, eps=1e-6)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), cfg.gelu_approximate)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), cfg.gelu_approximate, cfg.gelu_saved_deriv,
+                       drop=cfg.drop_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x).to(x.dtype))
-        return x + self.mlp(self.norm2(x).to(x.dtype))
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
+        def branch(h):
+            if train and self.drop_path_rate > 0.0:
+                return drop_path(h, self.drop_path_rate, _stream(generators or {}, "droppath"))
+            return h
+
+        x = x + branch(self.attn(self.norm1(x).to(x.dtype), train, generators))
+        return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators))
 
 
 class PaSST(nn.Module):
@@ -294,39 +367,60 @@ class PaSST(nn.Module):
         self.new_pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens, d))
         self.freq_new_pos_embed = nn.Parameter(torch.zeros(1, d, f_grid, 1))
         self.time_new_pos_embed = nn.Parameter(torch.zeros(1, d, 1, t_grid))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        # the stochastic-depth decay rule: rates rise linearly over the blocks
+        dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+        self.blocks = nn.ModuleList(Block(cfg, float(dpr[i])) for i in range(cfg.depth))
         self.norm = LayerNorm(d, eps=1e-6)
         self.head = nn.Sequential(LayerNorm(d, eps=1e-5), Linear(d, cfg.num_classes))
         # in checkpoints, unused by the reference forward
         self.head_dist = Linear(d, cfg.num_classes) if cfg.distilled else None
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "train=True (patchout, time-offset crop, drop_path) is in the port's "
-                "training slice, queued in ROADMAP.md"
-            )
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None):
+        """``generators``: the "patchout", "dropout" and "droppath" streams
+        a training forward draws from (each only where it draws)."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b = x.shape[0]
         f_grid, t_grid = cfg.grid_size
+        generators = generators or {}
 
         if cfg.verbose_shapes:
             print(f" input: {tuple(x.shape)}")
         x = self.patch_embed(x.to(dtype))  # [B, D, F', T']
         _, _, f_cur, t_cur = x.shape
-        # eval: a prefix of the time embedding for shorter inputs, longer
-        # inputs are cropped to the embedding
+        # a window of the time embedding for shorter inputs (a prefix in
+        # eval, a random offset in training); longer inputs are cropped
         if t_cur < t_grid:
-            tpe = self.time_new_pos_embed[:, :, :, :t_cur]
+            if train:
+                g = _stream(generators, "patchout")
+                offset = torch.randint(0, t_grid - t_cur + 1, (), generator=g, device=g.device)
+                idx = offset.to(x.device) + torch.arange(t_cur, device=x.device)
+                tpe = self.time_new_pos_embed.index_select(3, idx)
+            else:
+                tpe = self.time_new_pos_embed[:, :, :, :t_cur]
         else:
             x = x[:, :, :, :t_grid]
+            t_cur = t_grid
             tpe = self.time_new_pos_embed
         x = x + tpe.to(dtype)
         if f_cur != f_grid:
             raise ValueError(f"input frequency grid {f_cur} != positional embedding grid {f_grid}")
         x = x + self.freq_new_pos_embed.to(dtype)
+
+        # structured patchout: whole time columns, then whole frequency rows
+        if train and cfg.s_patchout_t:
+            keep = _sorted_keep_indices(_stream(generators, "patchout"), t_cur, t_cur - cfg.s_patchout_t)
+            x = x.index_select(3, keep.to(x.device))
+            t_cur -= cfg.s_patchout_t
+        if train and cfg.s_patchout_f:
+            keep = _sorted_keep_indices(_stream(generators, "patchout"), f_cur, f_cur - cfg.s_patchout_f)
+            x = x.index_select(2, keep.to(x.device))
+            f_cur -= cfg.s_patchout_f
         x = x.flatten(2).transpose(1, 2)  # [B, F'*T', D], frequency-major
+        if train and cfg.u_patchout:
+            seq = x.shape[1]
+            keep = _sorted_keep_indices(_stream(generators, "patchout"), seq, seq - cfg.u_patchout)
+            x = x.index_select(1, keep.to(x.device))
 
         tokens = [(self.cls_token + self.new_pos_embed[:, :1]).to(dtype).expand(b, -1, -1)]
         if cfg.distilled:
@@ -334,9 +428,11 @@ class PaSST(nn.Module):
         x = torch.cat(tokens + [x], dim=1)
         if cfg.verbose_shapes:
             print(f" final sequence: {tuple(x.shape)}")
+        if train:
+            x = dropout(x, cfg.drop_rate, generators.get("dropout"))
 
         for block in self.blocks:
-            x = block(x)
+            x = block(x, train, generators)
         x = self.norm(x)  # fp32
 
         features = (x[:, 0] + x[:, 1]) / 2.0 if cfg.distilled else x[:, 0]

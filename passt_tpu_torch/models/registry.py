@@ -161,20 +161,35 @@ def get_model_config(
     )
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point puts its model on: the card unless the
+    caller asks for another; a CUDA device where there is none raises
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} asked for, but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def get_model(
     arch: str = "passt_s_kd_p16_128_ap486",
     pretrained: bool = True,
     checkpoint_path: Optional[str] = None,
     generator: Optional[torch.Generator] = None,
-    device=None,
+    device="cuda",
     dtype: str = "float32",
     **overrides,
 ) -> PaSST:
-    """Build the model for an arch in eval mode on ``device``: random
-    weights from ``generator`` (a CPU generator; seed 0 when None), then the
-    checkpoint when ``pretrained``. ``dtype`` is the compute dtype; the
-    parameters stay fp32. Nothing is downloaded: ``pretrained=True`` needs
+    """Build the model for an arch in eval mode on ``device`` (the card by
+    default; see :func:`resolve_device`): random weights from ``generator``
+    (a CPU generator; seed 0 when None), then the checkpoint when
+    ``pretrained``. ``dtype`` is the compute dtype; the parameters stay
+    fp32. Nothing is downloaded: ``pretrained=True`` needs
     ``checkpoint_path`` (a reference ``.pt`` or a ``passt_tpu`` ``.npz``)."""
+    device = resolve_device(device)
     cfg = get_model_config(arch, dtype=dtype, **overrides)
     model = PaSST(cfg)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))

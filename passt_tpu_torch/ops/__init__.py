@@ -1,5 +1,6 @@
 """Frontend and attention ops of the port, with the Hopper kernels behind
-``fused_log_mel`` and ``fused_attention`` / ``fused_attention_qkv``."""
+``fused_log_mel`` and ``fused_attention`` / ``fused_attention_qkv`` (forward
+and backward)."""
 
 from passt_tpu_torch.ops.attention import fused_attention, fused_attention_qkv
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram, mel_frontend

@@ -1,21 +1,25 @@
-"""Attention forward as one Hopper kernel (``csrc/attention_fwd.cu``), with
-its plain PyTorch version beside it.
+"""Attention as Hopper kernels (``csrc/attention_fwd.cu`` and
+``csrc/attention_bwd.cu``), with their plain PyTorch versions beside them.
 
-Port of passt_tpu/ops/pallas/attention.py, forward only: the backward
-kernels belong to the training slice. Two entry points, as in the JAX
-package, launch the same kernel:
+Port of passt_tpu/ops/pallas/attention.py. Two differentiable entry points,
+as in the JAX package, launch the same kernels:
 
 - :func:`fused_attention` on q, k, v ``[B, N, H, D]`` (any strides with a
-  contiguous last dim, e.g. views into the qkv Dense output);
+  contiguous last dim, e.g. views into the qkv Dense output); it saves q, k,
+  v and its backward returns dq, dk, dv ``[B, N, H, D]``;
 - :func:`fused_attention_qkv` on the raw qkv Dense output ``[B, N, 3C]``,
-  columns ordered (qkv, head, dim).
+  columns ordered (qkv, head, dim); it saves qkv and its backward writes
+  d(qkv) ``[B, N, 3C]`` in the Dense layout.
 
-The kernel reads both layouts in place through (batch, token, head) strides.
+The kernels read and write both layouts in place through (batch, token,
+head) strides.
 
 The math is the reference's: fp32 scores, one max over the whole row
 (clamped at 0 under ``plus1``, which also adds ``exp(-m)`` to the
 denominator), P rounded to the input dtype for PV with an fp32 accumulator,
-division by the denominator after PV, output in the input dtype.
+division by the denominator after PV, output in the input dtype. The
+backward recomputes P from q and k (nothing but the inputs is saved) and
+follows the reference backward kernel (see ``csrc/attention_bwd.cu``).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises.
@@ -33,8 +37,10 @@ from passt_tpu_torch.ops import _build
 
 _KEY_BNHD = "fused_attention"
 _KEY_QKV = "fused_attention_qkv"
-_build.LAUNCHES.setdefault(_KEY_BNHD, 0)
-_build.LAUNCHES.setdefault(_KEY_QKV, 0)
+_KEY_BNHD_BWD = "fused_attention_bwd"
+_KEY_QKV_BWD = "fused_attention_qkv_bwd"
+for _key in (_KEY_BNHD, _KEY_QKV, _KEY_BNHD_BWD, _KEY_QKV_BWD):
+    _build.LAUNCHES.setdefault(_key, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -110,11 +116,13 @@ def _lib():
     return lib
 
 
-def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
-    """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
-    a contiguous last dim)."""
+def _check_operands(named: dict) -> None:
+    """Raise unless every operand is a CUDA ``[B, N, H, D]`` tensor of q's
+    device, dtype and shape with a contiguous last dim, in a shape the
+    kernels take."""
+    q = named["q"]
     b, n, h, d = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    for name, t in named.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
         if t.dtype != q.dtype:
@@ -124,11 +132,18 @@ def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a contiguous head dim, strides {t.stride()}")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"attention kernel takes float32/bfloat16/float16, got {q.dtype}")
+        raise ValueError(f"attention kernels take float32/bfloat16/float16, got {q.dtype}")
     if d > 128 or d % 8:
-        raise ValueError(f"attention kernel needs head_dim <= 128 and a multiple of 8, got {d}")
+        raise ValueError(f"attention kernels need head_dim <= 128 and a multiple of 8, got {d}")
     if b > 65535 or h > 65535:
         raise ValueError(f"attention kernel grid limit: batch {b}, heads {h} must be <= 65535")
+
+
+def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
+    """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
+    a contiguous last dim)."""
+    _check_operands(dict(q=q, k=k, v=v, out=out))
+    b, n, h, d = q.shape
     lib = _lib()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     code = lib.passt_attention_fwd(
@@ -140,38 +155,174 @@ def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
     _build.check(lib, code, "attention kernel launch")
 
 
+def attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    scale: float, plus1: bool = False,
+):
+    """The backward kernel's function in plain PyTorch, on ``[B, N, H, D]``:
+    the JAX package's ``_xla_attn_bwd`` in fp32, in its kernels' order
+    (``dO * (1/l)`` in fp32 for dV, ``di`` from the unrounded p, dS rounded
+    to the input dtype before dQ and dK). Returns dq, dk, dv ``[B, N, H, D]``
+    in the input dtype."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    if plus1:
+        m = torch.clamp(m, min=0.0)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if plus1:
+        l = l + torch.exp(-m)
+    inv_l = 1.0 / l  # [B, H, N, 1]
+    do_n = dof * inv_l.permute(0, 2, 1, 3)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, do_n)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    di = (p * dp).sum(dim=-1, keepdim=True) * inv_l
+    ds = ((p * inv_l) * (dp - di) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _bwd_lib():
+    """The backward kernel library, built and bound on first use."""
+    lib = _build.load("attention_bwd")
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.passt_attention_bwd.argtypes = (
+        [vp] * 8 + [i32] * 5 + [i64] * 21 + [ctypes.c_float, i32, vp]
+    )
+    lib.passt_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool) -> None:
+    """Launch the backward kernels on ``[B, N, H, D]``-shaped views (any
+    strides with a contiguous last dim); dq, dk, dv are written in place."""
+    _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
+    b, n, h, d = q.shape
+    lib = _bwd_lib()
+    npad = -(-n // 64) * 64
+    stats = torch.empty(3 * b * h * npad, dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
+    code = lib.passt_attention_bwd(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, stats)),
+        _DTYPE_CODE[q.dtype], b, n, h, d, *strides, float(scale), int(bool(plus1)),
+        _build.stream_of(q),
+    )
+    _build.check(lib, code, "attention backward kernel launch")
+
+
+def _head_views(t: torch.Tensor, heads: int, head_dim: int):
+    """The q, k, v (or dq, dk, dv) ``[B, N, H, D]`` views of a ``[B, N, 3C]``
+    tensor with columns ordered (qkv, head, dim)."""
+    b, n, _ = t.shape
+    return tuple(
+        t.as_strided((b, n, heads, head_dim), (t.stride(0), t.stride(1), head_dim, 1),
+                     t.storage_offset() + i * heads * head_dim)
+        for i in range(3)
+    )
+
+
+def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def fused_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    scale: float, plus1: bool = False,
+):
+    """dq, dk, dv ``[B, N, H, D]`` of :func:`fused_attention` given its
+    output gradient ``do``, by the backward kernel (its plain version for a
+    CPU tensor)."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, do, scale=scale, plus1=plus1)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    _launch_bwd(q, k, v, _last_dim_contiguous(do), dq, dk, dv, scale, plus1)
+    _build.LAUNCHES[_KEY_BNHD_BWD] += 1
+    return dq, dk, dv
+
+
+def fused_attention_qkv_bwd(
+    qkv: torch.Tensor, do: torch.Tensor, *, heads: int, head_dim: int, scale: float,
+    plus1: bool = False,
+) -> torch.Tensor:
+    """d(qkv) ``[B, N, 3C]`` of :func:`fused_attention_qkv` given its output
+    gradient ``do`` ``[B, N, C]``. The kernel writes dq, dk and dv straight
+    into their columns of d(qkv), the Dense layout, with no concat."""
+    b, n, c3 = qkv.shape
+    do = _last_dim_contiguous(do).reshape(b, n, heads, head_dim)
+    if qkv.device.type == "cpu":
+        q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
+        grads = attention_bwd_plain(q, k, v, do, scale=scale, plus1=plus1)
+        return torch.stack(grads, dim=2).reshape(b, n, c3)
+    dqkv = torch.empty((b, n, c3), dtype=qkv.dtype, device=qkv.device)
+    _launch_bwd(*_head_views(qkv, heads, head_dim), do, *_head_views(dqkv, heads, head_dim),
+                scale, plus1)
+    _build.LAUNCHES[_KEY_QKV_BWD] += 1
+    return dqkv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward kernel; backward kernel from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, plus1: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.plus1 = scale, plus1
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, scale=scale, plus1=plus1)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch(q, k, v, out, scale, plus1)
+        _build.LAUNCHES[_KEY_BNHD] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, do, scale=ctx.scale, plus1=ctx.plus1), None, None)
+
+
+class _FusedAttentionQKV(torch.autograd.Function):
+    """Forward kernel on raw qkv; backward kernel writes d(qkv) from the
+    saved qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads: int, head_dim: int, scale: float, plus1: bool):
+        ctx.save_for_backward(qkv)
+        ctx.args = dict(heads=heads, head_dim=head_dim, scale=scale, plus1=plus1)
+        b, n, _ = qkv.shape
+        if qkv.device.type == "cpu":
+            q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
+            return attention_plain(q, k, v, scale=scale, plus1=plus1).reshape(b, n, heads * head_dim)
+        if qkv.stride(2) != 1:
+            raise ValueError(f"qkv needs a contiguous last dim, strides {qkv.stride()}")
+        out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
+        _launch(*_head_views(qkv, heads, head_dim), out.view(b, n, heads, head_dim), scale, plus1)
+        _build.LAUNCHES[_KEY_QKV] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return (fused_attention_qkv_bwd(qkv, do, **ctx.args), None, None, None, None)
+
+
 def fused_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, plus1: bool = False
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v on ``[B, N, H, D]``; returns ``[B, N, H, D]``
-    contiguous, in the input dtype."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale=scale, plus1=plus1)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, scale, plus1)
-    _build.LAUNCHES[_KEY_BNHD] += 1
-    return out
+    contiguous, in the input dtype. Differentiable: the backward returns
+    dq, dk, dv ``[B, N, H, D]`` from the backward kernel."""
+    return _FusedAttention.apply(q, k, v, float(scale), bool(plus1))
 
 
 def fused_attention_qkv(
     qkv: torch.Tensor, *, heads: int, head_dim: int, scale: float, plus1: bool = False
 ) -> torch.Tensor:
     """Attention over the raw qkv Dense output ``[B, N, 3*heads*head_dim]``;
-    returns ``[B, N, heads*head_dim]`` in the input dtype (the proj input)."""
+    returns ``[B, N, heads*head_dim]`` in the input dtype (the proj input).
+    Differentiable: the backward returns d(qkv) in the Dense layout."""
     if qkv.ndim != 3 or qkv.shape[-1] != 3 * heads * head_dim:
         raise ValueError(f"qkv shape {tuple(qkv.shape)} != [B, N, 3*{heads}*{head_dim}]")
-    b, n, _ = qkv.shape
-    if qkv.device.type == "cpu":
-        q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
-        return attention_plain(q, k, v, scale=scale, plus1=plus1).reshape(b, n, heads * head_dim)
-    if qkv.stride(2) != 1:
-        raise ValueError(f"qkv needs a contiguous last dim, strides {qkv.stride()}")
-    q, k, v = (
-        qkv.as_strided((b, n, heads, head_dim), (qkv.stride(0), qkv.stride(1), head_dim, 1),
-                       qkv.storage_offset() + i * heads * head_dim)
-        for i in range(3)
-    )
-    out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-    _launch(q, k, v, out.view(b, n, heads, head_dim), scale, plus1)
-    _build.LAUNCHES[_KEY_QKV] += 1
-    return out
+    return _FusedAttentionQKV.apply(qkv, int(heads), int(head_dim), float(scale), bool(plus1))

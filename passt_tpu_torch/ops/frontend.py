@@ -1,16 +1,24 @@
-"""The log-mel frontend: waveform -> normalised log-mel spectrogram
-(port of passt_tpu/ops/frontend.py, eval mode).
+"""The augmented log-mel frontend: waveform -> normalised log-mel
+spectrogram (port of passt_tpu/ops/frontend.py).
 
 waveform [B, T]
   -> pre-emphasis ``y[t] = x[t+1] - 0.97 * x[t]``
   -> power STFT, n_fft 1024 / hop 320 / win 800 Hann
+  -> random mel-range jitter of (fmin, fmax)          (train only)
   -> Kaldi triangular mel bank (fp32), ``log(mel + 1e-5)``
+  -> SpecAugment frequency + time masking             (train only)
   -> fixed affine normalisation ``(x + 4.5) / 5``
 
 On a CUDA tensor the middle runs as the Hopper mel kernel
-(:func:`passt_tpu_torch.ops.mel_kernel.fused_log_mel`, un-normalised) and
-the normalisation follows it, as on the TPU. Training mode (mel-range jitter
-and SpecAugment) belongs to the training slice of the port.
+(:func:`passt_tpu_torch.ops.mel_kernel.fused_log_mel`, un-normalised) with
+the bank built on the card from the jittered (fmin, fmax); the masks and the
+normalisation follow it, as on the TPU.
+
+Randomness comes from an explicit ``torch.Generator`` on the wave's device,
+drawn in a fixed order (fmin, fmax, frequency mask, time mask), so nothing
+waits on the host. SpecAugment masks are shared across the batch by default
+(``iid_masks=False``), with the start and width truncated to integers, as
+the reference's 3-D masking call behaves (see :func:`_axis_mask`).
 """
 
 from __future__ import annotations
@@ -67,32 +75,79 @@ class MelConfig:
         return num_stft_frames(num_samples - 1, self.n_fft, self.hopsize)
 
 
-def log_mel_spectrogram(
-    wave: torch.Tensor, cfg: MelConfig = MelConfig(), *, train: bool = False
+def _axis_mask(
+    generator: torch.Generator, batch: int, size: int, mask_param: int, iid: bool
 ) -> torch.Tensor:
-    """[B, T] float waveform -> [B, n_mels, frames] normalised log-mel (fp32)."""
+    """SpecAugment mask along one axis -> boolean [batch, size] (True = masked),
+    on the generator's device.
+
+    width ~ U[0, mask_param), start ~ U[0, size - width). The shared mode
+    (``iid=False``) truncates start and width to integers, as torchaudio's
+    ``mask_along_axis`` does on the reference's 3-D input (a full-width mask
+    is unreachable); ``iid=True`` keeps the float interval per sample.
+    """
+    n = batch if iid else 1
+    device = generator.device
+    width = torch.rand((n, 1), generator=generator, device=device) * mask_param
+    start = torch.rand((n, 1), generator=generator, device=device) * (size - width)
+    if not iid:
+        width = torch.floor(width)
+        start = torch.floor(start)
+    idx = torch.arange(size, dtype=torch.float32, device=device)[None, :]
+    mask = (idx >= start) & (idx < start + width)
+    return mask if iid else mask.expand(batch, size)
+
+
+def log_mel_spectrogram(
+    wave: torch.Tensor,
+    cfg: MelConfig = MelConfig(),
+    *,
+    generator: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> torch.Tensor:
+    """[B, T] float waveform -> [B, n_mels, frames] normalised log-mel (fp32).
+
+    ``train=True`` needs ``generator`` (on the wave's device) and adds the
+    mel-range jitter and SpecAugment."""
     if wave.ndim != 2:
         raise ValueError(f"expected [B, T], got {tuple(wave.shape)}")
+    if train and generator is None:
+        raise ValueError("train=True needs a generator")
+    fmin, fmax = cfg.fmin, cfg.effective_fmax
     if train:
-        raise NotImplementedError(
-            "train=True (mel-range jitter and SpecAugment) is in the port's training "
-            "slice, queued in ROADMAP.md"
+        dev = wave.device
+        fmin = fmin + torch.randint(
+            0, cfg.fmin_aug_range, (), generator=generator, device=dev
+        ).float()
+        fmax = (
+            fmax + cfg.fmax_aug_range // 2
+            - torch.randint(0, cfg.fmax_aug_range, (), generator=generator, device=dev).float()
         )
-    bank = kaldi_mel_banks(
-        cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin, cfg.effective_fmax, device=wave.device
-    )
+    bank = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax, device=wave.device)
     mel_fn = fused_log_mel if cfg.stft_method == "auto" else fused_log_mel_plain
     mel = mel_fn(
         wave.float(), bank, n_fft=cfg.n_fft, hop=cfg.hopsize, win_length=cfg.win_length,
         log_offset=LOG_OFFSET, norm_shift=0.0, norm_scale=1.0,
     )
+    if train:
+        b, n_mels, frames = mel.shape
+        if cfg.freqm > 0:
+            fm = _axis_mask(generator, b, n_mels, cfg.freqm, cfg.iid_masks)
+            mel = torch.where(fm[:, :, None], 0.0, mel)
+        if cfg.timem > 0:
+            tm = _axis_mask(generator, b, frames, cfg.timem, cfg.iid_masks)
+            mel = torch.where(tm[:, None, :], 0.0, mel)
     return (mel + NORM_SHIFT) / NORM_SCALE
 
 
 def mel_frontend(
-    wave: torch.Tensor, cfg: MelConfig = MelConfig(), *, train: bool = False
+    wave: torch.Tensor,
+    cfg: MelConfig = MelConfig(),
+    *,
+    generator: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> torch.Tensor:
     """[B, C, T] -> [B, C, n_mels, frames]; the model-facing wrapper."""
     b, c, t = wave.shape
-    mel = log_mel_spectrogram(wave.reshape(b * c, t), cfg, train=train)
+    mel = log_mel_spectrogram(wave.reshape(b * c, t), cfg, generator=generator, train=train)
     return mel.reshape(b, c, *mel.shape[1:])

@@ -8,6 +8,8 @@ mel scale ``m(f) = 1127 * ln(1 + f/700)``. The bank covers FFT bins
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,11 +44,9 @@ def kaldi_mel_banks(
     arithmetic; the FFT-bin mel values are baked in from float64, as the
     JAX package does. ``fmax <= 0`` counts from Nyquist, as in Kaldi.
     """
-    num_fft_bins = n_fft // 2
     nyquist = 0.5 * sample_rate
 
-    fmin = torch.as_tensor(fmin, dtype=torch.float32, device=device)
-    fmax = torch.as_tensor(fmax, dtype=torch.float32, device=device)
+    fmin, fmax = (_scalar(f, device) for f in (fmin, fmax))
     fmax = torch.where(fmax <= 0.0, fmax + nyquist, fmax)
 
     mel_low = hz_to_mel(fmin)
@@ -58,13 +58,28 @@ def kaldi_mel_banks(
     center_mel = mel_low + (bins + 1.0) * mel_delta
     right_mel = mel_low + (bins + 2.0) * mel_delta
 
-    freqs = (sample_rate / n_fft) * np.arange(num_fft_bins, dtype=np.float64)
-    mel = torch.from_numpy(hz_to_mel(freqs).astype(np.float32)).to(fmin.device)[None, :]
+    mel = _fft_bin_mels(n_fft, float(sample_rate), fmin.device)[None, :]
 
     up_slope = (mel - left_mel) / (center_mel - left_mel)
     down_slope = (right_mel - mel) / (right_mel - center_mel)
     weights = torch.clamp(torch.minimum(up_slope, down_slope), min=0.0)
     return weights.to(dtype)
+
+
+def _scalar(value, device) -> torch.Tensor:
+    """An fp32 scalar tensor on ``device``; a float is filled in place, so no
+    host-to-device copy waits on the stream."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_bin_mels(n_fft: int, sample_rate: float, device: torch.device) -> torch.Tensor:
+    """The mel value of each FFT bin ``0 .. n_fft//2 - 1``, from float64,
+    kept on ``device`` once (the training frontend builds a bank per step)."""
+    freqs = (sample_rate / n_fft) * np.arange(n_fft // 2, dtype=np.float64)
+    return torch.from_numpy(hz_to_mel(freqs).astype(np.float32)).to(device)
 
 
 def kaldi_mel_banks_np(

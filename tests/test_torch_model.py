@@ -147,8 +147,10 @@ def test_config_matches_jax_and_unported_options_raise():
     assert cfg.gelu_approximate and not PaSSTConfig().gelu_approximate
     assert not PaSSTConfig(attn_impl="xla").use_fused_attn
     assert PaSSTConfig(attn_impl="fused").use_fused_attn
-    for bad in (dict(blocks_impl="scan"), dict(ln_impl="fused"), dict(fuse_ln_qkv=True)):
+    for bad in (dict(blocks_impl="scan"), dict(blocks_impl="stacked"), dict(ln_impl="fused"),
+                dict(fuse_ln_qkv=True), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PaSST(PaSSTConfig(**dict(TINY, **bad)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PaSST(PaSSTConfig(**TINY))(torch.zeros(1, 1, 128, 98), train=True)
+    # training draws from named generators; a missing one raises
+    with pytest.raises(ValueError, match="patchout"):
+        PaSST(PaSSTConfig(**dict(TINY, s_patchout_t=2)))(torch.zeros(1, 1, 128, 98), train=True)
