@@ -28,12 +28,24 @@ Phases (each prints one line or more; the first failure exits non-zero):
    advanced, and the exact launch counts per step;
 7. one fp32 training step at full width (B = 2) with the kernels against
    the same step on the plain versions, from the same weights and the same
-   draws: the loss, every leaf's gradient and the updated parameters.
+   draws: the loss, every leaf's gradient and the updated parameters;
+8. the bf16 training step of phase 6 under the JAX config's two LayerNorm
+   variants, ``fuse_ln_qkv=True`` (the F1 and B2 kernels around the
+   attention kernels) and ``ln_impl="fused"`` (the LayerNorm-backward
+   kernel in all 25 norms), with phase 6's checks and exact launch counts;
+9. one fp32 full-width step (B = 2) under each variant with its kernels
+   against the default config's step on the plain versions, under phase
+   7's tolerances (``fuse_ln_qkv`` at patchout 80/4, N = 154, where its
+   fp32 gate holds), and an fp32 ``Predictor(fuse_ln_qkv=True)``'s
+   timestamp embeddings (F1 at N = 14) against the plain default one.
 
-Launch counts: each main-path run (phases 4, 6 and the kernel side of 7)
-starts with every count at 0 and reads the counts right after; the
+Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
+plain versions and times them at the training step's shapes.
+
+Launch counts: each main-path run (phases 4, 6, 8 and the kernel sides of 7
+and 9) starts with every count at 0 and reads the counts right after; the
 ``launches`` of the kernels' record sum those runs. The comparisons of
-phases 3 and 3b are outside them.
+phases 3, 3b and 3c are outside them.
 
 fp32 is compared with TF32 off: ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False for the whole run.
@@ -71,6 +83,20 @@ TOL_ATTN = {torch.float32: 5e-5, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-1
 # round the other way, and the output rounds once: one output ulp at the
 # largest gradient (2**-7 bf16, 2**-10 fp16) plus the P_norm rounding
 TOL_BWD = {torch.float32: 5e-5, torch.bfloat16: 2.0**-6, torch.float16: 2.0**-9}
+# LayerNorm backward kernel vs plain, max error relative to max|ref|: dx in
+# fp32 differs by summation order only (the row means); in bf16 / fp16 it
+# rounds once, and a summation-order change may move a value across a
+# rounding boundary: one output ulp at the largest dx. dscale / dbias are
+# fp32 sums over the M rows in another order (per-block partials).
+TOL_LN_DX = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+TOL_LN_SUMS = 1e-4
+# F1 / B2 vs plain, relative to max|ref|: the products accumulate over K =
+# C or 3C in another order; in bf16 / fp16 F1 rounds the sum, then adds the
+# bias in the dtype (two roundings, one ulp each) and B2 rounds dx and xn
+# once (a flipped xn rounding moves the statistics-free xn by one ulp); fp32
+# keeps ~1e-6 of summation order, amplified by the LayerNorm backward's
+# cancellation in dx
+TOL_QKV = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-9}
 # peak rates of one H100 SXM (dense, 700 W) for the bounds
 PEAK_BF16, PEAK_FP32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 TRAIN_B, TRAIN_N = 12, 474  # the bench step: (12 - 4) x (99 - 40) + 2 tokens
@@ -108,6 +134,31 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the host's dispatch time drops out, which matters
+    for calls shorter than their own launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -350,6 +401,151 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     return rec
 
 
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max error relative to max|ref|."""
+    return max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def phase_layernorm(gpu: str, dev: torch.device) -> dict:
+    """[3c] the LayerNorm-backward, F1 and B2 kernels against their plain
+    versions, then their times at the training step's shapes."""
+    from passt_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_plain, ln_forward
+    from passt_tpu_torch.ops.ln_qkv import ln_qkv_b2, ln_qkv_b2_plain, ln_qkv_f1, ln_qkv_f1_plain
+
+    rng = np.random.default_rng(4)
+    c0 = 768
+
+    def arr(shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) * scale + offset).to(dev, dtype)
+
+    worst = {"layer_norm_bwd": 0.0, "ln_qkv_f1": 0.0, "ln_qkv_b2": 0.0}  # of max|ref|
+    worst_abs = dict(worst)
+
+    def hold(name, what, got, ref, tol):
+        check(got.dtype == ref.dtype and got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: dtype/shape/finite")
+        rel = rel_err(got, ref)
+        check(rel <= tol, f"{name} {what}: max err {rel:.3g} of max|ref| > {tol:.3g}")
+        worst[name] = max(worst[name], rel)
+        worst_abs[name] = max(worst_abs[name], max_err(got, ref))
+
+    def ln_case(m, c, dtype):
+        x = arr((m, c), dtype=dtype)
+        dy = arr((m, c))
+        scale, bias = arr((c,), 0.1, 1.0), arr((c,), 0.1)
+        _, mu, rstd = ln_forward(x, scale, bias, 1e-6)
+        return x, dy, mu, rstd, scale
+
+    # the LayerNorm backward: the training step's rows (bf16 x with f32 dy,
+    # and f32 x), ragged M, other C
+    for m, c, dtype in ((TRAIN_B * TRAIN_N, c0, torch.bfloat16), (TRAIN_B * TRAIN_N, c0, torch.float32),
+                        (1000, 64, torch.bfloat16), (77, 384, torch.float32), (333, 8, torch.float16),
+                        (41, 1024, torch.float32)):
+        args = ln_case(m, c, dtype)
+        got, ref = layer_norm_bwd(*args), layer_norm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for what, g, r in zip(("dx", "dscale", "dbias"), got, ref):
+            tol = TOL_LN_DX[dtype] if what == "dx" else TOL_LN_SUMS
+            hold("layer_norm_bwd", f"{what} {str(dtype)[6:]} M={m} C={c}", g, r, tol)
+
+    # F1 and B2: bf16 at the training step's and the timestamp windows'
+    # shapes, fp32 at the fp32 step's (patchout 80/4: N = 154), fp16 small
+    def qkv_case(b, n, dtype, c=c0):
+        x = arr((b, n, c), dtype=dtype)
+        s, bb = arr((c,), 0.1, 1.0), arr((c,), 0.1)
+        w, wb = arr((3 * c, c), 0.02, dtype=dtype), arr((3 * c,), 0.02, dtype=dtype)
+        return x, s, bb, w, wb
+
+    f1_cases = ((TRAIN_B, TRAIN_N, torch.bfloat16), (256, 14, torch.bfloat16), (2, 154, torch.float32),
+                (3, 47, torch.float16))
+    for b, n, dtype in f1_cases:
+        x, s, bb, w, wb = qkv_case(b, n, dtype)
+        got, ref = ln_qkv_f1(x, s, bb, w, wb), ln_qkv_f1_plain(x, s, bb, w, wb)
+        torch.cuda.synchronize()
+        hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n}", got, ref, TOL_QKV[dtype])
+        if (b, n) != (TRAIN_B, TRAIN_N):
+            continue
+        dqkv = arr((b, n, 3 * c0), dtype=dtype)
+        got, ref = ln_qkv_b2(x, dqkv, w, s, bb), ln_qkv_b2_plain(x, dqkv, w, s, bb)
+        torch.cuda.synchronize()
+        for what, g, r in zip(("dx", "xn", "dscale", "dbias"), got, ref):
+            hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n}", g, r,
+                 TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
+    # B2 at the fp32 step's shape; both kernels at other widths (C not a
+    # multiple of 128 takes F1's 64 x 64 tiles; B2's warps hold C / 32 n8
+    # tiles), ragged in the rows
+    for b, n, dtype, c in ((2, 154, torch.float32, c0), (3, 47, torch.float16, c0), (2, 47, torch.bfloat16, 192),
+                           (2, 33, torch.bfloat16, 1024), (2, 20, torch.float16, 320), (1, 9, torch.float32, 64)):
+        x, s, bb, w, wb = qkv_case(b, n, dtype, c)
+        if c != c0:
+            got, ref = ln_qkv_f1(x, s, bb, w, wb), ln_qkv_f1_plain(x, s, bb, w, wb)
+            torch.cuda.synchronize()
+            hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n} C={c}", got, ref, TOL_QKV[dtype])
+        dqkv = arr((b, n, 3 * c), dtype=dtype)
+        got, ref = ln_qkv_b2(x, dqkv, w, s, bb), ln_qkv_b2_plain(x, dqkv, w, s, bb)
+        torch.cuda.synchronize()
+        for what, g, r in zip(("dx", "xn", "dscale", "dbias"), got, ref):
+            hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n} C={c}", g, r,
+                 TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
+
+    rec = {}
+    # times: CUDA-graph replays (graph_ms), so the wrappers' host work (a
+    # ctypes launch, allocations, the partials' sum) does not hide the
+    # device time of these short calls.
+    # the LayerNorm backward at the training step's rows, bf16 x, f32 dy;
+    # the library yardstick is ATen's LayerNorm backward on the same x and
+    # statistics (it takes dy and the weight in x's dtype)
+    m = TRAIN_B * TRAIN_N
+    x, dy, mu, rstd, scale = ln_case(m, c0, torch.bfloat16)
+    dy_x, w_x, b_x = dy.to(x.dtype), scale.to(x.dtype), torch.zeros_like(scale, dtype=x.dtype)
+    lib = lambda: torch.ops.aten.native_layer_norm_backward(dy_x, x, [c0], mu, rstd, w_x, b_x,
+                                                            [True, True, True])
+    t = dict(ms=graph_ms(lambda: layer_norm_bwd(x, dy, mu, rstd, scale)),
+             plain_ms=graph_ms(lambda: layer_norm_bwd_plain(x, dy, mu, rstd, scale)),
+             library_ms=graph_ms(lib),
+             # ~10 FLOP an element; x (bf16) and dy (f32) read, dx (bf16) written
+             **bound(10 * m * c0, m * c0 * (2 + 4 + 2), PEAK_FP32))
+    say(f"[3c] layer_norm_bwd vs plain: max err {worst['layer_norm_bwd']:.3g} of max|ref| (dx, dscale, "
+        f"dbias; bf16/fp32/fp16 x, M 5688/1000/77/333/41, C 768/64/384/8/1024); bf16 M={m} C={c0}: "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, ATen LN backward {t['library_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
+    rec["layer_norm_bwd"] = dict(max_abs_err=worst_abs["layer_norm_bwd"], **t)
+
+    # F1 and B2: no single library call computes either; beside them, the
+    # bare cuBLAS product of the same shape
+    for name, b, n, dtype in (("ln_qkv_f1", TRAIN_B, TRAIN_N, torch.bfloat16),
+                              ("ln_qkv_f1", 256, 14, torch.bfloat16),
+                              ("ln_qkv_f1", 2, 154, torch.float32),
+                              ("ln_qkv_b2", TRAIN_B, TRAIN_N, torch.bfloat16),
+                              ("ln_qkv_b2", 2, 154, torch.float32)):
+        x, s, bb, w, wb = qkv_case(b, n, dtype)
+        mrows, esize = b * n, x.element_size()
+        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        if name == "ln_qkv_f1":
+            kern = lambda: ln_qkv_f1(x, s, bb, w, wb)
+            plain = lambda: ln_qkv_f1_plain(x, s, bb, w, wb)
+            gemm = lambda: torch.matmul(x, w.t())
+            nbytes = (mrows * c0 + 3 * c0 * c0 + 3 * c0 + mrows * 3 * c0) * esize + 2 * c0 * 4
+        else:
+            dqkv = arr((b, n, 3 * c0), dtype=dtype)
+            kern = lambda: ln_qkv_b2(x, dqkv, w, s, bb)
+            plain = lambda: ln_qkv_b2_plain(x, dqkv, w, s, bb)
+            gemm = lambda: torch.matmul(dqkv, w)
+            # x, dqkv, W read; dx, xn written; s, b read and dscale, dbias written in fp32
+            nbytes = (mrows * c0 * 3 + mrows * 3 * c0 + 3 * c0 * c0) * esize + 4 * c0 * 4
+        t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None,
+                 **bound(2 * mrows * c0 * 3 * c0, nbytes, peak))
+        gemm_ms = graph_ms(gemm)
+        say(f"[3c] {name} vs plain: max err {worst[name]:.3g} of max|ref| (bf16/fp32/fp16; C 768/192/1024/"
+            f"320/64; the shapes below); {str(dtype)[6:]} B={b} N={n} "
+            f"C={c0}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no single library call "
+            f"(the bare cuBLAS product of the same shape {gemm_ms:.4f} ms), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) ({gpu})")
+        if name not in rec:  # the record keeps the training step's shape
+            rec[name] = dict(max_abs_err=worst_abs[name], **t)
+    return rec
+
+
 def phase_serving(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.ops import _build
@@ -383,8 +579,7 @@ def phase_serving(gpu: str, dev: torch.device) -> dict:
     check(b1_err < 5e-2, f"B=1 vs B=20 row 0: {b1_err:.3g}")
     # 3 clip-level calls + 1 timestamp chunk: one mel launch each; 12 blocks
     # per forward at N = 1190 on the [B, N, H, D] entry, at N = 14 on qkv
-    want = {"fused_log_mel": 4, "fused_attention": 36, "fused_attention_qkv": 12,
-            "fused_attention_bwd": 0, "fused_attention_qkv_bwd": 0}
+    want = want_launches(fused_log_mel=4, fused_attention=36, fused_attention_qkv=12)
     check(launches == want, f"launches {launches} != {want}")
     say(f"[4] serving PaSST-S bf16 (random weights, seed 0): B=1, B=20 logits, scene "
         f"[20, 1295], timestamps [1, 40, 1295]; launches {launches}")
@@ -439,13 +634,35 @@ def phase_correctness(dev: torch.device) -> None:
         f"logits err {l_err:.3g}, features err {f_err:.3g} (tol 2e-4)")
 
 
-def phase_training(gpu: str, dev: torch.device) -> dict:
-    """[6] the bench's training step at full width, through the port's own
-    entry points (passt_tpu_torch.bench)."""
+#: every kernel wrapper's count; a main path's want lists the ones it launches
+KERNEL_NAMES = ("fused_log_mel", "fused_attention", "fused_attention_qkv", "fused_attention_bwd",
+                "fused_attention_qkv_bwd", "layer_norm_bwd", "ln_qkv_f1", "ln_qkv_b2")
+
+
+def want_launches(**counts) -> dict:
+    """The exact launch counts of a run: the named ones, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNEL_NAMES}
+
+
+#: the bench step's launches per step, by the model overrides of each variant
+STEP_LAUNCHES = {
+    "default": want_launches(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12),
+    "fuse_ln_qkv": want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12,
+                                 fused_attention_qkv_bwd=12, ln_qkv_b2=12),
+    "ln_impl=fused": want_launches(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12,
+                                   layer_norm_bwd=25),
+}
+VARIANTS = {"default": {}, "fuse_ln_qkv": dict(fuse_ln_qkv=True), "ln_impl=fused": dict(ln_impl="fused")}
+
+
+def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
+    """The bench's bf16 training step at full width under one variant of
+    its model config, through the port's own entry points
+    (passt_tpu_torch.bench): 2 warm-up and 10 timed steps."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.ops import _build
 
-    model, state, step, batch = bench.setup(dev)
+    model, state, step, batch = bench.setup(dev, **VARIANTS[variant])
     cfg = model.cfg
     check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.num_classes) == (768, 12, 12, 527),
           f"not PaSST-S width: {cfg}")
@@ -458,74 +675,74 @@ def phase_training(gpu: str, dev: torch.device) -> dict:
     launches = dict(_build.LAUNCHES)
 
     n = warmup + steps
-    check(state.step == n, f"step counter {state.step} != {n}")
-    check(bool(torch.isfinite(loss)), f"loss {float(loss)} not finite")
+    check(state.step == n, f"{variant}: step counter {state.step} != {n}")
+    check(bool(torch.isfinite(loss)), f"{variant}: loss {float(loss)} not finite")
     still = {k for k, v in state.params.items() if torch.equal(before[k], v)}
     moved = len(before) - len(still)
     # every leaf in the forward moves; head_dist is in the checkpoint only,
     # so its gradient is 0 and weight decay alone (lr * wd * p, ~1e-12) can
     # only move its bf16 weight by a rare stochastic rounding
-    check(still <= {"head_dist.weight", "head_dist.bias"}, f"parameter leaves that did not move: {sorted(still)}")
-    per_step = {"fused_log_mel": 1, "fused_attention": 0, "fused_attention_qkv": 12,
-                "fused_attention_bwd": 0, "fused_attention_qkv_bwd": 12}
-    want = {k: v * n for k, v in per_step.items()}
-    check(launches == want, f"training launches {launches} != {want} ({n} steps)")
-    say(f"[6] training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} (mixup, bf16 SR AdamW and params): "
-        f"{ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after {warmup}; "
-        f"mean loss {float(loss):.5f}; {moved}/{len(before)} leaves moved; launches {launches} ({gpu})")
+    check(still <= {"head_dist.weight", "head_dist.bias"},
+          f"{variant}: parameter leaves that did not move: {sorted(still)}")
+    want = {k: v * n for k, v in STEP_LAUNCHES[variant].items()}
+    check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
+    phase = "[6]" if variant == "default" else "[8]"
+    say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
+        f"params): {ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after {warmup}; "
+        f"mean loss {float(loss):.5f}; {moved}/{len(before)} leaves moved; launches per step "
+        f"{ {k: v // n for k, v in launches.items() if v} } ({gpu})")
     return launches
 
 
-def phase_train_correctness(dev: torch.device) -> dict:
-    """[7] one fp32 training step at full width with the kernels against the
-    same step on the plain versions: same weights, same seeds, so the same
-    draws."""
+def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
+    """One fp32 training step at full width (B = 2) from seed-0 weights and
+    the bench's seed, recording the gradients and the optimizer's updates;
+    returns the loss, gradients, updates, new parameters and launches."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.models.passt import PaSSTConfig
     from passt_tpu_torch.ops import _build
     from passt_tpu_torch.ops.frontend import MelConfig
     from passt_tpu_torch.train.optim import GradientTransformation
-    from passt_tpu_torch.train.steps import create_train_state, make_optimizer, make_schedule, make_train_step
+    from passt_tpu_torch.train.steps import create_train_state, make_optimizer, make_train_step
+
+    cfg = PaSSTConfig(dtype="float32", **cfg_kwargs)
+    tx = make_optimizer(lr=2e-5, steps_per_epoch=1000)
+    grads, updates = {}, {}
+
+    def update(g, opt_state, params):
+        grads.update(g)  # the step's gradients, on their way to the optimizer
+        u, opt_state = tx.update(g, opt_state, params)
+        updates.update(u)  # and the optimizer's updates, before the apply
+        return u, opt_state
+
+    recorder = GradientTransformation(tx.init, update)
+    model, state = create_train_state(cfg, recorder, torch.Generator().manual_seed(0), device=dev)
+    step = make_train_step(model, recorder,
+                           MelConfig(fmin_aug_range=10, fmax_aug_range=2000, stft_method=stft_method))
+    rng = np.random.default_rng(5)
+    batch = {
+        "wave": torch.from_numpy(rng.standard_normal((2, CLIP)).astype(np.float32) * 0.1).to(dev),
+        "target": torch.from_numpy((rng.uniform(size=(2, 527)) < 0.05).astype(np.float32)).to(dev),
+    }
+    _build.reset_launches()
+    new_state, metrics = step(state, batch, bench.SEED)
+    torch.cuda.synchronize()
+    return dict(loss=float(metrics["loss"]), grads=grads, updates=updates, params=new_state.params,
+                launches=dict(_build.LAUNCHES), n=cfg.seq_len(train=True))
+
+
+def hold_fp32_step(k: dict, p: dict, what: str) -> str:
+    """Hold a kernel step against a plain one (see TOL_STEP_*); returns the
+    summary."""
+    from passt_tpu_torch.train.steps import make_schedule
 
     lr0 = make_schedule(lr=2e-5, steps_per_epoch=1000)(0)  # the rate of this first step
-    runs = {}
-    for name, attn_impl, stft_method in (("kernels", "fused", "auto"), ("plain", "xla", "matmul")):
-        cfg = PaSSTConfig(dtype="float32", s_patchout_t=40, s_patchout_f=4, attn_impl=attn_impl)
-        tx = make_optimizer(lr=2e-5, steps_per_epoch=1000)
-        grads, updates = {}, {}
-
-        def update(g, opt_state, params, tx=tx, grads=grads, updates=updates):
-            grads.update(g)  # the step's gradients, on their way to the optimizer
-            u, opt_state = tx.update(g, opt_state, params)
-            updates.update(u)  # and the optimizer's updates, before the apply
-            return u, opt_state
-
-        recorder = GradientTransformation(tx.init, update)
-        model, state = create_train_state(cfg, recorder, torch.Generator().manual_seed(0), device=dev)
-        step = make_train_step(model, recorder,
-                               MelConfig(fmin_aug_range=10, fmax_aug_range=2000, stft_method=stft_method))
-        rng = np.random.default_rng(5)
-        batch = {
-            "wave": torch.from_numpy(rng.standard_normal((2, CLIP)).astype(np.float32) * 0.1).to(dev),
-            "target": torch.from_numpy((rng.uniform(size=(2, 527)) < 0.05).astype(np.float32)).to(dev),
-        }
-        _build.reset_launches()
-        new_state, metrics = step(state, batch, bench.SEED)
-        torch.cuda.synchronize()
-        runs[name] = dict(loss=float(metrics["loss"]), grads=grads, updates=updates, params=new_state.params,
-                          launches=dict(_build.LAUNCHES))
-
-    k, p = runs["kernels"], runs["plain"]
-    want = {"fused_log_mel": 1, "fused_attention": 12, "fused_attention_qkv": 0,
-            "fused_attention_bwd": 12, "fused_attention_qkv_bwd": 0}
-    check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
-    check(not any(p["launches"].values()), f"plain step launched kernels: {p['launches']}")
+    check(not any(p["launches"].values()), f"{what}: plain step launched kernels: {p['launches']}")
     loss_err = abs(k["loss"] - p["loss"])
-    check(np.isfinite(k["loss"]) and loss_err <= TOL_STEP_LOSS,
-          f"fp32 step loss {k['loss']} vs plain {p['loss']}")
+    check(np.isfinite(k["loss"]) and loss_err <= TOL_STEP_LOSS, f"{what}: loss {k['loss']} vs plain {p['loss']}")
     grad_err = max(max_err(k["grads"][n], g) / max(float(g.abs().max()), 1e-30)
                    for n, g in p["grads"].items() if float(g.abs().max()) > 0)
-    check(grad_err <= TOL_STEP_GRAD, f"fp32 step gradients: max err {grad_err:.3g} of the leaf's max")
+    check(grad_err <= TOL_STEP_GRAD, f"{what}: gradients: max err {grad_err:.3g} of the leaf's max")
     # the updates, relative to this step's lr, where the gradients' sign is
     # sure (see TOL_STEP_UPDATE) and elsewhere; the parameters against them
     upd_sure = upd_rest = param_excess = 0.0
@@ -543,18 +760,77 @@ def phase_train_correctness(dev: torch.device) -> dict:
         ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
         # (1 + 1e-6): the updates' fp32 difference may itself round
         param_excess = max(param_excess, float(((new_k - new_p).abs() - du * lr0 * (1 + 1e-6) - ulp).max()))
-    check(upd_sure <= TOL_STEP_UPDATE, f"fp32 step updates where the gradient's sign is sure: max err "
+    check(upd_sure <= TOL_STEP_UPDATE, f"{what}: updates where the gradient's sign is sure: max err "
           f"{upd_sure:.3g} lr > {TOL_STEP_UPDATE:g} lr")
-    check(upd_rest < 2.0, f"fp32 step updates elsewhere: max err {upd_rest:.3g} lr >= 2 lr")
-    check(param_excess <= 0.0, f"fp32 step parameters differ by {param_excess:.3g} more than their "
+    check(upd_rest < 2.0, f"{what}: updates elsewhere: max err {upd_rest:.3g} lr >= 2 lr")
+    check(param_excess <= 0.0, f"{what}: parameters differ by {param_excess:.3g} more than their "
           f"updates' difference plus one ulp")
-    say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: loss "
-        f"{k['loss']:.6f} vs {p['loss']:.6f} (err {loss_err:.3g}, tol {TOL_STEP_LOSS:g}); gradients "
-        f"{len(p['grads'])} leaves, max err {grad_err:.3g} of the leaf's max (tol {TOL_STEP_GRAD:g}); "
-        f"updates (lr {lr0:.4g}) max err {upd_sure:.3g} lr on the {n_sure}/{n_all} elements whose "
-        f"gradient sign is sure (tol {TOL_STEP_UPDATE:g} lr), {upd_rest:.3g} lr on the rest (tol 2 lr); "
-        f"updated parameters within the updates' difference plus one ulp; launches {k['launches']}")
+    return (f"loss {k['loss']:.6f} vs {p['loss']:.6f} (err {loss_err:.3g}, tol {TOL_STEP_LOSS:g}); gradients "
+            f"{len(p['grads'])} leaves, max err {grad_err:.3g} of the leaf's max (tol {TOL_STEP_GRAD:g}); "
+            f"updates (lr {lr0:.4g}) max err {upd_sure:.3g} lr on the {n_sure}/{n_all} elements whose "
+            f"gradient sign is sure (tol {TOL_STEP_UPDATE:g} lr), {upd_rest:.3g} lr on the rest (tol 2 lr); "
+            f"updated parameters within the updates' difference plus one ulp; launches "
+            f"{ {n: v for n, v in k['launches'].items() if v} }")
+
+
+def phase_train_correctness(dev: torch.device) -> dict:
+    """[7] one fp32 training step at full width with the kernels against the
+    same step on the plain versions: same weights, same seeds, so the same
+    draws."""
+    patchout = dict(s_patchout_t=40, s_patchout_f=4)
+    k = fp32_step(dev, dict(attn_impl="fused", **patchout), "auto")
+    p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
+    want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_bwd=12)
+    check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
+    say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: {hold_fp32_step(k, p, '[7]')}")
     return k["launches"]
+
+
+def phase_variant_correctness(dev: torch.device) -> list:
+    """[9] one fp32 training step at full width (B = 2) under each variant
+    with its kernels against the default config's step on the plain
+    versions, from the same weights and draws; and an fp32 Predictor under
+    fuse_ln_qkv (F1 at N = 14 in its timestamp windows) against the plain
+    default one. fuse_ln_qkv runs at patchout 80/4 (N = 154), where the F1
+    and B2 gate holds in fp32; at N = 474 it does not."""
+    from passt_tpu_torch.hear import Predictor
+    from passt_tpu_torch.ops import _build
+
+    runs = []
+    cases = (("fuse_ln_qkv", dict(s_patchout_t=80, s_patchout_f=4), 154,
+              want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12, fused_attention_qkv_bwd=12,
+                            ln_qkv_b2=12)),
+             ("ln_impl=fused", dict(s_patchout_t=40, s_patchout_f=4), TRAIN_N,
+              want_launches(fused_log_mel=1, fused_attention=12, fused_attention_bwd=12, layer_norm_bwd=25)))
+    for variant, patchout, n, want in cases:
+        k = fp32_step(dev, dict(attn_impl="fused", **patchout, **VARIANTS[variant]), "auto")
+        p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
+        check(k["n"] == n, f"{variant}: sequence {k['n']} != {n}")
+        check(k["launches"] == want, f"[9] {variant} fp32 step launches {k['launches']} != {want}")
+        say(f"[9] fp32 training step PaSST-S B=2 N={n} under {variant}, kernels vs the default config on "
+            f"plain versions: {hold_fp32_step(k, p, f'[9] {variant}')}")
+        runs.append(k["launches"])
+
+    kern = Predictor.create(arch=ARCH, dtype="float32", device=dev, fuse_ln_qkv=True,
+                            generator=torch.Generator().manual_seed(0))
+    plain = Predictor.create(arch=ARCH, dtype="float32", device=dev, attn_impl="xla",
+                             mel_cfg=dataclasses.replace(kern.mel_cfg, stft_method="matmul"))
+    plain.model.load_state_dict(kern.model.state_dict())
+    wave = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 64000)).astype(np.float32) * 0.1).to(dev)
+    _build.reset_launches()
+    ek, tk = kern.timestamp_embeddings(wave)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    ep, tp = plain.timestamp_embeddings(wave)
+    want = want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12)
+    check(launches == want, f"[9] fuse_ln_qkv Predictor launches {launches} != {want}")
+    err = max_err(ek, ep)
+    # fp32 on both sides, as [5]: summation order, carried through 12 blocks
+    check(torch.equal(tk, tp) and err < 5e-3, f"[9] fuse_ln_qkv timestamp embeddings: err {err:.3g}")
+    say(f"[9] fp32 Predictor(fuse_ln_qkv=True) timestamp embeddings [1, 40, 1295] (B=256 windows, N=14) vs the "
+        f"plain default: max err {err:.3g} (tol 5e-3); launches { {k: v for k, v in launches.items() if v} }")
+    runs.append(launches)
+    return runs
 
 
 def main() -> int:
@@ -578,10 +854,13 @@ def main() -> int:
 
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))
+    rec.update(phase_layernorm(gpu, dev))
     runs = [phase_serving(gpu, dev)]
     phase_correctness(dev)
-    runs.append(phase_training(gpu, dev))
+    runs.append(train_steps(gpu, dev, "default"))
     runs.append(phase_train_correctness(dev))
+    runs += [train_steps(gpu, dev, variant) for variant in ("fuse_ln_qkv", "ln_impl=fused")]
+    runs += phase_variant_correctness(dev)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {
@@ -591,7 +870,11 @@ def main() -> int:
         "fused_attention_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu", "passt_tpu/ops/pallas/attention.py:188"),
         "fused_attention_qkv_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu",
                                     "passt_tpu/ops/pallas/attention.py:388"),
+        "layer_norm_bwd": ("passt_tpu_torch/csrc/layernorm_bwd.cu", "passt_tpu/ops/pallas/layernorm.py:58"),
+        "ln_qkv_f1": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:120"),
+        "ln_qkv_b2": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:144"),
     }
+    check(set(sources) == set(KERNEL_NAMES) == set(rec), "every kernel has a source and a record")
     for name in sources:
         check(launches[name] > 0, f"{name} was launched no time on the main paths")
     kernels = [

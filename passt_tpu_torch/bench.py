@@ -1,6 +1,6 @@
 """Training throughput of the port on one CUDA card.
 
-    python3 -m passt_tpu_torch.bench [--steps 20] [--warmup 2]
+    python3 -m passt_tpu_torch.bench [--steps 20] [--warmup 2] [--ln-impl fused | --fuse-ln-qkv]
 
 The workload of the JAX package's root ``bench.py``: PaSST-S (12 x 768, 12
 heads, 527 classes) in bf16 with structured patchout 40/4 (N = 474 tokens),
@@ -13,6 +13,11 @@ The steps are timed with CUDA events around ``--steps`` back-to-back calls
 after ``--warmup`` calls, so the time includes whatever the card waits on
 the host. Prints one JSON line: specs/s, ms/step, ``"platform": "cuda"``
 and the card's name (``device_kind``). There is no TPU baseline to divide by.
+
+``--ln-impl fused`` and ``--fuse-ln-qkv`` are the JAX config's own switches
+(``PaSSTConfig.ln_impl`` / ``fuse_ln_qkv``): the same step with the
+LayerNorm-backward kernel in every norm, or with norm1 fused into the qkv
+projection and attention (the F1 and B2 kernels). The JSON line names them.
 
 ``--profile N`` runs N more steps under ``torch.profiler`` and prints, before
 the JSON line, where their device time goes: per kernel group and per
@@ -38,9 +43,10 @@ CLIP = 320000  # 10 s at 32 kHz
 SEED = 42  # the runs' base seed for the per-step draws
 
 
-def setup(device="cuda"):
-    """The bench configuration: returns (model, state, step, batch)."""
-    cfg = PaSSTConfig(dtype="bfloat16", s_patchout_t=40, s_patchout_f=4)
+def setup(device="cuda", **model_overrides):
+    """The bench configuration, with ``model_overrides`` on its
+    :class:`PaSSTConfig`: returns (model, state, step, batch)."""
+    cfg = PaSSTConfig(**dict(dict(dtype="bfloat16", s_patchout_t=40, s_patchout_f=4), **model_overrides))
     mel_cfg = MelConfig(fmin_aug_range=10, fmax_aug_range=2000)
     tx = make_optimizer(lr=2e-5, steps_per_epoch=1000, moments_dtype="bfloat16_sr")
     model, state = create_train_state(cfg, tx, torch.Generator().manual_seed(0),
@@ -76,6 +82,8 @@ def timed_steps(step, state: TrainState, batch: Dict[str, torch.Tensor], steps: 
 
 #: kernel name patterns -> group, first match wins
 GROUPS = (
+    ("LayerNorm backward kernel", r"layernorm_bwd"),
+    ("ln_qkv kernels (F1, B2)", r"ln_qkv"),
     ("attention backward kernel", r"attention_bwd"),
     ("attention forward kernel", r"attention_fwd"),
     ("mel kernel", r"log_mel|mel_kernel"),
@@ -122,10 +130,15 @@ def main(argv=None) -> int:
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="profile N more steps and print where their device time goes")
+    parser.add_argument("--ln-impl", choices=("auto", "fused"), default="auto",
+                        help="the block and final LayerNorms: 'fused' takes the LayerNorm-backward kernel")
+    parser.add_argument("--fuse-ln-qkv", action="store_true",
+                        help="fuse norm1 into the qkv projection and attention (the F1 and B2 kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("passt_tpu_torch.bench: no CUDA device; the bench runs on the card only")
-    _, state, step, batch = setup("cuda")
+    overrides = dict(ln_impl=args.ln_impl, fuse_ln_qkv=args.fuse_ln_qkv)
+    _, state, step, batch = setup("cuda", **overrides)
     state, ms, loss = timed_steps(step, state, batch, args.steps, args.warmup)
     if args.profile:
         state, report = profile_steps(step, state, batch, args.profile)
@@ -137,6 +150,7 @@ def main(argv=None) -> int:
         "ms_per_step": ms,
         "loss": float(loss),
         "steps": args.steps,
+        "model_overrides": overrides,
         "platform": "cuda",
         "device_kind": torch.cuda.get_device_name(0),
     }))

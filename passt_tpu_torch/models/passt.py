@@ -29,8 +29,22 @@ stream of the JAX package (``generators={"patchout", "dropout",
 backward's rule (``backward=train``) and leaves the kernels when attention
 dropout is on.
 
-The ``blocks_impl`` "scan"/"stacked", ``ln_impl="fused"``, ``fuse_ln_qkv``
-and ``remat`` variants are not ported; they raise when set.
+The two LayerNorm variants of the JAX package are here:
+
+- ``ln_impl="fused"``: the block norms and the final norm are
+  :class:`FusedLayerNorm`, whose backward is the Hopper LayerNorm-backward
+  kernel (``ops/layernorm.py``);
+- ``fuse_ln_qkv=True`` (with the fused attention): norm1 is absorbed into
+  the attention boundary (``ops/ln_qkv.py``: the LN -> qkv kernel F1 and the
+  dqkv W -> LN-backward kernel B2 around the attention kernels) wherever
+  the JAX package's gate holds; elsewhere norm1 runs inline in the JAX
+  rounding order and attention takes its usual entry. Under
+  ``attn_impl="auto"`` without a card (the "xla" attention) the block runs
+  unfused, as in the JAX package.
+
+Both keep the parameters where the module path has them (``norm1.weight``,
+``norm1.bias``, ...), so state dicts are unchanged. The ``blocks_impl``
+"scan"/"stacked" and ``remat`` variants are not ported; they raise when set.
 """
 
 from __future__ import annotations
@@ -49,6 +63,8 @@ from passt_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_qkv,
 )
+from passt_tpu_torch.ops.layernorm import layer_norm
+from passt_tpu_torch.ops.ln_qkv import fused_ln_qkv_attention, ln_qkv_supports, ln_stats
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -80,7 +96,8 @@ class PaSSTConfig:
     dtype: str = "float32"  # compute dtype
     gelu: str = "auto"  # "erf", "tanh", or "auto": erf under fp32, tanh under bf16
     gelu_saved_deriv: bool = True  # tanh GELU: the backward multiplies by the saved derivative
-    ln_impl: str = "auto"  # "auto"/"xla"; "fused" waits for the layernorm kernel
+    ln_impl: str = "auto"  # "auto"/"xla": flax-order LayerNorm; "fused": the
+    # LayerNorm-backward kernel (FusedLayerNorm)
     remat: bool = False  # not ported
     softmax_fp32: bool = True  # "xla" attention: fp32 softmax
     patch_embed_impl: str = "unfold"  # "unfold" or "conv": the same function here
@@ -88,7 +105,8 @@ class PaSSTConfig:
     # CPU tensors); "xla": the einsum composition; "auto": fused where CUDA is
     plus1_attn: bool = False
     verbose_shapes: bool = False
-    fuse_ln_qkv: bool = False  # waits for the port of ln_qkv.py
+    fuse_ln_qkv: bool = False  # norm1 absorbed into the attention boundary
+    # (ops/ln_qkv.py); needs the fused attention and ln_impl != "fused"
     blocks_impl: str = "loop"  # "scan"/"stacked" wait for a later slice
 
     @property
@@ -119,6 +137,16 @@ class PaSSTConfig:
         return self.attn_impl == "fused"
 
     @property
+    def use_fused_ln(self) -> bool:
+        """Resolve ``ln_impl``; "auto" is the flax-order LayerNorm, as in
+        the JAX package."""
+        if self.ln_impl == "auto":
+            return False
+        if self.ln_impl not in ("fused", "xla"):
+            raise ValueError(f"ln_impl must be 'auto'|'fused'|'xla', got {self.ln_impl!r}")
+        return self.ln_impl == "fused"
+
+    @property
     def gelu_approximate(self) -> bool:
         if self.gelu == "auto":
             return self.compute_dtype == torch.bfloat16
@@ -142,12 +170,16 @@ def _check_supported(cfg: PaSSTConfig) -> None:
         raise NotImplementedError(
             f"blocks_impl={cfg.blocks_impl!r} is not ported yet (ROADMAP.md); use 'loop'"
         )
-    if cfg.ln_impl not in ("auto", "xla"):
-        raise NotImplementedError(
-            f"ln_impl={cfg.ln_impl!r} is not ported yet (ROADMAP.md: layernorm kernel)"
-        )
     if cfg.fuse_ln_qkv:
-        raise NotImplementedError("fuse_ln_qkv is not ported yet (ROADMAP.md: ln_qkv kernels)")
+        # the JAX package's contradictory combinations, with its messages
+        if cfg.use_fused_ln:
+            raise NotImplementedError(
+                "fuse_ln_qkv absorbs norm1 into the attention boundary and cannot combine with ln_impl='fused'"
+            )
+        if cfg.attn_impl == "xla":
+            raise NotImplementedError(
+                "fuse_ln_qkv requires the fused attention kernel; attn_impl='xla' contradicts it"
+            )
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP.md: off-path variants)")
     if cfg.patch_embed_impl not in ("unfold", "conv"):
@@ -180,6 +212,30 @@ class LayerNorm(nn.LayerNorm):
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean) * mul + self.bias
+
+
+class FusedLayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with the JAX ``FusedLayerNorm`` numerics: fp32
+    compute and output, fast variance clamped at 0, ``((xf - mu) * rstd) *
+    weight + bias``; its backward is the Hopper kernel
+    (``ops/layernorm.py``). The same ``weight``/``bias`` as
+    :class:`LayerNorm`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def _ln(fused: bool, dim: int, eps: float = 1e-6) -> nn.LayerNorm:
+    """The LayerNorm implementation (the same parameters either way)."""
+    return (FusedLayerNorm if fused else LayerNorm)(dim, eps=eps)
+
+
+def _inline_ln(x: torch.Tensor, ln: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """norm1 applied inside the attention where the fused path does not
+    fit: the JAX order ``((xf - mu) * rstd) * s + b``, cast to x's dtype."""
+    xf = x.float()
+    mu, rstd = ln_stats(xf, 1e-6)
+    return ((xf - mu) * rstd * ln[0] + ln[1]).to(x.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -269,15 +325,28 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """``ln=(scale, bias)``: x arrives before norm1, which is fused into
+        the qkv projection and attention (``fused_ln_qkv_attention``) where
+        the JAX gate holds, else applied inline."""
         b, n, c = x.shape
         heads = self.num_heads
         head_dim = c // heads
         scale = head_dim ** -0.5
         drop_gen = (generators or {}).get("dropout")
         proj_drop = self.proj_drop if train else 0.0
+        fused_ok = self.fused and not (train and self.attn_drop > 0.0)
+        if ln is not None:
+            if fused_ok and ln_qkv_supports(n, heads, head_dim, backward=train,
+                                            itemsize=x.element_size(), batch=b):
+                qkv_bias = self.qkv.bias if self.qkv.bias is not None else x.new_zeros(3 * c)
+                out = fused_ln_qkv_attention(x, ln[0], ln[1], self.qkv.weight, qkv_bias, heads=heads,
+                                             head_dim=head_dim, scale=scale, plus1=self.plus1)
+                return dropout(self.proj(out), proj_drop, drop_gen)
+            x = _inline_ln(x, ln)
         qkv = self.qkv(x)
-        if self.fused and not (train and self.attn_drop > 0.0):
+        if fused_ok:
             if flat_kernel_supports(n, heads, head_dim, backward=train,
                                     itemsize=x.element_size(), batch=b):
                 out = fused_attention_qkv(qkv, heads=heads, head_dim=head_dim,
@@ -333,11 +402,13 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.embed_dim
         self.drop_path_rate = drop_path_rate
-        self.norm1 = LayerNorm(d, eps=1e-6)
+        # norm1 inside the attention boundary, as the JAX package decides it
+        self.ln_in_attn = cfg.fuse_ln_qkv and cfg.use_fused_attn and not cfg.use_fused_ln
+        self.norm1 = _ln(cfg.use_fused_ln, d)
         self.attn = Attention(d, cfg.num_heads, cfg.qkv_bias, cfg.softmax_fp32,
                               cfg.plus1_attn, cfg.use_fused_attn,
                               attn_drop=cfg.attn_drop_rate, proj_drop=cfg.drop_rate)
-        self.norm2 = LayerNorm(d, eps=1e-6)
+        self.norm2 = _ln(cfg.use_fused_ln, d)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), cfg.gelu_approximate, cfg.gelu_saved_deriv,
                        drop=cfg.drop_rate)
 
@@ -347,7 +418,11 @@ class Block(nn.Module):
                 return drop_path(h, self.drop_path_rate, _stream(generators or {}, "droppath"))
             return h
 
-        x = x + branch(self.attn(self.norm1(x).to(x.dtype), train, generators))
+        if self.ln_in_attn:
+            h = self.attn(x, train, generators, ln=(self.norm1.weight, self.norm1.bias))
+        else:
+            h = self.attn(self.norm1(x).to(x.dtype), train, generators)
+        x = x + branch(h)
         return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators))
 
 
@@ -370,7 +445,7 @@ class PaSST(nn.Module):
         # the stochastic-depth decay rule: rates rise linearly over the blocks
         dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(Block(cfg, float(dpr[i])) for i in range(cfg.depth))
-        self.norm = LayerNorm(d, eps=1e-6)
+        self.norm = _ln(cfg.use_fused_ln, d)
         self.head = nn.Sequential(LayerNorm(d, eps=1e-5), Linear(d, cfg.num_classes))
         # in checkpoints, unused by the reference forward
         self.head_dist = Linear(d, cfg.num_classes) if cfg.distilled else None

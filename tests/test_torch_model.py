@@ -147,10 +147,88 @@ def test_config_matches_jax_and_unported_options_raise():
     assert cfg.gelu_approximate and not PaSSTConfig().gelu_approximate
     assert not PaSSTConfig(attn_impl="xla").use_fused_attn
     assert PaSSTConfig(attn_impl="fused").use_fused_attn
-    for bad in (dict(blocks_impl="scan"), dict(blocks_impl="stacked"), dict(ln_impl="fused"),
-                dict(fuse_ln_qkv=True), dict(remat=True)):
+    for bad in (dict(blocks_impl="scan"), dict(blocks_impl="stacked"), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PaSST(PaSSTConfig(**dict(TINY, **bad)))
     # training draws from named generators; a missing one raises
     with pytest.raises(ValueError, match="patchout"):
         PaSST(PaSSTConfig(**dict(TINY, s_patchout_t=2)))(torch.zeros(1, 1, 128, 98), train=True)
+
+
+def test_contradictory_ln_configs_raise_as_in_jax():
+    """fuse_ln_qkv with ln_impl="fused" or attn_impl="xla" raises in both
+    packages, with the same keywords; the variants alone build."""
+    from passt_tpu.models.passt import PaSSTConfig as JaxCfg
+
+    for bad, word in ((dict(ln_impl="fused"), "ln_impl"), (dict(attn_impl="xla"), "attn_impl")):
+        with pytest.raises(NotImplementedError, match=word):
+            JaxCfg(fuse_ln_qkv=True, **bad).use_scan_blocks
+        with pytest.raises(NotImplementedError, match=word):
+            PaSST(PaSSTConfig(**dict(TINY, fuse_ln_qkv=True, **bad)))
+    with pytest.raises(ValueError, match="ln_impl"):
+        PaSST(PaSSTConfig(**dict(TINY, ln_impl="pallas")))
+    for ok in (dict(fuse_ln_qkv=True), dict(ln_impl="fused"), dict(ln_impl="xla")):
+        PaSST(PaSSTConfig(**dict(TINY, **ok)))
+
+
+LN_VARIANTS = {"fuse_ln_qkv": dict(fuse_ln_qkv=True), "ln_fused": dict(ln_impl="fused")}
+
+
+def count_fused_calls(monkeypatch):
+    """Count the model's calls of the fused norm1 + qkv + attention and of
+    the kernel-backed LayerNorm (CPU tensors launch no kernel to count)."""
+    import passt_tpu_torch.models.passt as passt_mod
+
+    calls = {"ln_qkv": 0, "layer_norm": 0}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    monkeypatch.setattr(passt_mod, "fused_ln_qkv_attention", wrap("ln_qkv", passt_mod.fused_ln_qkv_attention))
+    monkeypatch.setattr(passt_mod, "layer_norm", wrap("layer_norm", passt_mod.layer_norm))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", sorted(LN_VARIANTS))
+def test_ln_variants_match_jax(monkeypatch, variant, dtype):
+    """Eval logits and features under fuse_ln_qkv / ln_impl="fused" (fused
+    attention) vs the JAX model with the same switches, whose Pallas kernels
+    run in interpret mode, from bridged params; the port takes the fused
+    path in every block (fuse_ln_qkv: the gate holds at N = 110) or the
+    kernel-backed LayerNorm in all 2 x depth + 1 norms. Bounds as
+    test_tiny_passt_matches_jax (fp32 2e-4, bf16 2e-2)."""
+    kwargs = dict(TINY, dtype=dtype, attn_impl="fused", **LN_VARIANTS[variant])
+    jmodel, params = _jax_params(JaxConfig(**kwargs))
+    x = np.random.default_rng(11).standard_normal((2, 1, 128, 98)).astype(np.float32)
+    jl, jf = jmodel.apply({"params": params}, jnp.asarray(x), train=False)
+    calls = count_fused_calls(monkeypatch)
+    with torch.inference_mode():
+        logits, features = _port(kwargs, params)(torch.from_numpy(x))
+    depth = TINY["depth"]
+    want = {"ln_qkv": depth, "layer_norm": 0} if variant == "fuse_ln_qkv" else {"ln_qkv": 0, "layer_norm": 2 * depth + 1}
+    assert calls == want
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=MODEL_TOL[dtype], rtol=0)
+    np.testing.assert_allclose(features.numpy(), np.asarray(jf), atol=MODEL_TOL[dtype], rtol=0)
+
+
+def test_fuse_ln_qkv_outside_the_gate_runs_inline_norm1(monkeypatch):
+    """Where the gate fails (fp32 eval at the full-geometry N = 1190) the
+    block applies norm1 inline in the JAX order and takes the [B, N, H, D]
+    entry: the logits equal the module path's (fp32, 2e-5 as the JAX
+    package's own test) and the fused path is never called."""
+    fix = np.load(os.path.join(FIXDIR, "model_fullgeom.npz"))
+    sd = {k[3:]: torch.from_numpy(fix[k]) for k in fix.files if k.startswith("sd.")}
+    x = torch.from_numpy(fix["x"])
+    calls = count_fused_calls(monkeypatch)
+    outs = []
+    for extra in ({}, dict(fuse_ln_qkv=True)):
+        model = PaSST(PaSSTConfig(embed_dim=128, depth=3, num_heads=2, attn_impl="fused", **extra))
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            outs.append(model.eval()(x)[0])
+    assert calls["ln_qkv"] == 0
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), atol=2e-5, rtol=0)

@@ -153,6 +153,32 @@ def test_train_mode_passt_matches_jax(injected_draws, dtype, attn_impl):
     np.testing.assert_allclose(features.detach().numpy(), np.asarray(jf), atol=tol, rtol=0)
 
 
+LN_VARIANTS = {"fuse_ln_qkv": dict(fuse_ln_qkv=True), "ln_fused": dict(ln_impl="fused")}
+
+
+@pytest.mark.parametrize("variant", sorted(LN_VARIANTS))
+def test_train_mode_ln_variants_match_jax(injected_draws, monkeypatch, variant):
+    """The train-mode forward under fuse_ln_qkv / ln_impl="fused" (fused
+    attention, fp32, patchout indices injected) vs the JAX model with the
+    same switches, its Pallas kernels in interpret mode. The fused norm1
+    path takes the backward's gate (N = 58 fits). fp32 2e-4 as above."""
+    kw = dict(TINY, dtype="float32", s_patchout_t=3, s_patchout_f=2, u_patchout=5, attn_impl="fused",
+              **LN_VARIANTS[variant])
+    jmodel, params = _jax_params(JaxConfig(**kw))
+    x = np.random.default_rng(33).standard_normal((2, 1, 128, 98)).astype(np.float32)
+    jl, jf = jmodel.apply({"params": params}, jnp.asarray(x), train=True,
+                          rngs={"patchout": jax.random.PRNGKey(0)})
+    model = PaSST(PaSSTConfig(**kw))
+    model.load_state_dict(state_dict_from_flax(params))
+    fused = passt_mod.fused_ln_qkv_attention
+    calls = []
+    monkeypatch.setattr(passt_mod, "fused_ln_qkv_attention", lambda *a, **k: calls.append(1) or fused(*a, **k))
+    logits, features = model(torch.from_numpy(x), train=True, generators={"patchout": torch.Generator()})
+    assert len(calls) == (TINY["depth"] if variant == "fuse_ln_qkv" else 0)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jl), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(features.detach().numpy(), np.asarray(jf), atol=2e-4, rtol=0)
+
+
 def test_train_time_offset_crops_the_time_embedding():
     """A clip shorter than the time grid takes a window of the time
     embedding at a random offset: the same as eval (a prefix) on a model
@@ -389,6 +415,23 @@ def test_fp32_train_step_matches_jax(injected_draws, monkeypatch):
     their backward); parameters 2e-5, 7% of this step's lr (2.9e-4): an
     AdamW step is lr g / (|g| + eps), which for |g| near eps = 1e-8 turns
     the gradient's last digits into a visible share of lr."""
+    _fp32_step_vs_jax(monkeypatch, dict(attn_impl="xla"), dict(attn_impl="fused"))
+
+
+@pytest.mark.parametrize("variant", sorted(LN_VARIANTS))
+def test_fp32_train_step_ln_variants_match_jax(injected_draws, monkeypatch, variant):
+    """The same whole fp32 step under fuse_ln_qkv / ln_impl="fused": the
+    port (fused attention, the kernels' plain versions here) against the
+    JAX step with the same switches, whose Pallas kernels (F1, B2 and the
+    flat attention kernels, or the LayerNorm backward) run in interpret
+    mode. The same bounds as the default step."""
+    extra = LN_VARIANTS[variant]
+    jax_kw = dict(attn_impl="fused" if variant == "fuse_ln_qkv" else "xla", **extra)
+    _fp32_step_vs_jax(monkeypatch, jax_kw, dict(attn_impl="fused", **extra))
+
+
+def _fp32_step_vs_jax(monkeypatch, jax_kw, port_kw):
+    """One fp32 step on both sides (see test_fp32_train_step_matches_jax)."""
     perm, lam = np.array([2, 0, 1]), np.array([0.7, 0.55, 0.9], np.float32)
     monkeypatch.setattr(jax_steps_mod, "sample_mixup", lambda key, b, a: (jnp.asarray(perm), jnp.asarray(lam)))
     monkeypatch.setattr(steps_mod, "sample_mixup", lambda gen, b, a: (torch.from_numpy(perm), torch.from_numpy(lam)))
@@ -396,7 +439,7 @@ def test_fp32_train_step_matches_jax(injected_draws, monkeypatch):
     mel_kw = dict(FIXED_RANGE, freqm=16, timem=20)
     opt_kw = dict(lr=1e-3, steps_per_epoch=1, warm_up_len=1)
 
-    jcfg = JaxConfig(**kw, attn_impl="xla")
+    jcfg = JaxConfig(**kw, **jax_kw)
     jtx = jax_steps_mod.make_optimizer(**opt_kw)
     jmodel, jstate = jax_steps_mod.create_train_state(jcfg, jtx, jax.random.PRNGKey(1))
     jstep = jax_steps_mod.make_train_step(jmodel, jtx, JaxMelConfig(**mel_kw), donate=False)
@@ -406,7 +449,7 @@ def test_fp32_train_step_matches_jax(injected_draws, monkeypatch):
     jnew, jmetrics = jstep(jstate, {"wave": jnp.asarray(wave), "target": jnp.asarray(target)},
                            jax.random.PRNGKey(5))
 
-    model = PaSST(PaSSTConfig(**kw, attn_impl="fused"))
+    model = PaSST(PaSSTConfig(**kw, **port_kw))
     ttx = make_optimizer(**opt_kw)
     params = state_dict_from_flax(jax.tree.map(np.asarray, jstate.params))
     assert set(params) == {k for k, _ in model.named_parameters()}
