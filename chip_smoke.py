@@ -37,15 +37,31 @@ Phases (each prints one line or more; the first failure exits non-zero):
    against the default config's step on the plain versions, under phase
    7's tolerances (``fuse_ln_qkv`` at patchout 80/4, N = 154, where its
    fp32 gate holds), and an fp32 ``Predictor(fuse_ln_qkv=True)``'s
-   timestamp embeddings (F1 at N = 14) against the plain default one.
+   timestamp embeddings (F1 at N = 14) against the plain default one;
+10. the int8 PaSST-S MLP (``python3 -m passt_tpu_torch.tools.ab_int8_mlp``:
+   fc1 768 -> 3072 with the fused GELU, fc2 3072 -> 768) against the bf16
+   MLP at M = 5688 and 14280, forward and forward + backward, with exact
+   launch counts and each int8 layer's quantization error within
+   0.02 mean|exact| + 1e-3;
+11. the int8 / bf16 matmul micro-benchmark (``python3 -m
+   passt_tpu_torch.tools.int8_matmul_micro``) at the model's matmul shapes
+   and 8192^3, its JSON block printed.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
-plain versions and times them at the training step's shapes.
+plain versions and times them at the training step's shapes. Phase 3d holds
+the int8 GEMM kernel's three epilogues (int8_dense, int8_dense_gelu,
+int8_matmul) against their plain versions (int32 outputs bit-equal) at the
+int8 MLP's shapes (M = 5688 and 14280), ragged shapes and the
+micro-benchmark's four shapes, and times them beside ``torch._int_mm`` and
+the bf16 cuBLAS GEMM.
 
-Launch counts: each main-path run (phases 4, 6, 8 and the kernel sides of 7
-and 9) starts with every count at 0 and reads the counts right after; the
-``launches`` of the kernels' record sum those runs. The comparisons of
-phases 3, 3b and 3c are outside them.
+Launch counts: each main-path run (phases 4, 6, 8, 10, 11 and the kernel
+sides of 7 and 9) starts with every count at 0 and reads the counts right
+after; the ``launches`` of the kernels' record (eleven entries) sum those
+runs. The comparisons of phases 3, 3b, 3c and 3d are outside them. A count
+is of wrapper calls: phase 11 times with CUDA-graph replays, so its
+int8_matmul count includes the calls captured into the graphs, and the
+replays run the kernel more times than that without the wrapper.
 
 fp32 is compared with TF32 off: ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False for the whole run.
@@ -61,7 +77,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -70,6 +85,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms  # noqa: E402
 
 ARCH = "passt_s_swa_p16_128_ap476"
 CLIP = 320000  # 10 s at 32 kHz
@@ -97,8 +114,16 @@ TOL_LN_SUMS = 1e-4
 # keeps ~1e-6 of summation order, amplified by the LayerNorm backward's
 # cancellation in dx
 TOL_QKV = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-9}
+# int8 GEMM kernel vs plain, max error relative to max|ref|: the dense and
+# GELU epilogues repeat the plain version's fp32 roundings on the same exact
+# int32 sums, so they differ at most where tanh does (fp32: an ulp), and in
+# bf16 an fp32 ulp may flip the rounding; the bf16 product sums over K in
+# another order than cuBLAS's fp32 product, so a value may round the other
+# way: in bf16 one ulp of the largest value. int32 (and int32 -> bf16) must
+# be bit-equal.
+TOL_INT8 = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 # peak rates of one H100 SXM (dense, 700 W) for the bounds
-PEAK_BF16, PEAK_FP32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+PEAK_BF16, PEAK_INT8, PEAK_FP32, HBM_BYTES_PER_S = 989e12, 1979e12, 67e12, 3.35e12
 TRAIN_B, TRAIN_N = 12, 474  # the bench step: (12 - 4) x (99 - 40) + 2 tokens
 # fp32 training step, kernels vs plain (phase 7): the loss and each leaf's
 # gradient (max error over the leaf's max |g|) move only by summation order,
@@ -114,54 +139,6 @@ TOL_STEP_LOSS, TOL_STEP_GRAD, TOL_STEP_UPDATE = 1e-4, 1e-3, 0.05
 
 def say(line: str) -> None:
     print(line, flush=True)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
-    graph and replayed: the host's dispatch time drops out, which matters
-    for calls shorter than their own launch overhead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -546,6 +523,117 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
     return rec
 
 
+def phase_int8(gpu: str, dev: torch.device) -> dict:
+    """[3d] the int8 GEMM kernel's three epilogues against their plain
+    versions, then their times at the int8 MLP's and the micro-benchmark's
+    shapes."""
+    from passt_tpu_torch.ops.int8 import (
+        int8_dense_forward,
+        int8_dense_plain,
+        int8_matmul,
+        int8_matmul_plain,
+        quantize_rows,
+        quantized_dense,
+        quantized_dense_plain,
+    )
+    from passt_tpu_torch.tools.int8_matmul_micro import SHAPES
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    m0 = TRAIN_B * TRAIN_N
+    worst = {"int8_dense": 0.0, "int8_dense_gelu": 0.0, "int8_matmul": 0.0}  # absolute
+
+    def hold(name, what, got, ref, tol):
+        check(got.dtype == ref.dtype and got.shape == ref.shape and bool(torch.isfinite(got.float()).all()),
+              f"{name} {what}: dtype/shape/finite")
+        if tol == 0:
+            check(torch.equal(got, ref), f"{name} {what}: not bit-equal (max err {max_err(got, ref):.3g})")
+        else:
+            check(rel_err(got, ref) <= tol, f"{name} {what}: max err {rel_err(got, ref):.3g} of max|ref| > {tol:.3g}")
+        worst[name] = max(worst[name], max_err(got, ref))
+
+    # the dense epilogues: fc1 (GELU) and fc2 of the int8 MLP at the training
+    # token count (bf16 and fp32) and the eval count (bf16, as phase [10]
+    # runs it: 14280 = 111 x 128 + 72 rows), ragged M, K and N; a zero row of
+    # x and a zero weight column
+    m_eval = TRAIN_B * 1190
+    exact = []
+    for m, k, n, dtypes in ((m0, 768, 3072, (torch.bfloat16, torch.float32)),
+                            (m0, 3072, 768, (torch.bfloat16, torch.float32)),
+                            (m_eval, 768, 3072, (torch.bfloat16,)), (m_eval, 3072, 768, (torch.bfloat16,)),
+                            (130, 40, 96, (torch.bfloat16, torch.float32)),
+                            (130, 64, 96, (torch.bfloat16, torch.float32))):
+        for dtype in dtypes:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(dtype)
+            b = torch.randn(n, generator=gen, device=dev) * 0.01
+            x[3], w[:, 5] = 0, 0
+            for gelu in ((True, False) if k != 3072 else (False,)):
+                got, ref = int8_dense_forward(x, w, b, gelu), int8_dense_plain(x, w, b, gelu)
+                torch.cuda.synchronize()
+                what = f"{str(dtype)[6:]} {m}x{k}->{n}"
+                if gelu:
+                    hold("int8_dense_gelu", f"h {what}", got[0], ref[0], TOL_INT8[dtype])
+                    hold("int8_dense_gelu", f"d {what}", got[1], ref[1], TOL_INT8[dtype])
+                    exact.append(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+                else:
+                    hold("int8_dense", what, got, ref, TOL_INT8[dtype])
+                    exact.append(torch.equal(got, ref))
+    # the RAW epilogue: the micro-benchmark's four shapes and a ragged one;
+    # rows and columns of 127s push the int32 sums past 2**24
+    for m, k, n in (*SHAPES.values(), (130, 40, 96)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        a[0], bt[0] = 127, 127
+        for out in (torch.int32, torch.bfloat16):
+            hold("int8_matmul", f"int8 -> {str(out)[6:]} {m}x{k}x{n}", int8_matmul(a, bt.t(), out),
+                 int8_matmul_plain(a, bt.t(), out), 0)
+        af = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        bf = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+        hold("int8_matmul", f"bf16 {m}x{k}x{n}", int8_matmul(af, bf.t(), torch.bfloat16),
+             int8_matmul_plain(af, bf.t(), torch.bfloat16), TOL_INT8[torch.bfloat16])
+    say(f"[3d] int8 GEMM vs plain: dense/GELU (bf16, fp32; {m0}x768->3072, {m0}x3072->768, 130x40/64->96; bf16 "
+        f"{m_eval}x768->3072, {m_eval}x3072->768; a zero row and column) max err {worst['int8_dense']:.3g} / {worst['int8_dense_gelu']:.3g}, bit-equal in "
+        f"{sum(exact)}/{len(exact)} cases; int8 -> int32 and -> bf16 bit-equal at {', '.join(SHAPES)} and "
+        f"130x40x96; bf16 -> bf16 within {TOL_INT8[torch.bfloat16]:g} of max|ref|")
+
+    rec = {}
+    # the dense epilogues on quantized operands (the kernel's function), bf16
+    # out; CUDA-graph replays, the events time beside them
+    for name, k, n, gelu in (("int8_dense_gelu", 768, 3072, True), ("int8_dense", 3072, 768, False)):
+        x = torch.randn((m0, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        b = torch.zeros(n, device=dev)
+        qx, sx = quantize_rows(x)
+        qwt, sw = quantize_rows(w.t())
+        qwt = qwt.contiguous()
+        kern = lambda: quantized_dense(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16, gelu=gelu)
+        plain = lambda: quantized_dense_plain(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16, gelu=gelu)
+        # qx, qwt read; sx, sw, b read in fp32; y (or h and d) written in bf16
+        nbytes = m0 * k + n * k + 4 * (m0 + 2 * n) + (2 if gelu else 1) * m0 * n * 2
+        t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None,
+                 **bound(2 * m0 * k * n, nbytes, PEAK_INT8))
+        events, int_mm = cuda_ms(kern), graph_ms(lambda: torch._int_mm(qx, qwt.t()))
+        bf16_mm = graph_ms(lambda: torch.matmul(x, w))
+        say(f"[3d] {name} bf16 {m0}x{k}->{n}: kernel {t['ms']:.4f} ms (graph; {events:.4f} ms under events), "
+            f"plain {t['plain_ms']:.4f} ms, no single library call (the bare torch._int_mm product {int_mm:.4f} ms, "
+            f"the bf16 cuBLAS GEMM {bf16_mm:.4f} ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
+        rec[name] = dict(max_abs_err=worst[name], **t)
+
+    # the RAW epilogue at 8192^3, int8 -> int32, beside torch._int_mm
+    m, k, n = SHAPES["square_8192"]
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    bt = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    t = dict(ms=cuda_ms(lambda: int8_matmul(a, bt.t(), torch.int32), reps=5),
+             plain_ms=cuda_ms(lambda: int8_matmul_plain(a, bt.t(), torch.int32), reps=5),
+             library_ms=cuda_ms(lambda: torch._int_mm(a, bt.t()), reps=5),
+             **bound(2 * m * k * n, m * k + n * k + 4 * m * n, PEAK_INT8))
+    say(f"[3d] int8_matmul int8 -> int32 {m}x{k}x{n}: kernel {t['ms']:.4f} ms = {2 * m * k * n / t['ms'] / 1e9:.1f} TOP/s, "
+        f"plain (float64) {t['plain_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+        f"ms ({t['bound_by']}) ({gpu})")
+    rec["int8_matmul"] = dict(max_abs_err=worst["int8_matmul"], **t)
+    return rec
+
+
 def phase_serving(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.ops import _build
@@ -636,7 +724,8 @@ def phase_correctness(dev: torch.device) -> None:
 
 #: every kernel wrapper's count; a main path's want lists the ones it launches
 KERNEL_NAMES = ("fused_log_mel", "fused_attention", "fused_attention_qkv", "fused_attention_bwd",
-                "fused_attention_qkv_bwd", "layer_norm_bwd", "ln_qkv_f1", "ln_qkv_b2")
+                "fused_attention_qkv_bwd", "layer_norm_bwd", "ln_qkv_f1", "ln_qkv_b2", "int8_dense",
+                "int8_dense_gelu", "int8_matmul")
 
 
 def want_launches(**counts) -> dict:
@@ -833,6 +922,52 @@ def phase_variant_correctness(dev: torch.device) -> list:
     return runs
 
 
+def phase_int8_mlp(gpu: str, dev: torch.device) -> dict:
+    """[10] the int8 PaSST-S MLP against the bf16 one (tools/ab_int8_mlp) at
+    M = 5688 and 14280, with exact launch counts and each int8 layer's
+    quantization error within tests/test_int8_dense.py's limit."""
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.tools import ab_int8_mlp
+
+    _build.reset_launches()
+    results = ab_int8_mlp.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check([r["M"] for r in results] == [TRAIN_B * TRAIN_N, TRAIN_B * 1190], "[10] token counts")
+    n = sum(r["int8_forwards"] for r in results)
+    want = want_launches(int8_dense=n, int8_dense_gelu=n)
+    check(launches == want, f"[10] launches {launches} != {want}")
+    for r in results:
+        for layer in ("fc1", "fc2"):
+            check(r[f"{layer}_err"] < r[f"{layer}_limit"], f"[10] M={r['M']} {layer}: mean|int8 - exact| "
+                  f"{r[f'{layer}_err']:.4g} >= {r[f'{layer}_limit']:.4g}")
+        check(all(isinstance(r[f"{p}_ms_{t}"], float) for p in ("fwd", "fwdbwd") for t in ("bf16", "int8")),
+              f"[10] M={r['M']}: times")
+    say(f"[10] int8 MLP (int8_dense_gelu -> int8_dense) vs bf16 at M = "
+        f"{', '.join(str(r['M']) for r in results)}: layer errors within 0.02 mean|exact| + 1e-3; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({gpu})")
+    return launches
+
+
+def phase_int8_micro(gpu: str, dev: torch.device) -> dict:
+    """[11] the int8 / bf16 matmul micro-benchmark (tools/int8_matmul_micro)
+    at the model's shapes and 8192^3; it checks the int8 product bit-equal
+    first and prints its JSON."""
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.tools import int8_matmul_micro
+
+    _build.reset_launches()
+    res = int8_matmul_micro.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches["int8_matmul"] > 0 and sum(launches.values()) == launches["int8_matmul"],
+          f"[11] launches {launches}")
+    say(f"[11] int8_matmul micro-benchmark: int8 kernel {res['square_8192_kernel_int8_tops']:.1f} TOP/s at 8192^3 "
+        f"({res['square_8192_int8_vs_best_bf16']:.2f}x the best bf16), torch._int_mm "
+        f"{res['square_8192_torch_int8_tops']:.1f}; {launches['int8_matmul']} launches ({gpu})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -855,24 +990,30 @@ def main() -> int:
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))
     rec.update(phase_layernorm(gpu, dev))
+    rec.update(phase_int8(gpu, dev))
     runs = [phase_serving(gpu, dev)]
     phase_correctness(dev)
     runs.append(train_steps(gpu, dev, "default"))
     runs.append(phase_train_correctness(dev))
     runs += [train_steps(gpu, dev, variant) for variant in ("fuse_ln_qkv", "ln_impl=fused")]
     runs += phase_variant_correctness(dev)
+    runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev)]
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {
         "fused_log_mel": ("passt_tpu_torch/csrc/mel_kernel.cu", "passt_tpu/ops/pallas/mel_kernel.py:65"),
         "fused_attention": ("passt_tpu_torch/csrc/attention_fwd.cu", "passt_tpu/ops/pallas/attention.py:171"),
-        "fused_attention_qkv": ("passt_tpu_torch/csrc/attention_fwd.cu", "passt_tpu/ops/pallas/attention.py:373"),
+        "fused_attention_qkv": ("passt_tpu_torch/csrc/attention_fwd.cu",
+                                "passt_tpu/ops/pallas/attention.py:373, scripts/proto_attn_qkv.py:63"),
         "fused_attention_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu", "passt_tpu/ops/pallas/attention.py:188"),
         "fused_attention_qkv_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu",
-                                    "passt_tpu/ops/pallas/attention.py:388"),
+                                    "passt_tpu/ops/pallas/attention.py:388, scripts/proto_attn_qkv.py:78"),
         "layer_norm_bwd": ("passt_tpu_torch/csrc/layernorm_bwd.cu", "passt_tpu/ops/pallas/layernorm.py:58"),
         "ln_qkv_f1": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:120"),
         "ln_qkv_b2": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:144"),
+        "int8_dense": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:68"),
+        "int8_dense_gelu": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:74"),
+        "int8_matmul": ("passt_tpu_torch/csrc/int8_dense.cu", "scripts/int8_matmul_micro.py:71"),
     }
     check(set(sources) == set(KERNEL_NAMES) == set(rec), "every kernel has a source and a record")
     for name in sources:

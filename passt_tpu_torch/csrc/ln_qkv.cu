@@ -62,6 +62,8 @@ using passt_attn::to_f;
 
 constexpr int THREADS = 256;  // 8 warps in every kernel here
 
+using passt::cp_async16;
+using passt::ldmatrix_x4;
 using passt::load2;
 using passt::store2;
 using passt::warp_sum;
@@ -92,24 +94,11 @@ __device__ __forceinline__ float ln_affine(float x, float mu, float rstd, float 
 
 // ---- F1 on the tensor cores (bf16 / fp16) ------------------------------------
 
-// ldmatrix of four 8x8 b16 matrices; lanes 8q .. 8q + 7 give matrix q's rows.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
     const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(addr));
-}
-
-// Start a cp.async of 16 bytes; src_bytes 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
-    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(src), "r"(src_bytes));
 }
 
 constexpr int F1_BM = 64;      // rows per block

@@ -19,7 +19,6 @@ from __future__ import annotations
 import json
 import re
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -27,29 +26,7 @@ import torch
 
 from passt_tpu_torch.ops import _build
 from passt_tpu_torch.ops import ln_qkv as L
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls replayed from one CUDA
-    graph (the host's dispatch time drops out)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+from passt_tpu_torch.tools.timing import gpu_line, graph_ms
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -73,8 +50,7 @@ def main(argv=None) -> int:
     s, b = rand(c, dtype=torch.float32, scale=0.1, offset=1.0), rand(c, dtype=torch.float32, scale=0.1)
     w, wb = rand(3 * c, c, scale=0.02), rand(3 * c, scale=0.02)
     ref_f1, ref_b2 = L.ln_qkv_f1_plain(x, s, b, w, wb), L.ln_qkv_b2_plain(x, dqkv, w, s, b)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(gpu_line(), flush=True)
 
     csrc = _build.CSRC
     try:
