@@ -45,7 +45,11 @@ Phases (each prints one line or more; the first failure exits non-zero):
    0.02 mean|exact| + 1e-3;
 11. the int8 / bf16 matmul micro-benchmark (``python3 -m
    passt_tpu_torch.tools.int8_matmul_micro``) at the model's matmul shapes
-   and 8192^3, its JSON block printed.
+   and 8192^3, its JSON block printed;
+12. the fused-MLP A/B (``python3 -m passt_tpu_torch.tools.proto_mlp_fused``:
+   the prototype's xla composition, fuse_f, fuse and fuse2) at M = 5688 and
+   14280, with exact launch counts, the variants' errors against xla, and
+   fuse_f's peak memory growth below one [M, 3072] bf16 tensor.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions and times them at the training step's shapes. Phase 3d holds
@@ -53,12 +57,15 @@ the int8 GEMM kernel's three epilogues (int8_dense, int8_dense_gelu,
 int8_matmul) against their plain versions (int32 outputs bit-equal) at the
 int8 MLP's shapes (M = 5688 and 14280), ragged shapes and the
 micro-benchmark's four shapes, and times them beside ``torch._int_mm`` and
-the bf16 cuBLAS GEMM.
+the bf16 cuBLAS GEMM. Phase 3e holds the fused MLP's forward (residuals off
+and on) and backward kernels against their plain versions in bf16 and fp32
+at M = 5688 and 14280 (C = 768, H = 3072) and at ragged M with small C and
+H, and times them beside the bare cuBLAS pair of the same products.
 
-Launch counts: each main-path run (phases 4, 6, 8, 10, 11 and the kernel
-sides of 7 and 9) starts with every count at 0 and reads the counts right
-after; the ``launches`` of the kernels' record (eleven entries) sum those
-runs. The comparisons of phases 3, 3b, 3c and 3d are outside them. A count
+Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12 and the
+kernel sides of 7 and 9) starts with every count at 0 and reads the counts
+right after; the ``launches`` of the kernels' record (thirteen entries) sum
+those runs. The comparisons of phases 3, 3b, 3c, 3d and 3e are outside them. A count
 is of wrapper calls: phase 11 times with CUDA-graph replays, so its
 int8_matmul count includes the calls captured into the graphs, and the
 replays run the kernel more times than that without the wrapper.
@@ -122,6 +129,17 @@ TOL_QKV = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-9}
 # way: in bf16 one ulp of the largest value. int32 (and int32 -> bf16) must
 # be bit-equal.
 TOL_INT8 = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
+# fused MLP kernels vs plain, max error relative to max|ref|: the same fp32
+# roundings in another summation order (and tanhf against torch's tanh, an
+# fp32 ulp), so fp32 to 1e-5; in bf16 such an ulp may flip the rounding of
+# y, g, d or dh: one bf16 ulp of the largest value, 2**-7; dx rounds twice
+# (dh, then its own sum): 2**-6
+TOL_MLP = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+TOL_MLP_DX = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+# [12] the fused variants against the prototype's xla composition, which
+# rounds h to bf16 before the GELU: a few bf16 ulps of y (forward, relative
+# to max|y|) and of each gradient (relative to its max)
+TOL_PROTO_MLP = 2.0**-5
 # peak rates of one H100 SXM (dense, 700 W) for the bounds
 PEAK_BF16, PEAK_INT8, PEAK_FP32, HBM_BYTES_PER_S = 989e12, 1979e12, 67e12, 3.35e12
 TRAIN_B, TRAIN_N = 12, 474  # the bench step: (12 - 4) x (99 - 40) + 2 tokens
@@ -634,6 +652,97 @@ def phase_int8(gpu: str, dev: torch.device) -> dict:
     return rec
 
 
+def phase_fused_mlp(gpu: str, dev: torch.device) -> dict:
+    """[3e] the fused MLP's forward (with and without residuals) and backward
+    kernels against their plain versions, then their times at the A/B's
+    shapes beside the bare cuBLAS pair of products."""
+    from passt_tpu_torch.ops.fused_mlp import (
+        fused_mlp_bwd,
+        fused_mlp_bwd_plain,
+        fused_mlp_fwd,
+        fused_mlp_fwd_plain,
+        row_block,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    m0, m_eval = TRAIN_B * TRAIN_N, TRAIN_B * 1190
+    worst = {"fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}  # of max|ref|
+    worst_abs = dict(worst)
+
+    def hold(name, what, got, ref, tol):
+        check(got.dtype == ref.dtype and got.shape == ref.shape and bool(torch.isfinite(got.float()).all()),
+              f"{name} {what}: dtype/shape/finite")
+        rel = rel_err(got, ref)
+        check(rel <= tol, f"{name} {what}: max err {rel:.3g} of max|ref| > {tol:.3g}")
+        worst[name] = max(worst[name], rel)
+        worst_abs[name] = max(worst_abs[name], max_err(got, ref))
+
+    def randn(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def case(m, c, h, dtype):
+        """x (a zero row), w1, b1, w2, b2 as the A/B draws them, with small
+        non-zero biases."""
+        x = randn((m, c), 1.0, dtype)
+        x[3] = 0
+        return x, randn((c, h), 0.02, dtype), randn((h,), 0.1, dtype), randn((h, c), 0.02, dtype), \
+            randn((c,), 0.1, dtype)
+
+    # the A/B's token counts at PaSST-S width (bf16 and fp32), ragged M with
+    # small C and H; residuals off and on; the backward on each case's d
+    cases = [(m0, 768, 3072, torch.bfloat16), (m0, 768, 3072, torch.float32), (m_eval, 768, 3072, torch.bfloat16),
+             (m_eval, 768, 3072, torch.float32), (130, 64, 256, torch.bfloat16), (130, 64, 256, torch.float32),
+             (77, 192, 128, torch.bfloat16), (77, 192, 128, torch.float32)]
+    for m, c, h, dtype in cases:
+        args = case(m, c, h, dtype)
+        what = f"{str(dtype)[6:]} M={m} C={c} H={h}"
+        ref = fused_mlp_fwd_plain(*args, residuals=True)
+        got = fused_mlp_fwd(*args, residuals=True)
+        y_only = fused_mlp_fwd(*args, residuals=False)
+        torch.cuda.synchronize()
+        for part, g, r in zip(("y", "g", "d"), got, ref):
+            hold("fused_mlp_fwd", f"{part} {what}", g, r, TOL_MLP[dtype])
+        check(torch.equal(y_only, got[0]), f"fused_mlp_fwd {what}: y without residuals != y with them")
+        dy = randn((m, c), 1.0, dtype)
+        got = fused_mlp_bwd(dy, ref[2], args[1], args[3])
+        want = fused_mlp_bwd_plain(dy, ref[2], args[1], args[3])
+        torch.cuda.synchronize()
+        hold("fused_mlp_bwd", f"dx {what}", got[0], want[0], TOL_MLP_DX[dtype])
+        hold("fused_mlp_bwd", f"dh {what}", got[1], want[1], TOL_MLP[dtype])
+    say(f"[3e] fused MLP vs plain (bf16, fp32; M {m0}/{m_eval} at 768/3072, M 130 at 64/256, M 77 at 192/128; "
+        f"a zero row; residuals off and on): forward max err {worst['fused_mlp_fwd']:.3g}, backward "
+        f"{worst['fused_mlp_bwd']:.3g} of max|ref|; y bit-equal with and without residuals")
+
+    rec = {}
+    # times by CUDA-graph replay; beside them the bare cuBLAS pair of the
+    # same products (no single library call computes either function)
+    c, h = 768, 3072
+    for m in (m0, m_eval):
+        x, w1, b1, w2, b2 = case(m, c, h, torch.bfloat16)
+        gh = randn((m, h), 1.0, torch.bfloat16)
+        dy, d = randn((m, c), 1.0, torch.bfloat16), randn((m, h), 1.0, torch.bfloat16)
+        flops, wbytes = 4 * m * c * h, (2 * c * h + h + c) * 2
+        fwd = dict(ms=graph_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2, residuals=False)),
+                   plain_ms=graph_ms(lambda: fused_mlp_fwd_plain(x, w1, b1, w2, b2, residuals=False)),
+                   library_ms=None, **bound(flops, wbytes + 2 * m * c * 2, PEAK_BF16))
+        res_ms = graph_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2, residuals=True))
+        pair_f = graph_ms(lambda: (torch.matmul(x, w1), torch.matmul(gh, w2)))
+        bwd = dict(ms=graph_ms(lambda: fused_mlp_bwd(dy, d, w1, w2)),
+                   plain_ms=graph_ms(lambda: fused_mlp_bwd_plain(dy, d, w1, w2)),
+                   library_ms=None, **bound(flops, 2 * c * h * 2 + 2 * m * (c + h) * 2, PEAK_BF16))
+        pair_b = graph_ms(lambda: (torch.matmul(dy, w2.t()), torch.matmul(gh, w1.t())))
+        say(f"[3e] fused_mlp_fwd bf16 M={m} C={c} H={h} (row block {row_block(m)}): kernel {fwd['ms']:.4f} ms "
+            f"({res_ms:.4f} with residuals), plain {fwd['plain_ms']:.4f} ms, no single library call (the bare "
+            f"cuBLAS pair x.W1, g.W2 {pair_f:.4f} ms), bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}) ({gpu})")
+        say(f"[3e] fused_mlp_bwd bf16 M={m} C={c} H={h}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
+            f"no single library call (the bare cuBLAS pair dy.W2^T, dh.W1^T {pair_b:.4f} ms), bound "
+            f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}) ({gpu})")
+        if m == m0:  # the record keeps the training token count
+            rec["fused_mlp_fwd"] = dict(max_abs_err=worst_abs["fused_mlp_fwd"], **fwd)
+            rec["fused_mlp_bwd"] = dict(max_abs_err=worst_abs["fused_mlp_bwd"], **bwd)
+    return rec
+
+
 def phase_serving(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.ops import _build
@@ -725,7 +834,7 @@ def phase_correctness(dev: torch.device) -> None:
 #: every kernel wrapper's count; a main path's want lists the ones it launches
 KERNEL_NAMES = ("fused_log_mel", "fused_attention", "fused_attention_qkv", "fused_attention_bwd",
                 "fused_attention_qkv_bwd", "layer_norm_bwd", "ln_qkv_f1", "ln_qkv_b2", "int8_dense",
-                "int8_dense_gelu", "int8_matmul")
+                "int8_dense_gelu", "int8_matmul", "fused_mlp_fwd", "fused_mlp_bwd")
 
 
 def want_launches(**counts) -> dict:
@@ -968,6 +1077,39 @@ def phase_int8_micro(gpu: str, dev: torch.device) -> dict:
     return launches
 
 
+def phase_proto_mlp(gpu: str, dev: torch.device) -> dict:
+    """[12] the fused-MLP A/B (tools/proto_mlp_fused) at M = 5688 and 14280,
+    with exact launch counts, the variants' errors against the xla
+    composition, and fuse_f's peak memory growth below one [M, H] bf16
+    tensor: the hidden activation never reached device memory."""
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.tools import proto_mlp_fused
+
+    _build.reset_launches()
+    results = proto_mlp_fused.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check([r["M"] for r in results] == [TRAIN_B * TRAIN_N, TRAIN_B * 1190], "[12] token counts")
+    want = want_launches(fused_mlp_fwd=sum(r["fwd_calls"] for r in results),
+                         fused_mlp_bwd=sum(r["bwd_calls"] for r in results))
+    check(launches == want, f"[12] launches {launches} != {want}")
+    for r in results:
+        for key in ("fwd_err_fuse_f", "fwd_err_fuse"):
+            check(r[key] <= TOL_PROTO_MLP * r["y_max"], f"[12] M={r['M']} {key} {r[key]:.4g} > "
+                  f"{TOL_PROTO_MLP:g} max|y| ({r['y_max']:.4g})")
+        for key in ("grad_rel_fuse", "grad_rel_fuse2"):
+            check(r[key] <= TOL_PROTO_MLP, f"[12] M={r['M']} {key} {r[key]:.3g} > {TOL_PROTO_MLP:g}")
+        check(r["fuse_f_peak_growth"] < r["hidden_bytes"], f"[12] M={r['M']}: fuse_f grew the peak memory by "
+              f"{r['fuse_f_peak_growth']} B >= one [M, 3072] bf16 tensor ({r['hidden_bytes']} B)")
+        check(all(isinstance(r[k], float) for k in ("fwd_ms_xla", "fwd_ms_fuse_f", "fwdbwd_ms_xla",
+                                                     "fwdbwd_ms_fuse", "fwdbwd_ms_fuse2")), f"[12] M={r['M']}: times")
+    say(f"[12] fused-MLP A/B (xla, fuse_f, fuse, fuse2) at M = {', '.join(str(r['M']) for r in results)}: errors "
+        f"within {TOL_PROTO_MLP:g}; fuse_f peak growth "
+        f"{', '.join(str(r['fuse_f_peak_growth']) for r in results)} B < one [M, 3072] bf16 tensor; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({gpu})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -991,13 +1133,14 @@ def main() -> int:
     rec.update(phase_backward(gpu, dev))
     rec.update(phase_layernorm(gpu, dev))
     rec.update(phase_int8(gpu, dev))
+    rec.update(phase_fused_mlp(gpu, dev))
     runs = [phase_serving(gpu, dev)]
     phase_correctness(dev)
     runs.append(train_steps(gpu, dev, "default"))
     runs.append(phase_train_correctness(dev))
     runs += [train_steps(gpu, dev, variant) for variant in ("fuse_ln_qkv", "ln_impl=fused")]
     runs += phase_variant_correctness(dev)
-    runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev)]
+    runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev), phase_proto_mlp(gpu, dev)]
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {
@@ -1014,6 +1157,8 @@ def main() -> int:
         "int8_dense": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:68"),
         "int8_dense_gelu": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:74"),
         "int8_matmul": ("passt_tpu_torch/csrc/int8_dense.cu", "scripts/int8_matmul_micro.py:71"),
+        "fused_mlp_fwd": ("passt_tpu_torch/csrc/fused_mlp.cu", "scripts/proto_mlp_fused.py:78"),
+        "fused_mlp_bwd": ("passt_tpu_torch/csrc/fused_mlp.cu", "scripts/proto_mlp_fused.py:92"),
     }
     check(set(sources) == set(KERNEL_NAMES) == set(rec), "every kernel has a source and a record")
     for name in sources:

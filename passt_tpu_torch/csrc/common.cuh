@@ -59,4 +59,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(src), "r"(src_bytes));
 }
 
+// The reference's tanh-GELU value h and saved derivative d of z, in its
+// evaluation order (passt_tpu/ops/activations.py _fwd), with fp32 constants
+// and no contraction: t = tanh(C (z + A z z z)), h = 0.5 z (1 + t),
+// d = 0.5 (1 + t) + 0.5 z (1 - t t) C (1 + 3A z z).
+__device__ __forceinline__ void gelu(float z, float& h, float& d) {
+    constexpr float C = static_cast<float>(0.7978845608028654);  // sqrt(2 / pi)
+    constexpr float A = 0.044715f;
+    constexpr float A3 = static_cast<float>(3.0 * 0.044715);
+    const float t = tanhf(__fmul_rn(C, __fadd_rn(z, __fmul_rn(__fmul_rn(__fmul_rn(A, z), z), z))));
+    const float one_t = __fadd_rn(1.f, t);
+    h = __fmul_rn(__fmul_rn(0.5f, z), one_t);
+    const float tail = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(0.5f, z), __fsub_rn(1.f, __fmul_rn(t, t))), C),
+                                 __fadd_rn(1.f, __fmul_rn(__fmul_rn(A3, z), z)));
+    d = __fadd_rn(__fmul_rn(0.5f, one_t), tail);
+}
+
 }  // namespace passt

@@ -50,6 +50,7 @@
 namespace {
 
 using passt::cp_async16;
+using passt::gelu;
 using passt::ldmatrix_x4;
 using passt_attn::cp_async_commit;
 using passt_attn::cp_async_wait;
@@ -114,20 +115,6 @@ __device__ __forceinline__ void put_pair(TOut* row, int col, int n, V v0, V v1) 
 
 __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b) {
     return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw), b);
-}
-
-// The reference's tanh-GELU value and saved derivative, in its evaluation
-// order, with fp32 constants.
-__device__ __forceinline__ void gelu(float z, float& h, float& d) {
-    constexpr float C = static_cast<float>(0.7978845608028654);  // sqrt(2 / pi)
-    constexpr float A = 0.044715f;
-    constexpr float A3 = static_cast<float>(3.0 * 0.044715);
-    const float t = tanhf(__fmul_rn(C, __fadd_rn(z, __fmul_rn(__fmul_rn(__fmul_rn(A, z), z), z))));
-    const float one_t = __fadd_rn(1.f, t);
-    h = __fmul_rn(__fmul_rn(0.5f, z), one_t);
-    const float tail = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(0.5f, z), __fsub_rn(1.f, __fmul_rn(t, t))), C),
-                                 __fadd_rn(1.f, __fmul_rn(__fmul_rn(A3, z), z)));
-    d = __fadd_rn(__fmul_rn(0.5f, one_t), tail);
 }
 
 template <typename TIn, int EPI, typename TOut>

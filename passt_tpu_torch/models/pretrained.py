@@ -8,8 +8,11 @@
   ``save_params_npz`` writes.
 - :func:`load_pretrained`: either file into a built :class:`PaSST`.
 
-ImageNet/DeiT checkpoints (square position grid, RGB patch conv) start
-training runs, not serving; their adaptation comes with the training slice.
+ImageNet/DeiT checkpoints (square position grid, RGB patch conv) are not
+adapted yet (ROADMAP.md queue 1 item 8); :func:`load_pretrained` raises on
+them. A checkpoint whose token count differs from the model's (a distilled
+one into ``distilled=False``, or the reverse) is refused with the reason, as
+the JAX package cannot run one either.
 """
 
 from __future__ import annotations
@@ -115,7 +118,9 @@ def load_pretrained(model, path: str) -> None:
     """Load a reference ``.pt`` or a ``passt_tpu`` ``.npz`` into ``model``.
     A longer time embedding is cropped to the model's grid (with a
     warning), a shorter one raises; a classifier for another class count
-    keeps the model's own head (with a warning)."""
+    keeps the model's own head (with a warning). A checkpoint with another
+    token count (``new_pos_embed`` [1, 2, D] distilled, [1, 1, D] not)
+    raises a ``ValueError``."""
     if path.endswith(".npz"):
         sd = state_dict_from_flax(load_params_npz(path))
     else:
@@ -123,7 +128,13 @@ def load_pretrained(model, path: str) -> None:
     if "time_new_pos_embed" not in sd:
         raise NotImplementedError(
             "ImageNet/DeiT checkpoint (no time_new_pos_embed): its position-embedding "
-            "adaptation comes with the port's training slice (ROADMAP.md)"
+            "adaptation is not ported yet (ROADMAP.md queue 1 item 8)"
+        )
+    tokens, want = sd["new_pos_embed"].shape[1], model.cfg.num_tokens
+    if tokens != want:
+        raise ValueError(
+            f"checkpoint new_pos_embed has {tokens} token(s) but the model (distilled={model.cfg.distilled}) "
+            f"has {want}: build the model with distilled={tokens == 2} for this checkpoint"
         )
     own = model.state_dict()
     t_grid = own["time_new_pos_embed"].shape[-1]

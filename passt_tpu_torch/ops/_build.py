@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "passt_tpu_torch"
 
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("mel_kernel", "attention_fwd", "attention_bwd", "layernorm_bwd", "ln_qkv", "int8_dense")
+KERNELS = ("mel_kernel", "attention_fwd", "attention_bwd", "layernorm_bwd", "ln_qkv", "int8_dense", "fused_mlp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

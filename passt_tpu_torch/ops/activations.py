@@ -16,8 +16,24 @@ once. PyTorch's own gelu backward would recompute from ``x`` and round
 ``g * d`` once; this rounds ``d`` first, like the JAX package.
 """
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+_C = math.sqrt(2.0 / math.pi)
+_A = 0.044715
+
+
+def gelu_parts(z: torch.Tensor):
+    """tanh-GELU and its saved derivative of fp32 ``z``, sharing one tanh, in
+    the reference's operation order (passt_tpu/ops/activations.py ``_fwd``):
+    the plain version of the kernels that compute both in their epilogues
+    (``csrc/common.cuh`` ``gelu``)."""
+    t = torch.tanh(_C * (z + _A * z * z * z))
+    h = 0.5 * z * (1.0 + t)
+    d = 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * _C * (1.0 + 3.0 * _A * z * z)
+    return h, d
 
 
 class _TanhGelu(torch.autograd.Function):

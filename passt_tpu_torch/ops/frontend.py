@@ -9,7 +9,8 @@ waveform [B, T]
   -> SpecAugment frequency + time masking             (train only)
   -> fixed affine normalisation ``(x + 4.5) / 5``
 
-On a CUDA tensor the middle runs as the Hopper mel kernel
+Under ``stft_method`` "auto" (or "pallas") the middle runs, on a CUDA
+tensor, as the Hopper mel kernel
 (:func:`passt_tpu_torch.ops.mel_kernel.fused_log_mel`, un-normalised) with
 the bank built on the card from the jittered (fmin, fmax); the masks and the
 normalisation follow it, as on the TPU.
@@ -29,12 +30,14 @@ from typing import Optional
 import torch
 
 from passt_tpu_torch.ops.mel import kaldi_mel_banks
-from passt_tpu_torch.ops.mel_kernel import fused_log_mel, fused_log_mel_plain
-from passt_tpu_torch.ops.stft import num_stft_frames
+from passt_tpu_torch.ops.mel_kernel import fused_log_mel
+from passt_tpu_torch.ops.stft import num_stft_frames, preemphasis, stft_power
 
 LOG_OFFSET = 1e-5  # preprocess.py:78
 NORM_SHIFT = 4.5  # preprocess.py:84
 NORM_SCALE = 5.0
+#: MelConfig.stft_method names; the first two select the mel kernel
+STFT_METHODS = ("auto", "pallas", "matmul", "conv", "fft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +57,15 @@ class MelConfig:
     fmin_aug_range: int = 1
     fmax_aug_range: int = 1000
     iid_masks: bool = False
-    stft_method: str = "auto"  # "auto": the mel kernel (its plain version
-    # for a CPU tensor); "matmul": the plain version on any device
+    stft_method: str = "auto"  # the JAX package's names: "auto" or "pallas":
+    # the mel kernel (its plain version for a CPU tensor); "matmul", "conv"
+    # or "fft": that STFT formulation in plain PyTorch, on any device
 
     def __post_init__(self):
         if self.fmin_aug_range < 1 or self.fmax_aug_range < 1:
             raise ValueError("fmin_aug_range and fmax_aug_range must be >= 1 (1 = no augmentation)")
-        if self.stft_method not in ("auto", "matmul"):
-            raise ValueError(f"stft_method must be 'auto' or 'matmul', got {self.stft_method!r}")
+        if self.stft_method not in STFT_METHODS:
+            raise ValueError(f"stft_method must be one of {STFT_METHODS}, got {self.stft_method!r}")
 
     @property
     def effective_fmax(self) -> float:
@@ -124,11 +128,17 @@ def log_mel_spectrogram(
             - torch.randint(0, cfg.fmax_aug_range, (), generator=generator, device=dev).float()
         )
     bank = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax, device=wave.device)
-    mel_fn = fused_log_mel if cfg.stft_method == "auto" else fused_log_mel_plain
-    mel = mel_fn(
-        wave.float(), bank, n_fft=cfg.n_fft, hop=cfg.hopsize, win_length=cfg.win_length,
-        log_offset=LOG_OFFSET, norm_shift=0.0, norm_scale=1.0,
-    )
+    if cfg.stft_method in ("auto", "pallas"):
+        mel = fused_log_mel(
+            wave.float(), bank, n_fft=cfg.n_fft, hop=cfg.hopsize, win_length=cfg.win_length,
+            log_offset=LOG_OFFSET, norm_shift=0.0, norm_scale=1.0,
+        )
+    else:
+        # the plain version's math (fused_log_mel_plain for "matmul") with
+        # the named STFT formulation
+        power = stft_power(preemphasis(wave), cfg.n_fft, cfg.hopsize, cfg.win_length, center=True,
+                           method=cfg.stft_method)
+        mel = torch.log(torch.matmul(bank.float(), power[:, : bank.shape[1], :]) + LOG_OFFSET)
     if train:
         b, n_mels, frames = mel.shape
         if cfg.freqm > 0:

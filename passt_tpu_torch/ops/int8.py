@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
 
 from passt_tpu_torch.ops import _build
+from passt_tpu_torch.ops.activations import gelu_parts
 
 _KEY_DENSE = "int8_dense"
 _KEY_GELU = "int8_dense_gelu"
@@ -52,9 +52,6 @@ _MATMUL_OUT = {torch.int8: (torch.int32, torch.bfloat16), torch.bfloat16: (torch
 _DENSE_OUT = (torch.float32, torch.bfloat16)
 #: the most K for which a sum of int8 products stays inside int32
 MAX_K_INT8 = (2**31 - 1) // (128 * 128)
-
-_C = math.sqrt(2.0 / math.pi)
-_A = 0.044715
 
 
 def quantize_rows(x: torch.Tensor):
@@ -82,15 +79,6 @@ def _exact_product(qa: torch.Tensor, qbt: torch.Tensor) -> torch.Tensor:
     return (qa.double() @ qbt.double().t()).to(torch.int32)
 
 
-def _gelu_parts(z: torch.Tensor):
-    """tanh-GELU and its saved derivative in fp32, in the reference's order
-    (passt_tpu/ops/pallas/int8_dense.py:_dense_gelu_kernel)."""
-    t = torch.tanh(_C * (z + _A * z * z * z))
-    h = 0.5 * z * (1.0 + t)
-    d = 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * _C * (1.0 + 3.0 * _A * z * z)
-    return h, d
-
-
 def quantized_dense_plain(qx, sx, qwt, sw, b, *, out_dtype: torch.dtype, gelu: bool = False):
     """The kernel's dense epilogues in plain PyTorch on quantized operands:
     qx ``[M, K]`` and qwt ``[N, K]`` int8, sx ``[M, 1]``, sw and b ``[N]``.
@@ -98,7 +86,7 @@ def quantized_dense_plain(qx, sx, qwt, sw, b, *, out_dtype: torch.dtype, gelu: b
     z = _exact_product(qx, qwt).float() * sx.float().reshape(-1, 1) * sw.float().reshape(1, -1) + b.float()
     if not gelu:
         return z.to(out_dtype)
-    h, d = _gelu_parts(z)
+    h, d = gelu_parts(z)
     return h.to(out_dtype), d.to(out_dtype)
 
 

@@ -6,9 +6,11 @@ the reference frontend uses it: reflect padding by ``n_fft // 2`` on both
 sides, the Hann window zero-padded centred inside the ``n_fft`` frame, and
 ``1 + (T_padded - n_fft) // hop`` frames.
 
-:func:`stft_power` is the matmul formulation (frames as a strided view
-times the windowed-DFT basis, in fp32): the plain version beside the mel
-kernel, and the path a CPU tensor takes.
+:func:`stft_power` takes the JAX package's three formulations, all in full
+fp32: "matmul" (frames as a strided view times the windowed-DFT basis: the
+plain version beside the mel kernel), "conv" (one strided convolution with
+the basis as filters) and "fft" (framing, window, real FFT). They differ
+only in summation order.
 """
 
 from __future__ import annotations
@@ -72,23 +74,74 @@ def reflect_pad_center(x: torch.Tensor, n_fft: int) -> torch.Tensor:
     return F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
 
 
+def _prepare(x: torch.Tensor, n_fft: int, center: bool) -> torch.Tensor:
+    if x.ndim != 2:
+        raise ValueError(f"expected a [B, T] waveform, got {tuple(x.shape)}")
+    x = x.float()
+    return reflect_pad_center(x, n_fft) if center else x
+
+
+def _basis(n_fft: int, win_length: int, device) -> torch.Tensor:
+    return torch.from_numpy(make_stft_filters(n_fft, win_length).copy()).to(device)
+
+
+def _power(out: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """``re^2 + im^2`` of a ``[B, 2*bins, frames]`` DFT output."""
+    n_bins = n_fft // 2 + 1
+    re, im = out[:, :n_bins], out[:, n_bins:]
+    return re * re + im * im
+
+
+def stft_power_matmul(x: torch.Tensor, n_fft: int = 1024, hop: int = 320, win_length: int = 800,
+                      center: bool = True) -> torch.Tensor:
+    """Frames as a strided view of the padded signal, times the
+    windowed-DFT basis (fp32 matmul)."""
+    x = _prepare(x, n_fft, center)
+    framed = x.unfold(1, n_fft, hop)  # [B, frames, n_fft], a view
+    return _power(torch.matmul(framed, _basis(n_fft, win_length, x.device).T).transpose(1, 2), n_fft)
+
+
+def stft_power_conv(x: torch.Tensor, n_fft: int = 1024, hop: int = 320, win_length: int = 800,
+                    center: bool = True) -> torch.Tensor:
+    """One strided convolution whose filters are the windowed-DFT basis (the
+    JAX package's TPU formulation), in full fp32: cuDNN's TF32 is off
+    inside the call."""
+    x = _prepare(x, n_fft, center)
+    filters = _basis(n_fft, win_length, x.device)[:, None, :]  # [2*bins, 1, n_fft]
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                     allow_tf32=False):
+        out = F.conv1d(x[:, None, :], filters, stride=hop)  # [B, 2*bins, frames]
+    return _power(out, n_fft)
+
+
+def stft_power_fft(x: torch.Tensor, n_fft: int = 1024, hop: int = 320, win_length: int = 800,
+                   center: bool = True) -> torch.Tensor:
+    """Framing, the centred window, and ``torch.fft.rfft`` (the reference's
+    cross-check path)."""
+    x = _prepare(x, n_fft, center)
+    window = np.zeros(n_fft, dtype=np.float32)
+    left = (n_fft - win_length) // 2
+    window[left : left + win_length] = hann_window(win_length).astype(np.float32)
+    framed = x.unfold(1, n_fft, hop) * torch.from_numpy(window).to(x.device)
+    spec = torch.fft.rfft(framed, dim=-1)  # [B, frames, bins]
+    return (spec.real**2 + spec.imag**2).transpose(1, 2)
+
+
+_METHODS = {"matmul": stft_power_matmul, "conv": stft_power_conv, "fft": stft_power_fft}
+
+
 def stft_power(
     x: torch.Tensor,
     n_fft: int = 1024,
     hop: int = 320,
     win_length: int = 800,
     center: bool = True,
+    method: str = "matmul",
 ) -> torch.Tensor:
-    """Power spectrogram ``[B, n_fft//2 + 1, frames]`` (fp32): frames as a
-    strided view of the padded signal, times the windowed-DFT basis."""
-    if x.ndim != 2:
-        raise ValueError(f"expected a [B, T] waveform, got {tuple(x.shape)}")
-    x = x.float()
-    if center:
-        x = reflect_pad_center(x, n_fft)
-    framed = x.unfold(1, n_fft, hop)  # [B, frames, n_fft], a view
-    basis = torch.from_numpy(make_stft_filters(n_fft, win_length).copy()).to(x.device)
-    out = torch.matmul(framed, basis.T).transpose(1, 2)  # [B, 2*bins, frames]
-    n_bins = n_fft // 2 + 1
-    re, im = out[:, :n_bins], out[:, n_bins:]
-    return re * re + im * im
+    """Power spectrogram ``[B, n_fft//2 + 1, frames]`` (fp32) by the JAX
+    package's ``method``: "matmul" (the plain version beside the mel
+    kernel), "conv" or "fft"."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown stft method {method!r}")
+    return _METHODS[method](x, n_fft, hop, win_length, center)

@@ -16,16 +16,14 @@ limit), then one line per variant.
 
 from __future__ import annotations
 
-import json
 import re
-import shutil
 import sys
 from pathlib import Path
 
 import torch
 
-from passt_tpu_torch.ops import _build
 from passt_tpu_torch.ops import ln_qkv as L
+from passt_tpu_torch.tools import variants as V
 from passt_tpu_torch.tools.timing import gpu_line, graph_ms
 
 
@@ -34,9 +32,7 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    path = Path(args[0]) if args else Path(__file__).with_name("ln_qkv_variants.json")
-    variants = json.loads(path.read_text())
+    variants = V.load(sys.argv[1:] if argv is None else argv, Path(__file__).with_name("ln_qkv_variants.json"))
     if not torch.cuda.is_available():
         raise SystemExit("ln_qkv_variants: no CUDA device; the variants run on the card only")
     dev = torch.device("cuda", 0)
@@ -52,31 +48,15 @@ def main(argv=None) -> int:
     ref_f1, ref_b2 = L.ln_qkv_f1_plain(x, s, b, w, wb), L.ln_qkv_b2_plain(x, dqkv, w, s, b)
     print(gpu_line(), flush=True)
 
-    csrc = _build.CSRC
-    try:
-        for name, edits in variants.items():
-            where = _build.BUILD_DIR.parent / "ln_qkv_variants" / name
-            shutil.rmtree(where, ignore_errors=True)
-            shutil.copytree(csrc, where)
-            src = (where / "ln_qkv.cu").read_text()
-            for old, new in edits:
-                if old not in src:
-                    raise SystemExit(f"variant {name}: text not found in ln_qkv.cu: {old!r}")
-                src = src.replace(old, new)
-            (where / "ln_qkv.cu").write_text(src)
-            _build.CSRC = where
-            L._lib.cache_clear()
-            regs = re.findall(r"Used (\d+) registers", _build.build(["ln_qkv"])["ln_qkv"])
-            f1, b2 = L.ln_qkv_f1(x, s, b, w, wb), L.ln_qkv_b2(x, dqkv, w, s, b)
-            torch.cuda.synchronize()
-            e1, e2 = rel_err(f1, ref_f1), max(rel_err(g, r) for g, r in zip(b2, ref_b2))
-            t1 = graph_ms(lambda: L.ln_qkv_f1(x, s, b, w, wb))
-            t2 = graph_ms(lambda: L.ln_qkv_b2(x, dqkv, w, s, b))
-            print(f"{name}: F1 {t1:.4f} ms (err {e1:.3g}), B2 {t2:.4f} ms (err {e2:.3g}); "
-                  f"registers per kernel {regs}", flush=True)
-    finally:
-        _build.CSRC = csrc
-        L._lib.cache_clear()
+    for name, log in V.builds("ln_qkv", variants, L._lib):
+        regs = re.findall(r"Used (\d+) registers", log)
+        f1, b2 = L.ln_qkv_f1(x, s, b, w, wb), L.ln_qkv_b2(x, dqkv, w, s, b)
+        torch.cuda.synchronize()
+        e1, e2 = rel_err(f1, ref_f1), max(rel_err(g, r) for g, r in zip(b2, ref_b2))
+        t1 = graph_ms(lambda: L.ln_qkv_f1(x, s, b, w, wb))
+        t2 = graph_ms(lambda: L.ln_qkv_b2(x, dqkv, w, s, b))
+        print(f"{name}: F1 {t1:.4f} ms (err {e1:.3g}), B2 {t2:.4f} ms (err {e2:.3g}); "
+              f"registers per kernel {regs}", flush=True)
     return 0
 
 

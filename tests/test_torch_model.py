@@ -141,6 +141,64 @@ def test_load_pretrained_npz_and_pt(tmp_path):
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("ckpt_distilled", [True, False])
+def test_token_count_mismatch_refused_by_both_packages(tmp_path, ckpt_distilled):
+    """A reference-layout .pt whose token count differs from the model's (a
+    distilled checkpoint into distilled=False, and the reverse): the JAX
+    package loads the tree and its apply raises ScopeParamShapeError on
+    new_pos_embed; the port refuses it up front, naming both counts and the
+    distilled setting."""
+    from flax.errors import ScopeParamShapeError
+
+    from passt_tpu.models.pretrained import load_pretrained_params
+
+    _, params = _jax_params(JaxConfig(**TINY, distilled=ckpt_distilled))
+    path = str(tmp_path / "w.pt")
+    torch.save(state_dict_from_flax(params), path)
+    model_distilled = not ckpt_distilled
+    jcfg = JaxConfig(**TINY, distilled=model_distilled)
+    jmodel, init = _jax_params(jcfg, seed=2)
+    loaded = load_pretrained_params(path, jcfg, init)
+    with pytest.raises(ScopeParamShapeError, match="new_pos_embed"):
+        jmodel.apply({"params": loaded}, jnp.zeros((1, 1, 128, 98)), train=False)
+    n_ckpt, n_model = (2, 1) if ckpt_distilled else (1, 2)
+    with pytest.raises(ValueError, match=f"{n_ckpt} token.*distilled={model_distilled}.* has {n_model}"):
+        load_pretrained(PaSST(PaSSTConfig(**TINY, distilled=model_distilled)), path)
+
+
+def test_distilled_pt_loads_into_both_packages_alike(tmp_path):
+    """The matching case: a distilled .pt into a distilled model loads in
+    both packages and gives the same fp32 logits and features (the bounds
+    of test_tiny_passt_matches_jax)."""
+    from passt_tpu.models.pretrained import load_pretrained_params
+
+    jcfg = JaxConfig(**TINY)
+    _, params = _jax_params(jcfg)
+    path = str(tmp_path / "w.pt")
+    torch.save(state_dict_from_flax(params), path)
+    jmodel, init = _jax_params(jcfg, seed=2)
+    x = np.random.default_rng(12).standard_normal((2, 1, 128, 98)).astype(np.float32)
+    jl, jf = jmodel.apply({"params": load_pretrained_params(path, jcfg, init)}, jnp.asarray(x), train=False)
+    model = PaSST(PaSSTConfig(**TINY))
+    load_pretrained(model, path)
+    with torch.inference_mode():
+        logits, features = model.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), atol=MODEL_TOL["float32"], rtol=0)
+    np.testing.assert_allclose(features.numpy(), np.asarray(jf), atol=MODEL_TOL["float32"], rtol=0)
+
+
+def test_imagenet_checkpoint_raises_with_its_roadmap_item(tmp_path):
+    """An ImageNet/DeiT checkpoint (no time_new_pos_embed) is not adapted
+    yet; the error names where that work is queued."""
+    _, params = _jax_params(JaxConfig(**TINY))
+    sd = state_dict_from_flax(params)
+    del sd["time_new_pos_embed"], sd["freq_new_pos_embed"]
+    path = str(tmp_path / "deit.pt")
+    torch.save(sd, path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        load_pretrained(PaSST(PaSSTConfig(**TINY)), path)
+
+
 def test_config_matches_jax_and_unported_options_raise():
     cfg = get_model_config("passt_s_swa_p16_128_ap476", dtype="bfloat16")
     assert cfg.grid_size == (12, 99) and cfg.seq_len(train=False) == 1190
