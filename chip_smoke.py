@@ -10,14 +10,22 @@ Phases (each prints one line or more; the first failure exits non-zero):
 3. each forward kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain time, one library call's time where one computes the function,
-   and the bound;
+   and the bound; the attention forward on each of its four paths (every
+   call checked to take the one ``forward_path`` picks), timed by CUDA-graph
+   replay and by events at the serving (B = 20, N = 1190), timestamp
+   (B = 256, N = 14) and training (B = 12, N = 474) shapes beside SDPA as
+   PyTorch dispatches it (the kernel it ran named from a profiler trace)
+   and each SDPA backend that accepts the inputs, timed alone;
 3b. the attention backward kernel through both entries against its plain
    version (bf16/fp16/fp32, plus1 on and off, ragged N, other head dims),
-   timed at the training step's shapes beside SDPA's backward;
+   timed at the training step's shapes (graph replay and events) beside
+   SDPA's backward (the profiled kernel time of its forward and backward
+   less its forward's, and events);
 4. the serving path at full PaSST-S width (12 x 768, 12 heads, 527 classes,
    N = 1190, random weights from a seeded generator): Predictor calls at
    B = 1 and B = 20 (10-s clips), scene embeddings and timestamp embeddings
-   on a 2-s clip; the kernel launch counts of exactly that run; clips/s;
+   on a 2-s clip; the kernel launch counts of exactly that run and the
+   attention forward's launches per path; clips/s;
 5. correctness: the same Predictor in fp32 with the kernels against one
    with the plain versions, and the repo's golden fixtures (reference mel
    and reference model outputs) through the kernels;
@@ -25,7 +33,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    (bf16, B = 12, patchout 40/4 -> N = 474, mixup, AdamW with bf16 SR
    moments and bf16 SR parameters): 2 warm-up and 10 timed steps, ms/step
    and specs/s, the loss finite, the parameters moved, the step counter
-   advanced, and the exact launch counts per step;
+   advanced, and the exact launch counts per step (and per forward path);
 7. one fp32 training step at full width (B = 2) with the kernels against
    the same step on the plain versions, from the same weights and the same
    draws: the loss, every leaf's gradient and the updated parameters;
@@ -93,7 +101,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms  # noqa: E402
+from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms, kernel_ms, kernel_times  # noqa: E402
 
 ARCH = "passt_s_swa_p16_128_ap476"
 CLIP = 320000  # 10 s at 32 kHz
@@ -201,7 +209,60 @@ def sdpa(q, k, v, scale):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale).transpose(1, 2)
 
 
+def sdpa_backends(q, k, v, scale, do=None) -> list:
+    """The SDPA backends, in PyTorch's priority order, that accept these
+    inputs (and, with ``do``, their backward), each tried alone under
+    ``torch.nn.attention.sdpa_kernel``."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    accepted = []
+    for backend in (SDPBackend(i) for i in torch._C._get_sdp_priority_order()):
+        if backend.name == "OVERRIDEABLE":
+            continue
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                out = sdpa(q, k, v, scale)
+                if do is not None:
+                    torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            accepted.append(backend)
+        except RuntimeError:
+            continue
+    check(bool(accepted), "no SDPA backend accepts the attention inputs")
+    return accepted
+
+
+def top_kernel(times: dict) -> str:
+    """The name of the kernel with the most device time (kernel_times)."""
+    return max(times, key=times.get)[:100]
+
+
+def backend_of(kernel: str) -> str:
+    """The SDPA backend that ran, from the name of its main kernel
+    (top_kernel): cuDNN's names also say "flash", so they come first."""
+    name = kernel.lower()
+    for backend, marks in (("CUDNN_ATTENTION", ("cudnn",)), ("FLASH_ATTENTION", ("flash",)),
+                           ("EFFICIENT_ATTENTION", ("fmha", "efficient", "mem_eff"))):
+        if any(m in name for m in marks):
+            return backend
+    return "MATH"
+
+
+def under(backend, fn):
+    """``fn`` run with SDPA held to one backend."""
+    from torch.nn.attention import sdpa_kernel
+
+    def run():
+        with sdpa_kernel([backend]):
+            return fn()
+    return run
+
+
 def phase_kernels(gpu: str, dev: torch.device) -> dict:
+    from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.ops.attention import attention_plain, fused_attention, fused_attention_qkv
     from passt_tpu_torch.ops.mel import kaldi_mel_banks
     from passt_tpu_torch.ops.mel_kernel import fused_log_mel, fused_log_mel_plain
@@ -238,33 +299,53 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     rec["fused_log_mel"] = dict(max_abs_err=mel_err, ms=ms, plain_ms=plain_ms, library_ms=None, **mel_bound)
 
     # attention: both entries, bf16 and fp32 (and fp16), plus1 on and off,
-    # N in {14, 474, 1190} at the model's heads; then other head dims (the
-    # tensor-core path takes D % 16 == 0, the FMA path the rest)
+    # N in {14, 474, 1190} at the model's heads; the edges of the short
+    # path's two tile widths and of the wgmma path's first key tile; other
+    # head dims; bf16 and fp16 on views one element off 16-byte alignment.
+    # Each pair of calls takes the path forward_path picks ("wgmma" at
+    # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "fma" for
+    # fp32, D = 24 and the unaligned views)
     heads, hd = 12, 64
     errs = {"fused_attention": 0.0, "fused_attention_qkv": 0.0}
-    cases = [(dtype, n, plus1, heads, hd)
+    cases = [(dtype, n, plus1, heads, hd, True)
              for dtype in (torch.bfloat16, torch.float32, torch.float16)
              for n in (14, 474, 1190) for plus1 in (False, True)]
-    cases += [(torch.bfloat16, 97, True, h_, d_) for h_, d_ in ((4, 16), (2, 24), (2, 128))]
+    cases += [(dtype, n, plus1, heads, hd, True) for dtype in (torch.bfloat16, torch.float16)
+              for n in (16, 17, 33, 64, 65, 128, 129) for plus1 in (False, True)]
+    cases += [(torch.bfloat16, 97, True, h_, d_, True) for h_, d_ in ((4, 16), (2, 24), (2, 128))]
+    cases += [(dtype, n, plus1, heads, hd, False) for dtype in (torch.bfloat16, torch.float16)
+              for n in (97, 1190) for plus1 in (False, True)]
+    taken = dict.fromkeys(A.FWD_PATHS, 0)
     with torch.no_grad():
-        for dtype, n, plus1, h_, d_ in cases:
+        for dtype, n, plus1, h_, d_, aligned in cases:
             qkv = torch.from_numpy(rng.standard_normal((2, n, 3 * h_ * d_)).astype(np.float32))
             qkv = qkv.to(dev, dtype)
+            if not aligned:
+                qkv = torch.empty(qkv.numel() + 1, dtype=dtype, device=dev)[1:].view(qkv.shape).copy_(qkv)
             q, k, v = qkv.reshape(2, n, 3, h_, d_).unbind(2)
+            check(A._aligned(q, k, v) == aligned, f"{dtype} N={n} D={d_}: alignment is not {aligned}")
             ref = attention_plain(q, k, v, scale=d_ ** -0.5, plus1=plus1)
+            A.reset_path_launches()
             got_b = fused_attention(q, k, v, scale=d_ ** -0.5, plus1=plus1)
             got_f = fused_attention_qkv(qkv, heads=h_, head_dim=d_, scale=d_ ** -0.5, plus1=plus1)
             torch.cuda.synchronize()
+            path = A.forward_path(n, d_, dtype, aligned)
+            check(aligned or path == "fma", f"{dtype} N={n} D={d_} unaligned: path {path}, want fma")
+            check(A.FWD_PATH_LAUNCHES[path] == 2 == sum(A.FWD_PATH_LAUNCHES.values()),
+                  f"{dtype} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want 2 on {path}")
+            taken[path] += 2
             for name, got in (("fused_attention", got_b), ("fused_attention_qkv", got_f.view(ref.shape))):
                 err = max_err(got, ref)
                 check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"{name}: dtype/finite")
-                check(err <= TOL_ATTN[dtype], f"{name} {dtype} N={n} H={h_} D={d_} plus1={plus1}: "
+                check(err <= TOL_ATTN[dtype], f"{name} {dtype} N={n} H={h_} D={d_} plus1={plus1} "
+                      f"aligned={aligned}: "
                       f"max err {err:.3g} > {TOL_ATTN[dtype]:.3g}")
                 errs[name] = max(errs[name], err)
 
-    def main_shape(b, n, entry):
+    def main_shape(b, n, entry, path):
         """The kernel against its plain version on the bf16 inputs of a main
-        path's shape; returns the kernel call and the plain call on them."""
+        path's shape, on the forward path it must take there; returns the
+        kernel call and the plain call on them."""
         qkv = torch.randn((b, n, 3 * heads * hd), device=dev, dtype=torch.bfloat16)
         q, k, v = qkv.reshape(b, n, 3, heads, hd).unbind(2)
         if entry == "fused_attention":
@@ -273,29 +354,53 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
             kern = lambda: fused_attention_qkv(qkv, heads=heads, head_dim=hd, scale=hd ** -0.5)
         plain = lambda: attention_plain(q, k, v, scale=hd ** -0.5)
         with torch.no_grad():
+            A.reset_path_launches()
             err = max_err(kern().reshape(b, n, heads, hd), plain())
+        check(A.FWD_PATH_LAUNCHES[path] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
+              f"{entry} bf16 B={b} N={n}: forward paths {A.FWD_PATH_LAUNCHES}, want {path}")
         check(err <= TOL_ATTN[torch.bfloat16], f"{entry} bf16 B={b} N={n}: max err {err:.3g}")
         errs[entry] = max(errs[entry], err)
+        taken[path] += 1
         return kern, plain, (q, k, v)
 
-    # the bf16 training step's forward (qkv entry, B = 12, N = 474)
-    main_shape(TRAIN_B, TRAIN_N, "fused_attention_qkv")
-
-    def timings(b, n, entry):
-        kern, plain, (q, k, v) = main_shape(b, n, entry)
+    def timings(b, n, entry, path):
+        """The kernel (graph replay and CUDA events), its plain version and
+        SDPA as PyTorch dispatches it (graph replay and events; the kernel
+        it ran, from a profiler trace), with each backend that accepts the
+        inputs timed alone by graph replay (the unfused MATH backend left
+        out)."""
+        kern, plain, (q, k, v) = main_shape(b, n, entry, path)
+        lib = lambda: sdpa(q, k, v, hd ** -0.5)
         with torch.no_grad():
-            return dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                        library_ms=cuda_ms(lambda: sdpa(q, k, v, hd ** -0.5)),
-                        **bound(4 * n * n * hd * b * heads, 4 * b * n * heads * hd * 2, PEAK_BF16))
+            backends = sdpa_backends(q, k, v, hd ** -0.5)
+            ran = top_kernel(kernel_times(lib, 3))
+            return dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                        library_ms=graph_ms(lib), library_ms_events=cuda_ms(lib),
+                        library_kernel=ran, library_backend=backend_of(ran),
+                        library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends if be.name != "MATH"},
+                        path=path, **bound(4 * n * n * hd * b * heads, 4 * b * n * heads * hd * 2, PEAK_BF16))
 
-    for name, (b, n) in (("fused_attention", (20, 1190)), ("fused_attention_qkv", (256, 14))):
-        t = timings(b, n, name)
-        say(f"[3] {name} vs plain: max err {errs[name]:.3g} (bf16/fp32/fp16, plus1 on/off, "
-            f"N 14/474/1190 at D=64; D 16/24/128 at N=97; bf16 at the serving and training "
-            f"shapes); bf16 B={b} H=12 N={n} D=64: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
-        rec[name] = dict(max_abs_err=errs[name], **t)
+    def line(t):
+        return (f"kernel ({t['path']}) {t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events; plain "
+                f"{t['plain_ms']:.4f} ms; SDPA {t['library_ms']:.4f} ms graph-replayed, {t['library_ms_events']:.4f} "
+                f"events (ran {t['library_backend']}: {t['library_kernel']}; alone: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in t["library_backend_ms"].items())
+                + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+    # the serving call ([B, N, H, D] entry), the timestamp windows and the
+    # bf16 training step's forward (both on the qkv entry)
+    serve = timings(20, 1190, "fused_attention", "wgmma")
+    stamps = timings(256, 14, "fused_attention_qkv", "short")
+    train = timings(TRAIN_B, TRAIN_N, "fused_attention_qkv", "wgmma")
+    for name, t, b, n in (("fused_attention", serve, 20, 1190), ("fused_attention_qkv", stamps, 256, 14),
+                          ("fused_attention_qkv", train, TRAIN_B, TRAIN_N)):
+        say(f"[3] {name} bf16 B={b} H=12 N={n} D=64: {line(t)} ({gpu})")
+    say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
+        f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
+        f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; D 16/24/128 at N=97; bf16/fp16 unaligned views at "
+        f"N 97/1190; bf16 at the serving, timestamp and training shapes); calls per path {taken}")
+    rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
+    rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train)
     return rec
 
 
@@ -380,18 +485,34 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                   f"> {TOL_BWD[dtype]:.3g}")
             worst[name] = max(worst[name], rel)
             worst_abs[name] = max(worst_abs[name], err)
+        # SDPA's backward alone: the kernel time of its forward and
+        # autograd.grad together less that of its forward alone, from
+        # profiler traces (a CUDA graph cannot capture the autograd engine's
+        # backward here); beside it the backward alone by CUDA events, and
+        # the port's backward by the same profiled kernel time
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        out = sdpa(ql, kl, vl, scale)
+        fwd = lambda: sdpa(ql, kl, vl, scale)
+        fwd_bwd = lambda: torch.autograd.grad(sdpa(ql, kl, vl, scale), (ql, kl, vl), do4)
+        out = fwd()
         lib = lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True)
-        t = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
-                 library_ms=cuda_ms(lib),
+        backends = sdpa_backends(ql, kl, vl, scale, do4)
+        ran = top_kernel(kernel_times(lib, 3))
+        t = dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), ms_kernels=kernel_ms(kern),
+                 plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
+                 library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
+                 library_kernel=ran, library_backend=backend_of(ran),
+                 library_backend_ms={be.name: kernel_ms(under(be, fwd_bwd)) - kernel_ms(under(be, fwd))
+                                     for be in backends if be.name != "MATH"},
                  # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
                  **bound(10 * n * n * hd * b * heads, 7 * b * n * heads * hd * qkv.element_size(), peak))
         say(f"[3b] {name} vs plain: max err {worst[name]:.3g} of max|ref|, {worst_abs[name]:.3g} absolute "
             f"(bf16/fp16/fp32, plus1 on/off, "
             f"N 14/474/1190 at D=64; D 16/24/128 at N=97; the timed inputs); {str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA backward {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
+            f"{t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels "
+            f"(profiled); plain {t['plain_ms']:.4f} ms; SDPA "
+            f"backward {t['library_ms']:.4f} ms of kernels (profiled forward + backward less forward), "
+            f"{t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; alone: " + ", ".join(f"{k} {v:.4f}" for k, v in t["library_backend_ms"].items())
+            + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
         rec[name] = dict(max_abs_err=worst_abs[name], **t)
     return rec
 
@@ -746,6 +867,7 @@ def phase_fused_mlp(gpu: str, dev: torch.device) -> dict:
 def phase_serving(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
 
     pred = Predictor.create(arch=ARCH, dtype="bfloat16", device=dev,
                             generator=torch.Generator().manual_seed(0))
@@ -757,12 +879,14 @@ def phase_serving(gpu: str, dev: torch.device) -> dict:
     w2s = torch.from_numpy(rng.standard_normal((1, 64000)).astype(np.float32) * 0.1).to(dev)
 
     _build.reset_launches()
+    A.reset_path_launches()
     logits1 = pred(w20[:1])
     logits20, feats20 = pred.logits_and_features(w20)
     scene = pred.scene_embeddings(w20)
     ts_emb, ts = pred.timestamp_embeddings(w2s)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    paths = dict(A.FWD_PATH_LAUNCHES)
 
     check(tuple(logits1.shape) == (1, 527) and tuple(logits20.shape) == (20, 527), "logits shape")
     check(tuple(scene.shape) == (20, 527 + 768), f"scene shape {tuple(scene.shape)}")
@@ -778,8 +902,12 @@ def phase_serving(gpu: str, dev: torch.device) -> dict:
     # per forward at N = 1190 on the [B, N, H, D] entry, at N = 14 on qkv
     want = want_launches(fused_log_mel=4, fused_attention=36, fused_attention_qkv=12)
     check(launches == want, f"launches {launches} != {want}")
+    # the clip-level calls at N = 1190 on "wgmma", the timestamp windows at
+    # N = 14 on "short"
+    want_paths = dict(fma=0, mma=0, short=12, wgmma=36)
+    check(paths == want_paths, f"forward paths {paths} != {want_paths}")
     say(f"[4] serving PaSST-S bf16 (random weights, seed 0): B=1, B=20 logits, scene "
-        f"[20, 1295], timestamps [1, 40, 1295]; launches {launches}")
+        f"[20, 1295], timestamps [1, 40, 1295]; launches {launches}; forward paths {paths}")
 
     ms20 = cuda_ms(lambda: pred(w20), reps=5, warmup=1)
     ms1 = cuda_ms(lambda: pred(w20[:1]), reps=10, warmup=2)
@@ -859,6 +987,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     (passt_tpu_torch.bench): 2 warm-up and 10 timed steps."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
 
     model, state, step, batch = bench.setup(dev, **VARIANTS[variant])
     cfg = model.cfg
@@ -868,9 +997,11 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     before = {k: v.clone() for k, v in state.params.items()}
     warmup, steps = 2, 10
     _build.reset_launches()
+    A.reset_path_launches()
     state, ms, loss = bench.timed_steps(step, state, batch, steps, warmup)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    paths = dict(A.FWD_PATH_LAUNCHES)
 
     n = warmup + steps
     check(state.step == n, f"{variant}: step counter {state.step} != {n}")
@@ -884,11 +1015,14 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
           f"{variant}: parameter leaves that did not move: {sorted(still)}")
     want = {k: v * n for k, v in STEP_LAUNCHES[variant].items()}
     check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
+    want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n)  # every block's forward at N = 474
+    check(paths == want_paths, f"{variant}: forward paths {paths} != {want_paths}")
     phase = "[6]" if variant == "default" else "[8]"
     say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
         f"params): {ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after {warmup}; "
         f"mean loss {float(loss):.5f}; {moved}/{len(before)} leaves moved; launches per step "
-        f"{ {k: v // n for k, v in launches.items() if v} } ({gpu})")
+        f"{ {k: v // n for k, v in launches.items() if v} }; forward paths per step "
+        f"{ {k: v // n for k, v in paths.items() if v} } ({gpu})")
     return launches
 
 
@@ -1128,6 +1262,13 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     say(f"[2] built {', '.join(_build.KERNELS)} in {seconds:.1f} s: "
         + "; ".join(f"{k}: {ptxas_summary(v)}" for k, v in logs.items()))
+    if logs["attention_fwd"] != "(cached)":
+        from passt_tpu_torch.tools.variants import registers
+
+        paths = {"wgmma": "wgmma_kernel", "short": "short_kernel", "mma": "fwd_mma_kernel",
+                 "fma": "attention_fwd_kernel"}
+        say("[2] attention_fwd registers, spill stores (B) per path: " + "; ".join(
+            f"{p} {registers(logs['attention_fwd'], frag)}" for p, frag in paths.items()))
 
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))

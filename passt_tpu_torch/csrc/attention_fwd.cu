@@ -1,58 +1,120 @@
 // Attention forward for Hopper (sm_90a): o = softmax(q k^T * scale) v with
-// fp32 scores, for one (batch, head, 64-query tile) per block.
+// fp32 scores.
 //
-// Replaces: passt_tpu/ops/pallas/attention.py:_fwd_kernel (entry
-// fused_attention, [B, N, H, D]) and :_flat_fwd_kernel (entry
-// fused_attention_qkv, the raw [B, N, 3C] qkv Dense output). One kernel
-// serves both: q, k and v arrive as base pointers with (batch, token, head)
-// strides, so both layouts are read in place with no transpose. The port's
-// wrappers are in passt_tpu_torch/ops/attention.py.
+// Replaces: passt_tpu/ops/pallas/attention.py:171 _fwd_kernel (entry
+// fused_attention, [B, N, H, D]), :373 _flat_fwd_kernel (entry
+// fused_attention_qkv, the raw [B, N, 3C] qkv Dense output) and
+// scripts/proto_attn_qkv.py:63 _fwd_kernel_flat (the same, plus1 off). One
+// library serves all three: q, k and v arrive as base pointers with (batch,
+// token, head) strides, so both layouts are read in place with no transpose.
+// The port's wrappers are in passt_tpu_torch/ops/attention.py.
 //
-// The math is the reference's _softmax_parts, row for row: fp32 scores
-// s = (q . k) * scale; m = the row max (clamped at 0 under plus1);
-// p = exp(s - m); l = sum p (+ exp(-m) under plus1); P is rounded to the
-// input dtype for the PV product, which accumulates in fp32; o = (P v) / l,
-// rounded to the input dtype.
+// The math is the reference's _softmax_parts: fp32 scores s = (q . k) *
+// scale; m = the row max (clamped at 0 under plus1); p = exp(s - m); l = sum
+// p (+ exp(-m) under plus1); P is rounded to the input dtype for the PV
+// product, which accumulates in fp32; o = (P v) / l, rounded to the input
+// dtype. The bf16/fp16 paths take the exponential as one FMA and ex2.approx,
+// 2^(s_raw * (scale log2 e) - m log2 e), fp32 throughout; it differs from
+// expf(s - m) by a few fp32 ulps, far below the rounding of P.
 //
-// What bounds it: arithmetic. At eval length (N = 1190, D = 64) a head is
-// 2 N^2 D FLOP for the scores and as many for PV, against 4 N D input
-// bytes, and the scores are computed twice (below): 6 N^2 D FLOP a head.
+// Four paths. ops/attention.py forward_path() picks one per call in Python
+// and the C entry launches exactly that one, or returns
+// cudaErrorInvalidValue for a shape the path cannot take:
+// - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the model's
+//   serving and training shapes): attention_fwd_wgmma_kernel below, one
+//   pass over K with an online softmax, products on wgmma, K/V tiles by TMA.
+// - "short" (the same inputs at N <= 64; the timestamp windows, N = 14):
+//   attention_fwd_short_kernel, mma.sync m16n8k16, one key tile, so the max
+//   is exact after one product and the scores stay in registers; at N <= 16
+//   each warp takes its own (batch, head), four heads a block, so no warp
+//   multiplies rows past N.
+// - "mma" (bf16/fp16 at D != 64, a multiple of 16, aligned strides; no
+//   model path): attention_fwd_mma_kernel, two passes (the row max, then p
+//   and PV), mma.sync m16n8k16 with cp.async K/V tiles.
+// - "fma" (fp32, which the TPU runs at full fp32; bf16/fp16 at a D that is
+//   8 mod 16 or with unaligned strides): attention_fwd_kernel, fp32 FMA from
+//   shared memory, two passes.
 //
-// What the design does about it:
-// - Two passes over K, so that P is exactly the reference's: the first pass
-//   finds the row max m over all keys, the second computes p = exp(s - m)
-//   with the final m, sums l from the unrounded p, rounds p to the input
-//   dtype and accumulates PV. No online rescaling, so nothing differs from
-//   the reference beyond summation order.
-// - bf16/fp16 inputs with D a multiple of 16 and 16-byte aligned rows (the
-//   model's path) run attention_fwd_mma_kernel: four warps, 16 queries
-//   each, with the products on the tensor cores (mma.sync m16n8k16, fp32
-//   accumulate; the product of two bf16 values is exact). Q stays in
-//   registers as A fragments. K and V tiles of 64 keys go through padded
-//   shared memory, double-buffered with cp.async so that tile i + 1 is
-//   copied while tile i is computed; K is read as B fragments directly, V
-//   through ldmatrix.trans. The score accumulators of a tile become the A
-//   fragments of PV after the rounding of p, without a trip through shared
-//   memory.
-// - fp32 inputs (run at full fp32 on the TPU), other D and unaligned
-//   strides run attention_fwd_kernel: fp32 FMA from shared memory, K/V
-//   tiles as fp32 padded by one column, 4 queries x 4 keys of scores per
-//   thread.
-// - Ragged N is masked: keys past N get p = 0 and zero V rows, queries past
-//   N are not stored. There is no cap on N.
+// Bounds on one H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s; the function is
+// 4 N^2 D FLOP a head, q, k, v read once and o written once):
+// - serving, bf16 B = 20, H = 12, N = 1190, D = 64: 87.0 GFLOP -> 0.0880 ms
+//   (operations); 146 MB -> 0.0437 ms. The exponentials run on another
+//   unit: B H N^2 = 3.40e8 of them at 16 MUFU.EX2 a clock on each of 132 SMs
+//   at ~1.8 GHz take ~0.09 ms, as long as the products.
+// - training, the qkv entry, bf16 B = 12, N = 474: 8.28 GFLOP -> 0.0084 ms;
+//   4 B N C 2 = 34.9 MB -> 0.0104 ms (bytes).
+// - timestamps, bf16 B = 256, N = 14: 22.0 MB -> 0.0066 ms (bytes).
+//
+// What the wgmma design does about the limits of the two-pass mma.sync
+// kernel that the model's D = 64 shapes ran before:
+// 1. Two passes over K (6 N^2 D of tensor work for 4 N^2 D, K read twice):
+//    one pass. The running row max m starts at -inf (at 0 under plus1, which
+//    makes the final m exactly max(0, row max)); when a tile raises it, the
+//    fp32 accumulator and l are rescaled by exp(m_old - m_new). p = exp(s -
+//    m_running) is summed unrounded into l and rounded to the input dtype as
+//    PV's A operand; o = acc / l at the end, rounded once. The only change
+//    against the exact-max order is that p is rounded against the running
+//    max; tests/test_torch_attention_online.py holds an fp32 emulation of
+//    this order to chip_smoke's TOL_ATTN on the CPU.
+// 2. Scalar shared loads of K's B fragments: gone. wgmma reads Q and K from
+//    shared memory through descriptors (128-byte swizzle: a D = 64 row of
+//    bf16 is 128 bytes), and V with the transposed-B flag.
+// 3. mma.sync: S = Q K^T is wgmma.m64n128k16 (four k steps), O += P V is
+//    wgmma.m64n64k16 with P in registers (eight k steps).
+// 4. expf behind __fmul_rn, not overlapped with the products: one FMA and
+//    ex2.approx per score, and the softmax overlapped with the products.
+//    Turn i issues S(i) and PV(i-1) together, and the softmax of S(i) runs
+//    while PV(i-1) is in flight (P stays in the S registers until PV(i-1)
+//    has read the previous P). Across blocks, the warp schedulers interleave
+//    the two blocks an SM holds.
+// 5. 64 queries per block over 64-key mma.sync tiles: 128-key tiles, and
+//    two blocks of one consumer warpgroup (64 rows) each per SM. Two or
+//    three consumer warpgroups a block sharing each K/V tile, with or
+//    without FlashAttention-3's ping-pong through named barriers, fit only
+//    one block an SM (registers) and measured slower; they are kept as text
+//    edits in tools/attention_variants.json (PERF.md).
+// 6. Short sequences: the "short" path above.
+// Loads: one producer warp issues TMA copies (tensor maps over the strided
+// (D, N, H, B) view, built on the host per call with cuTensorMapEncodeTiled
+// from the CUDA driver's entry point, passed as __grid_constant__) of Q once and of
+// K/V tiles into a WG_STAGES-deep ring (3: tiles i-1 and i are in use during
+// turn i) with mbarrier expect-tx / try-wait; the consumers release a stage
+// with one arrival per warp once PV has read it. Rows past N are
+// zero-filled by TMA and their keys masked to p = 0 before the max; queries
+// past N are not stored (predicated stores from the accumulator registers).
+// No cap on N.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8; the most over each path's
+// instances, as chip_smoke [2] reports them): wgmma 154 registers, no
+// spills (two 160-thread blocks an SM fit up to 204); short 64 registers,
+// 8 bytes of spill stores; mma 164, no spills; fma 122, no spills. ptxas
+// reports no serialized wgmma ("Performance Loss") for the wgmma path; it
+// did for a variant capped at 126 registers, and a single loop with the
+// first and last turns as conditionals measured 38% slower than the peeled
+// loop below (PERF.md).
 #include "common.cuh"
 #include "attention_common.cuh"
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the CUDA driver at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using namespace passt_attn;
 
 constexpr int THREADS = FMA_THREADS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
 
 template <typename T, int DJ>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
@@ -207,7 +269,7 @@ int launch_d(int dj, const void* q, const void* k, const void* v, void* o, int b
 }
 
 
-// ---- tensor-core path (bf16 / fp16, D % 16 == 0) ---------------------------
+// ---- "mma" path (bf16 / fp16, D != 64, D % 16 == 0) -------------------------
 
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 queries
 
@@ -384,11 +446,10 @@ int launch_mma_d(int d, const void* q, const void* k, const void* v, void* o, in
     case D:                                                                               \
         return launch_mma<T, D>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, \
                                 stream);
-    switch (d) {
+    switch (d) {  // D = 64 takes the "short" and "wgmma" paths
         PASST_MMA_CASE(16)
         PASST_MMA_CASE(32)
         PASST_MMA_CASE(48)
-        PASST_MMA_CASE(64)
         PASST_MMA_CASE(80)
         PASST_MMA_CASE(96)
         PASST_MMA_CASE(112)
@@ -398,13 +459,606 @@ int launch_mma_d(int d, const void* q, const void* k, const void* v, void* o, in
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ---- "short" path (bf16 / fp16, D = 64, N <= 64) -----------------------------
+
+// NK: the keys padded to one tile, 16 or 64. A head takes NK / 16 warps of 16
+// queries each, so a block of four warps holds 64 / NK heads.
+template <typename T, int NK>
+__global__ void __launch_bounds__(MMA_THREADS) attention_fwd_short_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os,
+    int batch, int heads, int n, float scale, int plus1) {
+    constexpr int D = 64, LD = D + 8, LW = LD / 2;
+    constexpr int W = NK / 16;  // warps per head
+    constexpr int HPB = 4 / W;  // heads per block
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int slot = warp / W, part = warp % W;
+    const int bh = blockIdx.x * HPB + slot;
+    const bool live = bh < batch * heads;
+    const int b = live ? bh / heads : 0;
+    const int h = live ? bh - b * heads : 0;
+    T* Ks = reinterpret_cast<T*>(smem_raw) + slot * 2 * NK * LD;  // [NK][LD]
+    T* Vs = Ks + NK * LD;                                          // [NK][LD]
+
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* kb = k + b * ks.b + h * ks.h;
+    const T* vb = v + b * vs.b + h * vs.h;
+    T* ob = o + b * os.b + h * os.h;
+
+    if (live) {
+        for (int idx = part * 32 + lane; idx < NK * (D / 8); idx += 32 * W) {
+            const int r = idx / (D / 8);
+            const int c = idx - r * (D / 8);
+            const bool ok = r < n;
+            passt::cp_async16(Ks + r * LD + c * 8, ok ? kb + (long long)r * ks.n + c * 8 : kb, ok ? 16 : 0);
+            passt::cp_async16(Vs + r * LD + c * 8, ok ? vb + (long long)r * vs.n + c * 8 : vb, ok ? 16 : 0);
+        }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int r0 = part * 16;  // this warp's first query
+    if (!live || r0 >= n) return;
+
+    uint32_t qf[D / 16][4];
+    load_a_frags<T, D>(qf, qb, qs.n, r0, n, g, t);
+
+    // The scores of every key, in registers: element e of s[j] is row
+    // g + 8 (e / 2), key j * 8 + 2 t + e % 2.
+    const uint32_t* k32 = reinterpret_cast<const uint32_t*>(Ks);
+    float s[NK / 8][4];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            Mma<T>::mma(s[j], qf[kk], k32[(j * 8 + g) * LW + kk * 8 + t],
+                        k32[(j * 8 + g) * LW + kk * 8 + 4 + t]);
+    }
+
+    // The exact row max over the valid keys (raw scores; scale > 0).
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (j * 8 + 2 * t + (e & 1) < n) {
+                if (e < 2) m0 = fmaxf(m0, s[j][e]); else m1 = fmaxf(m1, s[j][e]);
+            }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    m0 *= scale;
+    m1 *= scale;
+    if (plus1) {
+        m0 = fmaxf(m0, 0.f);
+        m1 = fmaxf(m1, 0.f);
+    }
+    const float sl2 = scale * LOG2E, ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
+
+    float l0 = 0.f, l1 = 0.f;
+    uint32_t pf[NK / 16][4];  // A fragments of P, 16 keys each
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            p[e] = j * 8 + 2 * t + (e & 1) < n ? ex2_approx(fmaf(s[j][e], sl2, -(e < 2 ? ml0 : ml1))) : 0.f;
+        l0 += p[0] + p[1];
+        l1 += p[2] + p[3];
+        pf[j / 2][(j & 1) * 2 + 0] = Mma<T>::pack(p[0], p[1]);
+        pf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
+    }
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+            uint32_t b0, b1;
+            ldmatrix_x2_trans(b0, b1, Vs + (kk * 16 + (lane & 15)) * LD + nt * 8);
+            Mma<T>::mma(acc[nt], pf[kk], b0, b1);
+        }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if (plus1) {
+        l0 += ex2_approx(-ml0);
+        l1 += ex2_approx(-ml1);
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        if (r0 + g < n)
+            *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + g) * os.n + c) =
+                Mma<T>::pack(acc[nt][0] / l0, acc[nt][1] / l0);
+        if (r0 + g + 8 < n)
+            *reinterpret_cast<uint32_t*>(ob + (long long)(r0 + g + 8) * os.n + c) =
+                Mma<T>::pack(acc[nt][2] / l1, acc[nt][3] / l1);
+    }
+}
+
+template <typename T, int NK>
+int launch_short(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1,
+                 cudaStream_t stream) {
+    constexpr int HPB = 64 / NK;
+    const size_t smem = HPB * 2 * NK * (64 + 8) * sizeof(T);
+    const long long blocks = ((long long)batch * heads + HPB - 1) / HPB;
+    attention_fwd_short_kernel<T, NK><<<(unsigned)blocks, MMA_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), qs, ks, vs, os, batch, heads, n, scale, plus1);
+    return passt_launch_status();
+}
+
+
+// ---- "wgmma" path (bf16 / fp16, D = 64) --------------------------------------
+
+constexpr int WG_STAGES = 3;     // K/V ring depth
+constexpr int WG_BQ = 64;        // query rows a block: one consumer warpgroup
+constexpr int WG_BK = 128;       // keys per tile
+constexpr int WG_ROW = 128;      // bytes of one D = 64 row: one 128-byte swizzle span
+constexpr int WG_THREADS = 128 + 32;  // the consumer warpgroup and one producer warp
+constexpr int WG_SMEM = WG_BQ * WG_ROW + 2 * WG_STAGES * WG_BK * WG_ROW + 8 * (1 + 2 * WG_STAGES);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of the map into shared memory,
+// completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// wgmma descriptor of a tile of 128-byte rows in shared memory, 128-byte
+// swizzle, 8-row groups 1024 bytes apart (the start must be 1024-aligned
+// but for the k step's 32-byte offset inside the swizzle span).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Wait until at most `pending` committed groups of this warpgroup are in flight.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending) : "memory");
+}
+
+// Keep the compiler from moving work on these registers across a wgmma
+// issue or wait: the products write and read them asynchronously.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define PASST_WG_OUT64                                                                              \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
+    "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),       \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define PASST_WG_OUT32                                                                              \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
+    "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define PASST_WG_REGS64                                                                             \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define PASST_WG_REGS32                                                                             \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// S (64 x 128, fp32) [+]= A (64 x 16, shared) . B (128 x 16, shared)^T, both
+// K-major; and O (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared,
+// N-major: the transposed-B flag).
+#define PASST_WGMMA_SS_N128(TY)                                                                     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " PASST_WG_REGS64       \
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                                   \
+                 : PASST_WG_OUT64                                                                    \
+                 : "l"(a), "l"(b), "r"(accumulate))
+#define PASST_WGMMA_RS_N64(TY)                                                                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                       \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PASST_WG_REGS32        \
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                     \
+                 : PASST_WG_OUT32                                                                    \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T> struct Wgmma;
+template <> struct Wgmma<__nv_bfloat16> {
+    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+        PASST_WGMMA_SS_N128("bf16");
+    }
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        PASST_WGMMA_RS_N64("bf16");
+    }
+};
+template <> struct Wgmma<__half> {
+    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+        PASST_WGMMA_SS_N128("f16");
+    }
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        PASST_WGMMA_RS_N64("f16");
+    }
+};
+
+// S (64 x 128) = Q . K^T: four k steps of 16, 32 bytes apart inside the
+// swizzled rows; issued and committed as one group.
+template <typename T>
+__device__ __forceinline__ void s_product(float (&s)[64], uint64_t qd, uint64_t kd) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
+    wgmma_commit();
+}
+
+// O (64 x 64) += P (64 x 128, registers) . V (128 x 64 at descriptor vd):
+// eight k steps of 16 keys, 2048 bytes apart.
+template <typename T>
+__device__ __forceinline__ void pv_product(float (&acc)[32], const uint32_t (&pf)[WG_BK / 16][4], uint64_t vd) {
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) Wgmma<T>::rs(acc, pf[kk], vd + kk * 128);
+}
+
+// Rescale O by the last softmax's a0 (row g) and a1 (row g + 8), then issue
+// and commit O += P V.
+template <typename T>
+__device__ __forceinline__ void pv_issue(float (&acc)[32], uint32_t (&pf)[WG_BK / 16][4], float a0, float a1,
+                                         uint64_t vd) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        acc[4 * j] *= a0;
+        acc[4 * j + 1] *= a0;
+        acc[4 * j + 2] *= a1;
+        acc[4 * j + 3] *= a1;
+    }
+    fence_regs(acc);
+    fence_regs(pf);
+    wgmma_fence();
+    pv_product<T>(acc, pf, vd);
+    wgmma_commit();
+}
+
+// Wait until tile i's K and V have landed in its stage.
+__device__ __forceinline__ void wait_tile(uint64_t* full, int i) {
+    mbar_wait(full + i % WG_STAGES, (i / WG_STAGES) & 1);
+}
+
+// One probability: 2^(s scale log2 e - m log2 e), fp32.
+__device__ __forceinline__ float wg_p(float s, float sl2, float ml) {
+    return ex2_approx(fmaf(s, sl2, -ml));
+}
+
+// The online softmax of one tile's scores, in place: keys past n masked,
+// the running max (m0, m1: rows g and g + 8, scaled) raised, a0 and a1 the
+// factors that carry the old max to the new one, s replaced by p and the
+// row sums (this thread's share) l0, l1 rescaled and extended.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int n, int t, float scale, float sl2,
+                                             float& m0, float& m1, float& l0, float& l1, float& a0, float& a1) {
+    if (k0 + WG_BK > n) {  // the ragged last tile: keys past N get p = 0
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (k0 + 8 * j + 2 * t + e >= n) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+    }
+    float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+        x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+    }
+    // key k0 is valid, so x0 and x1 are finite; m_old = -inf gives a = 0
+    const float n0 = fmaxf(m0, x0 * scale), n1 = fmaxf(m1, x1 * scale);
+    a0 = ex2_approx((m0 - n0) * LOG2E);
+    a1 = ex2_approx((m1 - n1) * LOG2E);
+    m0 = n0;
+    m1 = n1;
+    const float ml0 = n0 * LOG2E, ml1 = n1 * LOG2E;
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        s[4 * j] = wg_p(s[4 * j], sl2, ml0);
+        s[4 * j + 1] = wg_p(s[4 * j + 1], sl2, ml0);
+        s[4 * j + 2] = wg_p(s[4 * j + 2], sl2, ml1);
+        s[4 * j + 3] = wg_p(s[4 * j + 3], sl2, ml1);
+        r0 += s[4 * j] + s[4 * j + 1];
+        r1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+}
+
+// P rounded to the input dtype as the A fragments of PV's k steps.
+template <typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[WG_BK / 16][4], const float (&s)[64]) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        pf[j / 2][(j & 1) * 2 + 0] = Mma<T>::pack(s[4 * j], s[4 * j + 1]);
+        pf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(s[4 * j + 2], s[4 * j + 3]);
+    }
+}
+
+// One block per (64-query tile, head, batch), two blocks an SM: warps 0-3
+// (the consumer warpgroup) take 16 query rows each, warp 4 loads.
+// Accumulator layout (wgmma m64nN, fp32): element 4 j + e of a thread in warp
+// w is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 (g = lane / 4,
+// t = lane % 4).
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, Strides os, int n, float scale,
+    int plus1) {
+    extern __shared__ unsigned char smem_raw[];
+    // the swizzled tiles want 1024-byte alignment; the launch asks for 1 KB more
+    unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    T* Qs = reinterpret_cast<T*>(base);                          // [WG_BQ][64]
+    T* Ks = reinterpret_cast<T*>(base + WG_BQ * WG_ROW);         // [WG_STAGES][WG_BK][64]
+    T* Vs = Ks + WG_STAGES * WG_BK * 64;                         // [WG_STAGES][WG_BK][64]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * WG_BK * 64);
+    uint64_t* full = qbar + 1;               // [WG_STAGES]: K and V of the stage arrived
+    uint64_t* empty = full + WG_STAGES;      // [WG_STAGES]: every consumer warp is done with it
+
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WG_BQ;
+    const int tiles = (n + WG_BK - 1) / WG_BK;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < WG_STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, WG_BQ / 16);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == WG_BQ / 16) {  // the producer warp: one thread issues every copy
+        if (lane == 0) {
+            mbar_expect_tx(qbar, WG_BQ * WG_ROW);
+            tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
+            for (int i = 0; i < tiles; ++i) {
+                const int st = i % WG_STAGES;
+                if (i >= WG_STAGES) mbar_wait(empty + st, (i / WG_STAGES - 1) & 1);
+                mbar_expect_tx(full + st, 2 * WG_BK * WG_ROW);
+                tma_load_4d(Ks + st * WG_BK * 64, &kmap, full + st, 0, i * WG_BK, h, b);
+                tma_load_4d(Vs + st * WG_BK * 64, &vmap, full + st, 0, i * WG_BK, h, b);
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2, t = lane & 3;
+    const float sl2 = scale * LOG2E;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m0 = plus1 ? 0.f : -INFINITY, m1 = m0;  // running max of rows g and g + 8, scaled
+    float l0 = 0.f, l1 = 0.f;                    // this thread's share of the row sums
+    float a0 = 1.f, a1 = 1.f;                    // the last softmax's rescale of acc
+    float s[64];                                 // scores, then p in place
+    uint32_t pf[WG_BK / 16][4];                  // P as the A fragments of PV's k steps
+
+    mbar_wait(qbar, 0);
+    const uint64_t qd = sw128_desc(Qs);
+    auto kdesc = [&](int i) { return sw128_desc(Ks + (i % WG_STAGES) * WG_BK * 64); };
+    auto vdesc = [&](int i) { return sw128_desc(Vs + (i % WG_STAGES) * WG_BK * 64); };
+
+    // Turn 0: S(0) alone.
+    wait_tile(full, 0);
+    s_product<T>(s, qd, kdesc(0));
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(s, 0, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
+    pack_p<T>(pf, s);
+    // Turn i: S(i) = Q K_i^T and O += P(i-1) V_(i-1) issued together; the
+    // softmax of S(i) then runs while PV(i-1) keeps the tensor cores busy.
+    // Tile i-1's stage is released once PV(i-1) is done, so the ring holds
+    // tiles i-1, i and the ones in flight.
+    for (int i = 1; i < tiles; ++i) {
+        wait_tile(full, i);
+        s_product<T>(s, qd, kdesc(i));
+        pv_issue<T>(acc, pf, a0, a1, vdesc(i - 1));
+        wgmma_wait<1>();  // S(i) has landed; PV(i-1) may still run
+        fence_regs(s);
+        softmax_tile(s, i * WG_BK, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (i - 1) % WG_STAGES);
+        pack_p<T>(pf, s);  // P(i), once PV(i-1) has read P(i-1)
+    }
+    // Turn `tiles`: the last PV alone.
+    pv_issue<T>(acc, pf, a0, a1, vdesc(tiles - 1));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pf);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if (plus1) {
+        l0 += ex2_approx(-m0 * LOG2E);
+        l1 += ex2_approx(-m1 * LOG2E);
+    }
+    const int r = q0 + warp * 16 + g;
+    T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (r < n)
+            *reinterpret_cast<uint32_t*>(ob + (long long)r * os.n + c) =
+                Mma<T>::pack(acc[4 * j] / l0, acc[4 * j + 1] / l0);
+        if (r + 8 < n)
+            *reinterpret_cast<uint32_t*>(ob + (long long)(r + 8) * os.n + c) =
+                Mma<T>::pack(acc[4 * j + 2] / l1, acc[4 * j + 3] / l1);
+    }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// A tensor map over the (D, N, H, B) view of a [B, N, H, 64] operand with
+// (batch, token, head) strides; boxes of `rows` tokens of one head, 128-byte
+// swizzle, zero fill past N.
+bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int batch, int n, int heads, Strides s,
+              int rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)s.n * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1,
+                 cudaStream_t stream) {
+    const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap qm, km, vm;
+    if (!make_map(&qm, q, bf16, batch, n, heads, qs, WG_BQ) || !make_map(&km, k, bf16, batch, n, heads, ks, WG_BK) ||
+        !make_map(&vm, v, bf16, batch, n, heads, vs, WG_BK))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = WG_SMEM + 1024;
+    auto kernel = attention_fwd_wgmma_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n + WG_BQ - 1) / WG_BQ, heads, batch);
+    kernel<<<grid, WG_THREADS, smem, stream>>>(qm, km, vm, static_cast<T*>(o), os, n, scale, plus1);
+    return passt_launch_status();
+}
+
+enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_SHORT = 2, PATH_WGMMA = 3 };
+
+template <typename T>
+int launch_path(int path, const void* q, const void* k, const void* v, void* o, int batch, int n,
+                int heads, int d, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                int plus1, cudaStream_t st) {
+    switch (path) {
+        case PATH_MMA:
+            return launch_mma_d<T>(d, q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+        case PATH_SHORT:
+            if (d != 64 || n > 64) break;
+            if (n <= 16) return launch_short<T, 16>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+            return launch_short<T, 64>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+        case PATH_WGMMA:
+            if (d != 64) break;
+            return launch_wgmma<T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // q, k, v, o: element (b, t, h, c) at ptr[b * sb + t * sn + h * sh + c].
 // dtype: 0 float32, 1 bfloat16, 2 float16. d <= 128 and a multiple of 8.
-// Returns cudaGetLastError() after the launch.
+// path: 0 "fma" (any input), 1 "mma" (bf16/fp16, d != 64 and a multiple of
+// 16), 2 "short" (bf16/fp16, d = 64, n <= 64), 3 "wgmma" (bf16/fp16,
+// d = 64); the three
+// tensor-core paths need 16-byte aligned base pointers and strides that are
+// multiples of 8 elements. A path that cannot take the call returns
+// cudaErrorInvalidValue and launches nothing. Otherwise returns
+// cudaGetLastError() after the launch.
 extern "C" int passt_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int batch, int n, int heads, int d,
+                                   int dtype, int path, int batch, int n, int heads, int d,
                                    long long qsb, long long qsn, long long qsh,
                                    long long ksb, long long ksn, long long ksh,
                                    long long vsb, long long vsn, long long vsh,
@@ -415,22 +1069,20 @@ extern "C" int passt_attention_fwd(const void* q, const void* k, const void* v, 
     const int dj = (d + 15) / 16;
     const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool mma_ok = d % 16 == 0 && vectors_aligned(q, qs) && vectors_aligned(k, ks) &&
-                        vectors_aligned(v, vs) && vectors_aligned(o, os);
+    if (path == PATH_FMA) {
+        switch (dtype) {
+            case 0: return launch_d<float>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
+            case 1: return launch_d<__nv_bfloat16>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
+            case 2: return launch_d<__half>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
+        }
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool aligned = vectors_aligned(q, qs) && vectors_aligned(k, ks) && vectors_aligned(v, vs) &&
+                         vectors_aligned(o, os);
+    if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
     switch (dtype) {
-        case 0:
-            return launch_d<float>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
-        case 1:
-            if (mma_ok)
-                return launch_mma_d<__nv_bfloat16>(d, q, k, v, o, batch, n, heads, qs, ks, vs, os,
-                                                   scale, plus1, st);
-            return launch_d<__nv_bfloat16>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale,
-                                           plus1, st);
-        case 2:
-            if (mma_ok)
-                return launch_mma_d<__half>(d, q, k, v, o, batch, n, heads, qs, ks, vs, os, scale,
-                                            plus1, st);
-            return launch_d<__half>(dj, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
+        case 1: return launch_path<__nv_bfloat16>(path, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
+        case 2: return launch_path<__half>(path, q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }

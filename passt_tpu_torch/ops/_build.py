@@ -87,6 +87,22 @@ def _start(name: str):
     return proc, tmp, out
 
 
+def finish(name: str, job) -> str:
+    """Wait for a build :func:`_start` began and move the library into
+    place; returns the compiler's output (for no job, the one kept beside
+    the built library, or "(cached)"); raises if it failed."""
+    if job is None:
+        log = library_path(name).with_suffix(".log")
+        return log.read_text() if log.exists() else "(cached)"
+    proc, tmp, out = job
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+    os.replace(tmp, out)
+    out.with_suffix(".log").write_text(text)
+    return text
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile the named kernels, one ``nvcc`` each, all started together.
     Returns name -> the compiler's output (``-Xptxas -v``: registers,
@@ -95,19 +111,12 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     logs = {}
     failed = []
     for name, job in started.items():
-        if job is None:
-            logs[name] = "(cached)"
-            continue
-        proc, tmp, out = job
-        text, _ = proc.communicate()
-        logs[name] = text
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{text}")
-            continue
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(text)
+        try:
+            logs[name] = finish(name, job)
+        except RuntimeError as err:
+            failed.append(str(err))
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

@@ -18,11 +18,21 @@ The math is the reference's: fp32 scores, one max over the whole row
 (clamped at 0 under ``plus1``, which also adds ``exp(-m)`` to the
 denominator), P rounded to the input dtype for PV with an fp32 accumulator,
 division by the denominator after PV, output in the input dtype. The
-backward recomputes P from q and k (nothing but the inputs is saved) and
-follows the reference backward kernel (see ``csrc/attention_bwd.cu``).
+forward's "wgmma" path takes the max in one pass over the keys: P is
+rounded against the running max and the fp32 accumulator is rescaled when
+the max rises (see ``csrc/attention_fwd.cu``). The backward recomputes P
+from q and k (nothing but the inputs is saved) and follows the reference
+backward kernel (see ``csrc/attention_bwd.cu``).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. On the card the forward kernel has four paths, and
+:func:`forward_path` alone picks one from the call's shape, dtype and
+alignment: ``"wgmma"`` (bf16/fp16, D = 64, N > 64: one pass over K, wgmma
+fed by TMA), ``"short"`` (the same at N <= 64: one key tile, four heads a
+block at N <= 16), ``"mma"`` (bf16/fp16 at another D that is a multiple of
+16) and ``"fma"`` (fp32, a D that is 8 mod 16, or unaligned strides). The C entry launches exactly that path or returns an
+error, on which the wrapper raises; ``FWD_PATH_LAUNCHES`` counts the
+launches of each.
 """
 
 from __future__ import annotations
@@ -43,6 +53,38 @@ for _key in (_KEY_BNHD, _KEY_QKV, _KEY_BNHD_BWD, _KEY_QKV_BWD):
     _build.LAUNCHES.setdefault(_key, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the forward kernel's paths, by the code its C entry takes
+FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3}
+#: forward launches per path since the last :func:`reset_path_launches`
+#: (beside ``_build.LAUNCHES``, which counts per entry point)
+FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
+
+
+def reset_path_launches() -> None:
+    for name in FWD_PATH_LAUNCHES:
+        FWD_PATH_LAUNCHES[name] = 0
+
+
+def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The forward kernel path for ``n`` tokens of head dim ``d``:
+    ``"fma"`` for fp32, a ``d`` that is 8 mod 16 or unaligned operands
+    (``aligned``: 16-byte aligned base pointers, strides in multiples of 8
+    elements), ``"mma"`` for bf16 / fp16 at another ``d != 64``, else
+    ``"short"`` at ``n <= 64`` and ``"wgmma"`` above."""
+    if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
+        return "fma"
+    if d != 64:
+        return "mma"
+    return "short" if n <= 64 else "wgmma"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """What the tensor-core paths need (``vectors_aligned`` in
+    ``csrc/attention_common.cuh``): 16-byte aligned base pointers and
+    (batch, token, head) strides in multiples of 8 elements."""
+    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
+
 
 #: the qkv entry's bounds from passt_tpu/ops/pallas/attention.py:74-95,
 #: kept so that the port takes the same entry as the JAX package at each
@@ -110,7 +152,7 @@ def _lib():
     lib = _build.load("attention_fwd")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.passt_attention_fwd.argtypes = (
-        [vp, vp, vp, vp, i32, i32, i32, i32, i32] + [i64] * 12 + [ctypes.c_float, i32, vp]
+        [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32] + [i64] * 12 + [ctypes.c_float, i32, vp]
     )
     lib.passt_attention_fwd.restype = ctypes.c_int
     return lib
@@ -141,18 +183,20 @@ def _check_operands(named: dict) -> None:
 
 def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
-    a contiguous last dim)."""
+    a contiguous last dim), on the path :func:`forward_path` picks."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
+    path = forward_path(n, d, q.dtype, _aligned(q, k, v, out))
     lib = _lib()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     code = lib.passt_attention_fwd(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        _DTYPE_CODE[q.dtype], b, n, h, d, *strides, float(scale), int(bool(plus1)),
+        _DTYPE_CODE[q.dtype], FWD_PATHS[path], b, n, h, d, *strides, float(scale), int(bool(plus1)),
         _build.stream_of(q),
     )
-    _build.check(lib, code, "attention kernel launch")
+    _build.check(lib, code, f"attention kernel launch ({path} path)")
+    FWD_PATH_LAUNCHES[path] += 1
 
 
 def attention_bwd_plain(

@@ -55,3 +55,29 @@ def graph_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(fn, reps: int = 10) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches (ms, by
+    kernel name), from a ``torch.profiler`` trace of ``reps`` calls after
+    one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+    return times
+
+
+def kernel_ms(fn, reps: int = 10) -> float:
+    """The summed device time of the CUDA kernels ``fn`` launches, per call
+    (:func:`kernel_times`): the gaps between kernels drop out. For calls
+    that a CUDA graph cannot capture (an autograd backward)."""
+    return sum(kernel_times(fn, reps).values())

@@ -1,9 +1,10 @@
 """Text variants of one kernel source, built side by side on the card; shared
-by ``ln_qkv_variants`` and ``fused_mlp_variants``."""
+by ``ln_qkv_variants``, ``fused_mlp_variants`` and ``attention_variants``."""
 
 from __future__ import annotations
 
 import json
+import re
 import shutil
 from pathlib import Path
 from typing import Iterator, Tuple
@@ -18,28 +19,52 @@ def load(argv, default: Path) -> dict:
     return json.loads((Path(argv[0]) if argv else default).read_text())
 
 
+def registers(log: str, fragment: str) -> Tuple[int, int]:
+    """The most registers and spill-store bytes that ``ptxas -v`` reports
+    for the entry functions whose mangled name contains ``fragment``."""
+    regs, spills = [0], [0]
+    for chunk in log.split("Compiling entry function")[1:]:
+        if fragment in chunk.split("\n", 1)[0]:
+            regs += [int(r) for r in re.findall(r"Used (\d+) registers", chunk)]
+            spills += [int(x) for x in re.findall(r"(\d+) bytes spill stores", chunk)]
+    return max(regs), max(spills)
+
+
 def builds(kernel: str, variants: dict, lib_cache) -> Iterator[Tuple[str, str]]:
     """For each variant: write the kernel sources with the variant's edits of
-    ``<kernel>.cu`` to ``build/<kernel>_variants/<name>/``, point the build
-    there, clear the wrapper's library cache ``lib_cache`` (a
-    ``functools.cache``) and build; yields the name and the compiler's
-    output. The library name hashes the source, so each variant gets its
-    own. The sources are pointed back at ``csrc`` at the end."""
+    ``<kernel>.cu`` to ``build/<kernel>_variants/<name>/`` and build it (one
+    ``nvcc`` per variant, all started together); then, variant by variant,
+    point the build there, clear the wrapper's library cache ``lib_cache``
+    (a ``functools.cache``) and yield the name and the compiler's output.
+    The library name hashes the source, so each variant gets its own. The
+    sources are pointed back at ``csrc`` at the end."""
     csrc = _build.CSRC
     try:
+        where = {}
         for name, edits in variants.items():
-            where = _build.BUILD_DIR.parent / f"{kernel}_variants" / name
-            shutil.rmtree(where, ignore_errors=True)
-            shutil.copytree(csrc, where)
-            src = (where / f"{kernel}.cu").read_text()
+            where[name] = _build.BUILD_DIR.parent / f"{kernel}_variants" / name
+            shutil.rmtree(where[name], ignore_errors=True)
+            shutil.copytree(csrc, where[name])
+            src = (where[name] / f"{kernel}.cu").read_text()
             for old, new in edits:
                 if old not in src:
                     raise SystemExit(f"variant {name}: text not found in {kernel}.cu: {old!r}")
                 src = src.replace(old, new)
-            (where / f"{kernel}.cu").write_text(src)
-            _build.CSRC = where
+            (where[name] / f"{kernel}.cu").write_text(src)
+        jobs, started = {}, set()
+        for name in variants:  # variants with the same source share one build
+            _build.CSRC = where[name]
+            path = _build.library_path(kernel)
+            jobs[name] = None if path in started else _build._start(kernel)
+            started.add(path)
+        logs = {}
+        for name, job in jobs.items():
+            _build.CSRC = where[name]
+            logs[name] = _build.finish(kernel, job)
+        for name in variants:
+            _build.CSRC = where[name]
             lib_cache.cache_clear()
-            yield name, _build.build([kernel])[kernel]
+            yield name, logs[name]
     finally:
         _build.CSRC = csrc
         lib_cache.cache_clear()

@@ -1,0 +1,116 @@
+"""The attention forward kernel's one-pass order, emulated on the CPU, and
+the choice of its path.
+
+``csrc/attention_fwd.cu``'s "wgmma" path walks the keys in tiles of 128
+with a running row max (starting at 0 under plus1), rounds p = exp(s - m)
+to the input dtype against that running max for the PV product, and
+rescales its fp32 accumulator and row sum by exp(m_old - m_new) whenever
+the max rises. The emulation below does the same in fp32 PyTorch and is
+held, on the same numpy inputs, against the JAX package's Pallas kernel in
+interpret mode and against the port's plain version (exact max), within
+chip_smoke.py's TOL_ATTN, the tolerance the card holds the kernel to.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from passt_tpu.ops.pallas import attention as jax_attention
+from passt_tpu_torch.ops.attention import _aligned, _head_views, attention_plain, forward_path
+
+HEADS, HEAD_DIM = 2, 64
+KEY_TILE = 128  # WG_BK in csrc/attention_fwd.cu
+# chip_smoke.py TOL_ATTN: a p may round the other way and the output may
+# round the other way: one output ulp at |o| < 2
+TOL_ATTN = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+def online_attention(q, k, v, *, scale, plus1, tile=KEY_TILE):
+    """The wgmma path's order on ``[B, N, H, D]``: fp32 scores and softmax,
+    a running max over key tiles, p rounded to the input dtype against the
+    running max, acc and l rescaled in fp32; o = acc / l rounded once."""
+    dtype = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    b, n, h, d = q.shape
+    m = torch.full((b, h, n, 1), 0.0 if plus1 else -torch.inf)
+    l = torch.zeros((b, h, n, 1))
+    acc = torch.zeros((b, h, n, d))
+    for k0 in range(0, n, tile):
+        s = torch.einsum("bnhd,bmhd->bhnm", qf, kf[:, k0:k0 + tile]) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhnm,bmhd->bhnd", p.to(dtype).float(), vf[:, k0:k0 + tile])
+        m = m_new
+    if plus1:
+        l = l + torch.exp(-m)
+    return (acc / l).transpose(1, 2).to(dtype)
+
+
+@pytest.mark.parametrize("n", [97, 474, 1190])
+@pytest.mark.parametrize("plus1", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_online_order_matches_pallas_and_plain(dtype, plus1, n):
+    rng = np.random.default_rng(n + 7 * plus1)
+    qkv = rng.standard_normal((1, n, 3 * HEADS * HEAD_DIM)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    q, k, v = torch.from_numpy(qkv).to(tdt).reshape(1, n, 3, HEADS, HEAD_DIM).unbind(2)
+    scale = HEAD_DIM ** -0.5
+    got = online_attention(q, k, v, scale=scale, plus1=plus1)
+    assert got.dtype == tdt and bool(torch.isfinite(got).all())
+
+    plain = attention_plain(q, k, v, scale=scale, plus1=plus1)
+    j5 = jnp.asarray(qkv, dtype=jnp.dtype(dtype)).reshape(1, n, 3, HEADS, HEAD_DIM)
+    ref = jax_attention.fused_attention(
+        j5[:, :, 0], j5[:, :, 1], j5[:, :, 2], scale=scale, plus1=plus1, interpret=True
+    )
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    for other in (plain.float(), ref):
+        assert float((got.float() - other).abs().max()) <= TOL_ATTN[tdt]
+
+
+def test_online_order_rescales_when_the_max_rises():
+    """A key tile after the first with far larger scores: the first tile's
+    contribution is rescaled to (almost) nothing, as with the exact max."""
+    n, d = 2 * KEY_TILE, HEAD_DIM
+    q = torch.ones((1, n, 1, d), dtype=torch.bfloat16)
+    k = torch.zeros((1, n, 1, d), dtype=torch.bfloat16)
+    k[:, KEY_TILE:] = 1.0
+    v = torch.zeros((1, n, 1, d), dtype=torch.bfloat16)
+    v[:, KEY_TILE:] = 1.0
+    got = online_attention(q, k, v, scale=1.0, plus1=False)
+    plain = attention_plain(q, k, v, scale=1.0, plus1=False)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), atol=2.0**-7, rtol=0)
+    assert float(got.float().min()) > 0.99
+
+
+@pytest.mark.parametrize(
+    "n, d, dtype, aligned, path",
+    [
+        (1190, 64, torch.bfloat16, True, "wgmma"),  # serving
+        (474, 64, torch.bfloat16, True, "wgmma"),  # training, the qkv entry
+        (154, 64, torch.float16, True, "wgmma"),
+        (14, 64, torch.bfloat16, True, "short"),  # timestamp windows
+        (64, 64, torch.bfloat16, True, "short"),
+        (65, 64, torch.bfloat16, True, "wgmma"),
+        (474, 64, torch.float32, True, "fma"),  # the fp32 steps
+        (97, 16, torch.bfloat16, True, "mma"),
+        (97, 128, torch.float16, True, "mma"),
+        (97, 24, torch.bfloat16, True, "fma"),  # 8 mod 16: the FMA kernel
+        (1190, 64, torch.bfloat16, False, "fma"),  # unaligned strides
+    ],
+)
+def test_forward_path(n, d, dtype, aligned, path):
+    assert forward_path(n, d, dtype, aligned) == path
+
+
+def test_aligned_views():
+    """The qkv entry's head views of a contiguous [B, N, 3C] tensor meet the
+    tensor-core paths' alignment; a view one element off does not."""
+    qkv = torch.zeros((2, 97, 3 * HEADS * HEAD_DIM), dtype=torch.bfloat16)
+    assert _aligned(*_head_views(qkv, HEADS, HEAD_DIM))
+    assert _aligned(*qkv.reshape(2, 97, 3, HEADS, HEAD_DIM).unbind(2))
+    shifted = torch.zeros(qkv.numel() + 1, dtype=torch.bfloat16)[1:].view(qkv.shape)
+    assert not _aligned(*_head_views(shifted, HEADS, HEAD_DIM))
