@@ -17,10 +17,12 @@ Phases (each prints one line or more; the first failure exits non-zero):
    PyTorch dispatches it (the kernel it ran named from a profiler trace)
    and each SDPA backend that accepts the inputs, timed alone;
 3b. the attention backward kernel through both entries against its plain
-   version (bf16/fp16/fp32, plus1 on and off, ragged N, other head dims),
-   timed at the training step's shapes (graph replay and events) beside
-   SDPA's backward (the profiled kernel time of its forward and backward
-   less its forward's, and events);
+   version (bf16/fp16/fp32, plus1 on and off, ragged N, other head dims;
+   every call checked to take the path ``backward_path`` picks, the
+   "wgmma" path's bits checked equal run to run), timed at the training
+   step's shapes (graph replay, events and profiled kernel time) beside
+   the old "mma" pair on the same call and SDPA's backward (the profiled
+   kernel time of its forward and backward less its forward's, and events);
 4. the serving path at full PaSST-S width (12 x 768, 12 heads, 527 classes,
    N = 1190, random weights from a seeded generator): Predictor calls at
    B = 1 and B = 20 (10-s clips), scene embeddings and timestamp embeddings
@@ -33,7 +35,9 @@ Phases (each prints one line or more; the first failure exits non-zero):
    (bf16, B = 12, patchout 40/4 -> N = 474, mixup, AdamW with bf16 SR
    moments and bf16 SR parameters): 2 warm-up and 10 timed steps, ms/step
    and specs/s, the loss finite, the parameters moved, the step counter
-   advanced, and the exact launch counts per step (and per forward path);
+   advanced, and the exact launch counts per step (and per forward and
+   backward path: the bf16 steps' backward all on "wgmma", the fp32 steps'
+   of phases 7 and 9 all on "fma");
 7. one fp32 training step at full width (B = 2) with the kernels against
    the same step on the plain versions, from the same weights and the same
    draws: the loss, every leaf's gradient and the updated parameters;
@@ -406,7 +410,10 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
 
 def phase_backward(gpu: str, dev: torch.device) -> dict:
     """[3b] the backward kernel through both entries against its plain
-    version, then its times at the shapes the training paths give it."""
+    version on the path backward_path picks (every call checked to take
+    it), the same bits run to run, then its times at the shapes the
+    training paths give it, the old "mma" pair beside the "wgmma" path."""
+    from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.ops.attention import (
         attention_bwd_plain,
         fused_attention_bwd,
@@ -417,27 +424,50 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     heads, hd = 12, 64
     worst = {"fused_attention_bwd": 0.0, "fused_attention_qkv_bwd": 0.0}  # of max|ref|
     worst_abs = dict(worst)
-    cases = [(dtype, n, plus1, heads, hd)
+    # (dtype, B, N, plus1, H, D): N 14/474/1190 in three dtypes; for the
+    # wgmma path one and two query tiles (65, 128, 129), at B = 12, N = 1190
+    # more key blocks than the card holds at once (the dQ order), and at
+    # n_plain more key blocks a head than SMs, so that kernel KV takes the
+    # plain block order, four heads of them more than the card holds at once
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_plain = 64 * (sms + 1) + 20
+    cases = [(dtype, 2, n, plus1, heads, hd)
              for dtype in (torch.bfloat16, torch.float16, torch.float32)
              for n in (14, 474, 1190) for plus1 in (False, True)]
-    cases += [(dtype, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
+    cases += [(dtype, 2, n, plus1, heads, hd) for dtype in (torch.bfloat16, torch.float16)
+              for n in (65, 128, 129) for plus1 in (False, True)]
+    cases += [(torch.bfloat16, 12, 1190, True, heads, hd), (torch.bfloat16, 1, n_plain, False, 4, hd)]
+    cases += [(dtype, 2, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
               for h_, d_ in ((4, 16), (2, 24), (2, 128))]
-    for dtype, n, plus1, h_, d_ in cases:
-        qkv = torch.from_numpy(rng.standard_normal((2, n, 3 * h_ * d_)).astype(np.float32)).to(dev, dtype)
-        do = torch.from_numpy(rng.standard_normal((2, n, h_, d_)).astype(np.float32)).to(dev, dtype)
-        q, k, v = qkv.reshape(2, n, 3, h_, d_).unbind(2)
+    taken = dict.fromkeys(A.BWD_PATHS, 0)
+    for dtype, b, n, plus1, h_, d_ in cases:
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h_ * d_)).astype(np.float32)).to(dev, dtype)
+        do = torch.from_numpy(rng.standard_normal((b, n, h_, d_)).astype(np.float32)).to(dev, dtype)
+        q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
         scale = d_ ** -0.5
         ref = attention_bwd_plain(q, k, v, do, scale=scale, plus1=plus1)
+        A.reset_path_launches()
         got_b = fused_attention_bwd(q, k, v, do, scale=scale, plus1=plus1)
-        got_f = fused_attention_qkv_bwd(qkv, do.reshape(2, n, h_ * d_), heads=h_, head_dim=d_,
-                                        scale=scale, plus1=plus1).reshape(2, n, 3, h_, d_).unbind(2)
+        dqkv = fused_attention_qkv_bwd(qkv, do.reshape(b, n, h_ * d_), heads=h_, head_dim=d_, scale=scale, plus1=plus1)
+        got_f = dqkv.reshape(b, n, 3, h_, d_).unbind(2)
         torch.cuda.synchronize()
+        path = A.backward_path(n, d_, dtype, True)
+        check(A.BWD_PATH_LAUNCHES[path] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
+              f"{dtype} B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want 2 on {path}")
+        taken[path] += 2
+        if path == "wgmma" and (n, plus1) in ((1190, True), (129, False), (n_plain, False)):
+            # the ordered dQ sum: the same bits again, through both entries
+            again = fused_attention_qkv_bwd(qkv, do.reshape(b, n, h_ * d_), heads=h_, head_dim=d_, scale=scale,
+                                            plus1=plus1)
+            again_b = fused_attention_bwd(q, k, v, do, scale=scale, plus1=plus1)
+            check(torch.equal(dqkv, again) and all(torch.equal(x, y) for x, y in zip(got_b, again_b)),
+                  f"{dtype} B={b} N={n}: the backward's bits differ between two runs")
         for name, got in (("fused_attention_bwd", got_b), ("fused_attention_qkv_bwd", got_f)):
             for what, g, r in zip(("dq", "dk", "dv"), got, ref):
                 check(g.dtype == dtype and bool(torch.isfinite(g).all()), f"{name} {what}: dtype/finite")
                 err = max_err(g, r)
                 rel = err / max(float(r.float().abs().max()), 1e-30)
-                check(rel <= TOL_BWD[dtype], f"{name} {what} {dtype} N={n} H={h_} D={d_} plus1={plus1}: "
+                check(rel <= TOL_BWD[dtype], f"{name} {what} {dtype} B={b} N={n} H={h_} D={d_} plus1={plus1}: "
                       f"max err {rel:.3g} of max|ref| > {TOL_BWD[dtype]:.3g}")
                 worst[name] = max(worst[name], rel)
                 worst_abs[name] = max(worst_abs[name], err)
@@ -459,7 +489,9 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         check(torch.equal(g1, g2), f"{dtype}: d(qkv) through the unbind views != the qkv entry's d(qkv) "
               f"(max err {max_err(g1, g2):.3g})")
     say(f"[3b] d(qkv) assembled by autograd from the [B, N, H, D] entry's view gradients equals the "
-        f"qkv entry's d(qkv) bit for bit (bf16 and fp32, B=2 N={TRAIN_N})")
+        f"qkv entry's d(qkv) bit for bit (bf16 and fp32, B=2 N={TRAIN_N}); the wgmma path gives the same bits "
+        f"twice through both entries (bf16/fp16 B=2 N=129, B=2 and B=12 N=1190, B=1 H=4 N={n_plain} in the plain "
+        f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs); calls per path {taken}")
 
     rec = {}
     # the qkv entry at the bf16 training step's shape; the [B, N, H, D] entry
@@ -471,9 +503,24 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         do = torch.randn((b, n, heads * hd), device=dev, dtype=dtype)
         q, k, v = qkv.reshape(b, n, 3, heads, hd).unbind(2)
         do4 = do.view(b, n, heads, hd)
+        mma = None
         if name == "fused_attention_qkv_bwd":
             kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=heads, head_dim=hd, scale=scale)
+            A.reset_path_launches()
             got = kern().reshape(b, n, 3, heads, hd).unbind(2)
+            check(A.BWD_PATH_LAUNCHES["wgmma"] == 1 == sum(A.BWD_PATH_LAUNCHES.values()),
+                  f"{name}: backward paths {A.BWD_PATH_LAUNCHES}, want wgmma")
+
+            def mma():
+                """The old "mma" pair on the same call (the private override)."""
+                dqkv = torch.empty_like(qkv)
+                A._launch_bwd(*A._head_views(qkv, heads, hd), do4, *A._head_views(dqkv, heads, hd), scale, False,
+                              path="mma")
+                return dqkv
+            for what, g, r in zip(("dq", "dk", "dv"), mma().reshape(b, n, 3, heads, hd).unbind(2),
+                                  attention_bwd_plain(q, k, v, do4, scale=scale)):
+                rel = max_err(g, r) / max(float(r.float().abs().max()), 1e-30)
+                check(rel <= TOL_BWD[dtype], f"{name} mma path {what}: max err {rel:.3g} of max|ref|")
         else:
             kern = lambda: fused_attention_bwd(q, k, v, do4, scale=scale)
             got = kern()
@@ -497,7 +544,10 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         lib = lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True)
         backends = sdpa_backends(ql, kl, vl, scale, do4)
         ran = top_kernel(kernel_times(lib, 3))
-        t = dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), ms_kernels=kernel_ms(kern),
+        t = dict(path=A.backward_path(n, hd, dtype, True), ms=graph_ms(kern), ms_events=cuda_ms(kern),
+                 ms_kernels=kernel_ms(kern),
+                 device_kernels=sorted({m_.group(0) for m_ in map(re.compile(r"attention_bwd_\w+_kernel").search,
+                                                                   kernel_times(kern, 2)) if m_}),
                  plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
                  library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
                  library_kernel=ran, library_backend=backend_of(ran),
@@ -505,11 +555,19 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                                      for be in backends if be.name != "MATH"},
                  # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
                  **bound(10 * n * n * hd * b * heads, 7 * b * n * heads * hd * qkv.element_size(), peak))
+        if mma is not None:
+            t.update(mma_ms=graph_ms(mma), mma_ms_kernels=kernel_ms(mma),
+                     # the wgmma path's own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
+                     design_bound_ms=14 * n * n * hd * b * heads / peak * 1e3)
+        old = (f"; the old mma path {t['mma_ms']:.4f} ms graph-replayed, {t['mma_ms_kernels']:.4f} of kernels; the "
+               f"design's 14N^2D at peak {t['design_bound_ms']:.4f} ms" if mma is not None else "")
         say(f"[3b] {name} vs plain: max err {worst[name]:.3g} of max|ref|, {worst_abs[name]:.3g} absolute "
-            f"(bf16/fp16/fp32, plus1 on/off, "
-            f"N 14/474/1190 at D=64; D 16/24/128 at N=97; the timed inputs); {str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
+            f"(bf16/fp16/fp32, plus1 on/off, N 14/474/1190 at D=64; bf16/fp16 N 65/128/129; bf16 B=12 N=1190; "
+            f"bf16 B=1 H=4 N={n_plain}; "
+            f"D 16/24/128 at N=97; the timed inputs); {str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
+            f"({t['path']}: {', '.join(t['device_kernels'])}) "
             f"{t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels "
-            f"(profiled); plain {t['plain_ms']:.4f} ms; SDPA "
+            f"(profiled){old}; plain {t['plain_ms']:.4f} ms; SDPA "
             f"backward {t['library_ms']:.4f} ms of kernels (profiled forward + backward less forward), "
             f"{t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; alone: " + ", ".join(f"{k} {v:.4f}" for k, v in t["library_backend_ms"].items())
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
@@ -1002,6 +1060,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     paths = dict(A.FWD_PATH_LAUNCHES)
+    bwd_paths = dict(A.BWD_PATH_LAUNCHES)
 
     n = warmup + steps
     check(state.step == n, f"{variant}: step counter {state.step} != {n}")
@@ -1017,12 +1076,15 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
     want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n)  # every block's forward at N = 474
     check(paths == want_paths, f"{variant}: forward paths {paths} != {want_paths}")
+    want_bwd = dict(fma=0, mma=0, wgmma=12 * n)  # every block's backward at N = 474
+    check(bwd_paths == want_bwd, f"{variant}: backward paths {bwd_paths} != {want_bwd}")
     phase = "[6]" if variant == "default" else "[8]"
     say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
         f"params): {ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after {warmup}; "
         f"mean loss {float(loss):.5f}; {moved}/{len(before)} leaves moved; launches per step "
         f"{ {k: v // n for k, v in launches.items() if v} }; forward paths per step "
-        f"{ {k: v // n for k, v in paths.items() if v} } ({gpu})")
+        f"{ {k: v // n for k, v in paths.items() if v} }, backward paths per step "
+        f"{ {k: v // n for k, v in bwd_paths.items() if v} } ({gpu})")
     return launches
 
 
@@ -1033,6 +1095,7 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
     from passt_tpu_torch import bench
     from passt_tpu_torch.models.passt import PaSSTConfig
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.ops.frontend import MelConfig
     from passt_tpu_torch.train.optim import GradientTransformation
     from passt_tpu_torch.train.steps import create_train_state, make_optimizer, make_train_step
@@ -1057,10 +1120,11 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
         "target": torch.from_numpy((rng.uniform(size=(2, 527)) < 0.05).astype(np.float32)).to(dev),
     }
     _build.reset_launches()
+    A.reset_path_launches()
     new_state, metrics = step(state, batch, bench.SEED)
     torch.cuda.synchronize()
     return dict(loss=float(metrics["loss"]), grads=grads, updates=updates, params=new_state.params,
-                launches=dict(_build.LAUNCHES), n=cfg.seq_len(train=True))
+                launches=dict(_build.LAUNCHES), bwd_paths=dict(A.BWD_PATH_LAUNCHES), n=cfg.seq_len(train=True))
 
 
 def hold_fp32_step(k: dict, p: dict, what: str) -> str:
@@ -1114,6 +1178,7 @@ def phase_train_correctness(dev: torch.device) -> dict:
     p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
     want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_bwd=12)
     check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
+    check(k["bwd_paths"] == dict(fma=12, mma=0, wgmma=0), f"fp32 step backward paths {k['bwd_paths']}, want 12 fma")
     say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: {hold_fp32_step(k, p, '[7]')}")
     return k["launches"]
 
@@ -1139,6 +1204,8 @@ def phase_variant_correctness(dev: torch.device) -> list:
         p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
         check(k["n"] == n, f"{variant}: sequence {k['n']} != {n}")
         check(k["launches"] == want, f"[9] {variant} fp32 step launches {k['launches']} != {want}")
+        check(k["bwd_paths"] == dict(fma=12, mma=0, wgmma=0),
+              f"[9] {variant} fp32 step backward paths {k['bwd_paths']}, want 12 fma")
         say(f"[9] fp32 training step PaSST-S B=2 N={n} under {variant}, kernels vs the default config on "
             f"plain versions: {hold_fp32_step(k, p, f'[9] {variant}')}")
         runs.append(k["launches"])
@@ -1269,6 +1336,13 @@ def main() -> int:
                  "fma": "attention_fwd_kernel"}
         say("[2] attention_fwd registers, spill stores (B) per path: " + "; ".join(
             f"{p} {registers(logs['attention_fwd'], frag)}" for p, frag in paths.items()))
+    if logs["attention_bwd"] != "(cached)":
+        from passt_tpu_torch.tools.variants import registers
+
+        kernels = {"wgmma S": "stats_kernel", "wgmma KV": "kv_kernel", "mma A": "dq_mma_kernel",
+                   "mma B": "dkv_mma_kernel", "fma A": "attention_bwd_dq_kernel", "fma B": "attention_bwd_dkv_kernel"}
+        say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
+            f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
 
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))

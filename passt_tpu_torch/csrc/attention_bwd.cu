@@ -3,8 +3,9 @@
 //
 // Replaces: passt_tpu/ops/pallas/attention.py:_bwd_kernel (:188, the VJP of
 // fused_attention on [B, H, N, D]) and :_flat_bwd_kernel (:388, the VJP of
-// fused_attention_qkv, writing dqkv [B, N, 3C] in the Dense layout). One
-// kernel pair serves both: every operand arrives as a base pointer with
+// fused_attention_qkv, writing dqkv [B, N, 3C] in the Dense layout), and
+// scripts/proto_attn_qkv.py:78 _bwd_kernel_flat (the latter with plus1 off).
+// Each path serves both entries: every operand arrives as a base pointer with
 // (batch, token, head) strides, so q/k/v views into qkv are read, and
 // dq/dk/dv views into dqkv are written, in place. The port's wrappers are in
 // passt_tpu_torch/ops/attention.py.
@@ -30,7 +31,43 @@
 // output elements; at the training shape (bf16, B = 12, H = 12, N = 474,
 // D = 64) that is 20.7 GFLOP against ~61 MB, 0.021 ms at 989 TFLOP/s.
 //
-// Design: two kernels, no atomics, so every run gives the same bits.
+// Three paths. ops/attention.py backward_path() picks one per call in
+// Python and the C entry launches exactly that one, or returns
+// cudaErrorInvalidValue for a call the path cannot take:
+// - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the training
+//   step's path): kernel S then kernel KV below, 14 N^2 D FLOP.
+//   Kernel S, one block per (batch, head, 64-query tile), one pass over
+//   128-key K/V tiles: S and dP on wgmma, the running max m (from 0 under
+//   plus1) with l = sum p and sum(p * dP) rescaled by exp(m_old - m_new)
+//   when it rises; writes m, il and di (4 N^2 D). di keeps the reference's
+//   unrounded p, not FlashAttention's rowsum(dO * O) (O was rounded).
+//   Kernel KV, one block per (batch, head, 64 keys), one pass over 64-query
+//   tiles (10 N^2 D): S^T = K Q^T and dP^T = V dO^T from shared memory,
+//   P_norm^T and dS^T rounded to the input dtype in registers as the A
+//   operands of dV += P_norm^T dO and dK += dS^T Q, and dS^T stored once
+//   to shared memory and read transposed for dQ_part = dS K
+//   (FlashAttention-3's backward layout). K and V stay resident; Q, dO
+//   and the tile's statistics arrive through a TMA-fed mbarrier ring
+//   (4-D tensor maps, so rows past N of one batch are never another
+//   batch's rows). dQ across key blocks is summed in fp32 in a fixed order
+//   per query tile through a [B*H][npad][64] scratch: a counter per tile,
+//   read with acquire and released after the adds, admits the blocks one
+//   by one; a dQ warp adds each staged share with one TMA bulk add, off
+//   the consumers' path, and the last block rounds and writes dQ in place,
+//   so every run gives the same bits (no unordered atomics). Blocks start
+//   on different query tiles (a rotation) so that each one's turn comes
+//   right after its predecessor's turn of the step before.
+//   What sets its time (tools/attention_bwd_variants, PERF.md): not the
+//   products (without the dQ or the dS products it is 0-5% faster) but the
+//   latency of each step's chain within a warpgroup (two warpgroups an SM,
+//   168 registers, 44 bytes of spills) and the dQ sum (~0.05 ms at the
+//   training shape); per-block partials summed by a third kernel, the plain
+//   block order, and two consumer warpgroups of 64 keys each are slower.
+// - "mma" (bf16/fp16 at another D that is a multiple of 16): kernels A and
+//   B below, mma.sync m16n8k16.
+// - "fma" (fp32, which the TPU runs at full fp32; bf16/fp16 at a D that is
+//   8 mod 16 or with unaligned strides): the same pair in fp32 FMA.
+// Kernels A and B ("mma", "fma"), no atomics:
 // - Kernel A, one block per (batch, head, 64-query tile), three passes over
 //   the K/V tiles: (1) the row max m; (2) l and sum(p * dP); (3) dS and
 //   dQ += dS . k. It writes m, il and di ([3][B*H][N rounded up to 64] fp32
@@ -39,28 +76,29 @@
 //   query tiles: recompute p^T = exp(k . q * scale - m) from the saved m,
 //   dP^T = v . dO, then dV += P_norm^T . dO and dK += dS^T . q in registers.
 // Scores are recomputed 4 times (3 in A, 1 in B) and dP 3 times: 20 N^2 D
-// FLOP against the function's 10, the price of no [N, N] scratch and no
-// atomics.
-// - bf16/fp16 with D a multiple of 16 and 16-byte aligned rows (the model's
-//   path): four warps of 16 rows each, mma.sync m16n8k16 with fp32
+// FLOP against the function's 10.
+// - "mma": four warps of 16 rows each, mma.sync m16n8k16 with fp32
 //   accumulate. The warp's own 16 rows (q and dO in A; k and v in B) stay in
 //   registers as A fragments; the streamed tiles go through padded shared
 //   memory, double-buffered with cp.async. Score accumulators become the A
 //   fragments of the next product after rounding, without a trip through
 //   shared memory. 16 columns of scores are live at a time.
-// - fp32 inputs (full fp32 on the TPU: no TF32 here), other D and unaligned
-//   strides: fp32 FMA from shared memory, 256 threads, 4 x 4 scores each.
-// - Ragged N: keys past N get p = 0 in A, queries past N get p = dS = 0 in
-//   B, rows past N are not stored. There is no cap on N.
+// - "fma": fp32 FMA from shared memory, 256 threads, 4 x 4 scores each.
+// - Ragged N: keys past N get p = 0, queries past N get p = dS = 0, rows
+//   past N are not stored. There is no cap on N.
 #include "common.cuh"
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using namespace passt_attn;
+using namespace passt_hopper;
 
 // The saved row statistics: m, il and di planes of [B*H][npad] floats.
 struct Stats {
@@ -751,15 +789,542 @@ int launch_mma_d(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- "wgmma" path (bf16 / fp16, D = 64) --------------------------------------
+
+constexpr int BW_ROW = 128;       // bytes of one D = 64 row: one 128-byte swizzle span
+constexpr int BW_TILE = 64 * 64;  // elements of a 64-row tile
+// Kernel S: one block per (64-query tile, head, batch); 128-key K/V tiles.
+constexpr int ST_BK = 128;
+constexpr int ST_STAGES = 2;
+constexpr int ST_THREADS = 128 + 32;  // one consumer warpgroup and one producer warp
+constexpr int ST_SMEM = 2 * 64 * BW_ROW + 2 * ST_STAGES * ST_BK * BW_ROW + 8 * (1 + 2 * ST_STAGES);
+// Kernel KV: one block per (64 keys, head, batch), two blocks an SM; 64-query tiles.
+constexpr int KV_STAGES = 3;
+constexpr int KV_THREADS = 128 + 64;  // the consumer warpgroup, the TMA producer and the dQ warp
+constexpr int KV_SMEM = 2 * 64 * BW_ROW                // K, V
+                        + 2 * KV_STAGES * 64 * BW_ROW  // the Q and dO ring
+                        + 2 * 64 * BW_ROW              // P_norm^T and dS^T
+                        + 64 * 64 * 4                  // the staged fp32 dQ share
+                        + KV_STAGES * 3 * 64 * 4       // the m, il, di ring
+                        + 8 * (3 + 2 * KV_STAGES);
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Kernel S: the row statistics of one 64-query tile in one pass over the
+// keys. S = Q K^T and dP = dO V^T per 128-key tile (wgmma m64n128k16, Q and
+// dO resident, K and V through a TMA ring); the running max m (from 0 under
+// plus1), l = sum p and r = sum p dP, both rescaled by exp(m_old - m_new)
+// when the max rises. Writes m, il = 1 / l (plus exp(-m) under plus1) and
+// di = r il for all 64 rows (up to npad) as [B*H][tiles][3][64] floats, so
+// that kernel KV takes a tile's three with one copy, and zeroes the tile's
+// dQ counter.
+// Accumulator layout as in attention_fwd.cu: element 4 j + e of a thread in
+// warp w is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Stats st,
+    int* __restrict__ counters, int n, float scale, int plus1) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = align1024(smem_raw);
+    T* Qs = reinterpret_cast<T*>(base);   // [64][64]
+    T* Os = Qs + BW_TILE;                 // [64][64] dO
+    T* Ks = Os + BW_TILE;                 // [ST_STAGES][ST_BK][64]
+    T* Vs = Ks + ST_STAGES * ST_BK * 64;  // [ST_STAGES][ST_BK][64]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + ST_STAGES * ST_BK * 64);
+    uint64_t* full = qbar + 1;            // [ST_STAGES]
+    uint64_t* empty = full + ST_STAGES;   // [ST_STAGES]
+
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64;
+    const long long bh = (long long)b * gridDim.y + h;
+    const int tiles = (n + ST_BK - 1) / ST_BK;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < ST_STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 4);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        counters[bh * gridDim.x + blockIdx.x] = 0;  // kernel KV's dQ order of this tile starts here
+    }
+    __syncthreads();
+
+    if (warp == 4) {  // the producer warp: one thread issues every copy
+        if (lane == 0) {
+            mbar_expect_tx(qbar, 2 * 64 * BW_ROW);
+            tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
+            tma_load_4d(Os, &omap, qbar, 0, q0, h, b);
+            for (int i = 0; i < tiles; ++i) {
+                const int s = i % ST_STAGES;
+                if (i >= ST_STAGES) mbar_wait(empty + s, (i / ST_STAGES - 1) & 1);
+                mbar_expect_tx(full + s, 2 * ST_BK * BW_ROW);
+                tma_load_4d(Ks + s * ST_BK * 64, &kmap, full + s, 0, i * ST_BK, h, b);
+                tma_load_4d(Vs + s * ST_BK * 64, &vmap, full + s, 0, i * ST_BK, h, b);
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2, t = lane & 3;
+    const float sl2 = scale * LOG2E;
+    float m0 = plus1 ? 0.f : -INFINITY, m1 = m0;  // running max of rows g and g + 8, scaled
+    float l0 = 0.f, l1 = 0.f;                    // this thread's share of sum p
+    float r0 = 0.f, r1 = 0.f;                    // and of sum p dP
+    float s[64], dp[64];
+
+    mbar_wait(qbar, 0);
+    const uint64_t qd = sw128_desc(Qs), od = sw128_desc(Os);
+    for (int i = 0; i < tiles; ++i) {
+        const int stage = i % ST_STAGES;
+        mbar_wait(full + stage, (i / ST_STAGES) & 1);
+        const uint64_t kd = sw128_desc(Ks + stage * ST_BK * 64), vd = sw128_desc(Vs + stage * ST_BK * 64);
+        // S and dP as two groups: the max and the exponentials of S run while
+        // dP is still in flight
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(dp, od + 2 * kk, vd + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        const int k0 = i * ST_BK;
+        if (k0 + ST_BK > n) {  // the ragged last tile: keys past N get p = 0
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (k0 + 8 * j + 2 * t + e >= n) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+        }
+        float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+            x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+            x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+        }
+        // key k0 is valid, so x0 and x1 are finite; m_old = -inf gives a = 0
+        const float n0 = fmaxf(m0, x0 * scale), n1 = fmaxf(m1, x1 * scale);
+        const float a0 = ex2_approx((m0 - n0) * LOG2E), a1 = ex2_approx((m1 - n1) * LOG2E);
+        m0 = n0;
+        m1 = n1;
+        const float ml0 = n0 * LOG2E, ml1 = n1 * LOG2E;
+        float pl0 = 0.f, pl1 = 0.f, pr0 = 0.f, pr1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {  // p in place of s
+            s[4 * j] = ex2_approx(fmaf(s[4 * j], sl2, -ml0));
+            s[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], sl2, -ml0));
+            s[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], sl2, -ml1));
+            s[4 * j + 3] = ex2_approx(fmaf(s[4 * j + 3], sl2, -ml1));
+            pl0 += s[4 * j] + s[4 * j + 1];
+            pl1 += s[4 * j + 2] + s[4 * j + 3];
+        }
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stage);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            pr0 = fmaf(s[4 * j + 1], dp[4 * j + 1], fmaf(s[4 * j], dp[4 * j], pr0));
+            pr1 = fmaf(s[4 * j + 3], dp[4 * j + 3], fmaf(s[4 * j + 2], dp[4 * j + 2], pr1));
+        }
+        l0 = l0 * a0 + pl0;
+        l1 = l1 * a1 + pl1;
+        r0 = r0 * a0 + pr0;
+        r1 = r1 * a1 + pr1;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        r0 += __shfl_xor_sync(0xffffffffu, r0, off);
+        r1 += __shfl_xor_sync(0xffffffffu, r1, off);
+    }
+    if (plus1) {
+        l0 += ex2_approx(-m0 * LOG2E);
+        l1 += ex2_approx(-m1 * LOG2E);
+    }
+    const float il0 = 1.f / l0, il1 = 1.f / l1;
+    if (t == 0) {  // rows up to npad: kernel KV reads whole tiles
+        float* row = st.base + (bh * gridDim.x + blockIdx.x) * 3 * 64 + warp * 16 + g;
+        row[0] = m0;
+        row[8] = m1;
+        row[64] = il0;
+        row[64 + 8] = il1;
+        row[128] = r0 * il0;
+        row[128 + 8] = r1 * il1;
+    }
+}
+
+// Wait until a tile's dQ counter reaches `pos` (acquire). A predecessor that
+// never comes (a broken dispatch order) ends the kernel with an error after
+// WAIT_LIMIT_NS instead of hanging.
+__device__ __forceinline__ void wait_turn(const int* count, int pos) {
+    if (ld_acquire_gpu(count) >= pos) return;
+    const uint64_t t0 = global_ns();
+    while (ld_acquire_gpu(count) < pos)
+        if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+}
+
+// The query tile key block `blk` takes at step s. With `rotate`, block blk
+// starts at tile -blk and walks down, so that at every step each block's
+// turn in that tile's dQ order comes right after its predecessor's turn of
+// the step before; without, every block walks the tiles in order.
+__device__ __forceinline__ int kv_query_tile(int blk, int s, int tiles, int rotate) {
+    return rotate ? (s - blk + tiles) % tiles : s;
+}
+
+// Block blk's position in query tile i's dQ order (there are as many key
+// blocks as query tiles). With `rotate`, the blocks in the rotation that
+// starts at the block taking tile i at step 0, (tiles - i) % tiles: the
+// position is the step at which blk takes tile i. Without, the block index.
+__device__ __forceinline__ int kv_position(int blk, int i, int tiles, int rotate) {
+    return rotate ? (blk + i) % tiles : blk;
+}
+
+// A 64 x 64 fp32 dQ share as kernel KV stages it (in shared memory, and in
+// the dQ scratch in device memory): thread slot ts = 32 w + lane of the
+// consumer warpgroup holds its 32 accumulator values as 8 float4 chunks at
+// floats 32 ts + 4 (k ^ (lane & 7)), the swizzle keeping the warp's stores
+// free of bank conflicts. Chunk k of slot ts is rows r and r + 8, columns c
+// and c + 1 (r = 16 w + g, c = 8 k + 2 t, g = lane / 4, t = lane % 4).
+__device__ __forceinline__ int dq_chunk(int ts, int k) { return 32 * ts + 4 * (k ^ (ts & 7)); }
+__device__ __forceinline__ void dq_chunk_place(int ts, int k, int& r, int& c) {
+    r = 16 * (ts >> 5) + ((ts & 31) >> 2);
+    c = 8 * k + 2 * (ts & 3);
+}
+
+// Round the chunk sums x of one tile to T and store them at their rows of dq
+// (rows past n are not stored); lane `lane` of a warp takes every 32nd chunk.
+template <typename T>
+__device__ __forceinline__ void dq_store_chunk(T* dqb, long long row_stride, int q0, int n, int idx, float4 x) {
+    int r, c;
+    dq_chunk_place(idx >> 3, idx & 7, r, c);
+    if (q0 + r < n)
+        *reinterpret_cast<uint32_t*>(dqb + (long long)(q0 + r) * row_stride + c) = Mma<T>::pack(x.x, x.y);
+    if (q0 + r + 8 < n)
+        *reinterpret_cast<uint32_t*>(dqb + (long long)(q0 + r + 8) * row_stride + c) = Mma<T>::pack(x.z, x.w);
+}
+
+// Kernel KV: dK and dV of 64 keys, and their share of dQ, in one
+// pass over the query tiles. K and V stay in shared memory; Q, dO and the
+// tile's m, il, di arrive through a TMA ring. Per query tile, on wgmma:
+//   S^T = K Q^T, dP^T = V dO^T (A and B K-major from shared memory);
+//   P_norm^T = exp(s^T scale - m) il and dS^T = P_norm^T (dP^T - di) scale,
+//   each rounded to T into shared memory (swizzled as a TMA tile); then
+//   dV += P_norm^T dO and dK += dS^T Q (A K-major, B MN-major) and
+//   dQ_part = dS K (A and B MN-major: dS^T read transposed). Only the three
+//   accumulators are in flight during the products (96 registers a
+//   thread), not P and dS as register operands too. The consumers stage
+//   dQ_part in shared memory and go on; the dQ warp adds it to the tile's fp32 sum
+//   in a fixed order, off the consumers' path: the block at position p
+//   waits for the tile's counter to reach p (acquire); the first stores its
+//   share with a bulk copy, the others add it with a bulk fp32 add (nothing
+//   else touches the sum meanwhile, so the order is fixed) and release
+//   p + 1; the last reads the sum, adds its share, rounds and stores dQ.
+//   Keys past N get p = dS = 0; queries past N likewise.
+// Warps: the four consumers, then the TMA producer, then the dQ warp. Every
+// mbarrier wait here traps after WAIT_LIMIT_NS rather than hang the card.
+template <typename T>
+__global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, Strides dqs, Strides dks, Strides dvs,
+    Stats st, float* __restrict__ dqacc, int* __restrict__ counters, int n, float scale, int rotate) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = align1024(smem_raw);
+    T* Ks = reinterpret_cast<T*>(base);  // [64][64]
+    T* Vs = Ks + BW_TILE;                // [64][64]
+    T* Qs = Vs + BW_TILE;                // [KV_STAGES][64][64]
+    T* Os = Qs + KV_STAGES * BW_TILE;    // [KV_STAGES][64][64] dO
+    T* DSs = Os + KV_STAGES * BW_TILE;   // [64 keys][64 queries] dS^T
+    T* PNs = DSs + BW_TILE;              // [64 keys][64 queries] P_norm^T
+    float* DQs = reinterpret_cast<float*>(PNs + BW_TILE);  // [64 * 64] the dQ share (dq_chunk)
+    float* Sm = DQs + BW_TILE;           // [KV_STAGES][3][64] m, il, di
+    uint64_t* kvbar = reinterpret_cast<uint64_t*>(Sm + KV_STAGES * 3 * 64);
+    uint64_t* full = kvbar + 1;           // [KV_STAGES]
+    uint64_t* empty = full + KV_STAGES;   // [KV_STAGES]
+    uint64_t* dqfull = empty + KV_STAGES; // a dQ share staged
+    uint64_t* dqfree = dqfull + 1;        // the dQ warp has read it
+
+    const int b = blockIdx.z, h = blockIdx.y, blk = blockIdx.x;
+    const long long bh = (long long)b * gridDim.y + h;
+    const int tiles = (n + 63) / 64;  // the query tiles, and the key blocks
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kvbar, 1);
+        for (int s = 0; s < KV_STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 4);
+        }
+        mbar_init(dqfull, 4);
+        mbar_init(dqfree, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == 4) {  // the producer warp
+        if (lane == 0) {
+            mbar_expect_tx(kvbar, 2 * 64 * BW_ROW);
+            tma_load_4d(Ks, &kmap, kvbar, 0, blk * 64, h, b);
+            tma_load_4d(Vs, &vmap, kvbar, 0, blk * 64, h, b);
+            for (int s = 0; s < tiles; ++s) {
+                const int i = kv_query_tile(blk, s, tiles, rotate), stage = s % KV_STAGES;
+                if (s >= KV_STAGES) mbar_wait_or_trap(empty + stage, (s / KV_STAGES - 1) & 1);
+                mbar_expect_tx(full + stage, 2 * 64 * BW_ROW + 3 * 64 * 4);
+                tma_load_4d(Qs + stage * BW_TILE, &qmap, full + stage, 0, i * 64, h, b);
+                tma_load_4d(Os + stage * BW_TILE, &omap, full + stage, 0, i * 64, h, b);
+                bulk_load(Sm + stage * 3 * 64, st.base + (bh * tiles + i) * 3 * 64, 3 * 64 * 4, full + stage);
+            }
+        }
+        return;
+    }
+
+    if (warp == 5) {  // the dQ warp: each staged share into the tile's sum, in order
+        T* dqb = dq + b * dqs.b + h * dqs.h;
+        for (int s = 0; s < tiles; ++s) {
+            const int i = kv_query_tile(blk, s, tiles, rotate);
+            float* acc = dqacc + (bh * st.npad + i * 64) * 64;
+            mbar_wait_or_trap(dqfull, s & 1);
+            const int pos = kv_position(blk, i, tiles, rotate);
+            int* count = counters + bh * tiles + i;
+            if (pos > 0 && lane == 0) {
+                wait_turn(count, pos);
+                fence_proxy_async_global();  // its bulk writes before our reads and adds
+            }
+            __syncwarp();
+            if (pos == tiles - 1) {  // the last: the sum and this share, rounded and stored
+#pragma unroll 8
+                for (int it = 0; it < 32; ++it) {
+                    const int idx = it * 32 + lane, at = dq_chunk(idx >> 3, idx & 7);
+                    float4 x = *reinterpret_cast<const float4*>(DQs + at);
+                    if (pos > 0) {
+                        const float4 y = __ldcg(reinterpret_cast<const float4*>(acc + at));
+                        x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+                    }
+                    dq_store_chunk<T>(dqb, dqs.n, i * 64, n, idx, x);
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(dqfree);
+                continue;
+            }
+            if (lane == 0) {
+                if (pos == 0)
+                    bulk_store(acc, DQs, BW_TILE * 4);
+                else
+                    bulk_reduce_add(acc, DQs, BW_TILE * 4);
+                bulk_commit();
+                bulk_wait_read();
+                mbar_arrive(dqfree);
+                bulk_wait();
+                fence_proxy_async_global();  // the writes before the release
+                st_release_gpu(count, pos + 1);
+            }
+        }
+        return;
+    }
+
+    const int g = lane >> 2, t = lane & 3;
+    const int key0 = blk * 64 + 16 * warp + g;  // this thread's key rows: key0, key0 + 8
+    const bool kv0 = key0 < n, kv1 = key0 + 8 < n;
+    const float sl2 = scale * LOG2E;
+    const uint64_t kd = sw128_desc(Ks), vd = sw128_desc(Vs);
+    // dV's and dK's A operands, K-major: P_norm^T and dS^T
+    const uint64_t pnd = sw128_desc(PNs), dsd_k = sw128_desc(DSs);
+    // dQ's operands: dS^T and K as [64 keys][64] MN-major
+    const uint64_t dsd = sw128_mn_desc(DSs), kd_mn = sw128_mn_desc(Ks);
+    unsigned char* ds_rows = reinterpret_cast<unsigned char*>(DSs);
+    unsigned char* pn_rows = reinterpret_cast<unsigned char*>(PNs);
+    float dka[32], dva[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+
+    mbar_wait_or_trap(kvbar, 0);
+    for (int s = 0; s < tiles; ++s) {
+        const int i = kv_query_tile(blk, s, tiles, rotate), stage = s % KV_STAGES, q0 = i * 64;
+        mbar_wait_or_trap(full + stage, (s / KV_STAGES) & 1);
+        const T* Qt = Qs + stage * BW_TILE;
+        const T* Ot = Os + stage * BW_TILE;
+        const uint64_t qd = sw128_desc(Qt), od = sw128_desc(Ot);          // K-major: S^T, dP^T
+        const uint64_t qd_mn = sw128_mn_desc(Qt), od_mn = sw128_mn_desc(Ot);  // MN-major: dK, dV
+        float sT[32], dpT[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64(sT, kd + 2 * kk, qd + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64(dpT, vd + 2 * kk, od + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+
+        // P_norm^T and dS^T in place of s^T and dP^T: rows are keys, columns queries
+        const float* m = Sm + stage * 3 * 64;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = 8 * j + 2 * t + e;
+                const bool qv = q0 + c < n;
+                const float ml = m[c] * LOG2E, il = m[64 + c], di = m[128 + c];
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int x = 4 * j + 2 * hh + e;
+                    const bool valid = qv && (hh ? kv1 : kv0);
+                    const float pn = valid ? ex2_approx(fmaf(sT[x], sl2, -ml)) * il : 0.f;
+                    dpT[x] = valid ? pn * (dpT[x] - di) * scale : 0.f;
+                    sT[x] = pn;
+                }
+            }
+        // P_norm^T and dS^T into shared memory, rounded to T and swizzled as a
+        // TMA tile of 128-byte rows, once every product of the last step is done
+        named_bar_sync(1, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                const int r = 16 * warp + g + 8 * hh, at = r * BW_ROW + ((j ^ (r & 7)) << 4) + 4 * t;
+                *reinterpret_cast<uint32_t*>(pn_rows + at) = Mma<T>::pack(sT[4 * j + 2 * hh], sT[4 * j + 2 * hh + 1]);
+                *reinterpret_cast<uint32_t*>(ds_rows + at) = Mma<T>::pack(dpT[4 * j + 2 * hh], dpT[4 * j + 2 * hh + 1]);
+            }
+        fence_proxy_async();
+        named_bar_sync(1, 128);
+
+        // dV += P_norm^T dO and dK += dS^T Q: 16 queries a k step, 32 bytes
+        // apart in A's rows and 2048 bytes apart in B's; then dQ_part = dS K,
+        // 16 keys a k step
+        float dqa[32];
+        fence_regs(dva);
+        fence_regs(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_bmn(dva, pnd + 2 * kk, od_mn + kk * 128, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_bmn(dka, dsd_k + 2 * kk, qd_mn + kk * 128, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_mn(dqa, dsd + kk * 128, kd_mn + kk * 128, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stage);
+        fence_regs(dqa);
+
+        // stage dQ_part for the dQ warp, once it has read the last share
+        const int ts = 32 * warp + lane;
+        if (s > 0) mbar_wait_or_trap(dqfree, (s - 1) & 1);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+            *reinterpret_cast<float4*>(DQs + dq_chunk(ts, k)) =
+                make_float4(dqa[4 * k], dqa[4 * k + 1], dqa[4 * k + 2], dqa[4 * k + 3]);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dqfull);
+    }
+
+    T* dkb = dk + b * dks.b + h * dks.h;
+    T* dvb = dv + b * dvs.b + h * dvs.h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (kv0) {
+            *reinterpret_cast<uint32_t*>(dkb + (long long)key0 * dks.n + c) = Mma<T>::pack(dka[4 * j], dka[4 * j + 1]);
+            *reinterpret_cast<uint32_t*>(dvb + (long long)key0 * dvs.n + c) = Mma<T>::pack(dva[4 * j], dva[4 * j + 1]);
+        }
+        if (kv1) {
+            *reinterpret_cast<uint32_t*>(dkb + (long long)(key0 + 8) * dks.n + c) =
+                Mma<T>::pack(dka[4 * j + 2], dka[4 * j + 3]);
+            *reinterpret_cast<uint32_t*>(dvb + (long long)(key0 + 8) * dvs.n + c) =
+                Mma<T>::pack(dva[4 * j + 2], dva[4 * j + 3]);
+        }
+    }
+}
+
+// Floats of scratch the "wgmma" path takes beyond the statistics: the dQ
+// sum and the per-tile counters.
+long long wgmma_scratch(int batch, int n, int heads) {
+    const long long tiles = (n + 63) / 64, bh = (long long)batch * heads;
+    return bh * tiles * 64 * 64 + bh * tiles;
+}
+
+template <typename T>
+int launch_wgmma(const Args& a, float* dqacc, int* counters, int sms) {
+    if (a.d != 64) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = (a.n + 63) / 64;
+    const int st_smem = ST_SMEM + 1024, kv_smem = KV_SMEM + 1024;  // 1 KB to align the swizzled tiles
+    auto ks = attention_bwd_stats_kernel<T>;
+    auto kv = attention_bwd_kv_kernel<T>;
+    // runtime calls first: on a thread that has made none yet (autograd's
+    // backward thread) they make the device's context current, which the
+    // driver's tensor-map encoder below needs
+    int err = set_smem(ks, st_smem);
+    if (err) return err;
+    err = set_smem(kv, kv_smem);
+    if (err) return err;
+    const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap q64, o64, k64, v64, k128, v128;
+    if (!make_map(&q64, a.q, bf16, a.batch, a.n, a.heads, a.qs, 64) ||
+        !make_map(&o64, a.dout, bf16, a.batch, a.n, a.heads, a.dos, 64) ||
+        !make_map(&k64, a.k, bf16, a.batch, a.n, a.heads, a.ks, 64) ||
+        !make_map(&v64, a.v, bf16, a.batch, a.n, a.heads, a.vs, 64) ||
+        !make_map(&k128, a.k, bf16, a.batch, a.n, a.heads, a.ks, ST_BK) ||
+        !make_map(&v128, a.v, bf16, a.batch, a.n, a.heads, a.vs, ST_BK))
+        return static_cast<int>(cudaErrorInvalidValue);
+    ks<<<dim3(tiles, a.heads, a.batch), ST_THREADS, st_smem, a.stream>>>(q64, o64, k128, v128, a.st, counters,
+                                                                          a.n, a.scale, a.plus1);
+    err = passt_launch_status();
+    if (err) return err;
+    // With the rotated order a block may wait on a block of its (batch,
+    // head) with a higher index, so all of them must fit on the card at
+    // once (two an SM: the launch bounds and the shared memory allow it),
+    // with room to spare: one an SM. Otherwise blocks wait only on lower
+    // indices, which the hardware dispatches first.
+    const int rotate = tiles <= sms;
+    kv<<<dim3(tiles, a.heads, a.batch), KV_THREADS, kv_smem, a.stream>>>(
+        q64, o64, k64, v64, static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dqs, a.dks,
+        a.dvs, a.st, dqacc, counters, a.n, a.scale, rotate);
+    return passt_launch_status();
+}
+
+enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_WGMMA = 2 };
+
 }  // namespace
 
+// Floats of scratch (float32, 16-byte aligned) that passt_attention_bwd
+// takes on `path`: the row statistics [3][B*H][npad] (npad = n rounded up
+// to 64), and on "wgmma" the dQ sum and the per-tile counters after them.
+extern "C" long long passt_attention_bwd_scratch(int path, int batch, int n, int heads) {
+    const long long npad = (n + BQ - 1) / BQ * BQ;
+    const long long stats = 3LL * batch * heads * npad;
+    return path == PATH_WGMMA ? stats + wgmma_scratch(batch, n, heads) : stats;
+}
+
 // q, k, v, dout, dq, dk, dv: element (b, t, h, c) at ptr[b * sb + t * sn + h * sh + c].
-// stats: 3 * batch * heads * npad floats of scratch, npad = n rounded up to 64.
+// scratch: passt_attention_bwd_scratch(path, ...) floats.
 // dtype: 0 float32, 1 bfloat16, 2 float16. d <= 128 and a multiple of 8.
-// Launches kernel A then kernel B on `stream`; returns cudaGetLastError()
-// after the launches.
+// sms: the card's multiprocessor count ("wgmma" only).
+// path: 0 "fma" (any input: kernel A then kernel B, FMA), 1 "mma"
+// (bf16/fp16, d a multiple of 16: the same pair on mma.sync), 2 "wgmma"
+// (bf16/fp16, d = 64: kernel S then kernel KV); the two tensor-core paths
+// need 16-byte aligned base pointers and strides that are multiples of 8
+// elements. A path that cannot take the call returns cudaErrorInvalidValue
+// and launches nothing. Otherwise returns cudaGetLastError() after the
+// launches, on `stream`.
 extern "C" int passt_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                   void* dq, void* dk, void* dv, void* stats, int dtype,
+                                   void* dq, void* dk, void* dv, void* scratch, int dtype, int path,
                                    int batch, int n, int heads, int d,
                                    long long qsb, long long qsn, long long qsh,
                                    long long ksb, long long ksn, long long ksh,
@@ -768,27 +1333,34 @@ extern "C" int passt_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long dqsb, long long dqsn, long long dqsh,
                                    long long dksb, long long dksn, long long dksh,
                                    long long dvsb, long long dvsn, long long dvsh,
-                                   float scale, int plus1, void* stream) {
+                                   float scale, int plus1, int sms, void* stream) {
     if (d <= 0 || d > 128 || d % 8 != 0 || n <= 0 || batch <= 0 || heads <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const int npad = (n + BQ - 1) / BQ * BQ;
+    float* stats = static_cast<float*>(scratch);
+    const long long plane = (long long)batch * heads * npad;
     Args a{q, k, v, dout, dq, dk, dv,
            {qsb, qsn, qsh}, {ksb, ksn, ksh}, {vsb, vsn, vsh}, {dosb, dosn, dosh},
            {dqsb, dqsn, dqsh}, {dksb, dksn, dksh}, {dvsb, dvsn, dvsh},
-           {static_cast<float*>(stats), (long long)batch * heads * npad, npad},
+           {stats, plane, npad},
            batch, n, heads, d, scale, plus1, static_cast<cudaStream_t>(stream)};
-    const bool mma_ok = d % 16 == 0 && vectors_aligned(q, a.qs) && vectors_aligned(k, a.ks) &&
-                        vectors_aligned(v, a.vs) && vectors_aligned(dout, a.dos) &&
-                        vectors_aligned(dq, a.dqs) && vectors_aligned(dk, a.dks) &&
-                        vectors_aligned(dv, a.dvs) &&
-                        reinterpret_cast<uintptr_t>(stats) % 16 == 0;
-    switch (dtype) {
-        case 0:
-            return launch_fma_d<float>(a);
-        case 1:
-            return mma_ok ? launch_mma_d<__nv_bfloat16>(a) : launch_fma_d<__nv_bfloat16>(a);
-        case 2:
-            return mma_ok ? launch_mma_d<__half>(a) : launch_fma_d<__half>(a);
+    if (path == PATH_FMA) {
+        switch (dtype) {
+            case 0: return launch_fma_d<float>(a);
+            case 1: return launch_fma_d<__nv_bfloat16>(a);
+            case 2: return launch_fma_d<__half>(a);
+        }
+        return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaErrorInvalidValue);
+    const bool aligned = vectors_aligned(q, a.qs) && vectors_aligned(k, a.ks) && vectors_aligned(v, a.vs) &&
+                         vectors_aligned(dout, a.dos) && vectors_aligned(dq, a.dqs) &&
+                         vectors_aligned(dk, a.dks) && vectors_aligned(dv, a.dvs) &&
+                         reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+    if (!aligned || (dtype != 1 && dtype != 2)) return static_cast<int>(cudaErrorInvalidValue);
+    if (path == PATH_MMA) return dtype == 1 ? launch_mma_d<__nv_bfloat16>(a) : launch_mma_d<__half>(a);
+    if (path != PATH_WGMMA) return static_cast<int>(cudaErrorInvalidValue);
+    float* dqacc = stats + 3 * plane;
+    int* counters = reinterpret_cast<int*>(dqacc + wgmma_scratch(batch, n, heads) - (long long)batch * heads * (npad / BQ));
+    return dtype == 1 ? launch_wgmma<__nv_bfloat16>(a, dqacc, counters, sms)
+                      : launch_wgmma<__half>(a, dqacc, counters, sms);
 }

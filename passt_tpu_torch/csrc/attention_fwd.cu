@@ -94,8 +94,8 @@
 // loop below (PERF.md).
 #include "common.cuh"
 #include "attention_common.cuh"
+#include "hopper.cuh"  // mbarriers, TMA, wgmma; tensor maps from the CUDA driver's encoder at run time
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the CUDA driver at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
@@ -106,15 +106,9 @@
 namespace {
 
 using namespace passt_attn;
+using namespace passt_hopper;
 
 constexpr int THREADS = FMA_THREADS;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
 
 template <typename T, int DJ>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
@@ -610,145 +604,6 @@ constexpr int WG_ROW = 128;      // bytes of one D = 64 row: one 128-byte swizzl
 constexpr int WG_THREADS = 128 + 32;  // the consumer warpgroup and one producer warp
 constexpr int WG_SMEM = WG_BQ * WG_ROW + 2 * WG_STAGES * WG_BK * WG_ROW + 8 * (1 + 2 * WG_STAGES);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_u32(bar);
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done)
-            : "r"(addr), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// TMA: the box at coordinates (c0, c1, c2, c3) of the map into shared memory,
-// completing its bytes on the barrier.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                            int c1, int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-           "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-// wgmma descriptor of a tile of 128-byte rows in shared memory, 128-byte
-// swizzle, 8-row groups 1024 bytes apart (the start must be 1024-aligned
-// but for the k step's 32-byte offset inside the swizzle span).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-// Wait until at most `pending` committed groups of this warpgroup are in flight.
-template <int pending>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending) : "memory");
-}
-
-// Keep the compiler from moving work on these registers across a wgmma
-// issue or wait: the products write and read them asynchronously.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define PASST_WG_OUT64                                                                              \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
-    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
-    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
-    "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
-    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
-    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
-    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),       \
-    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define PASST_WG_OUT32                                                                              \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
-    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
-    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
-    "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-#define PASST_WG_REGS64                                                                             \
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                \
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-#define PASST_WG_REGS32                                                                             \
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// S (64 x 128, fp32) [+]= A (64 x 16, shared) . B (128 x 16, shared)^T, both
-// K-major; and O (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared,
-// N-major: the transposed-B flag).
-#define PASST_WGMMA_SS_N128(TY)                                                                     \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " PASST_WG_REGS64       \
-                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                                   \
-                 : PASST_WG_OUT64                                                                    \
-                 : "l"(a), "l"(b), "r"(accumulate))
-#define PASST_WGMMA_RS_N64(TY)                                                                      \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                       \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PASST_WG_REGS32        \
-                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                     \
-                 : PASST_WG_OUT32                                                                    \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
-
-template <typename T> struct Wgmma;
-template <> struct Wgmma<__nv_bfloat16> {
-    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-        PASST_WGMMA_SS_N128("bf16");
-    }
-    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-        PASST_WGMMA_RS_N64("bf16");
-    }
-};
-template <> struct Wgmma<__half> {
-    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-        PASST_WGMMA_SS_N128("f16");
-    }
-    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-        PASST_WGMMA_RS_N64("f16");
-    }
-};
-
 // S (64 x 128) = Q . K^T: four k steps of 16, 32 bytes apart inside the
 // swizzled rows; issued and committed as one group.
 template <typename T>
@@ -968,44 +823,6 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
             *reinterpret_cast<uint32_t*>(ob + (long long)(r + 8) * os.n + c) =
                 Mma<T>::pack(acc[4 * j + 2] / l1, acc[4 * j + 3] / l1);
     }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err =
-            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
-// A tensor map over the (D, N, H, B) view of a [B, N, H, 64] operand with
-// (batch, token, head) strides; boxes of `rows` tokens of one head, 128-byte
-// swizzle, zero fill past N.
-bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int batch, int n, int heads, Strides s,
-              int rows) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
-    const cuuint64_t strides[3] = {(cuuint64_t)s.n * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>

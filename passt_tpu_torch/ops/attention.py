@@ -22,7 +22,8 @@ forward's "wgmma" path takes the max in one pass over the keys: P is
 rounded against the running max and the fp32 accumulator is rescaled when
 the max rises (see ``csrc/attention_fwd.cu``). The backward recomputes P
 from q and k (nothing but the inputs is saved) and follows the reference
-backward kernel (see ``csrc/attention_bwd.cu``).
+backward kernel (see ``csrc/attention_bwd.cu``); its "wgmma" path takes
+the row statistics in one pass with a running max, as the forward does.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. On the card the forward kernel has four paths, and
@@ -32,7 +33,12 @@ fed by TMA), ``"short"`` (the same at N <= 64: one key tile, four heads a
 block at N <= 16), ``"mma"`` (bf16/fp16 at another D that is a multiple of
 16) and ``"fma"`` (fp32, a D that is 8 mod 16, or unaligned strides). The C entry launches exactly that path or returns an
 error, on which the wrapper raises; ``FWD_PATH_LAUNCHES`` counts the
-launches of each.
+launches of each. The backward kernel has three paths, which
+:func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16, D = 64:
+a statistics kernel, then one pass per 64-key block on wgmma fed by TMA,
+dQ summed across key blocks in a fixed order), ``"mma"`` (bf16/fp16 at
+another D that is a multiple of 16) and ``"fma"`` (fp32, a D that is 8 mod
+16, or unaligned strides); ``BWD_PATH_LAUNCHES`` counts them.
 """
 
 from __future__ import annotations
@@ -61,9 +67,16 @@ FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3}
 FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 
 
+#: the backward kernel's paths, by the code its C entry takes
+BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2}
+#: backward launches per path since the last :func:`reset_path_launches`
+BWD_PATH_LAUNCHES = dict.fromkeys(BWD_PATHS, 0)
+
+
 def reset_path_launches() -> None:
-    for name in FWD_PATH_LAUNCHES:
-        FWD_PATH_LAUNCHES[name] = 0
+    for counts in (FWD_PATH_LAUNCHES, BWD_PATH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -77,6 +90,16 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     if d != 64:
         return "mma"
     return "short" if n <= 64 else "wgmma"
+
+
+def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The backward kernel path for ``n`` tokens of head dim ``d``:
+    ``"fma"`` for fp32, a ``d`` that is 8 mod 16 or unaligned operands,
+    ``"mma"`` for bf16 / fp16 at another ``d != 64``, else ``"wgmma"``
+    (any ``n``)."""
+    if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
+        return "fma"
+    return "wgmma" if d == 64 else "mma"
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -234,27 +257,40 @@ def _bwd_lib():
     lib = _build.load("attention_bwd")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.passt_attention_bwd.argtypes = (
-        [vp] * 8 + [i32] * 5 + [i64] * 21 + [ctypes.c_float, i32, vp]
+        [vp] * 8 + [i32] * 6 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
     )
     lib.passt_attention_bwd.restype = ctypes.c_int
+    lib.passt_attention_bwd_scratch.argtypes = [i32] * 4
+    lib.passt_attention_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
-def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool) -> None:
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Optional[str] = None) -> None:
     """Launch the backward kernels on ``[B, N, H, D]``-shaped views (any
-    strides with a contiguous last dim); dq, dk, dv are written in place."""
+    strides with a contiguous last dim), on the path :func:`backward_path`
+    picks; dq, dk, dv are written in place. ``path`` overrides the choice
+    (private: chip_smoke and the variants tool time the "mma" path at
+    D = 64 beside "wgmma"); a path that cannot take the call raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
+    if path is None:
+        path = backward_path(n, d, q.dtype, _aligned(q, k, v, do, dq, dk, dv))
     lib = _bwd_lib()
-    npad = -(-n // 64) * 64
-    stats = torch.empty(3 * b * h * npad, dtype=torch.float32, device=q.device)
+    floats = lib.passt_attention_bwd_scratch(BWD_PATHS[path], b, n, h)
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
     code = lib.passt_attention_bwd(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, stats)),
-        _DTYPE_CODE[q.dtype], b, n, h, d, *strides, float(scale), int(bool(plus1)),
-        _build.stream_of(q),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),
+        _DTYPE_CODE[q.dtype], BWD_PATHS[path], b, n, h, d, *strides, float(scale), int(bool(plus1)),
+        _sm_count(q.device), _build.stream_of(q),
     )
-    _build.check(lib, code, "attention backward kernel launch")
+    _build.check(lib, code, f"attention backward kernel launch ({path} path)")
+    BWD_PATH_LAUNCHES[path] += 1
 
 
 def _head_views(t: torch.Tensor, heads: int, head_dim: int):

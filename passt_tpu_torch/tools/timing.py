@@ -60,19 +60,23 @@ def graph_ms(fn, reps: int = 20) -> float:
 def kernel_times(fn, reps: int = 10) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches (ms, by
     kernel name), from a ``torch.profiler`` trace of ``reps`` calls after
-    one warm-up call."""
+    one warm-up call (a trace that comes back with no device events is
+    taken again, up to three times)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+    for _ in range(3):  # a trace now and then comes back without its device events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+        if times:
+            break
     return times
 
 

@@ -30,13 +30,25 @@ def registers(log: str, fragment: str) -> Tuple[int, int]:
     return max(regs), max(spills)
 
 
+def apply(kernel: str, name: str, src: str, edits) -> str:
+    """``src`` (the text of ``<kernel>.cu``) with the variant's edits applied
+    in order, each to every place its old text stands; an edit whose old
+    text is missing stops the run."""
+    for old, new in edits:
+        if old not in src:
+            raise SystemExit(f"variant {name}: text not found in {kernel}.cu: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
 def builds(kernel: str, variants: dict, lib_cache) -> Iterator[Tuple[str, str]]:
     """For each variant: write the kernel sources with the variant's edits of
     ``<kernel>.cu`` to ``build/<kernel>_variants/<name>/`` and build it (one
     ``nvcc`` per variant, all started together); then, variant by variant,
     point the build there, clear the wrapper's library cache ``lib_cache``
     (a ``functools.cache``) and yield the name and the compiler's output.
-    The library name hashes the source, so each variant gets its own. The
+    A variant that does not build is reported and not yielded. The library
+    name hashes the source, so each variant gets its own. The
     sources are pointed back at ``csrc`` at the end."""
     csrc = _build.CSRC
     try:
@@ -46,11 +58,7 @@ def builds(kernel: str, variants: dict, lib_cache) -> Iterator[Tuple[str, str]]:
             shutil.rmtree(where[name], ignore_errors=True)
             shutil.copytree(csrc, where[name])
             src = (where[name] / f"{kernel}.cu").read_text()
-            for old, new in edits:
-                if old not in src:
-                    raise SystemExit(f"variant {name}: text not found in {kernel}.cu: {old!r}")
-                src = src.replace(old, new)
-            (where[name] / f"{kernel}.cu").write_text(src)
+            (where[name] / f"{kernel}.cu").write_text(apply(kernel, name, src, edits))
         jobs, started = {}, set()
         for name in variants:  # variants with the same source share one build
             _build.CSRC = where[name]
@@ -60,9 +68,15 @@ def builds(kernel: str, variants: dict, lib_cache) -> Iterator[Tuple[str, str]]:
         logs = {}
         for name, job in jobs.items():
             _build.CSRC = where[name]
-            logs[name] = _build.finish(kernel, job)
+            try:
+                logs[name] = _build.finish(kernel, job)
+            except RuntimeError as err:  # reported and skipped; the other variants still run
+                notes = [ln for ln in str(err).splitlines() if "error" in ln]
+                print(f"{name}: does not build: " + " | ".join(notes[:5]), flush=True)
         for name in variants:
             _build.CSRC = where[name]
+            if name not in logs or not _build.library_path(kernel).exists():
+                continue
             lib_cache.cache_clear()
             yield name, logs[name]
     finally:
