@@ -19,10 +19,11 @@ Phases (each prints one line or more; the first failure exits non-zero):
 3b. the attention backward kernel through both entries against its plain
    version (bf16/fp16/fp32, plus1 on and off, ragged N, other head dims;
    every call checked to take the path ``backward_path`` picks, the
-   "wgmma" path's bits checked equal run to run), timed at the training
-   step's shapes (graph replay, events and profiled kernel time) beside
-   the old "mma" pair on the same call and SDPA's backward (the profiled
-   kernel time of its forward and backward less its forward's, and events);
+   "wgmma" and "simt" paths' bits checked equal run to run), timed at the
+   training step's shapes (graph replay, events and profiled kernel time)
+   beside the old pair on the same call ("mma" for bf16, "fma" for fp32)
+   and SDPA's backward (the profiled kernel time of its forward and
+   backward less its forward's, and events);
 4. the serving path at full PaSST-S width (12 x 768, 12 heads, 527 classes,
    N = 1190, random weights from a seeded generator): Predictor calls at
    B = 1 and B = 20 (10-s clips), scene embeddings and timestamp embeddings
@@ -37,7 +38,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    and specs/s, the loss finite, the parameters moved, the step counter
    advanced, and the exact launch counts per step (and per forward and
    backward path: the bf16 steps' backward all on "wgmma", the fp32 steps'
-   of phases 7 and 9 all on "fma");
+   of phases 7 and 9 all on "simt");
 7. one fp32 training step at full width (B = 2) with the kernels against
    the same step on the plain versions, from the same weights and the same
    draws: the loss, every leaf's gradient and the updated parameters;
@@ -65,11 +66,14 @@ Phases (each prints one line or more; the first failure exits non-zero):
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions and times them at the training step's shapes. Phase 3d holds
-the int8 GEMM kernel's three epilogues (int8_dense, int8_dense_gelu,
-int8_matmul) against their plain versions (int32 outputs bit-equal) at the
-int8 MLP's shapes (M = 5688 and 14280), ragged shapes and the
-micro-benchmark's four shapes, and times them beside ``torch._int_mm`` and
-the bf16 cuBLAS GEMM. Phase 3e holds the fused MLP's forward (residuals off
+the int8 GEMM's three epilogues (int8_dense, int8_dense_gelu, int8_matmul)
+on its wgmma main loop against their plain versions (int32 outputs
+bit-equal) at the int8 MLP's shapes (M = 5688 and 14280), ragged shapes
+(M and N multiples of no compiled tile, K of no 128 bytes; int8 -> int32 in
+every compiled tile there and at 8192^3) and the micro-benchmark's four
+shapes, checks that every public call took the wgmma loop, and times them
+beside the old mma.sync loop, ``torch._int_mm`` and the bf16 cuBLAS GEMM
+(8192^3 in turns: new, old, library, library, old, new). Phase 3e holds the fused MLP's forward (residuals off
 and on) and backward kernels against their plain versions in bf16 and fp32
 at M = 5688 and 14280 (C = 768, H = 3072) and at ragged M with small C and
 H, and times them beside the bare cuBLAS pair of the same products.
@@ -427,8 +431,9 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     # (dtype, B, N, plus1, H, D): N 14/474/1190 in three dtypes; for the
     # wgmma path one and two query tiles (65, 128, 129), at B = 12, N = 1190
     # more key blocks than the card holds at once (the dQ order), and at
-    # n_plain more key blocks a head than SMs, so that kernel KV takes the
-    # plain block order, four heads of them more than the card holds at once
+    # n_plain more key blocks a head than SMs, so that kernel KV of the wgmma
+    # and the simt path takes the plain block order, four heads of them more
+    # than the card holds at once
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_plain = 64 * (sms + 1) + 20
     cases = [(dtype, 2, n, plus1, heads, hd)
@@ -436,7 +441,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
              for n in (14, 474, 1190) for plus1 in (False, True)]
     cases += [(dtype, 2, n, plus1, heads, hd) for dtype in (torch.bfloat16, torch.float16)
               for n in (65, 128, 129) for plus1 in (False, True)]
-    cases += [(torch.bfloat16, 12, 1190, True, heads, hd), (torch.bfloat16, 1, n_plain, False, 4, hd)]
+    cases += [(torch.bfloat16, 12, 1190, True, heads, hd), (torch.bfloat16, 1, n_plain, False, 4, hd),
+              (torch.float32, 1, n_plain, False, 4, hd)]
     cases += [(dtype, 2, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
               for h_, d_ in ((4, 16), (2, 24), (2, 128))]
     taken = dict.fromkeys(A.BWD_PATHS, 0)
@@ -455,7 +461,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         check(A.BWD_PATH_LAUNCHES[path] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
               f"{dtype} B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want 2 on {path}")
         taken[path] += 2
-        if path == "wgmma" and (n, plus1) in ((1190, True), (129, False), (n_plain, False)):
+        if path == "simt" or (path == "wgmma" and (n, plus1) in ((1190, True), (129, False), (n_plain, False))):
             # the ordered dQ sum: the same bits again, through both entries
             again = fused_attention_qkv_bwd(qkv, do.reshape(b, n, h_ * d_), heads=h_, head_dim=d_, scale=scale,
                                             plus1=plus1)
@@ -491,7 +497,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     say(f"[3b] d(qkv) assembled by autograd from the [B, N, H, D] entry's view gradients equals the "
         f"qkv entry's d(qkv) bit for bit (bf16 and fp32, B=2 N={TRAIN_N}); the wgmma path gives the same bits "
         f"twice through both entries (bf16/fp16 B=2 N=129, B=2 and B=12 N=1190, B=1 H=4 N={n_plain} in the plain "
-        f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs); calls per path {taken}")
+        f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs), the simt path in every fp32 D=64 case "
+        f"(B=1 H=4 N={n_plain} in the plain block order too); calls per path {taken}")
 
     rec = {}
     # the qkv entry at the bf16 training step's shape; the [B, N, H, D] entry
@@ -503,7 +510,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         do = torch.randn((b, n, heads * hd), device=dev, dtype=dtype)
         q, k, v = qkv.reshape(b, n, 3, heads, hd).unbind(2)
         do4 = do.view(b, n, heads, hd)
-        mma = None
+        mma = fma = None
         if name == "fused_attention_qkv_bwd":
             kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=heads, head_dim=hd, scale=scale)
             A.reset_path_launches()
@@ -523,7 +530,19 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                 check(rel <= TOL_BWD[dtype], f"{name} mma path {what}: max err {rel:.3g} of max|ref|")
         else:
             kern = lambda: fused_attention_bwd(q, k, v, do4, scale=scale)
+            A.reset_path_launches()
             got = kern()
+            check(A.BWD_PATH_LAUNCHES["simt"] == 1 == sum(A.BWD_PATH_LAUNCHES.values()),
+                  f"{name}: backward paths {A.BWD_PATH_LAUNCHES}, want simt")
+
+            def fma():
+                """The old "fma" pair on the same call (the private override)."""
+                grads = [torch.empty((b, n, heads, hd), dtype=dtype, device=dev) for _ in range(3)]
+                A._launch_bwd(q, k, v, do4, *grads, scale, False, path="fma")
+                return grads
+            for what, g, r in zip(("dq", "dk", "dv"), fma(), attention_bwd_plain(q, k, v, do4, scale=scale)):
+                rel = max_err(g, r) / max(float(r.float().abs().max()), 1e-30)
+                check(rel <= TOL_BWD[dtype], f"{name} fma path {what}: max err {rel:.3g} of max|ref|")
         # the timed inputs, at the training path's shape, against the plain version
         for what, g, r in zip(("dq", "dk", "dv"), got, attention_bwd_plain(q, k, v, do4, scale=scale)):
             err = max_err(g, r)
@@ -546,7 +565,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         ran = top_kernel(kernel_times(lib, 3))
         t = dict(path=A.backward_path(n, hd, dtype, True), ms=graph_ms(kern), ms_events=cuda_ms(kern),
                  ms_kernels=kernel_ms(kern),
-                 device_kernels=sorted({m_.group(0) for m_ in map(re.compile(r"attention_bwd_\w+_kernel").search,
+                 device_kernels=sorted({m_.group(0) for m_ in map(re.compile(r"(attention_bwd|bwd32)_\w+_kernel").search,
                                                                    kernel_times(kern, 2)) if m_}),
                  plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
                  library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
@@ -555,12 +574,13 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                                      for be in backends if be.name != "MATH"},
                  # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
                  **bound(10 * n * n * hd * b * heads, 7 * b * n * heads * hd * qkv.element_size(), peak))
-        if mma is not None:
-            t.update(mma_ms=graph_ms(mma), mma_ms_kernels=kernel_ms(mma),
-                     # the wgmma path's own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
-                     design_bound_ms=14 * n * n * hd * b * heads / peak * 1e3)
-        old = (f"; the old mma path {t['mma_ms']:.4f} ms graph-replayed, {t['mma_ms_kernels']:.4f} of kernels; the "
-               f"design's 14N^2D at peak {t['design_bound_ms']:.4f} ms" if mma is not None else "")
+        # the path's own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
+        t.update(design_bound_ms=14 * n * n * hd * b * heads / peak * 1e3)
+        old_name, old_fn = ("mma", mma) if mma is not None else ("fma", fma)
+        t.update({f"{old_name}_ms": graph_ms(old_fn), f"{old_name}_ms_kernels": kernel_ms(old_fn)})
+        old = (f"; the old {old_name} path {t[old_name + '_ms']:.4f} ms graph-replayed, "
+               f"{t[old_name + '_ms_kernels']:.4f} of kernels; the design's 14N^2D at peak "
+               f"{t['design_bound_ms']:.4f} ms")
         say(f"[3b] {name} vs plain: max err {worst[name]:.3g} of max|ref|, {worst_abs[name]:.3g} absolute "
             f"(bf16/fp16/fp32, plus1 on/off, N 14/474/1190 at D=64; bf16/fp16 N 65/128/129; bf16 B=12 N=1190; "
             f"bf16 B=1 H=4 N={n_plain}; "
@@ -724,6 +744,8 @@ def phase_int8(gpu: str, dev: torch.device) -> dict:
     """[3d] the int8 GEMM kernel's three epilogues against their plain
     versions, then their times at the int8 MLP's and the micro-benchmark's
     shapes."""
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import int8 as I
     from passt_tpu_torch.ops.int8 import (
         int8_dense_forward,
         int8_dense_plain,
@@ -754,11 +776,13 @@ def phase_int8(gpu: str, dev: torch.device) -> dict:
     # x and a zero weight column
     m_eval = TRAIN_B * 1190
     exact = []
+    I.reset_path_launches()
     for m, k, n, dtypes in ((m0, 768, 3072, (torch.bfloat16, torch.float32)),
                             (m0, 3072, 768, (torch.bfloat16, torch.float32)),
                             (m_eval, 768, 3072, (torch.bfloat16,)), (m_eval, 3072, 768, (torch.bfloat16,)),
                             (130, 40, 96, (torch.bfloat16, torch.float32)),
-                            (130, 64, 96, (torch.bfloat16, torch.float32))):
+                            (130, 64, 96, (torch.bfloat16, torch.float32)),
+                            (300, 200, 333, (torch.bfloat16, torch.float32))):
         for dtype in dtypes:
             x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
             w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(dtype)
@@ -775,23 +799,42 @@ def phase_int8(gpu: str, dev: torch.device) -> dict:
                 else:
                     hold("int8_dense", what, got, ref, TOL_INT8[dtype])
                     exact.append(torch.equal(got, ref))
-    # the RAW epilogue: the micro-benchmark's four shapes and a ragged one;
-    # rows and columns of 127s push the int32 sums past 2**24
-    for m, k, n in (*SHAPES.values(), (130, 40, 96)):
+    # the RAW epilogue: the micro-benchmark's four shapes and ragged ones (M
+    # and N multiples of no compiled tile, K of no 128 bytes); rows and
+    # columns of 127s push the int32 sums past 2**24. int8 -> int32 at the
+    # ragged shapes and 8192^3 in every compiled tile too, and on the old
+    # mma loop (the private path, timed below), which counts its own launches
+    ragged = ((130, 40, 96), (300, 200, 333), (1000, 4000, 520))
+    old_calls = 0
+    for m, k, n in (*SHAPES.values(), *ragged):
         a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         bt = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
         a[0], bt[0] = 127, 127
         for out in (torch.int32, torch.bfloat16):
             hold("int8_matmul", f"int8 -> {str(out)[6:]} {m}x{k}x{n}", int8_matmul(a, bt.t(), out),
                  int8_matmul_plain(a, bt.t(), out), 0)
+        if (m, k, n) in ragged or (m, k, n) == SHAPES["square_8192"]:
+            ref = int8_matmul_plain(a, bt.t(), torch.int32)
+            for tile, (bm, bn) in enumerate(I.TILES):
+                hold("int8_matmul", f"int8 -> int32 {m}x{k}x{n} tile {bm}x{bn}",
+                     int8_matmul(a, bt.t(), torch.int32, _tile=tile), ref, 0)
+            hold("int8_matmul", f"int8 -> int32 {m}x{k}x{n} old mma loop",
+                 int8_matmul(a, bt.t(), torch.int32, _path="mma"), ref, 0)
+            old_calls += 1
         af = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         bf = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
         hold("int8_matmul", f"bf16 {m}x{k}x{n}", int8_matmul(af, bf.t(), torch.bfloat16),
              int8_matmul_plain(af, bf.t(), torch.bfloat16), TOL_INT8[torch.bfloat16])
-    say(f"[3d] int8 GEMM vs plain: dense/GELU (bf16, fp32; {m0}x768->3072, {m0}x3072->768, 130x40/64->96; bf16 "
-        f"{m_eval}x768->3072, {m_eval}x3072->768; a zero row and column) max err {worst['int8_dense']:.3g} / {worst['int8_dense_gelu']:.3g}, bit-equal in "
-        f"{sum(exact)}/{len(exact)} cases; int8 -> int32 and -> bf16 bit-equal at {', '.join(SHAPES)} and "
-        f"130x40x96; bf16 -> bf16 within {TOL_INT8[torch.bfloat16]:g} of max|ref|")
+    paths = dict(I.PATH_LAUNCHES)
+    check(paths["mma"] == old_calls and paths["wgmma"] > 0,
+          f"[3d] int8 calls took {paths}, want all wgmma but the {old_calls} private mma ones")
+    say(f"[3d] int8 GEMM (wgmma loop) vs plain: dense/GELU (bf16, fp32; {m0}x768->3072, {m0}x3072->768, "
+        f"130x40/64->96, 300x200->333; bf16 {m_eval}x768->3072, {m_eval}x3072->768; a zero row and column) max err "
+        f"{worst['int8_dense']:.3g} / {worst['int8_dense_gelu']:.3g}, bit-equal in {sum(exact)}/{len(exact)} cases; "
+        f"int8 -> int32 and -> bf16 bit-equal at {', '.join(SHAPES)}, 130x40x96, 300x200x333 and 1000x4000x520, "
+        f"int8 -> int32 in every tile {I.TILES} and on the old mma loop at the ragged shapes and 8192^3; "
+        f"bf16 -> bf16 within "
+        f"{TOL_INT8[torch.bfloat16]:g} of max|ref|; loop launches {paths}")
 
     rec = {}
     # the dense epilogues on quantized operands (the kernel's function), bf16
@@ -805,28 +848,58 @@ def phase_int8(gpu: str, dev: torch.device) -> dict:
         qwt = qwt.contiguous()
         kern = lambda: quantized_dense(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16, gelu=gelu)
         plain = lambda: quantized_dense_plain(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16, gelu=gelu)
+        old = lambda: quantized_dense(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16, gelu=gelu, _path="mma")
+        # the timed calls on these inputs: the new and the old loop bit-equal to plain
+        ref = plain()
+        for loop, got in (("wgmma", kern()), ("old mma", old())):
+            for part, g, r in (zip(("h", "d"), got, ref) if gelu else (("y", got, ref),)):
+                hold(name, f"{part} bf16 {m0}x{k}->{n} timed inputs, {loop} loop", g, r, 0)
+        tiles = {f"{bm}x{bn}": graph_ms(lambda: quantized_dense(qx, sx, qwt, sw, b, out_dtype=torch.bfloat16,
+                                                                gelu=gelu, _tile=i))
+                 for i, (bm, bn) in enumerate(I.TILES)}
         # qx, qwt read; sx, sw, b read in fp32; y (or h and d) written in bf16
         nbytes = m0 * k + n * k + 4 * (m0 + 2 * n) + (2 if gelu else 1) * m0 * n * 2
-        t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None,
-                 **bound(2 * m0 * k * n, nbytes, PEAK_INT8))
+        t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None, mma_ms=graph_ms(old),
+                 tile=I.TILES[I.pick_tile(m0, n, _build.sm_count(dev), gelu=gelu)],
+                 tile_ms=tiles, **bound(2 * m0 * k * n, nbytes, PEAK_INT8))
         events, int_mm = cuda_ms(kern), graph_ms(lambda: torch._int_mm(qx, qwt.t()))
         bf16_mm = graph_ms(lambda: torch.matmul(x, w))
-        say(f"[3d] {name} bf16 {m0}x{k}->{n}: kernel {t['ms']:.4f} ms (graph; {events:.4f} ms under events), "
-            f"plain {t['plain_ms']:.4f} ms, no single library call (the bare torch._int_mm product {int_mm:.4f} ms, "
-            f"the bf16 cuBLAS GEMM {bf16_mm:.4f} ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
+        say(f"[3d] {name} bf16 {m0}x{k}->{n}: kernel (wgmma, tile {t['tile']}) {t['ms']:.4f} ms (graph; "
+            f"{events:.4f} ms under events; each tile: " + ", ".join(f"{k_} {v:.4f}" for k_, v in tiles.items())
+            + f"), the old mma loop {t['mma_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no single library call (the "
+            f"bare torch._int_mm product {int_mm:.4f} ms, the bf16 cuBLAS GEMM {bf16_mm:.4f} ms), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
         rec[name] = dict(max_abs_err=worst[name], **t)
 
     # the RAW epilogue at 8192^3, int8 -> int32, beside torch._int_mm
     m, k, n = SHAPES["square_8192"]
     a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
     bt = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
-    t = dict(ms=cuda_ms(lambda: int8_matmul(a, bt.t(), torch.int32), reps=5),
-             plain_ms=cuda_ms(lambda: int8_matmul_plain(a, bt.t(), torch.int32), reps=5),
-             library_ms=cuda_ms(lambda: torch._int_mm(a, bt.t()), reps=5),
+    kern = lambda: int8_matmul(a, bt.t(), torch.int32)
+    old = lambda: int8_matmul(a, bt.t(), torch.int32, _path="mma")
+    lib = lambda: torch._int_mm(a, bt.t())
+    ref = int8_matmul_plain(a, bt.t(), torch.int32)
+    hold("int8_matmul", f"int8 -> int32 {m}x{k}x{n} timed inputs, wgmma loop", kern(), ref, 0)
+    hold("int8_matmul", f"int8 -> int32 {m}x{k}x{n} timed inputs, old mma loop", old(), ref, 0)
+    del ref
+    # in turns: new, old, library, library, old, new
+    turns = {"ms": [], "mma_ms": [], "library_ms": []}
+    for key, fn in (("ms", kern), ("mma_ms", old), ("library_ms", lib), ("library_ms", lib), ("mma_ms", old),
+                    ("ms", kern)):
+        turns[key].append(cuda_ms(fn, reps=5))
+    t = {key: min(v) for key, v in turns.items()}
+    t.update(plain_ms=cuda_ms(lambda: int8_matmul_plain(a, bt.t(), torch.int32), reps=5),
+             tile=I.TILES[I.pick_tile(m, n, _build.sm_count(dev), gelu=False)],
+             tile_ms={f"{bm}x{bn}": cuda_ms(lambda: int8_matmul(a, bt.t(), torch.int32, _tile=i), reps=5)
+                      for i, (bm, bn) in enumerate(I.TILES)},
              **bound(2 * m * k * n, m * k + n * k + 4 * m * n, PEAK_INT8))
-    say(f"[3d] int8_matmul int8 -> int32 {m}x{k}x{n}: kernel {t['ms']:.4f} ms = {2 * m * k * n / t['ms'] / 1e9:.1f} TOP/s, "
-        f"plain (float64) {t['plain_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-        f"ms ({t['bound_by']}) ({gpu})")
+    check(t["ms"] < t["mma_ms"], f"[3d] 8192^3: the wgmma loop {t['ms']:.4f} ms is not faster than the old "
+          f"mma loop {t['mma_ms']:.4f} ms")
+    say(f"[3d] int8_matmul int8 -> int32 {m}x{k}x{n}: kernel (wgmma, tile {t['tile']}) {t['ms']:.4f} ms = "
+        f"{2 * m * k * n / t['ms'] / 1e9:.1f} TOP/s (best of two turns; each tile: "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in t["tile_ms"].items())
+        + f"), the old mma loop {t['mma_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} ms, plain (float64) "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
     rec["int8_matmul"] = dict(max_abs_err=worst["int8_matmul"], **t)
     return rec
 
@@ -1076,7 +1149,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
     want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n)  # every block's forward at N = 474
     check(paths == want_paths, f"{variant}: forward paths {paths} != {want_paths}")
-    want_bwd = dict(fma=0, mma=0, wgmma=12 * n)  # every block's backward at N = 474
+    want_bwd = dict(fma=0, mma=0, wgmma=12 * n, simt=0)  # every block's backward at N = 474
     check(bwd_paths == want_bwd, f"{variant}: backward paths {bwd_paths} != {want_bwd}")
     phase = "[6]" if variant == "default" else "[8]"
     say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
@@ -1178,7 +1251,8 @@ def phase_train_correctness(dev: torch.device) -> dict:
     p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
     want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_bwd=12)
     check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
-    check(k["bwd_paths"] == dict(fma=12, mma=0, wgmma=0), f"fp32 step backward paths {k['bwd_paths']}, want 12 fma")
+    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
+          f"fp32 step backward paths {k['bwd_paths']}, want 12 simt")
     say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: {hold_fp32_step(k, p, '[7]')}")
     return k["launches"]
 
@@ -1204,8 +1278,8 @@ def phase_variant_correctness(dev: torch.device) -> list:
         p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
         check(k["n"] == n, f"{variant}: sequence {k['n']} != {n}")
         check(k["launches"] == want, f"[9] {variant} fp32 step launches {k['launches']} != {want}")
-        check(k["bwd_paths"] == dict(fma=12, mma=0, wgmma=0),
-              f"[9] {variant} fp32 step backward paths {k['bwd_paths']}, want 12 fma")
+        check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
+              f"[9] {variant} fp32 step backward paths {k['bwd_paths']}, want 12 simt")
         say(f"[9] fp32 training step PaSST-S B=2 N={n} under {variant}, kernels vs the default config on "
             f"plain versions: {hold_fp32_step(k, p, f'[9] {variant}')}")
         runs.append(k["launches"])
@@ -1237,12 +1311,15 @@ def phase_int8_mlp(gpu: str, dev: torch.device) -> dict:
     M = 5688 and 14280, with exact launch counts and each int8 layer's
     quantization error within tests/test_int8_dense.py's limit."""
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import int8 as I
     from passt_tpu_torch.tools import ab_int8_mlp
 
     _build.reset_launches()
+    I.reset_path_launches()
     results = ab_int8_mlp.run(dev)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    check(I.PATH_LAUNCHES == dict(wgmma=sum(launches.values()), mma=0), f"[10] loops {I.PATH_LAUNCHES}")
     check([r["M"] for r in results] == [TRAIN_B * TRAIN_N, TRAIN_B * 1190], "[10] token counts")
     n = sum(r["int8_forwards"] for r in results)
     want = want_launches(int8_dense=n, int8_dense_gelu=n)
@@ -1264,12 +1341,15 @@ def phase_int8_micro(gpu: str, dev: torch.device) -> dict:
     at the model's shapes and 8192^3; it checks the int8 product bit-equal
     first and prints its JSON."""
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import int8 as I
     from passt_tpu_torch.tools import int8_matmul_micro
 
     _build.reset_launches()
+    I.reset_path_launches()
     res = int8_matmul_micro.run(dev)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    check(I.PATH_LAUNCHES == dict(wgmma=launches["int8_matmul"], mma=0), f"[11] loops {I.PATH_LAUNCHES}")
     check(launches["int8_matmul"] > 0 and sum(launches.values()) == launches["int8_matmul"],
           f"[11] launches {launches}")
     say(f"[11] int8_matmul micro-benchmark: int8 kernel {res['square_8192_kernel_int8_tops']:.1f} TOP/s at 8192^3 "
@@ -1343,6 +1423,18 @@ def main() -> int:
                    "mma B": "dkv_mma_kernel", "fma A": "attention_bwd_dq_kernel", "fma B": "attention_bwd_dkv_kernel"}
         say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
             f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
+    if logs["attention_bwd_fp32"] != "(cached)":
+        from passt_tpu_torch.tools.variants import registers
+
+        say("[2] attention_bwd_fp32 registers, spill stores (B): simt S "
+            f"{registers(logs['attention_bwd_fp32'], 'bwd32_stats_kernel')}, simt KV "
+            f"{registers(logs['attention_bwd_fp32'], 'bwd32_kv_kernel')}")
+    if logs["int8_gemm"] != "(cached)":
+        from passt_tpu_torch.tools.variants import registers
+
+        say("[2] int8_gemm registers, spill stores (B) per tile (all epilogues; ptxas counts the 168 of the "
+            "launch, setmaxnreg gives the consumers 232): " + "; ".join(
+                f"{bn} {registers(logs['int8_gemm'], f'Li{bn}ELi')}" for bn in (128, 192, 256)))
 
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))
@@ -1363,21 +1455,29 @@ def main() -> int:
         "fused_attention": ("passt_tpu_torch/csrc/attention_fwd.cu", "passt_tpu/ops/pallas/attention.py:171"),
         "fused_attention_qkv": ("passt_tpu_torch/csrc/attention_fwd.cu",
                                 "passt_tpu/ops/pallas/attention.py:373, scripts/proto_attn_qkv.py:63"),
-        "fused_attention_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu", "passt_tpu/ops/pallas/attention.py:188"),
+        # the [B, N, H, D] entry's backward runs on the main paths in fp32 only ([7], [9]: "simt")
+        "fused_attention_bwd": ("passt_tpu_torch/csrc/attention_bwd_fp32.cu", "passt_tpu/ops/pallas/attention.py:188"),
         "fused_attention_qkv_bwd": ("passt_tpu_torch/csrc/attention_bwd.cu",
                                     "passt_tpu/ops/pallas/attention.py:388, scripts/proto_attn_qkv.py:78"),
         "layer_norm_bwd": ("passt_tpu_torch/csrc/layernorm_bwd.cu", "passt_tpu/ops/pallas/layernorm.py:58"),
         "ln_qkv_f1": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:120"),
         "ln_qkv_b2": ("passt_tpu_torch/csrc/ln_qkv.cu", "passt_tpu/ops/pallas/ln_qkv.py:144"),
-        "int8_dense": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:68"),
-        "int8_dense_gelu": ("passt_tpu_torch/csrc/int8_dense.cu", "passt_tpu/ops/pallas/int8_dense.py:74"),
-        "int8_matmul": ("passt_tpu_torch/csrc/int8_dense.cu", "scripts/int8_matmul_micro.py:71"),
+        "int8_dense": ("passt_tpu_torch/csrc/int8_gemm.cu", "passt_tpu/ops/pallas/int8_dense.py:68"),
+        "int8_dense_gelu": ("passt_tpu_torch/csrc/int8_gemm.cu", "passt_tpu/ops/pallas/int8_dense.py:74"),
+        "int8_matmul": ("passt_tpu_torch/csrc/int8_gemm.cu", "scripts/int8_matmul_micro.py:71"),
         "fused_mlp_fwd": ("passt_tpu_torch/csrc/fused_mlp.cu", "scripts/proto_mlp_fused.py:78"),
         "fused_mlp_bwd": ("passt_tpu_torch/csrc/fused_mlp.cu", "scripts/proto_mlp_fused.py:92"),
     }
     check(set(sources) == set(KERNEL_NAMES) == set(rec), "every kernel has a source and a record")
     for name in sources:
         check(launches[name] > 0, f"{name} was launched no time on the main paths")
+    # the paths each backward entry takes, by source: its record times the first
+    paths = {"fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
+                                     "wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu"},
+             "fused_attention_qkv_bwd": {"wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu",
+                                         "simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu"}}
+    for name, by_path in paths.items():
+        rec[name]["sources_by_path"] = by_path
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])
         for name, (src, rep) in sources.items()

@@ -20,6 +20,7 @@ kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,7 +34,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "passt_tpu_torch"
 
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("mel_kernel", "attention_fwd", "attention_bwd", "layernorm_bwd", "ln_qkv", "int8_dense", "fused_mlp")
+KERNELS = ("mel_kernel", "attention_fwd", "attention_bwd", "attention_bwd_fp32", "layernorm_bwd", "ln_qkv",
+           "int8_dense", "int8_gemm", "fused_mlp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -138,3 +140,10 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def stream_of(tensor: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's multiprocessor count (the persistent and the rotated
+    kernels size their grids and orders by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

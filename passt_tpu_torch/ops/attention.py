@@ -1,5 +1,6 @@
-"""Attention as Hopper kernels (``csrc/attention_fwd.cu`` and
-``csrc/attention_bwd.cu``), with their plain PyTorch versions beside them.
+"""Attention as Hopper kernels (``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu`` and ``csrc/attention_bwd_fp32.cu``), with their
+plain PyTorch versions beside them.
 
 Port of passt_tpu/ops/pallas/attention.py. Two differentiable entry points,
 as in the JAX package, launch the same kernels:
@@ -33,12 +34,14 @@ fed by TMA), ``"short"`` (the same at N <= 64: one key tile, four heads a
 block at N <= 16), ``"mma"`` (bf16/fp16 at another D that is a multiple of
 16) and ``"fma"`` (fp32, a D that is 8 mod 16, or unaligned strides). The C entry launches exactly that path or returns an
 error, on which the wrapper raises; ``FWD_PATH_LAUNCHES`` counts the
-launches of each. The backward kernel has three paths, which
+launches of each. The backward kernel has four paths, which
 :func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16, D = 64:
 a statistics kernel, then one pass per 64-key block on wgmma fed by TMA,
-dQ summed across key blocks in a fixed order), ``"mma"`` (bf16/fp16 at
-another D that is a multiple of 16) and ``"fma"`` (fp32, a D that is 8 mod
-16, or unaligned strides); ``BWD_PATH_LAUNCHES`` counts them.
+dQ summed across key blocks in a fixed order), ``"simt"`` (fp32, D = 64:
+the same order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``), ``"mma"``
+(bf16/fp16 at another D that is a multiple of 16) and ``"fma"`` (fp32 at
+another D, a D that is 8 mod 16, or unaligned strides);
+``BWD_PATH_LAUNCHES`` counts them.
 """
 
 from __future__ import annotations
@@ -67,8 +70,9 @@ FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3}
 FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 
 
-#: the backward kernel's paths, by the code its C entry takes
-BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2}
+#: the backward kernel's paths, by the code its C entry takes ("simt" is
+#: the fp32 kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own)
+BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3}
 #: backward launches per path since the last :func:`reset_path_launches`
 BWD_PATH_LAUNCHES = dict.fromkeys(BWD_PATHS, 0)
 
@@ -94,9 +98,12 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
 
 def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The backward kernel path for ``n`` tokens of head dim ``d``:
-    ``"fma"`` for fp32, a ``d`` that is 8 mod 16 or unaligned operands,
+    ``"simt"`` for fp32 at ``d = 64`` with aligned operands, ``"fma"`` for
+    fp32 at another ``d``, a ``d`` that is 8 mod 16 or unaligned operands,
     ``"mma"`` for bf16 / fp16 at another ``d != 64``, else ``"wgmma"``
     (any ``n``)."""
+    if dtype == torch.float32 and aligned and d == 64:
+        return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
     return "wgmma" if d == 64 else "mma"
@@ -266,8 +273,17 @@ def _bwd_lib():
 
 
 @functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _bwd32_lib():
+    """The fp32 backward kernel library ("simt"), built and bound on first
+    use."""
+    lib = _build.load("attention_bwd_fp32")
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.passt_attention_bwd_fp32.argtypes = [vp] * 8 + [i32] * 4 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
+    lib.passt_attention_bwd_fp32.restype = ctypes.c_int
+    lib.passt_attention_bwd_fp32_scratch.argtypes = [i32] * 4
+    lib.passt_attention_bwd_fp32_scratch.restype = ctypes.c_longlong
+    return lib
+
 
 
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Optional[str] = None) -> None:
@@ -275,19 +291,33 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
     strides with a contiguous last dim), on the path :func:`backward_path`
     picks; dq, dk, dv are written in place. ``path`` overrides the choice
     (private: chip_smoke and the variants tool time the "mma" path at
-    D = 64 beside "wgmma"); a path that cannot take the call raises."""
+    D = 64 beside "wgmma", and the "fma" pair at fp32 D = 64 beside
+    "simt"); a path that cannot take the call raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
     if path is None:
         path = backward_path(n, d, q.dtype, _aligned(q, k, v, do, dq, dk, dv))
+    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
+    if path == "simt":
+        if q.dtype != torch.float32:
+            raise ValueError(f"the simt backward path takes float32, not {q.dtype}")
+        lib = _bwd32_lib()
+        floats = lib.passt_attention_bwd_fp32_scratch(b, n, h, _build.sm_count(q.device))
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+        code = lib.passt_attention_bwd_fp32(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),
+            b, n, h, d, *strides, float(scale), int(bool(plus1)), _build.sm_count(q.device), _build.stream_of(q),
+        )
+        _build.check(lib, code, "attention backward kernel launch (simt path)")
+        BWD_PATH_LAUNCHES[path] += 1
+        return
     lib = _bwd_lib()
     floats = lib.passt_attention_bwd_scratch(BWD_PATHS[path], b, n, h)
     scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
     code = lib.passt_attention_bwd(
         *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),
         _DTYPE_CODE[q.dtype], BWD_PATHS[path], b, n, h, d, *strides, float(scale), int(bool(plus1)),
-        _sm_count(q.device), _build.stream_of(q),
+        _build.sm_count(q.device), _build.stream_of(q),
     )
     _build.check(lib, code, f"attention backward kernel launch ({path} path)")
     BWD_PATH_LAUNCHES[path] += 1

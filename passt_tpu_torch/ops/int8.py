@@ -1,5 +1,5 @@
-"""The int8 Dense family as one Hopper kernel (``csrc/int8_dense.cu``), with
-its plain PyTorch versions beside it.
+"""The int8 Dense family as one Hopper GEMM with three epilogues
+(``csrc/int8_gemm.cu``), with its plain PyTorch versions beside it.
 
 Port of passt_tpu/ops/pallas/int8_dense.py (the quantized Dense, optionally
 with the tanh-GELU fused into its epilogue) and of the tiled matmul of
@@ -22,8 +22,13 @@ The kernel takes both operands K-major: the weight is quantized as ``w^T``
 K is padded with zeros to a multiple of 16 bytes where it is not one.
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor launches the
-kernel or raises. ``_build.LAUNCHES`` counts ``int8_dense``,
-``int8_dense_gelu`` and ``int8_matmul``.
+kernel or raises. On the card every public call takes the ``"wgmma"`` main
+loop (``csrc/int8_gemm.cu``: wgmma fed by TMA, a persistent grid, the output
+tile a template parameter that :func:`pick_tile` chooses per call for the
+least wave time); the first kernel's ``mma.sync`` loop (``csrc/int8_dense.cu``)
+stays as the private path ``"mma"``. ``_build.LAUNCHES`` counts
+``int8_dense``, ``int8_dense_gelu`` and ``int8_matmul``; ``PATH_LAUNCHES``
+counts the launches of each main loop.
 """
 
 from __future__ import annotations
@@ -52,6 +57,63 @@ _MATMUL_OUT = {torch.int8: (torch.int32, torch.bfloat16), torch.bfloat16: (torch
 _DENSE_OUT = (torch.float32, torch.bfloat16)
 #: the most K for which a sum of int8 products stays inside int32
 MAX_K_INT8 = (2**31 - 1) // (128 * 128)
+#: the main loops: the wgmma one every public call takes on the card, and the
+#: first kernel's mma.sync one (private, timed beside it)
+PATHS = ("wgmma", "mma")
+#: launches of each main loop since the last :func:`reset_path_launches`
+PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
+#: the wgmma loop's compiled output tiles (rows, columns), by the index its C
+#: entry takes (``launch_tile`` in ``csrc/int8_gemm.cu``)
+TILES = ((128, 128), (128, 192), (128, 256))
+#: row tiles per group of the persistent tile order (``GROUP_M``)
+GROUP_M = 8
+
+
+def reset_path_launches() -> None:
+    for name in PATH_LAUNCHES:
+        PATH_LAUNCHES[name] = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wave_cost(m: int, n: int, tile: int, sms: int) -> int:
+    """The wave time of an ``[m, n]`` output on compiled tile ``tile`` over
+    ``sms`` multiprocessors (one block each), in units of one column of a
+    tile: the rounds of tiles (``ceil(tiles / sms)``) times the tile's
+    width, which its time is proportional to."""
+    bm, bn = TILES[tile]
+    return _cdiv(_cdiv(m, bm) * _cdiv(n, bn), sms) * bn
+
+
+def pick_tile(m: int, n: int, sms: int, *, gelu: bool) -> int:
+    """The compiled tile with the least :func:`wave_cost` for an ``[m, n]``
+    output. Of tiles that tie, under the GELU epilogue the narrowest: a
+    block runs its epilogue after its main loop, and GELU's (two bf16
+    outputs and a tanh an element) decides the time, so the narrower tile's
+    shorter epilogue wins. Under DENSE and RAW the widest, whose main loop
+    reads fewer bytes per product. chip_smoke [3d] times every tile at the
+    MLP's shapes on an H100: fc1 + GELU 128 x 128 0.076 ms, 128 x 192 0.091;
+    fc2 128 x 192 0.031 ms, 128 x 128 0.033."""
+    width = (lambda i: TILES[i][1]) if gelu else (lambda i: -TILES[i][1])
+    return min(range(len(TILES)), key=lambda i: (wave_cost(m, n, i, sms), width(i)))
+
+
+def tile_order(m: int, n: int, tile: int) -> list:
+    """The output tiles ``(row tile, column tile)`` in the persistent order
+    of ``tile_coords`` in ``csrc/int8_gemm.cu``: groups of ``GROUP_M`` row
+    tiles, each walked column by column. Block b of a grid of g takes
+    entries b, b + g, ..."""
+    bm, bn = TILES[tile]
+    tiles_m, tiles_n = _cdiv(m, bm), _cdiv(n, bn)
+    order = []
+    for t in range(tiles_m * tiles_n):
+        group, r = divmod(t, GROUP_M * tiles_n)
+        first = group * GROUP_M
+        size = min(tiles_m - first, GROUP_M)
+        order.append((first + r % size, r // size))
+    return order
 
 
 def quantize_rows(x: torch.Tensor):
@@ -108,13 +170,19 @@ def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype =
 
 
 @functools.cache
-def _lib():
-    """The kernel library, built and bound on first use."""
-    lib = _build.load("int8_dense")
+def _lib(path: str):
+    """The kernel library of a main loop, built and bound on first use."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.passt_int8_gemm.argtypes = [vp] * 7 + [i32] * 6 + [vp]
-    lib.passt_int8_gemm.restype = ctypes.c_int
+    if path == "mma":
+        lib = _build.load("int8_dense")
+        lib.passt_int8_gemm.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+        lib.passt_int8_gemm.restype = ctypes.c_int
+    else:
+        lib = _build.load("int8_gemm")
+        lib.passt_int8_gemm_wgmma.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+        lib.passt_int8_gemm_wgmma.restype = ctypes.c_int
     return lib
+
 
 
 def _pad_k(t: torch.Tensor) -> torch.Tensor:
@@ -123,9 +191,14 @@ def _pad_k(t: torch.Tensor) -> torch.Tensor:
     return (F.pad(t, (0, pad)) if pad else t).contiguous()
 
 
-def _gemm(a, bt, out, out2, sx, sw, bias, epilogue: int) -> None:
+def _gemm(a, bt, out, out2, sx, sw, bias, epilogue: int, path: str = "wgmma", tile=None) -> None:
     """Launch the kernel: ``out = epilogue(a [M, K] @ bt [N, K]^T)``; the
-    float operands (sx ``[M]``, sw and bias ``[N]``) may be None for RAW."""
+    float operands (sx ``[M]``, sw and bias ``[N]``) may be None for RAW.
+    ``path`` and ``tile`` (an index into :data:`TILES`; :func:`pick_tile`'s
+    by default) are private overrides, for timing the main loops and tiles
+    side by side."""
+    if path not in PATHS:
+        raise ValueError(f"int8 GEMM path {path!r} is not one of {PATHS}")
     m, n = a.shape[0], bt.shape[0]
     named = dict(a=a, bt=bt, out=out, out2=out2, sx=sx, sw=sw, bias=bias)
     for name, t in named.items():
@@ -136,12 +209,17 @@ def _gemm(a, bt, out, out2, sx, sw, bias, epilogue: int) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     a, bt = _pad_k(a), _pad_k(bt)
-    lib = _lib()
-    code = lib.passt_int8_gemm(
-        *(ctypes.c_void_p(t.data_ptr() if t is not None else 0) for t in (a, bt, out, out2, sx, sw, bias)),
-        _IN_CODE[a.dtype], epilogue, _OUT_CODE[out.dtype], m, n, a.shape[1], _build.stream_of(a),
-    )
-    _build.check(lib, code, "int8 GEMM kernel launch")
+    lib = _lib(path)
+    ptrs = [ctypes.c_void_p(t.data_ptr() if t is not None else 0) for t in (a, bt, out, out2, sx, sw, bias)]
+    codes = (_IN_CODE[a.dtype], epilogue, _OUT_CODE[out.dtype], m, n, a.shape[1])
+    if path == "mma":
+        code = lib.passt_int8_gemm(*ptrs, *codes, _build.stream_of(a))
+    else:
+        sms = _build.sm_count(a.device)
+        tile = pick_tile(m, n, sms, gelu=epilogue == _EPI_GELU) if tile is None else tile
+        code = lib.passt_int8_gemm_wgmma(*ptrs, *codes, tile, sms, _build.stream_of(a))
+    _build.check(lib, code, f"int8 GEMM kernel launch ({path} path)")
+    PATH_LAUNCHES[path] += 1
 
 
 def _check_k(k: int, dtype: torch.dtype) -> None:
@@ -149,10 +227,12 @@ def _check_k(k: int, dtype: torch.dtype) -> None:
         raise ValueError(f"int8 sums over K = {k} > {MAX_K_INT8} may overflow int32")
 
 
-def quantized_dense(qx, sx, qwt, sw, b, *, out_dtype: torch.dtype, gelu: bool = False):
+def quantized_dense(qx, sx, qwt, sw, b, *, out_dtype: torch.dtype, gelu: bool = False, _path: str = "wgmma",
+                    _tile=None):
     """The dense epilogues on quantized operands (see
     :func:`quantized_dense_plain`): the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors. ``_path`` and ``_tile`` are :func:`_gemm`'s
+    private overrides."""
     m, k = qx.shape
     n = qwt.shape[0]
     if qx.dtype != torch.int8 or qwt.dtype != torch.int8:
@@ -168,7 +248,7 @@ def quantized_dense(qx, sx, qwt, sw, b, *, out_dtype: torch.dtype, gelu: bool = 
     floats = [t.float().reshape(-1).contiguous() for t in (sx, sw, b)]
     out = torch.empty((m, n), dtype=out_dtype, device=qx.device)
     out2 = torch.empty_like(out) if gelu else None
-    _gemm(qx.contiguous(), qwt.contiguous(), out, out2, *floats, _EPI_GELU if gelu else _EPI_DENSE)
+    _gemm(qx.contiguous(), qwt.contiguous(), out, out2, *floats, _EPI_GELU if gelu else _EPI_DENSE, _path, _tile)
     _build.LAUNCHES[_KEY_GELU if gelu else _KEY_DENSE] += 1
     return (out, out2) if gelu else out
 
@@ -184,12 +264,14 @@ def int8_dense_forward(x, w, b, gelu: bool = False):
     return quantized_dense(qx, sx, qwt, sw, b, out_dtype=x.dtype, gelu=gelu)
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def int8_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16, *,
+                _path: str = "wgmma", _tile=None) -> torch.Tensor:
     """``a [M, K] @ b [K, N]``: int8 x int8 summed in int32, cast to int32 or
     bfloat16; bf16 x bf16 summed in fp32, cast to bfloat16. The kernel on
     CUDA tensors (b is read K-major: a b that is the transpose of a
     contiguous ``[N, K]`` tensor is not copied), the plain version on CPU
-    tensors."""
+    tensors. ``_path`` and ``_tile`` are :func:`_gemm`'s private
+    overrides."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} @ b {tuple(b.shape)}: want [M, K] @ [K, N]")
     if a.dtype != b.dtype or out_dtype not in _MATMUL_OUT.get(a.dtype, ()):
@@ -199,7 +281,7 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype = torch
     if a.device.type == "cpu":
         return int8_matmul_plain(a, b, out_dtype)
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype, device=a.device)
-    _gemm(a.contiguous(), b.t().contiguous(), out, None, None, None, None, _EPI_RAW)
+    _gemm(a.contiguous(), b.t().contiguous(), out, None, None, None, None, _EPI_RAW, _path, _tile)
     _build.LAUNCHES[_KEY_MM] += 1
     return out
 

@@ -221,7 +221,7 @@ def test_rotated_and_plain_orders_agree():
         (474, 64, torch.bfloat16, True, "wgmma"),  # the bf16 training step
         (14, 64, torch.bfloat16, True, "wgmma"),  # one query tile
         (1190, 64, torch.float16, True, "wgmma"),
-        (474, 64, torch.float32, True, "fma"),  # the fp32 steps
+        (474, 64, torch.float32, True, "simt"),  # the fp32 steps (csrc/attention_bwd_fp32.cu)
         (474, 64, torch.bfloat16, False, "fma"),  # unaligned strides
         (97, 16, torch.bfloat16, True, "mma"),
         (97, 48, torch.float16, True, "mma"),

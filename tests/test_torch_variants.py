@@ -13,7 +13,7 @@ TOOLS = Path(V.__file__).parent
 CSRC = TOOLS.parent / "csrc"
 
 
-@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_fwd", "fused_mlp", "ln_qkv"])
+@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_bwd_fp32", "attention_fwd", "fused_mlp", "ln_qkv"])
 def test_every_variant_applies(kernel):
     names = {"attention_bwd": "attention_bwd", "attention_fwd": "attention"}
     path = TOOLS / f"{names.get(kernel, kernel)}_variants.json"
