@@ -10,7 +10,12 @@ Phases (each prints one line or more; the first failure exits non-zero):
 3. each forward kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain time, one library call's time where one computes the function,
-   and the bound; the attention forward on each of its four paths (every
+   and the bound; the FFT mel kernel at hops 320, 160 and 100, on 10-s and
+   2-s clips, a wave one sample longer than the reflect padding needs, a
+   jittered bank, a bank with an all-zero row, and at every other n_fft it
+   is built for (64, 128, 256, 512 with win 400, 2048) (the wrapper timed by
+   CUDA-graph replay, its two kernels by profiled kernel time, beside the
+   cuFFT composition of the same function); the attention forward on each of its four paths (every
    call checked to take the one ``forward_path`` picks), timed by CUDA-graph
    replay and by events at the serving (B = 20, N = 1190), timestamp
    (B = 256, N = 14) and training (B = 12, N = 474) shapes beside SDPA as
@@ -65,7 +70,10 @@ Phases (each prints one line or more; the first failure exits non-zero):
    fuse_f's peak memory growth below one [M, 3072] bf16 tensor.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
-plain versions and times them at the training step's shapes. Phase 3d holds
+plain versions (B2 in bf16 and fp16 also at ragged M and C 64 to 1024, and
+for the same bits on two runs) and times them at the training step's
+shapes, B2 beside the bare cuBLAS product and that product plus ATen's
+LayerNorm backward. Phase 3d holds
 the int8 GEMM's three epilogues (int8_dense, int8_dense_gelu, int8_matmul)
 on its wgmma main loop against their plain versions (int32 outputs
 bit-equal) at the int8 MLP's shapes (M = 5688 and 14280), ragged shapes
@@ -274,37 +282,77 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.ops.attention import attention_plain, fused_attention, fused_attention_qkv
     from passt_tpu_torch.ops.mel import kaldi_mel_banks
     from passt_tpu_torch.ops.mel_kernel import fused_log_mel, fused_log_mel_plain
+    from passt_tpu_torch.ops.stft import preemphasis, stft_power
 
     rng = np.random.default_rng(0)
     rec = {}
 
-    # mel: hop 320 at the slice's batch, hop 100 and 160 at a small one
+    # mel: hop 320 at the slice's batch, hop 100 and 160 at a small one; a
+    # 2-s clip, a wave one sample longer than the reflect padding needs, a
+    # jittered bank and a bank with an all-zero and a full-width row; then
+    # every other n_fft the kernel is built for (64 to 2048), each its own
+    # instantiation of the kernel, on a 2-s clip at B = 2
     bank = kaldi_mel_banks(128, 1024, 32000, 0.0, 15000.0, device=dev)
-    mel_err = 0.0
-    for hop, b in ((320, 20), (100, 2), (160, 2)):
-        wave = torch.from_numpy(rng.standard_normal((b, CLIP)).astype(np.float32)).to(dev)
-        got = fused_log_mel(wave, bank, hop=hop)
-        ref = fused_log_mel_plain(wave, bank, hop=hop)
+    jittered = kaldi_mel_banks(128, 1024, 32000, torch.tensor(7.0, device=dev), torch.tensor(15731.0, device=dev))
+    synthetic = bank.clone()
+    synthetic[5] = 0.0
+    synthetic[77] = torch.linspace(0.1, 1.0, bank.shape[1], device=dev)
+    cases = [(1024, 800, 320, 20, CLIP, bank, "B=20x10s"), (1024, 800, 100, 2, CLIP, bank, "B=2x10s"),
+             (1024, 800, 160, 2, CLIP, bank, "B=2x10s"), (1024, 800, 320, 3, 64000, bank, "2-s clip"),
+             (1024, 800, 320, 3, 514, bank, "514 samples"), (1024, 800, 160, 2, 64000, jittered, "jittered bank"),
+             (1024, 800, 320, 2, 64000, synthetic, "zero and full rows")]
+    for n_fft, win, hop, n_mels in ((64, 64, 32, 32), (128, 128, 64, 64), (256, 200, 100, 64), (512, 400, 160, 128),
+                                    (2048, 1600, 320, 128)):
+        cases.append((n_fft, win, hop, 2, 64000, kaldi_mel_banks(n_mels, n_fft, 32000, 0.0, 15000.0, device=dev),
+                      f"n_fft {n_fft} win {win} {n_mels} mels B=2x2s"))
+    mel_err, mel_cases = 0.0, []
+    for n_fft, win, hop, b, t, bk, what in cases:
+        wave = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)).to(dev)
+        got = fused_log_mel(wave, bk, n_fft=n_fft, hop=hop, win_length=win)
+        ref = fused_log_mel_plain(wave, bk, n_fft=n_fft, hop=hop, win_length=win)
         torch.cuda.synchronize()
-        check(got.shape == ref.shape, f"mel hop {hop}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
-        mel_err = max(mel_err, mel_strong_check(got, ref, f"mel hop {hop}"))
-        if hop == 320:
-            ms = cuda_ms(lambda: fused_log_mel(wave, bank))
-            plain_ms = cuda_ms(lambda: fused_log_mel_plain(wave, bank))
-            # the function's least work, not the kernel's dense DFT: the
-            # pre-emphasis per sample; per frame the window, a real FFT of
-            # n_fft = 1024 (2.5 n log2 n FLOP), the power of each bin, the
-            # bank's non-zero taps only (Kaldi triangles) and the log and
-            # normalisation of each mel; the wave and the bank read once, the
-            # mel written once
-            frames, n_mels, n_freq = b * got.shape[-1], bank.shape[0], bank.shape[1]
-            per_frame = 2.5 * 1024 * math.log2(1024) + 800 + 3 * n_freq + 2 * int((bank != 0).sum()) + 3 * n_mels
-            mel_bound = bound(2 * wave.numel() + frames * per_frame,
-                              (wave.numel() + bank.numel() + got.numel()) * 4, PEAK_FP32)
-    say(f"[3] mel kernel vs plain: max err {mel_err:.3g}; B=20x10s hop 320: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {mel_bound['bound_ms']:.4f} ms "
-        f"({mel_bound['bound_by']}), no single library call ({gpu})")
-    rec["fused_log_mel"] = dict(max_abs_err=mel_err, ms=ms, plain_ms=plain_ms, library_ms=None, **mel_bound)
+        check(got.shape == ref.shape, f"mel hop {hop} {what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        mel_err = max(mel_err, mel_strong_check(got, ref, f"mel hop {hop} {what}"))
+        mel_cases.append(f"hop {hop} {what}")
+        if what == "zero and full rows":
+            floor = (math.log(np.float32(1e-5)) + 4.5) / 5.0
+            check(bool(torch.allclose(got[:, 5], torch.full_like(got[:, 5], floor))), "mel all-zero row")
+    # the slice's call: the wrapper by graph replay, its kernels alone by
+    # profiled kernel time, the plain version by events (its basis is copied
+    # to the card each call, which a graph cannot capture), and the cuFFT
+    # composition (the port's stft_method="fft" power, the bank product and
+    # the log): a composition of library calls, not one call
+    wave = torch.from_numpy(rng.standard_normal((20, CLIP)).astype(np.float32)).to(dev)
+
+    def composition():
+        power = stft_power(preemphasis(wave), 1024, 320, 800, center=True, method="fft")
+        return (torch.log(torch.matmul(bank, power[:, : bank.shape[1]]) + 1e-5) + 4.5) / 5.0
+
+    got = fused_log_mel(wave, bank)
+    mel_strong_check(composition(), fused_log_mel_plain(wave, bank), "mel cuFFT composition")
+    ms = graph_ms(lambda: fused_log_mel(wave, bank))
+    ms_events = cuda_ms(lambda: fused_log_mel(wave, bank))
+    kernels = kernel_times(lambda: fused_log_mel(wave, bank))
+    plain_ms = cuda_ms(lambda: fused_log_mel_plain(wave, bank))
+    comp_ms = cuda_ms(composition)
+    # the function's least work, not the kernel's: the pre-emphasis per
+    # sample; per frame the window, a real FFT of n_fft = 1024 (2.5 n log2 n
+    # FLOP), the power of each bin, the bank's non-zero taps only (Kaldi
+    # triangles) and the log and normalisation of each mel; the wave and the
+    # bank read once, the mel written once
+    frames, n_mels, n_freq = 20 * got.shape[-1], bank.shape[0], bank.shape[1]
+    per_frame = 2.5 * 1024 * math.log2(1024) + 800 + 3 * n_freq + 2 * int((bank != 0).sum()) + 3 * n_mels
+    mel_bound = bound(2 * wave.numel() + frames * per_frame,
+                      (wave.numel() + bank.numel() + got.numel()) * 4, PEAK_FP32)
+    say(f"[3] mel kernel vs plain: max err {mel_err:.3g} ({'; '.join(mel_cases)}); B=20x10s hop 320: "
+        f"wrapper {ms:.4f} ms graph-replayed, {ms_events:.4f} events, kernels {sum(kernels.values()):.4f} ms "
+        f"profiled over {len(kernels)} launches a call ("
+        + ", ".join(f"{k[:48]} {v:.4f}" for k, v in kernels.items())
+        + f"), plain {plain_ms:.4f} ms, cuFFT composition (stft fft + bank product + log; not one call) "
+        f"{comp_ms:.4f} ms, bound {mel_bound['bound_ms']:.4f} ms ({mel_bound['bound_by']}) ({gpu})")
+    rec["fused_log_mel"] = dict(max_abs_err=mel_err, ms=ms, ms_events=ms_events, kernel_ms=sum(kernels.values()),
+                                device_launches_per_call=len(kernels), plain_ms=plain_ms, library_ms=None,
+                                library_composition_ms=comp_ms, **mel_bound)
 
     # attention: both entries, bf16 and fp32 (and fp16), plus1 on and off,
     # N in {14, 474, 1190} at the model's heads; the edges of the short
@@ -604,6 +652,7 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
     """[3c] the LayerNorm-backward, F1 and B2 kernels against their plain
     versions, then their times at the training step's shapes."""
     from passt_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_plain, ln_forward
+    from passt_tpu_torch.ops import ln_qkv as L
     from passt_tpu_torch.ops.ln_qkv import ln_qkv_b2, ln_qkv_b2_plain, ln_qkv_f1, ln_qkv_f1_plain
 
     rng = np.random.default_rng(4)
@@ -666,12 +715,20 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
             hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n}", g, r,
                  TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
     # B2 at the fp32 step's shape; both kernels at other widths (C not a
-    # multiple of 128 takes F1's 64 x 64 tiles; B2's warps hold C / 32 n8
-    # tiles), ragged in the rows
-    for b, n, dtype, c in ((2, 154, torch.float32, c0), (3, 47, torch.float16, c0), (2, 47, torch.bfloat16, 192),
-                           (2, 33, torch.bfloat16, 1024), (2, 20, torch.float16, 320), (1, 9, torch.float32, 64)):
+    # multiple of 128 takes F1's 64 x 64 tiles; B2's clusters split C into
+    # one to six CTAs of one to three 64-column blocks), ragged in the rows:
+    # 5688 + 37, fewer than one 192-row tile; the bf16/fp16 B2 checked for
+    # the same bits on a second run
+    b2_cases = [(2, 154, torch.float32, c0), (3, 47, torch.float16, c0), (2, 47, torch.bfloat16, 192),
+                (2, 33, torch.bfloat16, 1024), (2, 20, torch.float16, 320), (1, 9, torch.float32, 64),
+                (TRAIN_B, TRAIN_N, torch.float16, c0), (1, TRAIN_B * TRAIN_N + 37, torch.bfloat16, c0),
+                (1, TRAIN_B * TRAIN_N + 37, torch.float16, c0), (1, 37, torch.bfloat16, c0)]
+    b2_cases += [(1, m_, dtype, c) for c in (64, 384, 1024) for dtype in (torch.bfloat16, torch.float16)
+                 for m_ in (TRAIN_B * TRAIN_N, 37)]
+    b2_same = 0
+    for b, n, dtype, c in b2_cases:
         x, s, bb, w, wb = qkv_case(b, n, dtype, c)
-        if c != c0:
+        if c != c0 and n != 37 and n != TRAIN_B * TRAIN_N:
             got, ref = ln_qkv_f1(x, s, bb, w, wb), ln_qkv_f1_plain(x, s, bb, w, wb)
             torch.cuda.synchronize()
             hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n} C={c}", got, ref, TOL_QKV[dtype])
@@ -681,6 +738,12 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
         for what, g, r in zip(("dx", "xn", "dscale", "dbias"), got, ref):
             hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n} C={c}", g, r,
                  TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
+        if dtype != torch.float32:
+            again = ln_qkv_b2(x, dqkv, w, s, bb)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"ln_qkv_b2 {str(dtype)[6:]} M={b * n} C={c}: another run gave other bits")
+            b2_same += 1
 
     rec = {}
     # times: CUDA-graph replays (graph_ms), so the wrappers' host work (a
@@ -729,11 +792,26 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
             nbytes = (mrows * c0 * 3 + mrows * 3 * c0 + 3 * c0 * c0) * esize + 4 * c0 * 4
         t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None,
                  **bound(2 * mrows * c0 * 3 * c0, nbytes, peak))
-        gemm_ms = graph_ms(gemm)
+        t["gemm_ms"] = graph_ms(gemm)
+        extra = ""
+        if name == "ln_qkv_b2":
+            # the product, then ATen's LayerNorm backward on it (statistics
+            # from ATen's forward, outside the timing): two library calls
+            _, mu_, rstd_ = torch.ops.aten.native_layer_norm(x, [c0], s.to(dtype), bb.to(dtype), 1e-6)
+            s_x, b_x = s.to(dtype), bb.to(dtype)
+            t["gemm_ln_bwd_ms"] = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                torch.matmul(dqkv, w), x, [c0], mu_, rstd_, s_x, b_x, [True, True, True]))
+            extra = f", the product plus ATen's LayerNorm backward {t['gemm_ln_bwd_ms']:.4f} ms"
+            if dtype != torch.float32:
+                check(L._lib().passt_ln_qkv_b2_rows(1) == L.B2_ROWS, "B2's row tile != ops/ln_qkv.py B2_ROWS")
+                ctas, active = L.b2_clusters(c0)
+                t.update(cluster_ctas=ctas, active_clusters=active)
+                extra += (f"; same bits on two runs in {b2_same} bf16/fp16 cases; clusters of {ctas} CTAs, "
+                          f"{active} resident at once, {-(-mrows // L.B2_ROWS)} in the call")
         say(f"[3c] {name} vs plain: max err {worst[name]:.3g} of max|ref| (bf16/fp32/fp16; C 768/192/1024/"
-            f"320/64; the shapes below); {str(dtype)[6:]} B={b} N={n} "
+            f"320/64/384; M ragged to 37 and 5688 + 37; the shapes below); {str(dtype)[6:]} B={b} N={n} "
             f"C={c0}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no single library call "
-            f"(the bare cuBLAS product of the same shape {gemm_ms:.4f} ms), bound {t['bound_ms']:.4f} ms "
+            f"(the bare cuBLAS product of the same shape {t['gemm_ms']:.4f} ms{extra}), bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}) ({gpu})")
         if name not in rec:  # the record keeps the training step's shape
             rec[name] = dict(max_abs_err=worst_abs[name], **t)

@@ -86,7 +86,7 @@ GROUPS = (
     ("ln_qkv kernels (F1, B2)", r"ln_qkv"),
     ("attention backward kernel", r"attention_bwd"),
     ("attention forward kernel", r"attention_fwd"),
-    ("mel kernel", r"log_mel|mel_kernel"),
+    ("mel kernel", r"log_mel|mel_kernel|mel_span"),
     ("GEMMs (cuBLAS/CUTLASS)", r"gemm|sm90_|cutlass|nvjet|cublas|xmma"),
     ("reductions (LayerNorm means, sums)", r"reduce"),
     ("copies, casts, indexing, cat", r"copy|cast|index|scatter|gather|cat|fill"),

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the attention forward
 // (attention_fwd.cu) and backward (attention_bwd.cu, attention_bwd_fp32.cu)
-// kernels and the int8 GEMM (int8_gemm.cu): mbarriers, TMA tensor maps and
+// kernels, the int8 GEMM (int8_gemm.cu) and B2 (ln_qkv.cu): mbarriers, TMA tensor maps and
 // copies (4-D and 2-D tiles, 1-D bulk), the wgmma products with their
-// descriptors (K-major and MN-major, 128-byte swizzle; the GEMM's s8 and
-// bf16 products at N = 128, 192 and 256), fences, waits and named barriers,
+// descriptors (K-major and MN-major, 128-byte swizzle; bf16/fp16 products
+// at N = 128, 192 and 256 with either B layout, which the GEMM and B2 use,
+// and the GEMM's s8 ones), fences, waits and named barriers,
 // and the acquire / release accesses of the backward's ordered dQ sums. The tensor maps are encoded on the host with
 // cuTensorMapEncodeTiled fetched from the CUDA driver at run time, so no
 // library needs -lcuda.
@@ -139,33 +140,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
         for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-#define PASST_WG_OUT64                                                                              \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
-    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
-    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
-    "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
-    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
-    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
-    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),       \
-    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+// The accumulator operands d[i .. i + 7] of an inline wgmma, with constraint K
+// ("+f" for fp32, "+r" for s32), and the register lists that name them.
+#define PASST_WG_ACC8(K, i) \
+    K(d[i]), K(d[i + 1]), K(d[i + 2]), K(d[i + 3]), K(d[i + 4]), K(d[i + 5]), K(d[i + 6]), K(d[i + 7])
+#define PASST_WG_ACC32(K) PASST_WG_ACC8(K, 0), PASST_WG_ACC8(K, 8), PASST_WG_ACC8(K, 16), PASST_WG_ACC8(K, 24)
+#define PASST_WG_ACC64(K) PASST_WG_ACC32(K), PASST_WG_ACC8(K, 32), PASST_WG_ACC8(K, 40), PASST_WG_ACC8(K, 48), \
+    PASST_WG_ACC8(K, 56)
+#define PASST_WG_ACC96(K) PASST_WG_ACC64(K), PASST_WG_ACC8(K, 64), PASST_WG_ACC8(K, 72), PASST_WG_ACC8(K, 80), \
+    PASST_WG_ACC8(K, 88)
+#define PASST_WG_ACC128(K) PASST_WG_ACC96(K), PASST_WG_ACC8(K, 96), PASST_WG_ACC8(K, 104), \
+    PASST_WG_ACC8(K, 112), PASST_WG_ACC8(K, 120)
+#define PASST_WG_OUT64 PASST_WG_ACC64("+f")
+#define PASST_WG_OUT32 PASST_WG_ACC32("+f")
 
-#define PASST_WG_OUT32                                                                              \
-    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),   \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),         \
-    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),       \
-    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),       \
-    "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-#define PASST_WG_REGS64                                                                             \
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                \
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-#define PASST_WG_REGS32                                                                             \
-    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                        \
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PASST_WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define PASST_WG_R32 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define PASST_WG_R64 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define PASST_WG_R96 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define PASST_WG_REGS32 "{" PASST_WG_R0 "}"
+#define PASST_WG_REGS64 "{" PASST_WG_R0 ", " PASST_WG_R32 "}"
+#define PASST_WG_REGS96 "{" PASST_WG_R0 ", " PASST_WG_R32 ", " PASST_WG_R64 "}"
+#define PASST_WG_REGS128 "{" PASST_WG_R0 ", " PASST_WG_R32 ", " PASST_WG_R64 ", " PASST_WG_R96 "}"
 
 // S (64 x 128, fp32) [+]= A (64 x 16, shared) . B (128 x 16, shared)^T, both
 // K-major; and O (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared,
@@ -332,72 +328,49 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// D (64 x N, fp32) [+]= A (64 x 16) . B (16 x N), both from shared memory
+// (128-byte swizzle), T bf16 or fp16; A K-major, B K-major (TB = 0) or
+// MN-major (TB = 1, the transposed-B flag). NR = N / 2 accumulators a
+// thread; IA, IB, IP and ITB number the operands after them (the two
+// descriptors, the accumulate flag, TB).
+template <typename T, int N, int TB> struct WgmmaF32;
+#define PASST_WGMMA_F32(CT, TY, NN, NR, IA, IB, IP, ITB)                                                  \
+    template <int TB> struct WgmmaF32<CT, NN, TB> {                                                       \
+        static __device__ __forceinline__ void mma(float (&d)[NR], uint64_t a, uint64_t b, int accumulate) { \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                  \
+                         "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TY "." TY " " PASST_WG_REGS##NR  \
+                         ", %" IA ", %" IB ", p, 1, 1, 0, %" ITB ";\n}\n"                                      \
+                         : PASST_WG_ACC##NR("+f")                                                         \
+                         : "l"(a), "l"(b), "r"(accumulate), "n"(TB));                                       \
+        }                                                                                                 \
+    };
+PASST_WGMMA_F32(__nv_bfloat16, "bf16", 128, 64, "64", "65", "66", "67")
+PASST_WGMMA_F32(__nv_bfloat16, "bf16", 192, 96, "96", "97", "98", "99")
+PASST_WGMMA_F32(__nv_bfloat16, "bf16", 256, 128, "128", "129", "130", "131")
+PASST_WGMMA_F32(__half, "f16", 128, 64, "64", "65", "66", "67")
+PASST_WGMMA_F32(__half, "f16", 192, 96, "96", "97", "98", "99")
+PASST_WGMMA_F32(__half, "f16", 256, 128, "128", "129", "130", "131")
+
 // The GEMM's products: D (64 x N) [+]= A (64 x 32 bytes) . B (N x 32 bytes)^T,
 // both K-major from shared memory (128-byte swizzle); int: s8 x s8 -> s32
-// (k32), float: bf16 x bf16 -> f32 (k16). 8-bit wgmma takes only K-major
-// operands. Accumulator element 4 j + e of a thread in warp w of the
+// (k32), float: bf16 x bf16 -> f32 (k16, WgmmaF32). 8-bit wgmma takes only
+// K-major operands. Accumulator element 4 j + e of a thread in warp w of the
 // warpgroup is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2.
 template <typename Acc, int N> struct WgmmaGemm;
-template <> struct WgmmaGemm<int, 128> {
-    static __device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-                     "}, %64, %65, p;\n}\n"
-                     : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
-template <> struct WgmmaGemm<float, 128> {
-    static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-                     "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-                     : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
-template <> struct WgmmaGemm<int, 192> {
-    static __device__ __forceinline__ void mma(int (&d)[96], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-                     "}, %96, %97, p;\n}\n"
-                     : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
-template <> struct WgmmaGemm<float, 192> {
-    static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-                     "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
-                     : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
-template <> struct WgmmaGemm<int, 256> {
-    static __device__ __forceinline__ void mma(int (&d)[128], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-                     "}, %128, %129, p;\n}\n"
-                     : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
-template <> struct WgmmaGemm<float, 256> {
-    static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
-        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-                     "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-                     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-                     "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-                     : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-                     : "l"(a), "l"(b), "r"(accumulate));
-    }
-};
+template <int N> struct WgmmaGemm<float, N> : WgmmaF32<__nv_bfloat16, N, 0> {};
+#define PASST_WGMMA_S32(NN, NR, IA, IB, IP)                                                               \
+    template <> struct WgmmaGemm<int, NN> {                                                               \
+        static __device__ __forceinline__ void mma(int (&d)[NR], uint64_t a, uint64_t b, int accumulate) {   \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                  \
+                         "wgmma.mma_async.sync.aligned.m64n" #NN "k32.s32.s8.s8 " PASST_WG_REGS##NR          \
+                         ", %" IA ", %" IB ", p;\n}\n"                                                       \
+                         : PASST_WG_ACC##NR("+r")                                                         \
+                         : "l"(a), "l"(b), "r"(accumulate));                                                \
+        }                                                                                                 \
+    };
+PASST_WGMMA_S32(128, 64, "64", "65", "66")
+PASST_WGMMA_S32(192, 96, "96", "97", "98")
+PASST_WGMMA_S32(256, 128, "128", "129", "130")
 
 // A 2-D tensor map over a row-major [rows, cols] operand (row pitch
 // `pitch` bytes, a multiple of 16) of 1-byte (int8) or 2-byte (bf16)

@@ -9,8 +9,9 @@ waveform [B, T]
   -> SpecAugment frequency + time masking             (train only)
   -> fixed affine normalisation ``(x + 4.5) / 5``
 
-Under ``stft_method`` "auto" (or "pallas") the middle runs, on a CUDA
-tensor, as the Hopper mel kernel
+Under ``stft_method`` "pallas" (and "auto" where the kernel takes the
+geometry: a power-of-two ``n_fft``, at most 256 mels; "matmul" otherwise)
+the middle runs, on a CUDA tensor, as the Hopper mel kernel
 (:func:`passt_tpu_torch.ops.mel_kernel.fused_log_mel`, un-normalised) with
 the bank built on the card from the jittered (fmin, fmax); the masks and the
 normalisation follow it, as on the TPU.
@@ -30,13 +31,14 @@ from typing import Optional
 import torch
 
 from passt_tpu_torch.ops.mel import kaldi_mel_banks
-from passt_tpu_torch.ops.mel_kernel import fused_log_mel
+from passt_tpu_torch.ops.mel_kernel import fused_log_mel, kernel_supports
 from passt_tpu_torch.ops.stft import num_stft_frames, preemphasis, stft_power
 
 LOG_OFFSET = 1e-5  # preprocess.py:78
 NORM_SHIFT = 4.5  # preprocess.py:84
 NORM_SCALE = 5.0
-#: MelConfig.stft_method names; the first two select the mel kernel
+#: MelConfig.stft_method names; "pallas" selects the mel kernel, "auto" too
+#: where the kernel takes the geometry
 STFT_METHODS = ("auto", "pallas", "matmul", "conv", "fft")
 
 
@@ -57,9 +59,10 @@ class MelConfig:
     fmin_aug_range: int = 1
     fmax_aug_range: int = 1000
     iid_masks: bool = False
-    stft_method: str = "auto"  # the JAX package's names: "auto" or "pallas":
-    # the mel kernel (its plain version for a CPU tensor); "matmul", "conv"
-    # or "fft": that STFT formulation in plain PyTorch, on any device
+    stft_method: str = "auto"  # the JAX package's names: "pallas": the
+    # mel kernel (its plain version for a CPU tensor); "auto": the same where
+    # the kernel takes the geometry, else "matmul"; "matmul", "conv" or "fft":
+    # that STFT formulation in plain PyTorch, on any device
 
     def __post_init__(self):
         if self.fmin_aug_range < 1 or self.fmax_aug_range < 1:
@@ -128,7 +131,12 @@ def log_mel_spectrogram(
             - torch.randint(0, cfg.fmax_aug_range, (), generator=generator, device=dev).float()
         )
     bank = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax, device=wave.device)
-    if cfg.stft_method in ("auto", "pallas"):
+    method = cfg.stft_method
+    if method == "auto":
+        # the kernel where it takes the geometry, else the plain "matmul"
+        # formulation, as the JAX frontend's "auto"
+        method = "pallas" if kernel_supports(cfg.n_fft, cfg.n_mels) else "matmul"
+    if method == "pallas":
         mel = fused_log_mel(
             wave.float(), bank, n_fft=cfg.n_fft, hop=cfg.hopsize, win_length=cfg.win_length,
             log_offset=LOG_OFFSET, norm_shift=0.0, norm_scale=1.0,
@@ -137,7 +145,7 @@ def log_mel_spectrogram(
         # the plain version's math (fused_log_mel_plain for "matmul") with
         # the named STFT formulation
         power = stft_power(preemphasis(wave), cfg.n_fft, cfg.hopsize, cfg.win_length, center=True,
-                           method=cfg.stft_method)
+                           method=method)
         mel = torch.log(torch.matmul(bank.float(), power[:, : bank.shape[1], :]) + LOG_OFFSET)
     if train:
         b, n_mels, frames = mel.shape

@@ -12,8 +12,10 @@ before norm1 and returns the attention output (the proj input):
                 counted under ``fused_attention_qkv``)
   backward: the attention backward kernel -> dqkv (``fused_attention_qkv_bwd``)
             B2  dxn = dqkv W in fp32, fused with the LayerNorm backward:
-                dx, the recomputed xn, and dscale/dbias (per-block partials
-                the wrapper sums)
+                dx, the recomputed xn, and dscale/dbias (per-row-tile
+                partials the wrapper sums); in bf16/fp16 on wgmma, one
+                cluster per 192 rows (``B2_ROWS``) with C split across its
+                CTAs (:func:`b2_split`), each loading its own tiles by TMA
             dW = dqkv^T xn (cuBLAS, fp32 accumulation) and db = sum(dqkv) in
                 fp32, both in W's dtype: outside any kernel, as the JAX
                 package leaves them to XLA.
@@ -60,6 +62,21 @@ for _key in (_KEY_F1, _KEY_B2):
 #: the JAX package's budgets for F1 and B2 (passt_tpu/ops/pallas/ln_qkv.py)
 _F1_BUDGET = 14 * 1024 * 1024
 _B2_BUDGET = 16 * 1024 * 1024
+
+
+#: rows of a dscale/dbias partial of the bf16/fp16 B2 kernel (a cluster's
+#: row tile, ``B2_BM`` in csrc/ln_qkv.cu); the fp32 kernel's are 8
+B2_ROWS = 192
+
+
+def b2_split(c: int):
+    """The bf16/fp16 B2 kernel's split of C = 64 q across a cluster
+    (csrc/ln_qkv.cu ``b2_split``): ``(ctas, blocks)``, ceil(q / 3) CTAs of
+    ``blocks`` 64-column blocks each; the last CTA's blocks past C are
+    empty."""
+    q = c // 64
+    ctas = -(-q // 3)
+    return ctas, -(-q // ctas)
 
 
 def _f1_bytes(n: int, c: int, itemsize: int) -> int:
@@ -143,7 +160,19 @@ def _lib():
     lib.passt_ln_qkv_b2.restype = ctypes.c_int
     lib.passt_ln_qkv_b2_rows.argtypes = [i32]
     lib.passt_ln_qkv_b2_rows.restype = ctypes.c_int
+    lib.passt_ln_qkv_b2_clusters.argtypes = [i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.passt_ln_qkv_b2_clusters.restype = ctypes.c_int
     return lib
+
+
+def b2_clusters(c: int):
+    """The bf16/fp16 B2 kernel's cluster at width ``c`` on the current card:
+    ``(CTAs a cluster, clusters resident at once)`` (the card's occupancy
+    query; it needs the card)."""
+    lib = _lib()
+    ctas, active = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.passt_ln_qkv_b2_clusters(c, ctypes.byref(ctas), ctypes.byref(active)), "B2 clusters")
+    return ctas.value, active.value
 
 
 def _operands(named: dict, dtype: torch.dtype, device: torch.device, c: int) -> dict:

@@ -13,9 +13,9 @@ TOOLS = Path(V.__file__).parent
 CSRC = TOOLS.parent / "csrc"
 
 
-@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_bwd_fp32", "attention_fwd", "fused_mlp", "ln_qkv"])
+@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_bwd_fp32", "attention_fwd", "fused_mlp", "ln_qkv", "mel_kernel"])
 def test_every_variant_applies(kernel):
-    names = {"attention_bwd": "attention_bwd", "attention_fwd": "attention"}
+    names = {"attention_bwd": "attention_bwd", "attention_fwd": "attention", "mel_kernel": "mel"}
     path = TOOLS / f"{names.get(kernel, kernel)}_variants.json"
     variants = json.loads(path.read_text())
     src = (CSRC / f"{kernel}.cu").read_text()
