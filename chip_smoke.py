@@ -70,10 +70,14 @@ Phases (each prints one line or more; the first failure exits non-zero):
    fuse_f's peak memory growth below one [M, 3072] bf16 tensor.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
-plain versions (B2 in bf16 and fp16 also at ragged M and C 64 to 1024, and
-for the same bits on two runs) and times them at the training step's
-shapes, B2 beside the bare cuBLAS product and that product plus ATen's
-LayerNorm backward. Phase 3d holds
+plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
+to 1024, every B2 case checked for the same bits on two runs, every F1
+call's tile and K split checked against ``ops/ln_qkv.py``) and times them
+at the training step's shapes, F1 also at the timestamp windows' (bf16 and
+fp32) and both at the fp32 step's, each beside the bare cuBLAS product and
+the two library calls that compute its function (ATen's LayerNorm forward
+then the product; the product then ATen's LayerNorm backward), with its
+tiles, CTAs in flight and waves. Phase 3d holds
 the int8 GEMM's three epilogues (int8_dense, int8_dense_gelu, int8_matmul)
 on its wgmma main loop against their plain versions (int32 outputs
 bit-equal) at the int8 MLP's shapes (M = 5688 and 14280), ragged shapes
@@ -651,6 +655,7 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 def phase_layernorm(gpu: str, dev: torch.device) -> dict:
     """[3c] the LayerNorm-backward, F1 and B2 kernels against their plain
     versions, then their times at the training step's shapes."""
+    from passt_tpu_torch.ops import _build
     from passt_tpu_torch.ops.layernorm import layer_norm_bwd, layer_norm_bwd_plain, ln_forward
     from passt_tpu_torch.ops import ln_qkv as L
     from passt_tpu_torch.ops.ln_qkv import ln_qkv_b2, ln_qkv_b2_plain, ln_qkv_f1, ln_qkv_f1_plain
@@ -692,58 +697,60 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
             hold("layer_norm_bwd", f"{what} {str(dtype)[6:]} M={m} C={c}", g, r, tol)
 
     # F1 and B2: bf16 at the training step's and the timestamp windows'
-    # shapes, fp32 at the fp32 step's (patchout 80/4: N = 154), fp16 small
+    # shapes, fp32 at the fp32 step's (patchout 80/4: N = 154) and windows',
+    # fp16 small
     def qkv_case(b, n, dtype, c=c0):
         x = arr((b, n, c), dtype=dtype)
         s, bb = arr((c,), 0.1, 1.0), arr((c,), 0.1)
         w, wb = arr((3 * c, c), 0.02, dtype=dtype), arr((3 * c,), 0.02, dtype=dtype)
         return x, s, bb, w, wb
 
-    f1_cases = ((TRAIN_B, TRAIN_N, torch.bfloat16), (256, 14, torch.bfloat16), (2, 154, torch.float32),
-                (3, 47, torch.float16))
-    for b, n, dtype in f1_cases:
-        x, s, bb, w, wb = qkv_case(b, n, dtype)
+    sms = _build.sm_count(dev)
+    f1_plans = {}
+
+    def hold_f1(b, n, dtype, c, x, s, bb, w, wb):
         got, ref = ln_qkv_f1(x, s, bb, w, wb), ln_qkv_f1_plain(x, s, bb, w, wb)
         torch.cuda.synchronize()
-        hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n}", got, ref, TOL_QKV[dtype])
-        if (b, n) != (TRAIN_B, TRAIN_N):
-            continue
-        dqkv = arr((b, n, 3 * c0), dtype=dtype)
-        got, ref = ln_qkv_b2(x, dqkv, w, s, bb), ln_qkv_b2_plain(x, dqkv, w, s, bb)
-        torch.cuda.synchronize()
-        for what, g, r in zip(("dx", "xn", "dscale", "dbias"), got, ref):
-            hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n}", g, r,
-                 TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
-    # B2 at the fp32 step's shape; both kernels at other widths (C not a
-    # multiple of 128 takes F1's 64 x 64 tiles; B2's clusters split C into
-    # one to six CTAs of one to three 64-column blocks), ragged in the rows:
-    # 5688 + 37, fewer than one 192-row tile; the bf16/fp16 B2 checked for
-    # the same bits on a second run
-    b2_cases = [(2, 154, torch.float32, c0), (3, 47, torch.float16, c0), (2, 47, torch.bfloat16, 192),
-                (2, 33, torch.bfloat16, 1024), (2, 20, torch.float16, 320), (1, 9, torch.float32, 64),
-                (TRAIN_B, TRAIN_N, torch.float16, c0), (1, TRAIN_B * TRAIN_N + 37, torch.bfloat16, c0),
-                (1, TRAIN_B * TRAIN_N + 37, torch.float16, c0), (1, 37, torch.bfloat16, c0)]
+        hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n} C={c}", got, ref, TOL_QKV[dtype])
+        plan = L.f1_plan_kernel(dtype, b * n, c, sms)
+        check(plan[:5] == L.f1_plan(dtype, b * n, c, sms), f"F1 plan {plan} != ops/ln_qkv.py f1_plan")
+        f1_plans[(dtype, b * n, c)] = plan
+
+    for b, n, dtype in ((TRAIN_B, TRAIN_N, torch.bfloat16), (256, 14, torch.bfloat16), (2, 154, torch.float32),
+                        (256, 14, torch.float32), (3, 47, torch.float16), (TRAIN_B, TRAIN_N, torch.float16)):
+        hold_f1(b, n, dtype, c0, *qkv_case(b, n, dtype))
+    # B2 (and F1 on the same inputs) at the training step's and the fp32
+    # step's shapes and at other widths (F1: C 64 to 1024 on both of its
+    # tiles and, in fp32, each K split; B2: the bf16/fp16 clusters split C
+    # into one to six CTAs of one to three 64-column blocks, the fp32 ones K
+    # into eight ranges over 16 rows), ragged in the rows: 5688 + 37, 37,
+    # fewer than one 16-row tile; every B2 case checked for the same bits on
+    # a second run
+    b2_cases = [(TRAIN_B, TRAIN_N, torch.bfloat16, c0), (2, 154, torch.float32, c0), (3, 47, torch.float16, c0),
+                (2, 47, torch.bfloat16, 192), (2, 33, torch.bfloat16, 1024), (2, 20, torch.float16, 320),
+                (1, 9, torch.float32, 64), (2, 47, torch.float32, 192), (2, 20, torch.float32, 320),
+                (2, 33, torch.float32, 1024), (1, 37, torch.float32, c0),
+                (1, TRAIN_B * TRAIN_N + 37, torch.float32, c0), (TRAIN_B, TRAIN_N, torch.float16, c0),
+                (1, TRAIN_B * TRAIN_N + 37, torch.bfloat16, c0), (1, TRAIN_B * TRAIN_N + 37, torch.float16, c0),
+                (1, 37, torch.bfloat16, c0)]
     b2_cases += [(1, m_, dtype, c) for c in (64, 384, 1024) for dtype in (torch.bfloat16, torch.float16)
                  for m_ in (TRAIN_B * TRAIN_N, 37)]
     b2_same = 0
     for b, n, dtype, c in b2_cases:
         x, s, bb, w, wb = qkv_case(b, n, dtype, c)
-        if c != c0 and n != 37 and n != TRAIN_B * TRAIN_N:
-            got, ref = ln_qkv_f1(x, s, bb, w, wb), ln_qkv_f1_plain(x, s, bb, w, wb)
-            torch.cuda.synchronize()
-            hold("ln_qkv_f1", f"{str(dtype)[6:]} B={b} N={n} C={c}", got, ref, TOL_QKV[dtype])
+        if (dtype, b * n, c) not in f1_plans:
+            hold_f1(b, n, dtype, c, x, s, bb, w, wb)
         dqkv = arr((b, n, 3 * c), dtype=dtype)
         got, ref = ln_qkv_b2(x, dqkv, w, s, bb), ln_qkv_b2_plain(x, dqkv, w, s, bb)
         torch.cuda.synchronize()
         for what, g, r in zip(("dx", "xn", "dscale", "dbias"), got, ref):
             hold("ln_qkv_b2", f"{what} {str(dtype)[6:]} B={b} N={n} C={c}", g, r,
                  TOL_QKV[dtype] if what in ("dx", "xn") else TOL_LN_SUMS)
-        if dtype != torch.float32:
-            again = ln_qkv_b2(x, dqkv, w, s, bb)
-            torch.cuda.synchronize()
-            check(all(torch.equal(g, a) for g, a in zip(got, again)),
-                  f"ln_qkv_b2 {str(dtype)[6:]} M={b * n} C={c}: another run gave other bits")
-            b2_same += 1
+        again = ln_qkv_b2(x, dqkv, w, s, bb)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"ln_qkv_b2 {str(dtype)[6:]} M={b * n} C={c}: another run gave other bits")
+        b2_same += 1
 
     rec = {}
     # times: CUDA-graph replays (graph_ms), so the wrappers' host work (a
@@ -769,50 +776,65 @@ def phase_layernorm(gpu: str, dev: torch.device) -> dict:
     rec["layer_norm_bwd"] = dict(max_abs_err=worst_abs["layer_norm_bwd"], **t)
 
     # F1 and B2: no single library call computes either; beside them, the
-    # bare cuBLAS product of the same shape
+    # bare cuBLAS product of the same shape, and two library calls that
+    # compute the same function (ATen's LayerNorm forward then the product;
+    # the product then ATen's LayerNorm backward)
     for name, b, n, dtype in (("ln_qkv_f1", TRAIN_B, TRAIN_N, torch.bfloat16),
                               ("ln_qkv_f1", 256, 14, torch.bfloat16),
                               ("ln_qkv_f1", 2, 154, torch.float32),
+                              ("ln_qkv_f1", 256, 14, torch.float32),
                               ("ln_qkv_b2", TRAIN_B, TRAIN_N, torch.bfloat16),
                               ("ln_qkv_b2", 2, 154, torch.float32)):
         x, s, bb, w, wb = qkv_case(b, n, dtype)
         mrows, esize = b * n, x.element_size()
         peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        s_x, b_x = s.to(dtype), bb.to(dtype)
         if name == "ln_qkv_f1":
             kern = lambda: ln_qkv_f1(x, s, bb, w, wb)
             plain = lambda: ln_qkv_f1_plain(x, s, bb, w, wb)
             gemm = lambda: torch.matmul(x, w.t())
+            # ATen's LayerNorm forward (two-pass variance), then the product
+            two = lambda: torch.matmul(torch.ops.aten.native_layer_norm(x, [c0], s_x, b_x, 1e-6)[0], w.t())
             nbytes = (mrows * c0 + 3 * c0 * c0 + 3 * c0 + mrows * 3 * c0) * esize + 2 * c0 * 4
         else:
             dqkv = arr((b, n, 3 * c0), dtype=dtype)
             kern = lambda: ln_qkv_b2(x, dqkv, w, s, bb)
             plain = lambda: ln_qkv_b2_plain(x, dqkv, w, s, bb)
             gemm = lambda: torch.matmul(dqkv, w)
+            # the product, then ATen's LayerNorm backward on it (statistics
+            # from ATen's forward, outside the timing)
+            _, mu_, rstd_ = torch.ops.aten.native_layer_norm(x, [c0], s_x, b_x, 1e-6)
+            two = lambda: torch.ops.aten.native_layer_norm_backward(
+                torch.matmul(dqkv, w), x, [c0], mu_, rstd_, s_x, b_x, [True, True, True])
             # x, dqkv, W read; dx, xn written; s, b read and dscale, dbias written in fp32
             nbytes = (mrows * c0 * 3 + mrows * 3 * c0 + 3 * c0 * c0) * esize + 4 * c0 * 4
         t = dict(ms=graph_ms(kern), plain_ms=graph_ms(plain), library_ms=None,
                  **bound(2 * mrows * c0 * 3 * c0, nbytes, peak))
-        t["gemm_ms"] = graph_ms(gemm)
-        extra = ""
-        if name == "ln_qkv_b2":
-            # the product, then ATen's LayerNorm backward on it (statistics
-            # from ATen's forward, outside the timing): two library calls
-            _, mu_, rstd_ = torch.ops.aten.native_layer_norm(x, [c0], s.to(dtype), bb.to(dtype), 1e-6)
-            s_x, b_x = s.to(dtype), bb.to(dtype)
-            t["gemm_ln_bwd_ms"] = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                torch.matmul(dqkv, w), x, [c0], mu_, rstd_, s_x, b_x, [True, True, True]))
-            extra = f", the product plus ATen's LayerNorm backward {t['gemm_ln_bwd_ms']:.4f} ms"
-            if dtype != torch.float32:
-                check(L._lib().passt_ln_qkv_b2_rows(1) == L.B2_ROWS, "B2's row tile != ops/ln_qkv.py B2_ROWS")
-                ctas, active = L.b2_clusters(c0)
-                t.update(cluster_ctas=ctas, active_clusters=active)
-                extra += (f"; same bits on two runs in {b2_same} bf16/fp16 cases; clusters of {ctas} CTAs, "
-                          f"{active} resident at once, {-(-mrows // L.B2_ROWS)} in the call")
+        t["gemm_ms"], t["two_library_calls_ms"] = graph_ms(gemm), graph_ms(two)
+        if name == "ln_qkv_f1":
+            bm, bn, ck, tiles, grid, resident = f1_plans[(dtype, mrows, c0)]
+            t.update(tile=[bm, bn], k_split=ck, tiles=tiles, ctas=grid, resident_ctas=resident)
+            what = "ATen's LayerNorm forward plus the product"
+            shape = (f"{tiles} tiles of {bm} x {bn}" + (f", K split over clusters of {ck}" if ck > 1 else "")
+                     + f": {grid} CTAs, {min(grid, resident)} in flight ({resident} resident at most), "
+                     + (f"{tiles / grid:.2f} tiles a CTA" if dtype != torch.float32 else
+                        f"{grid / resident:.2f} waves"))
+        else:
+            code = 0 if dtype == torch.float32 else 1
+            rows = L.B2_ROWS_FP32 if dtype == torch.float32 else L.B2_ROWS
+            check(L._lib().passt_ln_qkv_b2_rows(code) == rows, "B2's row tile != ops/ln_qkv.py's")
+            ctas, active = L.b2_clusters(c0, dtype)
+            clusters = -(-mrows // rows)
+            t.update(cluster_ctas=ctas, active_clusters=active, clusters=clusters)
+            what = "the product plus ATen's LayerNorm backward"
+            shape = (f"{clusters} clusters of {ctas} CTAs ({rows} rows each): {clusters * ctas} CTAs, "
+                     f"{active} clusters resident at once, {clusters / active:.2f} waves; same bits on two runs "
+                     f"in {b2_same} cases")
         say(f"[3c] {name} vs plain: max err {worst[name]:.3g} of max|ref| (bf16/fp32/fp16; C 768/192/1024/"
-            f"320/64/384; M ragged to 37 and 5688 + 37; the shapes below); {str(dtype)[6:]} B={b} N={n} "
+            f"320/64/384; M ragged to 9, 37 and 5688 + 37; the shapes below); {str(dtype)[6:]} B={b} N={n} "
             f"C={c0}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no single library call "
-            f"(the bare cuBLAS product of the same shape {t['gemm_ms']:.4f} ms{extra}), bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}) ({gpu})")
+            f"(the bare cuBLAS product {t['gemm_ms']:.4f} ms, {what} {t['two_library_calls_ms']:.4f} ms), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); {shape} ({gpu})")
         if name not in rec:  # the record keeps the training step's shape
             rec[name] = dict(max_abs_err=worst_abs[name], **t)
     return rec

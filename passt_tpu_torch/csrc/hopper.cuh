@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the attention forward
 // (attention_fwd.cu) and backward (attention_bwd.cu, attention_bwd_fp32.cu)
-// kernels, the int8 GEMM (int8_gemm.cu) and B2 (ln_qkv.cu): mbarriers, TMA tensor maps and
+// kernels, the int8 GEMM (int8_gemm.cu) and F1 and B2 (ln_qkv.cu): mbarriers, TMA tensor maps and
 // copies (4-D and 2-D tiles, 1-D bulk), the wgmma products with their
 // descriptors (K-major and MN-major, 128-byte swizzle; bf16/fp16 products
 // at N = 128, 192 and 256 with either B layout, which the GEMM and B2 use,
-// and the GEMM's s8 ones), fences, waits and named barriers,
+// F1's at N = 192 and 256 with A from registers, and the GEMM's s8 ones),
+// fences, waits and named barriers,
 // and the acquire / release accesses of the backward's ordered dQ sums. The tensor maps are encoded on the host with
 // cuTensorMapEncodeTiled fetched from the CUDA driver at run time, so no
 // library needs -lcuda.
@@ -350,6 +351,28 @@ PASST_WGMMA_F32(__nv_bfloat16, "bf16", 256, 128, "128", "129", "130", "131")
 PASST_WGMMA_F32(__half, "f16", 128, 64, "64", "65", "66", "67")
 PASST_WGMMA_F32(__half, "f16", 192, 96, "96", "97", "98", "99")
 PASST_WGMMA_F32(__half, "f16", 256, 128, "128", "129", "130", "131")
+
+// D (64 x N, fp32) [+]= A (64 x 16, registers) . B (16 x N, shared memory,
+// K-major, 128-byte swizzle), T bf16 or fp16 (F1's products). A is each
+// warp's mma.sync m16n8k16 A fragment of its 16 rows of the 64. NR = N / 2
+// accumulators a thread; IA0-IA3, IB and IP number the operands after
+// them (A's four registers, B's descriptor, the accumulate flag).
+template <typename T, int N> struct WgmmaRsF32;
+#define PASST_WGMMA_RS_F32(CT, TY, NN, NR, IA0, IA1, IA2, IA3, IB, IP)                                     \
+    template <> struct WgmmaRsF32<CT, NN> {                                                                \
+        static __device__ __forceinline__ void mma(float (&d)[NR], const uint32_t (&a)[4], uint64_t b,       \
+                                                   int accumulate) {                                       \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                   \
+                         "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TY "." TY " " PASST_WG_REGS##NR   \
+                         ", {%" IA0 ", %" IA1 ", %" IA2 ", %" IA3 "}, %" IB ", p, 1, 1, 0;\n}\n"              \
+                         : PASST_WG_ACC##NR("+f")                                                          \
+                         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+        }                                                                                                  \
+    };
+PASST_WGMMA_RS_F32(__nv_bfloat16, "bf16", 192, 96, "96", "97", "98", "99", "100", "101")
+PASST_WGMMA_RS_F32(__nv_bfloat16, "bf16", 256, 128, "128", "129", "130", "131", "132", "133")
+PASST_WGMMA_RS_F32(__half, "f16", 192, 96, "96", "97", "98", "99", "100", "101")
+PASST_WGMMA_RS_F32(__half, "f16", 256, 128, "128", "129", "130", "131", "132", "133")
 
 // The GEMM's products: D (64 x N) [+]= A (64 x 32 bytes) . B (N x 32 bytes)^T,
 // both K-major from shared memory (128-byte swizzle); int: s8 x s8 -> s32

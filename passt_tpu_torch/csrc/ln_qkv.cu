@@ -13,23 +13,56 @@
 // B2, per row: dxn = dqkv W in fp32; the statistics recomputed from x;
 // x_hat = (x - mu) * rstd; xn = (x_hat * s + b) rounded to the dtype (for
 // the dW product outside); dx = rstd * (g - mean(g) - x_hat mean(g x_hat))
-// with g = dxn * s; per-block partials of dscale = sum(dxn * x_hat) and
-// dbias = sum(dxn) over the block's rows, summed by the wrapper.
+// with g = dxn * s; per-row-tile partials of dscale = sum(dxn * x_hat) and
+// dbias = sum(dxn) over the tile's rows, summed by the wrapper.
 //
 // What bounds them: operations. At the training step (M = 5688, C = 768)
-// each is a [M, C] x [C, 3C] product, 20.1 GFLOP, against ~35 MB of bytes.
+// each is a [M, C] x [C, 3C] product, 20.1 GFLOP, against ~35 MB of bytes;
+// the fp32 step's (M = 308) 1.09 GFLOP of fp32 FMA.
 //
 // What the design does about it:
-// - fp32 runs the products on FMA in full fp32 (the JAX package asks for
-//   Precision.HIGHEST there): no TF32.
-// - F1 (bf16 / fp16, mma.sync m16n8k16, fp32 accumulate): a block owns 64
-//   rows and a third of the 3C outputs (q, k or v), so the bench shape gives
-//   89 x 3 blocks. The block computes its rows' statistics once and keeps
-//   xn, already rounded, in shared memory ([64][C + 8], 99 KB at C = 768,
-//   bf16); it then walks its 128-column output tiles, streaming 128 x 128
-//   tiles of W (64 x 64 where C is not a multiple of 128) through a two-slot
-//   cp.async ring. A warp computes 32 rows x 32 columns from ldmatrix
-//   fragments; the epilogue rounds, adds the bias and stores each tile.
+// - The statistics of F1 (both dtypes) come from a prologue kernel, one
+//   warp a row, into an [M] (mu, rstd) scratch; the main kernel is launched
+//   behind it by programmatic dependent launch and waits for it
+//   (griddepcontrol.wait) only where it first reads the statistics.
+// - F1 (bf16 / fp16) on wgmma fed by TMA, persistent (one CTA an SM
+//   walking the output tiles): a producer warpgroup issues TMA loads of x's
+//   and W's K-tiles (64 of K, 128-byte swizzle, zero fill past M and 3C)
+//   into a 3-deep mbarrier ring and gives its registers to the consumers
+//   (setmaxnreg). Each consumer warpgroup owns 64 rows of the tile and
+//   builds xn in registers as the A operand of wgmma (A from registers):
+//   ldmatrix of x's fragment, normalized in fp32 and rounded to the dtype,
+//   one k step of 16 at a time with F1_PENDING products left in flight, so
+//   the next fragment is built while the products run. So xn is built once per output tile, never stored, and no
+//   generic write to shared memory feeds the async proxy. Tiles 192 x 192
+//   (three consumer warpgroups) or 128 x 256 (two), chosen per call for
+//   the least wave time (f1_pick). The epilogue rounds the fp32 sum and
+//   adds the bias in the dtype into a buffer of the warp's 16 rows x 64
+//   columns, which goes out as 16-byte row chunks (stores straight from the
+//   accumulators, 16 bytes of each of 8 rows a warp store, took about half
+//   the kernel's time). Normalizing each landed x tile in place by the
+//   producer warpgroup's three idle warps, for wgmma from shared memory,
+//   was slower (0.088 ms against 0.052 at the training step: three warps
+//   cannot keep up with the products; tools/ln_qkv_variants).
+// - fp32 (F1 and B2) runs the products on FMA in full fp32 (the JAX
+//   package asks for Precision.HIGHEST there): no TF32. Both share one main
+//   loop (fp32_loop): a cp.async ring of K-tiles, each thread an 8 x 8
+//   register tile from 16-byte shared loads (4 FMA a float loaded). At the
+//   fp32 step's M = 308 neither product fills the card by its rows, so K is
+//   split over a thread-block cluster and the partials are added through
+//   distributed shared memory in rank order (no atomics, the same bits on
+//   every run):
+//   - F1 fp32: 64 x 64 output tiles; where the tiles do not give four
+//     CTAs an SM, K = C is split over a cluster of 2 or 4 (M = 308: 4, 720
+//     CTAs). x's K-tile lands raw and is normalized in place before the
+//     products (128 x 128 tiles of 256 threads, one CTA an SM, were slower
+//     at M = 3584: 0.437 ms against 0.385).
+//   - B2 fp32: a cluster of 8 CTAs per 16 rows, each one eighth of K = 3C
+//     over all C columns. Each CTA then adds the eight partials of two of
+//     the rows (whole rows of dxn, so the LayerNorm backward's row means
+//     need no further exchange), runs the LayerNorm backward on them, and
+//     the columns' dscale and dbias sums are added over the cluster's rows
+//     in order through distributed shared memory.
 // - B2 (bf16 / fp16) runs on wgmma fed by TMA. The LayerNorm backward needs
 //   whole rows of dxn (its two means run over C), and 192 rows x C fp32 do
 //   not fit one CTA's registers, so a thread-block cluster splits C: for
@@ -52,9 +85,9 @@
 //   and every CTA adds the cluster's shares through distributed shared
 //   memory in rank order; the columns' sums are added over the warps in a
 //   fixed order: no atomics, so every run gives the same bits.
-// - Ragged M: rows past M read as zero (B2: TMA's zero fill, which also
-//   covers the last CTA's blocks past C) and are never stored; they add
-//   nothing to the dscale/dbias partials.
+// - Ragged M: rows past M read as zero (TMA's zero fill or cp.async's
+//   zero-size copies, which also cover the bf16 B2's last CTA's blocks past
+//   C) and are never stored; they add nothing to the dscale/dbias partials.
 #include "common.cuh"
 #include "attention_common.cuh"
 #include "hopper.cuh"
@@ -71,10 +104,7 @@ namespace {
 using passt_attn::cp_async_commit;
 using passt_attn::cp_async_wait;
 using passt_attn::from_f;
-using passt_attn::Mma;
 using passt_attn::to_f;
-
-constexpr int THREADS = 256;  // 8 warps in every kernel here
 
 using passt::cp_async16;
 using passt::ldmatrix_x4;
@@ -82,16 +112,65 @@ using passt::load2;
 using passt::store2;
 using passt::warp_sum;
 
-// The JAX ln_stats of one row, computed by one warp: mean and rstd in fp32
-// (the variance clamped at 0). Every lane gets both.
+namespace H = passt_hopper;
+
+constexpr int MAX_C = 1024;
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---- shared pieces ---------------------------------------------------------------------
+
+// A packed pair of T as two floats, and two floats rounded to a packed pair.
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t u);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+template <typename T> __device__ __forceinline__ uint32_t pack2(float a, float b);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
+    const __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes of x as floats: 8 bf16 / fp16 values or 4 fp32 ones.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&v)[16 / sizeof(T)]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    if constexpr (std::is_same<T, float>::value) {
+        v[0] = __uint_as_float(u.x);
+        v[1] = __uint_as_float(u.y);
+        v[2] = __uint_as_float(u.z);
+        v[3] = __uint_as_float(u.w);
+    } else {
+        const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y), c = unpack2<T>(u.z), d = unpack2<T>(u.w);
+        v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y, v[4] = c.x, v[5] = c.y, v[6] = d.x, v[7] = d.y;
+    }
+}
+
+// The JAX ln_stats of one row, computed by one warp: lane l adds its
+// 16-byte chunks l, l + 32, ... of the row in order (x, and x * x rounded),
+// the lanes' sums are added by a butterfly (offsets 16, 8, 4, 2, 1); mean
+// and rstd in fp32, the variance clamped at 0. Every lane gets both.
+// tests/test_torch_ln_qkv_f1.py emulates the order.
 template <typename T>
 __device__ __forceinline__ void row_stats(const T* xr, int c, float eps, float& mu, float& rstd) {
+    constexpr int V = 16 / sizeof(T);
     const int lane = threadIdx.x & 31;
     float s = 0.f, s2 = 0.f;
-    for (int col = 2 * lane; col < c; col += 64) {
-        const float2 v = load2(xr + col);
-        s += v.x + v.y;
-        s2 += v.x * v.x + v.y * v.y;
+    for (int col = V * lane; col < c; col += 32 * V) {
+        float v[V];
+        load16<T>(xr + col, v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            s = __fadd_rn(s, v[e]);
+            s2 = __fadd_rn(s2, __fmul_rn(v[e], v[e]));
+        }
     }
     s = warp_sum(s);
     s2 = warp_sum(s2);
@@ -106,239 +185,519 @@ __device__ __forceinline__ float ln_affine(float x, float mu, float rstd, float 
     return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), s), b);
 }
 
-// ---- F1 on the tensor cores (bf16 / fp16) ------------------------------------
+// x_hat, without contraction: (x - mu) * rstd.
+__device__ __forceinline__ float xhat_of(float x, float mu, float rstd) { return __fmul_rn(__fsub_rn(x, mu), rstd); }
 
-constexpr int F1_BM = 64;      // rows per block
-constexpr int F1_STAGES = 2;   // W tiles in flight
-constexpr int F1_GROUPS = 3;   // column groups of the 3C outputs (grid.y)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return p + ((1024 - (H::smem_u32(p) & 1023)) & 1023);
+}
 
-// WN: output columns a warp computes per tile (the tile is 4 WN wide); BK:
-// K per W tile.
-template <typename T, int WN, int BK>
-__global__ void __launch_bounds__(THREADS) ln_qkv_f1_mma_kernel(
-    const T* __restrict__ x, const float* __restrict__ s, const float* __restrict__ b,
-    const T* __restrict__ w, const T* __restrict__ wb, T* __restrict__ out, int m, int c,
-    float eps) {
-    constexpr int BN = 4 * WN;   // output columns per tile
-    constexpr int NJ = WN / 8;   // n8 tiles a warp holds
-    constexpr int WLD = BK + 8;  // W tile row pitch (elements)
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int xld = c + 8;  // xn row pitch (elements)
-    T* Xn = reinterpret_cast<T*>(smem_raw);  // [F1_BM][xld]
-    T* Wring = Xn + F1_BM * xld;             // [F1_STAGES][BN][WLD]
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+    return r;
+}
+// Every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire) for the others' arrivals of the same phase.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_sync() {
+    cluster_arrive();
+    cluster_wait();
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    const int row0 = blockIdx.x * F1_BM;
-    const int gw = 3 * c / F1_GROUPS;  // this block's output columns
-    const int col0 = blockIdx.y * gw;
-    const int c3 = 3 * c;
-    const int ktiles = c / BK, stages = ktiles * (gw / BN);
+// The address of this CTA's shared variable p in the shared memory of CTA
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(H::smem_u32(p)), "r"(rank));
+    return r;
+}
+__device__ __forceinline__ float2 ld_cluster(uint32_t addr) {
+    float2 v;
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+    return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(addr)
+                 : "memory");
+    return v;
+}
 
-    auto load_w = [&](int st) {
-        if (st >= stages) return;
-        const int nt = st / ktiles, kt = st - nt * ktiles;
-        T* dst = Wring + (st % F1_STAGES) * BN * WLD;
-        const T* src = w + static_cast<long long>(col0 + nt * BN) * c + kt * BK;
-        for (int idx = tid; idx < BN * (BK / 8); idx += THREADS) {
-            const int r = idx / (BK / 8), ch = idx % (BK / 8);
-            cp_async16(dst + r * WLD + ch * 8, src + static_cast<long long>(r) * c + ch * 8);
+// A 2-D tensor map over a row-major [rows, cols] 2-byte operand (row pitch
+// cols * 2 bytes): boxes of 64 columns x box_rows rows, 128-byte swizzle,
+// zero fill past the edges.
+inline bool tma_map(CUtensorMap* map, const void* ptr, bool bf16, long long rows, long long cols, int box_rows) {
+    const H::EncodeTiled encode = H::encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+    const cuuint32_t unit[2] = {1, 1};
+    return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+                  const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A launch configuration with a cluster of `cluster` CTAs along x (0: no
+// cluster attribute) and, if pdl, programmatic dependent launch behind the
+// previous kernel.
+struct Launch {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[2];
+    Launch(int grid, int threads, size_t smem, cudaStream_t stream, int cluster, bool pdl) {
+        cfg.gridDim = dim3(grid);
+        cfg.blockDim = dim3(threads);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        int n = 0;
+        if (cluster > 0) {
+            attr[n].id = cudaLaunchAttributeClusterDimension;
+            attr[n].val.clusterDim.x = cluster;
+            attr[n].val.clusterDim.y = 1;
+            attr[n].val.clusterDim.z = 1;
+            ++n;
         }
-    };
-    // the first W tiles fly while the statistics are computed
-#pragma unroll
-    for (int st = 0; st < F1_STAGES - 1; ++st) {
-        load_w(st);
-        cp_async_commit();
-    }
-
-    // xn of the block's rows, rounded to T, into shared memory (8 rows a warp)
-    for (int r = warp; r < F1_BM; r += THREADS / 32) {
-        const int row = row0 + r;
-        T* dst = Xn + r * xld;
-        if (row < m) {
-            const T* xr = x + static_cast<long long>(row) * c;
-            float mu, rstd;
-            row_stats(xr, c, eps, mu, rstd);
-            for (int col = 2 * lane; col < c; col += 64) {
-                const float2 v = load2(xr + col);
-                store2(dst + col, ln_affine(v.x, mu, rstd, s[col], b[col]),
-                       ln_affine(v.y, mu, rstd, s[col + 1], b[col + 1]));
-            }
-        } else {
-            for (int col = 2 * lane; col < c; col += 64) store2(dst + col, 0.f, 0.f);
+        if (pdl) {
+            attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+            attr[n].val.programmaticStreamSerializationAllowed = 1;
+            ++n;
         }
+        cfg.attrs = attr;
+        cfg.numAttrs = n;
     }
+};
 
-    const int wr = warp & 1, wc = warp >> 1;  // 32 rows x WN columns a warp
-    float acc[2][NJ][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+// ---- F1's statistics: the prologue kernel -----------------------------------------------
 
-    // ldmatrix lane addresses: A rows (lane & 15), k half (lane >> 4); B (W
-    // rows are output columns) rows (lane & 7) + 8 (lane >> 4), k half bit 3
-    const T* a_base = Xn + (wr * 32 + (lane & 15)) * xld + (lane >> 4) * 8;
-    const int b_off = (wc * WN + (lane & 7) + ((lane >> 4) << 3)) * WLD + ((lane >> 3) & 1) * 8;
-    for (int st = 0; st < stages; ++st) {
-        cp_async_wait<F1_STAGES - 2>();
-        __syncthreads();  // tile st has landed; every warp is done with tile st - 1
-        load_w(st + F1_STAGES - 1);  // into the slot tile st - 1 used
-        cp_async_commit();
-        const int nt = st / ktiles, kt = st - nt * ktiles;
-        const T* ws = Wring + (st % F1_STAGES) * BN * WLD + b_off;
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            const int k = kt * BK + kk * 16;
-            uint32_t a[2][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], a_base + i * 16 * xld + k);
-#pragma unroll
-            for (int jp = 0; jp < NJ / 2; ++jp) {
-                uint32_t bq[4];  // b0, b1 of n8 tile 2 jp, then of 2 jp + 1
-                ldmatrix_x4(bq, ws + jp * 16 * WLD + kk * 16);
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    Mma<T>::mma(acc[i][2 * jp], a[i], bq[0], bq[1]);
-                    Mma<T>::mma(acc[i][2 * jp + 1], a[i], bq[2], bq[3]);
+constexpr int STATS_THREADS = 256;  // one row a warp
+
+template <typename T>
+__global__ void __launch_bounds__(STATS_THREADS) ln_qkv_stats_kernel(const T* __restrict__ x,
+                                                                     float2* __restrict__ stats, int m, int c,
+                                                                     float eps) {
+    // the main kernel may start now; it waits for this grid before it reads
+    // the statistics
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    const int row = blockIdx.x * (STATS_THREADS / 32) + (threadIdx.x >> 5);
+    if (row >= m) return;  // the whole warp
+    float mu, rstd;
+    row_stats(x + static_cast<long long>(row) * c, c, eps, mu, rstd);
+    if ((threadIdx.x & 31) == 0) stats[row] = make_float2(mu, rstd);
+}
+
+template <typename T>
+int launch_stats(const void* x, float2* stats, int m, int c, float eps, cudaStream_t stream) {
+    ln_qkv_stats_kernel<T><<<cdiv(m, STATS_THREADS / 32), STATS_THREADS, 0, stream>>>(static_cast<const T*>(x),
+                                                                                      stats, m, c, eps);
+    return passt_launch_status();
+}
+
+// ---- F1 on wgmma, fed by TMA (bf16 / fp16) -----------------------------------------------
+
+constexpr int F1_KS = 64;      // K a stage: one 128-byte swizzle span
+constexpr int F1_STAGES = 3;
+// products a consumer warpgroup keeps in flight after each issue (1 to 3:
+// its four fragment registers hold the stage's four k steps)
+constexpr int F1_PENDING = 2;
+static_assert(F1_PENDING >= 1 && F1_PENDING <= 3, "a fragment is rebuilt four steps after its product");
+constexpr int F1_EPI_COLS = 64;                    // output columns a warp stages at a time
+constexpr int F1_EPI_ROW = F1_EPI_COLS * 2 + 16;   // the staged row pitch (bytes)
+constexpr int F1_EPI_BYTES = 16 * F1_EPI_ROW;      // a warp's 16 rows
+
+// The compiled tiles (rows, columns): three consumer warpgroups of 64 x 192
+// or two of 64 x 256. ops/ln_qkv.py F1_TILES mirrors them.
+constexpr int F1_TILES[2][2] = {{192, 192}, {128, 256}};
+
+template <int CW, int BN> struct F1Tile {
+    static constexpr int BM = 64 * CW;
+    static constexpr int CONSUMERS = 128 * CW;
+    static constexpr int THREADS = CONSUMERS + 128;  // the consumer warpgroups, then the producer warpgroup
+    static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = CW == 2 ? 232 : 152;
+    static constexpr int X_BYTES = BM * 128;        // a stage's x tile: BM rows x 64 of K
+    static constexpr int STAGE = X_BYTES + BN * 128;  // and W's: BN rows (output columns) x 64 of K
+    // the ring (1024-aligned), the consumer warps' epilogue buffers, s and
+    // b by column pairs, the barriers
+    static constexpr int SMEM =
+        1024 + F1_STAGES * STAGE + CONSUMERS / 32 * F1_EPI_BYTES + 2 * MAX_C * 4 + 2 * F1_STAGES * 8;
+    static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <= 65536, "the register file");
+    static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+// The tile with the least wave time for an [m, 3c] output over sms SMs:
+// rounds of tiles (ceil(tiles / sms)) times the tile's area, which a round's
+// time is proportional to; a tie goes to the first. ops/ln_qkv.py f1_tile
+// mirrors it.
+inline int f1_pick(int m, int c, int sms) {
+    int best = 0;
+    long long best_cost = -1;
+    for (int i = 0; i < 2; ++i) {
+        const int bm = F1_TILES[i][0], bn = F1_TILES[i][1];
+        const long long cost = static_cast<long long>(cdiv(cdiv(m, bm) * cdiv(3 * c, bn), sms)) * bm * bn;
+        if (best_cost < 0 || cost < best_cost) best = i, best_cost = cost;
+    }
+    return best;
+}
+
+// The A fragment of one k step of 16 (the mma.sync m16n8k16 layout: rows g
+// and g + 8 of the warp's 16; columns col and col + 1, then col + 8 and
+// col + 9, col = k + 2 (lane % 4)) of xn: x from the stage by ldmatrix
+// (xrow: this lane's row of the 128-byte-swizzled tile, chunk: its 16-byte
+// chunk before the swizzle), normalized in fp32 and rounded to T. sb: s and
+// b by column pairs, {s[2 i], s[2 i + 1], b[2 i], b[2 i + 1]}; sta, stb:
+// (mu, rstd) of rows g and g + 8.
+template <typename T>
+__device__ __forceinline__ void f1_fragment(uint32_t (&a)[4], const unsigned char* xrow, int xsw, int chunk, int col,
+                                            const float4* sb, float2 sta, float2 stb) {
+    uint32_t r[4];
+    ldmatrix_x4(r, xrow + ((chunk ^ xsw) << 4));
+    const float4 p0 = sb[col / 2], p1 = sb[col / 2 + 4];
+    const float2 s0 = make_float2(p0.x, p0.y), b0 = make_float2(p0.z, p0.w);
+    const float2 s1 = make_float2(p1.x, p1.y), b1 = make_float2(p1.z, p1.w);
+    const float2 x0 = unpack2<T>(r[0]), x1 = unpack2<T>(r[1]), x2 = unpack2<T>(r[2]), x3 = unpack2<T>(r[3]);
+    a[0] = pack2<T>(ln_affine(x0.x, sta.x, sta.y, s0.x, b0.x), ln_affine(x0.y, sta.x, sta.y, s0.y, b0.y));
+    a[1] = pack2<T>(ln_affine(x1.x, stb.x, stb.y, s0.x, b0.x), ln_affine(x1.y, stb.x, stb.y, s0.y, b0.y));
+    a[2] = pack2<T>(ln_affine(x2.x, sta.x, sta.y, s1.x, b1.x), ln_affine(x2.y, sta.x, sta.y, s1.y, b1.y));
+    a[3] = pack2<T>(ln_affine(x3.x, stb.x, stb.y, s1.x, b1.x), ln_affine(x3.y, stb.x, stb.y, s1.y, b1.y));
+}
+
+// Persistent: CTA i takes output tiles i, i + grid, ..., tile t at row tile
+// t % tiles_m, column tile t / tiles_m. See the file's comment.
+template <typename T, int CW, int BN>
+__global__ void __launch_bounds__(F1Tile<CW, BN>::THREADS, 1) ln_qkv_f1_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const float2* stats, const float* __restrict__ s, const float* __restrict__ b,
+    const T* __restrict__ wb, T* __restrict__ out, int m, int c) {
+    using Tl = F1Tile<CW, BN>;
+    constexpr int BM = Tl::BM;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = align1024(smem_raw);
+    unsigned char* epi = ring + F1_STAGES * Tl::STAGE;                  // [consumer warp][16 rows][F1_EPI_ROW]
+    float4* sb = reinterpret_cast<float4*>(epi + Tl::CONSUMERS / 32 * F1_EPI_BYTES);  // s and b [c / 2]
+    uint64_t* full = reinterpret_cast<uint64_t*>(sb + MAX_C / 2);
+    uint64_t* empty = full + F1_STAGES;
+
+    const int c3 = 3 * c, ktiles = c / F1_KS;
+    const int tiles_m = (m + BM - 1) / BM, tiles = tiles_m * ((c3 + BN - 1) / BN);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    for (int i = threadIdx.x; i < c / 2; i += Tl::THREADS) sb[i] = make_float4(s[2 * i], s[2 * i + 1], b[2 * i], b[2 * i + 1]);
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < F1_STAGES; ++st) {
+            H::mbar_init(full + st, 1);
+            H::mbar_init(empty + st, Tl::CONSUMERS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= Tl::CONSUMERS / 32) {  // the producer warpgroup: one thread issues every copy
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(Tl::PRODUCER_REGS));
+        if (warp == Tl::CONSUMERS / 32 && lane == 0) {
+            int it = 0;
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int tm = t % tiles_m, tn = t / tiles_m;
+                for (int kt = 0; kt < ktiles; ++kt, ++it) {
+                    const int st = it % F1_STAGES;
+                    if (it >= F1_STAGES) H::mbar_wait_or_trap(empty + st, (it / F1_STAGES - 1) & 1);
+                    unsigned char* sp = ring + st * Tl::STAGE;
+                    H::mbar_expect_tx(full + st, Tl::STAGE);
+                    H::tma_load_2d(sp, &xmap, full + st, kt * F1_KS, tm * BM);
+                    H::tma_load_2d(sp + Tl::X_BYTES, &wmap, full + st, kt * F1_KS, tn * BN);
                 }
             }
         }
-        if (kt == ktiles - 1) {
-            // round the fp32 sum to T, then add the bias in T
+        return;
+    }
+
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Tl::CONSUMER_REGS));
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the statistics are complete
+    const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t4 = lane & 3;
+    // this lane's ldmatrix row of a stage's x tile, and its chunk's swizzle
+    const int xr = wg * 64 + wq * 16 + (lane & 15);
+    const int xsw = xr & 7, xhalf = lane >> 4;
+    float acc[BN / 2];
+    uint32_t a[4][4];  // the fragments of the stage's four k steps
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int tm = t % tiles_m, tn = t / tiles_m;
+        const int ra = tm * BM + wg * 64 + wq * 16 + g, rb = ra + 8;
+        const float2 sta = ra < m ? stats[ra] : make_float2(0.f, 0.f);
+        const float2 stb = rb < m ? stats[rb] : make_float2(0.f, 0.f);
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int col = col0 + nt * BN + wc * WN + j * 8 + 2 * t;
-                const float b0 = to_f(wb[col]), b1 = to_f(wb[col + 1]);
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+            const int st = it % F1_STAGES;
+            H::mbar_wait_or_trap(full + st, (it / F1_STAGES) & 1);
+            const unsigned char* sp = ring + st * Tl::STAGE;
+            const uint64_t bd = H::sw128_desc(sp + Tl::X_BYTES);
 #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-#pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                        const int row = row0 + wr * 32 + i * 16 + g + 8 * h;
-                        if (row < m)
-                            store2(out + static_cast<long long>(row) * c3 + col,
-                                   to_f(from_f<T>(acc[i][j][2 * h])) + b0,
-                                   to_f(from_f<T>(acc[i][j][2 * h + 1])) + b1);
-                        acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
-                    }
-                }
+            for (int kk = 0; kk < F1_KS / 16; ++kk) {
+                // a[kk] was read by the product four steps back, which has
+                // completed (the wait below leaves F1_PENDING in flight)
+                f1_fragment<T>(a[kk], sp + xr * 128, xsw, 2 * kk + xhalf, kt * F1_KS + 16 * kk + 2 * t4, sb, sta, stb);
+                H::wgmma_fence();
+                H::WgmmaRsF32<T, BN>::mma(acc, a[kk], bd + 2 * kk, 1);
+                H::wgmma_commit();
+                H::wgmma_wait<F1_PENDING>();
+                H::fence_regs(a);  // the fragments stay live until their products have read them
+                // the previous stage's last product has completed: free it
+                if (kk == F1_PENDING - 1 && kt > 0 && lane == 0) H::mbar_arrive(empty + (it - 1) % F1_STAGES);
             }
+        }
+        H::wgmma_wait<0>();
+        H::fence_regs(acc);
+        H::fence_regs(a);
+        if (lane == 0) H::mbar_arrive(empty + (it - 1) % F1_STAGES);
+
+        // round the fp32 sum to T, then add the bias in T (accumulator
+        // element 4 j + e is row g + 8 (e / 2), column 8 j + 2 t4 + e % 2),
+        // into the warp's buffer 64 columns at a time; then 16-byte rows out
+        unsigned char* buf = epi + warp * F1_EPI_BYTES;
+        const int row0 = tm * BM + wg * 64 + wq * 16;
+#pragma unroll
+        for (int ch = 0; ch < BN / F1_EPI_COLS; ++ch) {
+            const int col0 = tn * BN + ch * F1_EPI_COLS;
+            if (col0 >= c3) break;  // 3C is a multiple of 64: a chunk is whole or past the end
+            __syncwarp();           // the buffer's last rows have been copied out
+#pragma unroll
+            for (int jj = 0; jj < F1_EPI_COLS / 8; ++jj) {
+                const int j = ch * (F1_EPI_COLS / 8) + jj, cl = 8 * jj + 2 * t4;
+                const float2 bias = unpack2<T>(*reinterpret_cast<const uint32_t*>(wb + col0 + cl));
+                *reinterpret_cast<uint32_t*>(buf + g * F1_EPI_ROW + cl * 2) =
+                    pack2<T>(to_f(from_f<T>(acc[4 * j])) + bias.x, to_f(from_f<T>(acc[4 * j + 1])) + bias.y);
+                *reinterpret_cast<uint32_t*>(buf + (g + 8) * F1_EPI_ROW + cl * 2) =
+                    pack2<T>(to_f(from_f<T>(acc[4 * j + 2])) + bias.x, to_f(from_f<T>(acc[4 * j + 3])) + bias.y);
+            }
+            __syncwarp();
+#pragma unroll
+            for (int i = 0; i < 16 * (F1_EPI_COLS / 8) / 32; ++i) {
+                const int idx = 32 * i + lane, rr = idx / (F1_EPI_COLS / 8), cc = idx % (F1_EPI_COLS / 8);
+                if (row0 + rr < m)
+                    *reinterpret_cast<uint4*>(out + static_cast<long long>(row0 + rr) * c3 + col0 + 8 * cc) =
+                        *reinterpret_cast<const uint4*>(buf + rr * F1_EPI_ROW + 16 * cc);
+            }
+        }
+    }
+}
+
+template <typename T, int CW, int BN>
+int launch_f1_wgmma_n(const void* x, const float* s, const float* b, const void* w, const void* wb, void* out,
+                      float2* stats, int m, int c, float eps, int sms, cudaStream_t stream) {
+    using Tl = F1Tile<CW, BN>;
+    auto kernel = ln_qkv_f1_wgmma_kernel<T, CW, BN>;
+    // a runtime call first: it makes the device's context current, which
+    // the tensor-map encoder needs
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap xmap, wmap;
+    if (!tma_map(&xmap, x, bf16, m, c, Tl::BM) || !tma_map(&wmap, w, bf16, 3LL * c, c, BN))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int e = launch_stats<T>(x, stats, m, c, eps, stream);
+    if (e) return e;
+    const int tiles = cdiv(m, Tl::BM) * cdiv(3 * c, BN);
+    Launch l(tiles < sms ? tiles : sms, Tl::THREADS, Tl::SMEM, stream, 0, true);
+    err = cudaLaunchKernelEx(&l.cfg, kernel, xmap, wmap, static_cast<const float2*>(stats), s, b,
+                             static_cast<const T*>(wb), static_cast<T*>(out), m, c);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return passt_launch_status();
+}
+
+template <typename T>
+int launch_f1_wgmma(const void* x, const float* s, const float* b, const void* w, const void* wb, void* out,
+                    float2* stats, int m, int c, float eps, int sms, cudaStream_t stream) {
+    if (f1_pick(m, c, sms) == 0)
+        return launch_f1_wgmma_n<T, 3, 192>(x, s, b, w, wb, out, stats, m, c, eps, sms, stream);
+    return launch_f1_wgmma_n<T, 2, 256>(x, s, b, w, wb, out, stats, m, c, eps, sms, stream);
+}
+
+// ---- the fp32 main loop (F1 and B2 on FMA) ------------------------------------------------
+
+// acc[i][j] += the sum over ktiles K-tiles of BK of a[i][k] b[j][k]: a
+// STAGES-deep cp.async ring; load(slot, kt) issues tile kt's copies
+// into the slot, prepare(slot, kt) runs on the landed tile before the
+// products (if PREPARE), frag(slot, kq, a, b) reads the fragments of k
+// 4 kq .. 4 kq + 3 of the thread's 8 rows and 8 columns from the slot.
+// Each output's K is summed in order, one fmaf a k.
+template <int BK, int STAGES, bool PREPARE, class Load, class Prepare, class Frag>
+__device__ __forceinline__ void fp32_loop(float (&acc)[8][8], int ktiles, Load load, Prepare prepare, Frag frag) {
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+        if (st < ktiles) load(st, st);
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < ktiles; ++kt) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();  // tile kt has landed for every thread; every thread is done with tile kt - 1
+        if (kt + STAGES - 1 < ktiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+        cp_async_commit();
+        const int slot = kt % STAGES;
+        if constexpr (PREPARE) {
+            prepare(slot, kt);
+            __syncthreads();
+        }
+#pragma unroll
+        for (int kq = 0; kq < BK / 4; ++kq) {
+            float a[8][4], bf[8][4];
+            frag(slot, kq, a, bf);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], bf[j][kk], acc[i][j]);
         }
     }
     cp_async_wait<0>();
 }
 
-template <typename T, int WN, int BK>
-int launch_f1_mma_n(const void* x, const float* s, const float* b, const void* w, const void* wb,
-                    void* out, int m, int c, float eps, cudaStream_t stream) {
-    const size_t smem =
-        sizeof(T) * static_cast<size_t>(F1_BM * (c + 8) + F1_STAGES * 4 * WN * (BK + 8));
-    auto kernel = ln_qkv_f1_mma_kernel<T, WN, BK>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((m + F1_BM - 1) / F1_BM, F1_GROUPS);
-    kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), s, b, static_cast<const T*>(w),
-                                            static_cast<const T*>(wb), static_cast<T*>(out), m, c, eps);
-    return passt_launch_status();
+__device__ __forceinline__ void put4(float (&dst)[8][4], int i, float4 v) {
+    dst[i][0] = v.x, dst[i][1] = v.y, dst[i][2] = v.z, dst[i][3] = v.w;
 }
 
-// 128 x 128 W tiles where C is a multiple of 128 (a column group then holds
-// whole tiles), else 64 x 64
-template <typename T>
-int launch_f1_mma(const void* x, const float* s, const float* b, const void* w, const void* wb,
-                  void* out, int m, int c, float eps, cudaStream_t stream) {
-    if (c % 128 == 0) return launch_f1_mma_n<T, 32, 128>(x, s, b, w, wb, out, m, c, eps, stream);
-    return launch_f1_mma_n<T, 16, 64>(x, s, b, w, wb, out, m, c, eps, stream);
-}
+// ---- F1 in fp32 on FMA --------------------------------------------------------------------
 
-// ---- F1 in fp32 on FMA ----------------------------------------------------------
+constexpr int F1F_BM = 64, F1F_BN = 64, F1F_BK = 16;
+constexpr int F1F_STAGES = 2;           // a third stage took 254 registers and 40% longer
+constexpr int F1F_THREADS = 64;         // 8 x 8 threads of 8 x 8 outputs
+constexpr int F1F_LD = F1F_BK + 4;      // the K-tiles' row pitch (floats)
+constexpr int F1F_PLD = F1F_BN + 8;     // the partial's row pitch (floats)
 
-constexpr int F1F_BM = 32;   // rows per block
-constexpr int F1F_BN = 128;  // output columns per block
-constexpr int F1F_BK = 32;
+// CTAs a cluster (the K split) for `tiles` output tiles: the fewest of 1, 2
+// and 4 that give four CTAs (eight warps) an SM. ops/ln_qkv.py
+// f1_fp32_split mirrors it.
+inline int f1f_split(int tiles, int sms) { return tiles >= 4 * sms ? 1 : tiles >= 2 * sms ? 2 : 4; }
 
-__global__ void __launch_bounds__(THREADS) ln_qkv_f1_fma_kernel(
-    const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ b,
-    const float* __restrict__ w, const float* __restrict__ wb, float* __restrict__ out, int m,
-    int c, float eps) {
-    extern __shared__ float smem_f[];
-    const int xld = c + 1;
-    float* Xn = smem_f;                // [F1F_BM][xld]
-    float* Ws = Xn + F1F_BM * xld;     // [F1F_BN][F1F_BK + 1]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int row0 = blockIdx.x * F1F_BM, col0 = blockIdx.y * F1F_BN;
-    const int c3 = 3 * c;
+// Output tile blockIdx.x / ck (row tile t % tiles_m, column tile t /
+// tiles_m), K range `rank` of the cluster's ck. See the file's comment.
+__global__ void __launch_bounds__(F1F_THREADS) ln_qkv_f1_fp32_kernel(
+    const float* __restrict__ x, const float2* stats, const float* __restrict__ s,
+    const float* __restrict__ b, const float* __restrict__ w, const float* __restrict__ wb, float* __restrict__ out,
+    int m, int c) {
+    // the ring: [stage][x rows | W rows][F1F_LD]; the partial [64][F1F_PLD] over it afterwards
+    __shared__ __align__(16) float ring[F1F_STAGES * (F1F_BM + F1F_BN) * F1F_LD];
+    __shared__ __align__(16) float sk[MAX_C];  // s and b of the K range
+    __shared__ __align__(16) float bk[MAX_C];
+    static_assert(F1F_BM * F1F_PLD <= F1F_STAGES * (F1F_BM + F1F_BN) * F1F_LD, "the partial fits the ring");
+    const int rank = cluster_rank(), ck = cluster_size();
+    const int tiles_m = (m + F1F_BM - 1) / F1F_BM, t = blockIdx.x / ck;
+    const int row0 = (t % tiles_m) * F1F_BM, col0 = (t / tiles_m) * F1F_BN, c3 = 3 * c;
+    const int kr = c / ck, kbeg = rank * kr;
+    const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;  // rows rg + 8 i, columns cg + 8 j
+    auto xs = [&](int slot, int r) { return ring + (slot * (F1F_BM + F1F_BN) + r) * F1F_LD; };
+    auto ws = [&](int slot, int n) { return ring + (slot * (F1F_BM + F1F_BN) + F1F_BM + n) * F1F_LD; };
 
-    for (int r = warp; r < F1F_BM; r += THREADS / 32) {
-        const int row = row0 + r;
+    for (int i = tid; i < kr; i += F1F_THREADS) {
+        sk[i] = s[kbeg + i];
+        bk[i] = b[kbeg + i];
+    }
+    __syncthreads();
+
+    auto load = [&](int slot, int kt) {
+        const int k0 = kbeg + kt * F1F_BK;
+        for (int idx = tid; idx < F1F_BM * (F1F_BK / 4); idx += F1F_THREADS) {
+            const int r = idx / (F1F_BK / 4), h = idx % (F1F_BK / 4);
+            const int row = row0 + r;
+            cp_async16(xs(slot, r) + 4 * h, x + static_cast<long long>(row < m ? row : 0) * c + k0 + 4 * h,
+                       row < m ? 16 : 0);
+            // 3C is a multiple of 64: every column tile is whole
+            cp_async16(ws(slot, r) + 4 * h, w + static_cast<long long>(col0 + r) * c + k0 + 4 * h);
+        }
+    };
+    // x's K-tile to xn in place: a thread takes the 4-column chunk pc of rows
+    // pr + 16 i, with those rows' statistics in registers (a pass element by
+    // element cost a quarter of the kernel's time)
+    constexpr int PCH = F1F_BK / 4, PROWS = F1F_BM * PCH / F1F_THREADS;
+    const int pc = tid % PCH, pr = tid / PCH;
+    float2 pst[PROWS];
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the statistics are complete
+#pragma unroll
+    for (int i = 0; i < PROWS; ++i) {
+        const int row = row0 + pr + i * (F1F_THREADS / PCH);
+        pst[i] = row < m ? stats[row] : make_float2(0.f, 0.f);
+    }
+    auto prepare = [&](int slot, int kt) {
+        const float4 sv = *reinterpret_cast<const float4*>(sk + kt * F1F_BK + 4 * pc);
+        const float4 bv = *reinterpret_cast<const float4*>(bk + kt * F1F_BK + 4 * pc);
+#pragma unroll
+        for (int i = 0; i < PROWS; ++i) {
+            float4* p = reinterpret_cast<float4*>(xs(slot, pr + i * (F1F_THREADS / PCH)) + 4 * pc);
+            float4 v = *p;
+            v.x = ln_affine(v.x, pst[i].x, pst[i].y, sv.x, bv.x);
+            v.y = ln_affine(v.y, pst[i].x, pst[i].y, sv.y, bv.y);
+            v.z = ln_affine(v.z, pst[i].x, pst[i].y, sv.z, bv.z);
+            v.w = ln_affine(v.w, pst[i].x, pst[i].y, sv.w, bv.w);
+            *p = v;
+        }
+    };
+    auto frag = [&](int slot, int kq, float (&a)[8][4], float (&bf)[8][4]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) put4(a, i, *reinterpret_cast<const float4*>(xs(slot, rg + 8 * i) + 4 * kq));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) put4(bf, j, *reinterpret_cast<const float4*>(ws(slot, cg + 8 * j) + 4 * kq));
+    };
+    float acc[8][8] = {};
+    fp32_loop<F1F_BK, F1F_STAGES, true>(acc, kr / F1F_BK, load, prepare, frag);
+
+    __syncthreads();  // every thread is done with the ring
+    float* part = ring;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[(rg + 8 * i) * F1F_PLD + cg + 8 * j] = acc[i][j];
+    cluster_sync();  // (1) every CTA's partial is in place
+    // CTA `rank` stores rows [rank 64 / ck, (rank + 1) 64 / ck) of the tile:
+    // the K ranges' partials added in rank order, then the bias
+    const int rows = F1F_BM / ck;
+    for (int idx = tid; idx < rows * (F1F_BN / 4); idx += F1F_THREADS) {
+        const int r = rank * rows + idx / (F1F_BN / 4), c4 = 4 * (idx % (F1F_BN / 4));
+        const int row = row0 + r, col = col0 + c4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int q = 0; q < ck; ++q) {
+            const float4 p = ld_cluster4(map_rank(part + r * F1F_PLD + c4, q));
+            v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+        }
         if (row < m) {
-            const float* xr = x + static_cast<long long>(row) * c;
-            float mu, rstd;
-            row_stats(xr, c, eps, mu, rstd);
-            for (int col = lane; col < c; col += 32)
-                Xn[r * xld + col] = ln_affine(xr[col], mu, rstd, s[col], b[col]);
-        } else {
-            for (int col = lane; col < c; col += 32) Xn[r * xld + col] = 0.f;
+            const float4 bb = *reinterpret_cast<const float4*>(wb + col);
+            *reinterpret_cast<float4*>(out + static_cast<long long>(row) * c3 + col) =
+                make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
         }
     }
-
-    const int tr = warp, tc = lane;  // rows tr + 8 i, columns tc + 32 j
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < c; k0 += F1F_BK) {
-        __syncthreads();
-        for (int idx = tid; idx < F1F_BN * F1F_BK; idx += THREADS) {
-            const int n = idx / F1F_BK, kk = idx - n * F1F_BK;
-            const int col = col0 + n;
-            Ws[n * (F1F_BK + 1) + kk] = col < c3 ? w[static_cast<long long>(col) * c + k0 + kk] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < F1F_BK; ++kk) {
-            float a[4], bw[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = Xn[(tr + 8 * i) * xld + k0 + kk];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bw[j] = Ws[(tc + 32 * j) * (F1F_BK + 1) + kk];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bw[j], acc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = row0 + tr + 8 * i;
-        if (row >= m) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = col0 + tc + 32 * j;
-            if (col < c3) out[static_cast<long long>(row) * c3 + col] = acc[i][j] + wb[col];
-        }
-    }
+    cluster_sync();  // (2) no CTA leaves while another reads its shared memory
 }
 
-int launch_f1_fma(const void* x, const float* s, const float* b, const void* w, const void* wb,
-                  void* out, int m, int c, float eps, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * static_cast<size_t>(F1F_BM * (c + 1) + F1F_BN * (F1F_BK + 1));
-    cudaError_t err = cudaFuncSetAttribute(ln_qkv_f1_fma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The fp32 F1's output tiles and K split at (m, c).
+inline void f1f_plan(int m, int c, int sms, int& tiles, int& ck) {
+    tiles = cdiv(m, F1F_BM) * (3 * c / F1F_BN);
+    ck = f1f_split(tiles, sms);
+}
+
+int launch_f1_fp32(const void* x, const float* s, const float* b, const void* w, const void* wb, void* out,
+                   float2* stats, int m, int c, float eps, int sms, cudaStream_t stream) {
+    int tiles, ck;
+    f1f_plan(m, c, sms, tiles, ck);
+    const int e = launch_stats<float>(x, stats, m, c, eps, stream);
+    if (e) return e;
+    Launch l(tiles * ck, F1F_THREADS, 0, stream, ck, true);
+    const cudaError_t err = cudaLaunchKernelEx(&l.cfg, ln_qkv_f1_fp32_kernel, static_cast<const float*>(x),
+                                               static_cast<const float2*>(stats), s, b,
+                                               static_cast<const float*>(w), static_cast<const float*>(wb),
+                                               static_cast<float*>(out), m, c);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((m + F1F_BM - 1) / F1F_BM, (3 * c + F1F_BN - 1) / F1F_BN);
-    ln_qkv_f1_fma_kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(x), s, b, static_cast<const float*>(w),
-        static_cast<const float*>(wb), static_cast<float*>(out), m, c, eps);
     return passt_launch_status();
 }
 
 // ---- B2 on wgmma, fed by TMA (bf16 / fp16) ------------------------------------------
-
-namespace H = passt_hopper;
 
 constexpr int B2_CW = 3;                    // consumer warpgroups of a CTA: 64 rows each
 constexpr int B2_BM = 64 * B2_CW;           // rows of a cluster (the partials' row tile)
@@ -375,52 +734,12 @@ template <int NB> struct B2Tile {
     static_assert(B2_CONSUMERS / 32 * COLS * 2 <= B2_BM * DP, "the columns' sums fit where dxn was");
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-    return p + ((1024 - (H::smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-    return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-    return r;
-}
-// Every thread of every CTA of the cluster: arrive (release), then wait
-// (acquire) for the others' arrivals of the same phase.
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
-
-// The address of this CTA's shared variable p in the shared memory of CTA
-// `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
-    uint32_t r;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(H::smem_u32(p)), "r"(rank));
-    return r;
-}
-__device__ __forceinline__ float2 ld_cluster(uint32_t addr) {
-    float2 v;
-    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
-    return v;
-}
 // wgmma descriptor of an MN-major operand NB blocks of 64 wide: each block
 // is B2_KS rows of 128 bytes (128-byte swizzle), the blocks B2_W_BLOCK bytes
 // apart (the leading byte offset), 8-row K groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t sw128_mn_blocks_desc(const void* p) {
     return (uint64_t)((H::smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(B2_W_BLOCK >> 4) << 16) |
            ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// A packed pair of T as two floats.
-template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t u);
-template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
-    return __half22float2(*reinterpret_cast<const __half2*>(&u));
 }
 
 // The pair of x at column cl (even) of block nb, row r, from x's blocks in
@@ -430,9 +749,6 @@ __device__ __forceinline__ uint32_t x_pair(const unsigned char* xs, int nb, int 
     return *reinterpret_cast<const uint32_t*>(xs + nb * B2_BM * 128 + r * 128 + (((cl >> 3) ^ (r & 7)) << 4) +
                                               (cl & 7) * 2);
 }
-
-// x_hat, without contraction: (x - mu) * rstd.
-__device__ __forceinline__ float xhat_of(float x, float mu, float rstd) { return __fmul_rn(__fsub_rn(x, mu), rstd); }
 
 // One cluster of ncta CTAs per B2_BM rows; CTA `rank` holds columns
 // [rank 64 NB, (rank + 1) 64 NB) of dxn. See the file's comment.
@@ -690,22 +1006,6 @@ __global__ void __launch_bounds__(B2_THREADS, 1) ln_qkv_b2_wgmma_kernel(
     cluster_wait();
 }
 
-// A 2-D tensor map over a row-major [rows, cols] 2-byte operand (row pitch
-// cols * 2 bytes): boxes of 64 columns x box_rows rows, 128-byte swizzle,
-// zero fill past the edges.
-inline bool b2_map(CUtensorMap* map, const void* ptr, bool bf16, long long rows, long long cols, int box_rows) {
-    const H::EncodeTiled encode = H::encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-    const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
-    const cuuint32_t unit[2] = {1, 1};
-    return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
-                  const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int NB>
 int launch_b2_wgmma_n(const void* x, const void* dqkv, const void* w, const float* s, const float* b, void* dx,
                       void* xn, float* dsc, float* dbi, int m, int c, int ncta, float eps, cudaStream_t stream) {
@@ -716,23 +1016,11 @@ int launch_b2_wgmma_n(const void* x, const void* dqkv, const void* w, const floa
     if (err != cudaSuccess) return static_cast<int>(err);
     const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap dmap, wmap, xmap;
-    if (!b2_map(&dmap, dqkv, bf16, m, 3LL * c, B2_BM) || !b2_map(&wmap, w, bf16, 3LL * c, c, B2_KS) ||
-        !b2_map(&xmap, x, bf16, m, c, B2_BM))
+    if (!tma_map(&dmap, dqkv, bf16, m, 3LL * c, B2_BM) || !tma_map(&wmap, w, bf16, 3LL * c, c, B2_KS) ||
+        !tma_map(&xmap, x, bf16, m, c, B2_BM))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (m + B2_BM - 1) / B2_BM;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(tiles * ncta);
-    cfg.blockDim = dim3(B2_THREADS);
-    cfg.dynamicSmemBytes = B2Tile<NB>::SMEM;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = ncta;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, dmap, wmap, xmap, s, b, static_cast<T*>(dx),
+    Launch l(cdiv(m, B2_BM) * ncta, B2_THREADS, B2Tile<NB>::SMEM, stream, ncta, false);
+    err = cudaLaunchKernelEx(&l.cfg, kernel, dmap, wmap, xmap, s, b, static_cast<T*>(dx),
                              static_cast<T*>(xn), dsc, dbi, m, c, (3 * c) / B2_KS, eps);
     if (err != cudaSuccess) return static_cast<int>(err);
     return passt_launch_status();
@@ -747,18 +1035,8 @@ int b2_clusters_n(int c, int* ncta, int* active) {
     if (err != cudaSuccess) return static_cast<int>(err);
     int nb;
     b2_split(c, *ncta, nb);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(*ncta);
-    cfg.blockDim = dim3(B2_THREADS);
-    cfg.dynamicSmemBytes = B2Tile<NB>::SMEM;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = *ncta;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kernel, &cfg));
+    Launch l(*ncta, B2_THREADS, B2Tile<NB>::SMEM, nullptr, *ncta, false);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(active, kernel, &l.cfg));
 }
 
 template <typename T>
@@ -774,155 +1052,189 @@ int launch_b2_wgmma(const void* x, const void* dqkv, const void* w, const float*
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---- B2 in fp32 on FMA --------------------------------------------------------------
+// ---- B2 in fp32 on FMA, a cluster per 16 rows -------------------------------------------
 
-constexpr int B2F_BM = 8;   // rows per block (one a warp for the statistics)
-constexpr int B2F_BK = 32;
-constexpr int B2F_NJ = 4;   // columns a thread holds: c <= 4 * THREADS
+constexpr int B2F_ROWS = 16;    // rows a cluster: the dscale/dbias partials' row tile
+constexpr int B2F_CK = 8;       // CTAs a cluster: K = 3C in eight ranges (3C / 8 = 24 C / 64)
+constexpr int B2F_BK = 8;       // K a tile
+constexpr int B2F_STAGES = 3;
+constexpr int B2F_LDA = B2F_BK + 4;  // dqkv's tile row pitch (floats)
 
-__global__ void __launch_bounds__(THREADS) ln_qkv_b2_fma_kernel(
+// Threads of a CTA: C / 8 column groups of 8 for each of the two 8-row
+// halves, rounded up to whole warps, and at least the two warps that run
+// the LayerNorm backward of the CTA's two rows.
+inline int b2f_threads(int c) { return c / 4 <= 64 ? 64 : cdiv(c / 4, 32) * 32; }
+// Shared memory of a CTA (bytes): W's K-tiles [stage][BK][c], dqkv's
+// [stage][16][LDA], dxn of the CTA's two rows [2][c], their (dxn x_hat,
+// dxn) [2][c] float2.
+inline int b2f_smem(int c) { return 4 * (B2F_STAGES * (B2F_BK * c + B2F_ROWS * B2F_LDA) + 2 * c + 4 * c); }
+
+// Cluster blockIdx.x / 8 holds rows [16 t, 16 t + 16); CTA `rank` sums K in
+// [rank 3C / 8, (rank + 1) 3C / 8) over all C columns, then owns rows
+// 2 rank and 2 rank + 1 of the tile. See the file's comment.
+__global__ void __launch_bounds__(MAX_C / 4) ln_qkv_b2_fp32_kernel(
     const float* __restrict__ x, const float* __restrict__ dqkv, const float* __restrict__ w,
-    const float* __restrict__ s, const float* __restrict__ b, float* __restrict__ dx,
-    float* __restrict__ xn, float* __restrict__ dsc_part, float* __restrict__ dbi_part, int m,
-    int c, float eps) {
-    __shared__ float Ds[B2F_BM][B2F_BK];
-    __shared__ float stat[B2F_BM][2];
-    __shared__ float red[THREADS / 32][B2F_BM][2];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int row0 = blockIdx.x * B2F_BM;
-    const int c3 = 3 * c;
+    const float* __restrict__ s, const float* __restrict__ b, float* __restrict__ dx, float* __restrict__ xn,
+    float* __restrict__ dsc_part, float* __restrict__ dbi_part, int m, int c, float eps) {
+    extern __shared__ __align__(16) float smf[];
+    float* ws = smf;                                              // [stage][BK][c]
+    float* ds = ws + B2F_STAGES * B2F_BK * c;                     // [stage][16][LDA]
+    float* dxn = ds + B2F_STAGES * B2F_ROWS * B2F_LDA;            // [2][c]
+    float2* col_sums = reinterpret_cast<float2*>(dxn + 2 * c);    // [2][c]
+    float* part = smf;  // [16][c]: this CTA's partial, over the ring once the products are done
 
-    {
-        const int row = row0 + warp;  // one row a warp
-        float mu = 0.f, rstd = 0.f;
-        if (row < m) {
-            const float* xr = x + static_cast<long long>(row) * c;
-            row_stats(xr, c, eps, mu, rstd);
-            for (int col = lane; col < c; col += 32)
-                xn[static_cast<long long>(row) * c + col] = ln_affine(xr[col], mu, rstd, s[col], b[col]);
+    const int rank = cluster_rank(), tile = blockIdx.x / B2F_CK;
+    const int row0 = tile * B2F_ROWS, c3 = 3 * c, kr = c3 / B2F_CK, kbeg = rank * kr;
+    const int tid = threadIdx.x, nthr = blockDim.x, ng = c / 8, hc = c / 2;
+    // rows 8 rg .. 8 rg + 7; columns 4 cg .. 4 cg + 3 and hc + 4 cg .. + 3
+    // (threads past 2 ng compute a copy of thread 0's and store nothing)
+    const bool owner = tid < 2 * ng;
+    const int rg = owner ? tid / ng : 0, cg = owner ? tid % ng : 0;
+
+    auto load = [&](int slot, int kt) {
+        const int k0 = kbeg + kt * B2F_BK;
+        if (tid < 2 * B2F_ROWS) {  // dqkv: 16 rows x 8 of K, two 16-byte chunks a row
+            const int r = tid >> 1, h = tid & 1, row = row0 + r;
+            cp_async16(ds + (slot * B2F_ROWS + r) * B2F_LDA + 4 * h,
+                       dqkv + static_cast<long long>(row < m ? row : 0) * c3 + k0 + 4 * h, row < m ? 16 : 0);
         }
-        if (lane == 0) {
-            stat[warp][0] = mu;
-            stat[warp][1] = rstd;
+        const int cq = c / 4;  // W: 8 rows of K x c
+        for (int idx = tid; idx < B2F_BK * cq; idx += nthr) {
+            const int kk = idx / cq, ch = idx - kk * cq;
+            cp_async16(ws + (slot * B2F_BK + kk) * c + 4 * ch, w + static_cast<long long>(k0 + kk) * c + 4 * ch);
+        }
+    };
+    auto frag = [&](int slot, int kq, float (&a)[8][4], float (&bf)[8][4]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            put4(a, i, *reinterpret_cast<const float4*>(ds + (slot * B2F_ROWS + 8 * rg + i) * B2F_LDA + 4 * kq));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const float* wr = ws + (slot * B2F_BK + 4 * kq + kk) * c;
+            const float4 lo = *reinterpret_cast<const float4*>(wr + 4 * cg);
+            const float4 hi = *reinterpret_cast<const float4*>(wr + hc + 4 * cg);
+            bf[0][kk] = lo.x, bf[1][kk] = lo.y, bf[2][kk] = lo.z, bf[3][kk] = lo.w;
+            bf[4][kk] = hi.x, bf[5][kk] = hi.y, bf[6][kk] = hi.z, bf[7][kk] = hi.w;
+        }
+    };
+    float acc[8][8] = {};
+    fp32_loop<B2F_BK, B2F_STAGES, false>(acc, kr / B2F_BK, load, [](int, int) {}, frag);
+
+    __syncthreads();  // every thread is done with the ring
+    if (owner) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            float* pr = part + (8 * rg + i) * c;
+            *reinterpret_cast<float4*>(pr + 4 * cg) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            *reinterpret_cast<float4*>(pr + hc + 4 * cg) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
         }
     }
-
-    float acc[B2F_BM][B2F_NJ];
-#pragma unroll
-    for (int r = 0; r < B2F_BM; ++r)
-#pragma unroll
-        for (int j = 0; j < B2F_NJ; ++j) acc[r][j] = 0.f;
-    for (int k0 = 0; k0 < c3; k0 += B2F_BK) {
-        __syncthreads();
-        {
-            const int r = tid / B2F_BK, kk = tid - r * B2F_BK;  // THREADS == B2F_BM * B2F_BK
-            Ds[r][kk] = row0 + r < m ? dqkv[static_cast<long long>(row0 + r) * c3 + k0 + kk] : 0.f;
+    cluster_sync();  // (1) every CTA's partial is in place
+    // rows 2 rank and 2 rank + 1 of dxn: the eight K ranges' partials added in rank order
+    for (int idx = tid; idx < c; idx += nthr) {
+        const int rr = idx / hc, cc = 2 * (idx - rr * hc);
+        const float* p = part + (2 * rank + rr) * c + cc;
+        float2 v = make_float2(0.f, 0.f);
+        for (int q = 0; q < B2F_CK; ++q) {
+            const float2 u = ld_cluster(map_rank(p, q));
+            v.x += u.x, v.y += u.y;
         }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < B2F_BK; ++kk) {
-            const float* wr = w + static_cast<long long>(k0 + kk) * c;
-            float wv[B2F_NJ];
-#pragma unroll
-            for (int j = 0; j < B2F_NJ; ++j) {
-                const int col = tid + THREADS * j;
-                wv[j] = col < c ? wr[col] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < B2F_BM; ++r) {
-                const float a = Ds[r][kk];
-#pragma unroll
-                for (int j = 0; j < B2F_NJ; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
-            }
-        }
-    }
-
-    // row sums of g and g x_hat (block-wide); column sums over the block's rows
-    float cs[B2F_NJ], cb[B2F_NJ];
-#pragma unroll
-    for (int j = 0; j < B2F_NJ; ++j) cs[j] = cb[j] = 0.f;
-#pragma unroll
-    for (int r = 0; r < B2F_BM; ++r) {
-        const int row = row0 + r;
-        const bool valid = row < m;
-        const float mu = stat[r][0], rstd = stat[r][1];
-        float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < B2F_NJ; ++j) {
-            const int col = tid + THREADS * j;
-            if (col < c && valid) {
-                const float xh = (x[static_cast<long long>(row) * c + col] - mu) * rstd;
-                const float d = acc[r][j], gg = d * s[col];
-                s1 += gg;
-                s2 += gg * xh;
-                cs[j] += d * xh;
-                cb[j] += d;
-            }
-        }
-        s1 = warp_sum(s1);
-        s2 = warp_sum(s2);
-        if (lane == 0) {
-            red[warp][r][0] = s1;
-            red[warp][r][1] = s2;
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < B2F_NJ; ++j) {
-        const int col = tid + THREADS * j;
-        if (col < c) {
-            dsc_part[static_cast<long long>(blockIdx.x) * c + col] = cs[j];
-            dbi_part[static_cast<long long>(blockIdx.x) * c + col] = cb[j];
-        }
+        *reinterpret_cast<float2*>(dxn + rr * c + cc) = v;
     }
     __syncthreads();
-    const float inv_d = 1.0f / static_cast<float>(c);
-#pragma unroll
-    for (int r = 0; r < B2F_BM; ++r) {
-        const int row = row0 + r;
-        if (row >= m) break;
-        float a = 0.f, bb = 0.f;
-#pragma unroll
-        for (int q = 0; q < THREADS / 32; ++q) {
-            a += red[q][r][0];
-            bb += red[q][r][1];
-        }
-        const float m1 = a * inv_d, m2 = bb * inv_d;
-        const float mu = stat[r][0], rstd = stat[r][1];
-#pragma unroll
-        for (int j = 0; j < B2F_NJ; ++j) {
-            const int col = tid + THREADS * j;
-            if (col < c) {
-                const long long off = static_cast<long long>(row) * c + col;
-                const float xh = (x[off] - mu) * rstd;
-                const float gg = acc[r][j] * s[col];
-                dx[off] = rstd * (gg - m1 - xh * m2);
+
+    // the LayerNorm backward of the two rows, a warp each: xn, dx, and each
+    // column's (dxn x_hat, dxn) for the cluster's dscale / dbias sums
+    const int warp = tid >> 5, lane = tid & 31;
+    if (warp < 2) {
+        const int row = row0 + 2 * rank + warp;
+        const float* d = dxn + warp * c;
+        float2* cs = col_sums + warp * c;
+        if (row < m) {
+            const float* xr = x + static_cast<long long>(row) * c;
+            float mu, rstd;
+            row_stats<float>(xr, c, eps, mu, rstd);
+            float s1 = 0.f, s2 = 0.f;
+            for (int col = 2 * lane; col < c; col += 64) {
+                const float2 xv = load2(xr + col), sv = load2(s + col), bv = load2(b + col), dv = load2(d + col);
+                const float xh0 = xhat_of(xv.x, mu, rstd), xh1 = xhat_of(xv.y, mu, rstd);
+                store2(xn + static_cast<long long>(row) * c + col, __fadd_rn(__fmul_rn(xh0, sv.x), bv.x),
+                       __fadd_rn(__fmul_rn(xh1, sv.y), bv.y));
+                const float g0 = dv.x * sv.x, g1 = dv.y * sv.y;
+                s1 += g0 + g1;
+                s2 += g0 * xh0 + g1 * xh1;
+                cs[col] = make_float2(dv.x * xh0, dv.x);
+                cs[col + 1] = make_float2(dv.y * xh1, dv.y);
             }
+            s1 = warp_sum(s1);
+            s2 = warp_sum(s2);
+            const float inv_c = 1.0f / static_cast<float>(c), m1 = s1 * inv_c, m2 = s2 * inv_c;
+            for (int col = 2 * lane; col < c; col += 64) {
+                const float2 xv = load2(xr + col), sv = load2(s + col), dv = load2(d + col);
+                const float xh0 = xhat_of(xv.x, mu, rstd), xh1 = xhat_of(xv.y, mu, rstd);
+                const float g0 = dv.x * sv.x, g1 = dv.y * sv.y;
+                store2(dx + static_cast<long long>(row) * c + col, rstd * (g0 - m1 - xh0 * m2),
+                       rstd * (g1 - m1 - xh1 * m2));
+            }
+        } else {
+            for (int col = lane; col < c; col += 32) cs[col] = make_float2(0.f, 0.f);
         }
     }
+    cluster_sync();  // (2) every CTA's column sums are in place
+    // the tile's dscale / dbias partials of columns [rank c / 8, (rank + 1)
+    // c / 8): the 16 rows in order (rank order, then the CTA's two rows)
+    const int cs_n = c / B2F_CK;
+    for (int i = tid; i < cs_n; i += nthr) {
+        const int col = rank * cs_n + i;
+        float a = 0.f, bb = 0.f;
+        for (int q = 0; q < B2F_CK; ++q)
+            for (int rr = 0; rr < 2; ++rr) {
+                const float2 v = ld_cluster(map_rank(col_sums + rr * c + col, q));
+                a += v.x;
+                bb += v.y;
+            }
+        dsc_part[static_cast<long long>(tile) * c + col] = a;
+        dbi_part[static_cast<long long>(tile) * c + col] = bb;
+    }
+    cluster_sync();  // (3) no CTA leaves while another reads its shared memory
 }
 
-int launch_b2_fma(const void* x, const void* dqkv, const void* w, const float* s, const float* b,
-                  void* dx, void* xn, float* dsc, float* dbi, int m, int c, float eps,
-                  cudaStream_t stream) {
-    const int blocks = (m + B2F_BM - 1) / B2F_BM;
-    ln_qkv_b2_fma_kernel<<<blocks, THREADS, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dqkv), static_cast<const float*>(w),
-        s, b, static_cast<float*>(dx), static_cast<float*>(xn), dsc, dbi, m, c, eps);
+int launch_b2_fp32(const void* x, const void* dqkv, const void* w, const float* s, const float* b, void* dx,
+                   void* xn, float* dsc, float* dbi, int m, int c, float eps, cudaStream_t stream) {
+    const int smem = b2f_smem(c);
+    cudaError_t err = cudaFuncSetAttribute(ln_qkv_b2_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Launch l(cdiv(m, B2F_ROWS) * B2F_CK, b2f_threads(c), smem, stream, B2F_CK, false);
+    err = cudaLaunchKernelEx(&l.cfg, ln_qkv_b2_fp32_kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(dqkv), static_cast<const float*>(w), s, b,
+                             static_cast<float*>(dx), static_cast<float*>(xn), dsc, dbi, m, c, eps);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return passt_launch_status();
 }
 
-bool shape_ok(int m, int c) { return m > 0 && c >= 64 && c <= 1024 && c % 64 == 0; }
+bool shape_ok(int m, int c) { return m > 0 && c >= 64 && c <= MAX_C && c % 64 == 0; }
 
 }  // namespace
 
-// Rows per block of passt_ln_qkv_b2 for a dtype: its dscale/dbias partials
-// have ceil(m / rows) rows.
-extern "C" int passt_ln_qkv_b2_rows(int dtype) { return dtype == 0 ? B2F_BM : B2_BM; }
+// Rows of a dscale/dbias partial of passt_ln_qkv_b2 for a dtype (its
+// partials have ceil(m / rows) rows): the fp32 kernel's cluster row tile,
+// or the bf16/fp16 kernel's.
+extern "C" int passt_ln_qkv_b2_rows(int dtype) { return dtype == 0 ? B2F_ROWS : B2_BM; }
 
-// The bf16 B2 kernel's cluster at width c: its CTAs (ncta) and how many
-// such clusters the card holds at once (active). Returns a CUDA error code.
-extern "C" int passt_ln_qkv_b2_clusters(int c, int* ncta, int* active) {
-    if (!shape_ok(1, c)) return static_cast<int>(cudaErrorInvalidValue);
+// The B2 kernel's cluster for a dtype at width c: its CTAs (ncta) and how
+// many such clusters the card holds at once (active). Returns a CUDA error
+// code.
+extern "C" int passt_ln_qkv_b2_clusters(int dtype, int c, int* ncta, int* active) {
+    if (!shape_ok(1, c) || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0) {
+        const int smem = b2f_smem(c);
+        const cudaError_t err =
+            cudaFuncSetAttribute(ln_qkv_b2_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        *ncta = B2F_CK;
+        Launch l(B2F_CK, b2f_threads(c), smem, nullptr, B2F_CK, false);
+        return static_cast<int>(cudaOccupancyMaxActiveClusters(active, ln_qkv_b2_fp32_kernel, &l.cfg));
+    }
     int q, nb;
     b2_split(c, q, nb);
     switch (nb) {
@@ -933,20 +1245,59 @@ extern "C" int passt_ln_qkv_b2_clusters(int c, int* ncta, int* active) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// How many CTAs of F1's main kernel for (dtype, m, c) the card holds at once
+// (the occupancy query), into *ctas. Returns a CUDA error code.
+template <typename T, int CW, int BN>
+int f1_resident_n(int sms, int* ctas) {
+    using Tl = F1Tile<CW, BN>;
+    auto kernel = ln_qkv_f1_wgmma_kernel<T, CW, BN>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, Tl::THREADS, Tl::SMEM);
+    *ctas *= sms;
+    return static_cast<int>(err);
+}
+
+// What passt_ln_qkv_f1 launches for (dtype, m, c) on a card of sms SMs:
+// plan = {tile rows, tile columns, CTAs a cluster (the fp32 K split; 1 for
+// bf16/fp16), output tiles, CTAs of the main grid, CTAs the card holds at
+// once}. Returns a CUDA error code.
+extern "C" int passt_ln_qkv_f1_plan(int dtype, int m, int c, int sms, int* plan) {
+    if (!shape_ok(m, c) || sms <= 0 || dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0) {
+        int tiles, ck;
+        f1f_plan(m, c, sms, tiles, ck);
+        plan[0] = F1F_BM, plan[1] = F1F_BN, plan[2] = ck, plan[3] = tiles, plan[4] = tiles * ck;
+        Launch l(ck, F1F_THREADS, 0, nullptr, ck, false);
+        const cudaError_t err = cudaOccupancyMaxActiveClusters(plan + 5, ln_qkv_f1_fp32_kernel, &l.cfg);
+        plan[5] *= ck;
+        return static_cast<int>(err);
+    }
+    const int i = f1_pick(m, c, sms);
+    const int tiles = cdiv(m, F1_TILES[i][0]) * cdiv(3 * c, F1_TILES[i][1]);
+    plan[0] = F1_TILES[i][0], plan[1] = F1_TILES[i][1], plan[2] = 1, plan[3] = tiles;
+    plan[4] = tiles < sms ? tiles : sms;
+    if (dtype == 1) return i == 0 ? f1_resident_n<__nv_bfloat16, 3, 192>(sms, plan + 5)
+                                  : f1_resident_n<__nv_bfloat16, 2, 256>(sms, plan + 5);
+    return i == 0 ? f1_resident_n<__half, 3, 192>(sms, plan + 5) : f1_resident_n<__half, 2, 256>(sms, plan + 5);
+}
+
 // x [m, c], w [3c, c], wb [3c], out [m, 3c] in dtype (0 float32, 1 bfloat16,
-// 2 float16), row-major, 16-byte aligned; s, b [c] float32. c a multiple of
-// 64, 64 <= c <= 1024. Returns cudaGetLastError() after the launch.
-extern "C" int passt_ln_qkv_f1(const void* x, const void* s, const void* b, const void* w,
-                               const void* wb, void* out, int dtype, int m, int c, float eps,
-                               void* stream) {
-    if (!shape_ok(m, c)) return static_cast<int>(cudaErrorInvalidValue);
+// 2 float16), row-major, 16-byte aligned; s, b [c] float32; stats [m] of
+// float2 (scratch for the statistics). c a multiple of 64, 64 <= c <= 1024;
+// sms: the card's SMs (the persistent grid's size, the fp32 K split).
+// Launches the statistics' prologue, then the main kernel behind it.
+// Returns cudaGetLastError() after the launches.
+extern "C" int passt_ln_qkv_f1(const void* x, const void* s, const void* b, const void* w, const void* wb,
+                               void* out, void* stats, int dtype, int m, int c, float eps, int sms, void* stream) {
+    if (!shape_ok(m, c) || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* sf = static_cast<const float*>(s);
     const float* bf = static_cast<const float*>(b);
+    float2* sc = static_cast<float2*>(stats);
     switch (dtype) {
-        case 0: return launch_f1_fma(x, sf, bf, w, wb, out, m, c, eps, st);
-        case 1: return launch_f1_mma<__nv_bfloat16>(x, sf, bf, w, wb, out, m, c, eps, st);
-        case 2: return launch_f1_mma<__half>(x, sf, bf, w, wb, out, m, c, eps, st);
+        case 0: return launch_f1_fp32(x, sf, bf, w, wb, out, sc, m, c, eps, sms, st);
+        case 1: return launch_f1_wgmma<__nv_bfloat16>(x, sf, bf, w, wb, out, sc, m, c, eps, sms, st);
+        case 2: return launch_f1_wgmma<__half>(x, sf, bf, w, wb, out, sc, m, c, eps, sms, st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -965,7 +1316,7 @@ extern "C" int passt_ln_qkv_b2(const void* x, const void* dqkv, const void* w, c
     float* dsc = static_cast<float*>(dscale_part);
     float* dbi = static_cast<float*>(dbias_part);
     switch (dtype) {
-        case 0: return launch_b2_fma(x, dqkv, w, sf, bf, dx, xn, dsc, dbi, m, c, eps, st);
+        case 0: return launch_b2_fp32(x, dqkv, w, sf, bf, dx, xn, dsc, dbi, m, c, eps, st);
         case 1: return launch_b2_wgmma<__nv_bfloat16>(x, dqkv, w, sf, bf, dx, xn, dsc, dbi, m, c, eps, st);
         case 2: return launch_b2_wgmma<__half>(x, dqkv, w, sf, bf, dx, xn, dsc, dbi, m, c, eps, st);
     }

@@ -7,7 +7,13 @@ Port of passt_tpu/ops/pallas/ln_qkv.py. One autograd function,
 before norm1 and returns the attention output (the proj input):
 
   forward:  F1  x -> LayerNorm -> xn (rounded to the dtype) -> xn W^T, the
-                fp32 sum rounded to the dtype, + the qkv bias in the dtype
+                fp32 sum rounded to the dtype, + the qkv bias in the dtype;
+                the row statistics from a prologue kernel into an ``[M, 2]``
+                scratch; in bf16/fp16 on wgmma, a persistent grid of
+                192 x 192 or 128 x 256 output tiles (:func:`f1_tile`), xn
+                built in registers as the product's A operand; in fp32 on
+                FMA, 64 x 64 tiles, K split over a cluster of 2 or 4 where
+                the tiles do not fill the card (:func:`f1_fp32_split`)
             the attention forward kernel on the raw qkv (``ops/attention.py``,
                 counted under ``fused_attention_qkv``)
   backward: the attention backward kernel -> dqkv (``fused_attention_qkv_bwd``)
@@ -15,7 +21,9 @@ before norm1 and returns the attention output (the proj input):
                 dx, the recomputed xn, and dscale/dbias (per-row-tile
                 partials the wrapper sums); in bf16/fp16 on wgmma, one
                 cluster per 192 rows (``B2_ROWS``) with C split across its
-                CTAs (:func:`b2_split`), each loading its own tiles by TMA
+                CTAs (:func:`b2_split`), each loading its own tiles by TMA;
+                in fp32 on FMA, one cluster of 8 CTAs per 16 rows
+                (``B2_ROWS_FP32``), K = 3C split across them
             dW = dqkv^T xn (cuBLAS, fp32 accumulation) and db = sum(dqkv) in
                 fp32, both in W's dtype: outside any kernel, as the JAX
                 package leaves them to XLA.
@@ -65,8 +73,17 @@ _B2_BUDGET = 16 * 1024 * 1024
 
 
 #: rows of a dscale/dbias partial of the bf16/fp16 B2 kernel (a cluster's
-#: row tile, ``B2_BM`` in csrc/ln_qkv.cu); the fp32 kernel's are 8
+#: row tile, ``B2_BM`` in csrc/ln_qkv.cu)
 B2_ROWS = 192
+#: the fp32 B2 kernel's: a cluster's row tile (``B2F_ROWS``), and its CTAs,
+#: each summing one of ``B2_FP32_CTAS`` equal K ranges of 3C (``B2F_CK``)
+B2_ROWS_FP32 = 16
+B2_FP32_CTAS = 8
+#: the bf16/fp16 F1 kernel's output tiles (rows, columns), by index
+#: (``F1_TILES`` in csrc/ln_qkv.cu)
+F1_TILES = ((192, 192), (128, 256))
+#: the fp32 F1 kernel's output tile (``F1F_BM``, ``F1F_BN``)
+F1_FP32_TILE = (64, 64)
 
 
 def b2_split(c: int):
@@ -77,6 +94,50 @@ def b2_split(c: int):
     q = c // 64
     ctas = -(-q // 3)
     return ctas, -(-q // ctas)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def f1_tile(m: int, c: int, sms: int) -> int:
+    """The bf16/fp16 F1 kernel's tile for an ``[m, 3c]`` output over
+    ``sms`` SMs (csrc/ln_qkv.cu ``f1_pick``): the index into
+    :data:`F1_TILES` of the least wave cost, the rounds of tiles times the
+    tile's area; a tie goes to the first."""
+    def cost(i):
+        bm, bn = F1_TILES[i]
+        return _cdiv(_cdiv(m, bm) * _cdiv(3 * c, bn), sms) * bm * bn
+    return min(range(len(F1_TILES)), key=cost)
+
+
+def f1_fp32_split(m: int, c: int, sms: int) -> int:
+    """CTAs of the fp32 F1 kernel's cluster (csrc/ln_qkv.cu ``f1f_split``),
+    each summing an equal K range of C: the fewest of 1, 2 and 4 that give
+    four CTAs an SM with the 64 x 64 output tiles."""
+    bm, bn = F1_FP32_TILE
+    tiles = _cdiv(m, bm) * (3 * c // bn)
+    return 1 if tiles >= 4 * sms else 2 if tiles >= 2 * sms else 4
+
+
+def f1_plan(dtype: torch.dtype, m: int, c: int, sms: int) -> tuple:
+    """What the F1 entry launches (csrc/ln_qkv.cu ``passt_ln_qkv_f1_plan``):
+    ``(tile rows, tile columns, CTAs a cluster, output tiles, CTAs of the
+    main grid)``."""
+    if dtype == torch.float32:
+        bm, bn = F1_FP32_TILE
+        tiles, ck = _cdiv(m, bm) * (3 * c // bn), f1_fp32_split(m, c, sms)
+        return bm, bn, ck, tiles, tiles * ck
+    bm, bn = F1_TILES[f1_tile(m, c, sms)]
+    tiles = _cdiv(m, bm) * _cdiv(3 * c, bn)
+    return bm, bn, 1, tiles, min(tiles, sms)
+
+
+def b2_fp32_ranges(c: int) -> list:
+    """The fp32 B2 kernel's K ranges of 3C, one per CTA of a cluster in
+    rank order: ``B2_FP32_CTAS`` equal slices."""
+    kr = 3 * c // B2_FP32_CTAS
+    return [slice(q * kr, (q + 1) * kr) for q in range(B2_FP32_CTAS)]
 
 
 def _f1_bytes(n: int, c: int, itemsize: int) -> int:
@@ -154,25 +215,38 @@ def _lib():
     """The kernel library, built and bound on first use."""
     lib = _build.load("ln_qkv")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.passt_ln_qkv_f1.argtypes = [vp] * 6 + [i32, i32, i32, f32, vp]
+    lib.passt_ln_qkv_f1.argtypes = [vp] * 7 + [i32, i32, i32, f32, i32, vp]
     lib.passt_ln_qkv_f1.restype = ctypes.c_int
     lib.passt_ln_qkv_b2.argtypes = [vp] * 9 + [i32, i32, i32, f32, vp]
     lib.passt_ln_qkv_b2.restype = ctypes.c_int
     lib.passt_ln_qkv_b2_rows.argtypes = [i32]
     lib.passt_ln_qkv_b2_rows.restype = ctypes.c_int
-    lib.passt_ln_qkv_b2_clusters.argtypes = [i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.passt_ln_qkv_b2_clusters.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.passt_ln_qkv_b2_clusters.restype = ctypes.c_int
+    lib.passt_ln_qkv_f1_plan.argtypes = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.passt_ln_qkv_f1_plan.restype = ctypes.c_int
     return lib
 
 
-def b2_clusters(c: int):
-    """The bf16/fp16 B2 kernel's cluster at width ``c`` on the current card:
-    ``(CTAs a cluster, clusters resident at once)`` (the card's occupancy
-    query; it needs the card)."""
+def b2_clusters(c: int, dtype: torch.dtype):
+    """The B2 kernel's cluster for ``dtype`` at width ``c`` on the current
+    card: ``(CTAs a cluster, clusters resident at once)`` (the card's
+    occupancy query; it needs the card)."""
     lib = _lib()
     ctas, active = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib, lib.passt_ln_qkv_b2_clusters(c, ctypes.byref(ctas), ctypes.byref(active)), "B2 clusters")
+    code = lib.passt_ln_qkv_b2_clusters(_DTYPE_CODE[dtype], c, ctypes.byref(ctas), ctypes.byref(active))
+    _build.check(lib, code, "B2 clusters")
     return ctas.value, active.value
+
+
+def f1_plan_kernel(dtype: torch.dtype, m: int, c: int, sms: int) -> tuple:
+    """:func:`f1_plan` as the kernel library computes it, and a sixth
+    entry: the main kernel's CTAs the card holds at once (the card's
+    occupancy query; it needs the card)."""
+    lib = _lib()
+    plan = (ctypes.c_int * 6)()
+    _build.check(lib, lib.passt_ln_qkv_f1_plan(_DTYPE_CODE[dtype], m, c, sms, plan), "F1 plan")
+    return tuple(plan)
 
 
 def _operands(named: dict, dtype: torch.dtype, device: torch.device, c: int) -> dict:
@@ -214,10 +288,11 @@ def ln_qkv_f1(x, s, b, w, wb, eps: float = 1e-6) -> torch.Tensor:
     ops = _operands(dict(x=x, s=s, b=b, w=w, wb=wb), x.dtype, x.device, c)
     m = x.numel() // c
     out = torch.empty(x.shape[:-1] + (3 * c,), dtype=x.dtype, device=x.device)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)  # (mu, rstd) of each row
     lib = _lib()
     code = lib.passt_ln_qkv_f1(
-        *(ctypes.c_void_p(ops[k].data_ptr()) for k in ("x", "s", "b", "w", "wb")),
-        ctypes.c_void_p(out.data_ptr()), _DTYPE_CODE[x.dtype], m, c, float(eps), _build.stream_of(x),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (ops["x"], ops["s"], ops["b"], ops["w"], ops["wb"], out, stats)),
+        _DTYPE_CODE[x.dtype], m, c, float(eps), _build.sm_count(x.device), _build.stream_of(x),
     )
     _build.check(lib, code, "ln_qkv F1 kernel launch")
     _build.LAUNCHES[_KEY_F1] += 1

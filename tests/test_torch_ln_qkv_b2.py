@@ -1,14 +1,18 @@
-"""The bf16/fp16 B2 kernel's order (csrc/ln_qkv.cu, dqkv W -> LayerNorm
-backward on wgmma in thread-block clusters), emulated in PyTorch on the CPU,
-against the JAX package's B2 kernel in interpret mode and the port's plain
-version.
+"""The B2 kernels' orders (csrc/ln_qkv.cu, dqkv W -> LayerNorm backward in
+thread-block clusters: bf16/fp16 on wgmma, fp32 on the FMA loop), emulated
+in PyTorch on the CPU, against the JAX package's B2 kernel in interpret mode
+and the port's plain version.
 
-The emulation follows the kernel: 192-row tiles (one cluster each); C split
-into the cluster's column slices (``b2_split``); each slice's share of every
-row's sums (x and x^2 for the statistics, then g and g x_hat) added in rank
-order; the dscale and dbias partials of each row tile, summed over the tiles
-as the wrapper sums them. Tolerances are chip_smoke's: ``TOL_QKV`` of
-max|ref| for dx and xn, ``TOL_LN_SUMS`` for dscale and dbias.
+The bf16 emulation follows its kernel: 192-row tiles (one cluster each); C
+split into the cluster's column slices (``b2_split``); each slice's share of
+every row's sums (x and x^2 for the statistics, then g and g x_hat) added in
+rank order; the dscale and dbias partials of each row tile, summed over the
+tiles as the wrapper sums them. The fp32 emulation follows its own: 16-row
+tiles (one cluster of 8 CTAs each); dxn as the eight K ranges' partial
+products (``b2_fp32_ranges``) added in rank order; each row's statistics in
+the warp order (``row_stats_in_order``); the tile's dscale and dbias
+partials summed over its 16 rows in order. Tolerances are chip_smoke's:
+``TOL_QKV`` of max|ref| for dx and xn, ``TOL_LN_SUMS`` for dscale and dbias.
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ import torch
 
 from passt_tpu.ops.pallas import ln_qkv as jax_ln_qkv
 from passt_tpu_torch.ops import ln_qkv
+from test_torch_ln_qkv_f1 import row_stats_in_order
 
 TOL_QKV = {"float32": 1e-4, "bfloat16": 2.0**-7}
 TOL_LN_SUMS = 1e-4
@@ -54,6 +59,30 @@ def emulate_b2(x, dqkv, w, s, b, eps=1e-6):
         m1, m2 = s1 * (1.0 / c), s2 * (1.0 / c)
         dx[r] = (rstd[:, None] * (g - m1[:, None] - xh * m2[:, None])).to(x.dtype)
         parts[0, t], parts[1, t] = (dt * xh).sum(0), dt.sum(0)
+    sums = parts.sum(dim=1)
+    return dx, xn, sums[0], sums[1]
+
+
+def emulate_b2_fp32(x, dqkv, w, s, b, eps=1e-6):
+    """The fp32 B2 in its kernel's order: x ``[M, C]``, dqkv ``[M, 3C]``, w
+    ``[3C, C]``, s and b ``[C]``, all fp32 -> dx, xn, dscale, dbias."""
+    m, c = x.shape
+    rows = ln_qkv.B2_ROWS_FP32
+    dxn = torch.zeros(m, c)
+    for k in ln_qkv.b2_fp32_ranges(c):  # the cluster's CTAs, in rank order
+        dxn = dxn + torch.matmul(dqkv[:, k], w[k])
+    mu, rstd = row_stats_in_order(x, eps)
+    xh = (x - mu) * rstd
+    xn = xh * s + b
+    g = dxn * s
+    m1, m2 = g.sum(1, keepdim=True) * (1.0 / c), (g * xh).sum(1, keepdim=True) * (1.0 / c)
+    dx = rstd * (g - m1 - xh * m2)
+    tiles = -(-m // rows)
+    parts = torch.zeros(2, tiles, c)
+    for t in range(tiles):
+        for r in range(t * rows, min(m, (t + 1) * rows)):  # the tile's rows in order
+            parts[0, t] = parts[0, t] + dxn[r] * xh[r]
+            parts[1, t] = parts[1, t] + dxn[r]
     sums = parts.sum(dim=1)
     return dx, xn, sums[0], sums[1]
 
@@ -130,3 +159,34 @@ def test_emulation_stays_finite_on_a_near_constant_row():
     for out in (emulate_b2(x, dq, w, s, b), ln_qkv.ln_qkv_b2_plain(x, dq, w, s, b)):
         assert all(bool(torch.isfinite(g).all()) for g in out)
         assert float(out[1].abs().max()) <= 1e3 * 0.5 * (1 + 1e-6)  # |x - mu| <= ~0.5 here, rstd <= 1e3
+
+
+def test_fp32_ranges_cover_every_width():
+    """The fp32 kernel's eight K ranges of 3C: equal, in order, whole
+    8-wide K-tiles, for every C the entry takes."""
+    for c in range(64, 1025, 64):
+        ranges = ln_qkv.b2_fp32_ranges(c)
+        assert len(ranges) == ln_qkv.B2_FP32_CTAS == 8
+        assert ranges[0].start == 0 and ranges[-1].stop == 3 * c
+        assert all(a.stop == b.start for a, b in zip(ranges, ranges[1:]))
+        assert all(r.stop - r.start == 3 * c // 8 and (r.stop - r.start) % 8 == 0 for r in ranges)
+
+
+@pytest.mark.parametrize("batch, n, c", [(1, 9, 64), (1, 37, 192), (2, 154, 64), (1, 40, 768)])
+def test_fp32_emulation_matches_pallas_b2_and_plain(batch, n, c):
+    """Ragged M against the 16-row tiles: 9 rows (fewer than one), 37, 308
+    (the fp32 step's rows at a narrow C), 40."""
+    m = batch * n
+    a = _inputs(m + 3 * c, m, c, "float32")
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = emulate_b2_fp32(t["x"], t["dqkv"], t["w"], t["s"], t["b"])
+    jx = jnp.asarray(a["x"].reshape(batch, n, c))
+    jdq = jnp.asarray(a["dqkv"].reshape(batch, n, 3 * c))
+    dx, xn, dsc, dbi = jax_ln_qkv._b2_call(jx, jdq, jnp.asarray(a["w"].T), jnp.asarray(a["s"]), jnp.asarray(a["b"]),
+                                           1e-6, True)
+    ref = [np.asarray(v).reshape(m, c) for v in (dx, xn)]
+    ref += [np.asarray(dsc).sum(axis=(0, 1)), np.asarray(dbi).sum(axis=(0, 1))]
+    _hold(got, ref, "float32", f"fp32 vs pallas M={m} C={c}")
+    plain = ln_qkv.ln_qkv_b2_plain(t["x"], t["dqkv"], t["w"], t["s"], t["b"])
+    _hold(got, [p.numpy() for p in plain], "float32", f"fp32 vs plain M={m} C={c}")
+
