@@ -87,8 +87,14 @@ shapes, checks that every public call took the wgmma loop, and times them
 beside the old mma.sync loop, ``torch._int_mm`` and the bf16 cuBLAS GEMM
 (8192^3 in turns: new, old, library, library, old, new). Phase 3e holds the fused MLP's forward (residuals off
 and on) and backward kernels against their plain versions in bf16 and fp32
-at M = 5688 and 14280 (C = 768, H = 3072) and at ragged M with small C and
-H, and times them beside the bare cuBLAS pair of the same products.
+at M = 5688 and 14280 (C = 768, H = 3072), at ragged M with small C and H,
+and in bf16 at C 256, 448 and 704 (clusters of 2, 3 and 4 CTAs, a last CTA
+with part of its column blocks, chunks of H partly or wholly past H), checks
+that the bf16 kernels give the same bits twice and that each bf16 launch's
+plan is ``ops/fused_mlp.py`` ``plan``'s at the clusters the card holds at
+once (``cudaOccupancyMaxActiveClusters``), and times them beside the bare
+cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
+clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12 and the
 kernel sides of 7 and 9) starts with every count at 0 and reads the counts
@@ -1008,12 +1014,14 @@ def phase_fused_mlp(gpu: str, dev: torch.device) -> dict:
     """[3e] the fused MLP's forward (with and without residuals) and backward
     kernels against their plain versions, then their times at the A/B's
     shapes beside the bare cuBLAS pair of products."""
+    from passt_tpu_torch.ops import _build
     from passt_tpu_torch.ops.fused_mlp import (
         fused_mlp_bwd,
         fused_mlp_bwd_plain,
         fused_mlp_fwd,
         fused_mlp_fwd_plain,
-        row_block,
+        plan,
+        plan_kernel,
     )
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1041,29 +1049,49 @@ def phase_fused_mlp(gpu: str, dev: torch.device) -> dict:
             randn((c,), 0.1, dtype)
 
     # the A/B's token counts at PaSST-S width (bf16 and fp32), ragged M with
-    # small C and H; residuals off and on; the backward on each case's d
+    # small C and H; residuals off and on; the backward on each case's d.
+    # Then the cluster's other shapes: C 256 (2 CTAs; H 192 leaves the
+    # second 128-unit chunk half empty), C 448 (3 CTAs, the last with one of
+    # its three column blocks; H 448 ends in a third of a chunk) and C 704 (4
+    # CTAs, the last one block short; H 320: the second chunk's 64 units in
+    # the first CTA alone)
     cases = [(m0, 768, 3072, torch.bfloat16), (m0, 768, 3072, torch.float32), (m_eval, 768, 3072, torch.bfloat16),
              (m_eval, 768, 3072, torch.float32), (130, 64, 256, torch.bfloat16), (130, 64, 256, torch.float32),
-             (77, 192, 128, torch.bfloat16), (77, 192, 128, torch.float32)]
+             (77, 192, 128, torch.bfloat16), (77, 192, 128, torch.float32),
+             (33, 256, 192, torch.bfloat16), (150, 448, 448, torch.bfloat16), (21, 704, 320, torch.bfloat16)]
+    sms = _build.sm_count(dev)
     for m, c, h, dtype in cases:
         args = case(m, c, h, dtype)
         what = f"{str(dtype)[6:]} M={m} C={c} H={h}"
+        if dtype == torch.bfloat16:
+            for bwd in (False, True):
+                rows, cs, ctas, resident, waves = plan_kernel(m, c, bwd)
+                check(0 < resident <= sms // cs and (rows, cs, ctas, waves) == plan(m, c, sms, resident),
+                      f"fused MLP plan {(rows, cs, ctas, resident, waves)} at {what} (bwd {bwd}) != ops/fused_mlp.py "
+                      f"plan {plan(m, c, sms, resident)} at {resident} clusters resident (at most {sms // cs})")
         ref = fused_mlp_fwd_plain(*args, residuals=True)
         got = fused_mlp_fwd(*args, residuals=True)
         y_only = fused_mlp_fwd(*args, residuals=False)
+        again = fused_mlp_fwd(*args, residuals=True)
         torch.cuda.synchronize()
         for part, g, r in zip(("y", "g", "d"), got, ref):
             hold("fused_mlp_fwd", f"{part} {what}", g, r, TOL_MLP[dtype])
         check(torch.equal(y_only, got[0]), f"fused_mlp_fwd {what}: y without residuals != y with them")
+        if dtype == torch.bfloat16:
+            check(all(torch.equal(a, b) for a, b in zip(got, again)), f"fused_mlp_fwd {what}: bits differ run to run")
         dy = randn((m, c), 1.0, dtype)
         got = fused_mlp_bwd(dy, ref[2], args[1], args[3])
         want = fused_mlp_bwd_plain(dy, ref[2], args[1], args[3])
+        again = fused_mlp_bwd(dy, ref[2], args[1], args[3])
         torch.cuda.synchronize()
         hold("fused_mlp_bwd", f"dx {what}", got[0], want[0], TOL_MLP_DX[dtype])
         hold("fused_mlp_bwd", f"dh {what}", got[1], want[1], TOL_MLP[dtype])
+        if dtype == torch.bfloat16:
+            check(all(torch.equal(a, b) for a, b in zip(got, again)), f"fused_mlp_bwd {what}: bits differ run to run")
     say(f"[3e] fused MLP vs plain (bf16, fp32; M {m0}/{m_eval} at 768/3072, M 130 at 64/256, M 77 at 192/128; "
-        f"a zero row; residuals off and on): forward max err {worst['fused_mlp_fwd']:.3g}, backward "
-        f"{worst['fused_mlp_bwd']:.3g} of max|ref|; y bit-equal with and without residuals")
+        f"bf16 M 33 at 256/192, M 150 at 448/448, M 21 at 704/320; a zero row; residuals off and on): forward max err {worst['fused_mlp_fwd']:.3g}, backward "
+        f"{worst['fused_mlp_bwd']:.3g} of max|ref|; y bit-equal with and without residuals; bf16 forward and "
+        f"backward bit-equal run to run; every bf16 plan as ops/fused_mlp.py's")
 
     rec = {}
     # times by CUDA-graph replay; beside them the bare cuBLAS pair of the
@@ -1083,10 +1111,14 @@ def phase_fused_mlp(gpu: str, dev: torch.device) -> dict:
                    plain_ms=graph_ms(lambda: fused_mlp_bwd_plain(dy, d, w1, w2)),
                    library_ms=None, **bound(flops, 2 * c * h * 2 + 2 * m * (c + h) * 2, PEAK_BF16))
         pair_b = graph_ms(lambda: (torch.matmul(dy, w2.t()), torch.matmul(gh, w1.t())))
-        say(f"[3e] fused_mlp_fwd bf16 M={m} C={c} H={h} (row block {row_block(m)}): kernel {fwd['ms']:.4f} ms "
+        rows, cs, ctas, resident, waves = plan_kernel(m, c)
+        config = (f"rows {rows}, {cs} CTAs a cluster, {ctas} CTAs, {resident} clusters resident, "
+                  f"{waves} wave{'s' * (waves != 1)}")
+        say(f"[3e] fused_mlp_fwd bf16 M={m} C={c} H={h} ({config}): kernel {fwd['ms']:.4f} ms "
             f"({res_ms:.4f} with residuals), plain {fwd['plain_ms']:.4f} ms, no single library call (the bare "
             f"cuBLAS pair x.W1, g.W2 {pair_f:.4f} ms), bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}) ({gpu})")
-        say(f"[3e] fused_mlp_bwd bf16 M={m} C={c} H={h}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
+        say(f"[3e] fused_mlp_bwd bf16 M={m} C={c} H={h} ({config}): kernel {bwd['ms']:.4f} ms, plain "
+            f"{bwd['plain_ms']:.4f} ms, "
             f"no single library call (the bare cuBLAS pair dy.W2^T, dh.W1^T {pair_b:.4f} ms), bound "
             f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}) ({gpu})")
         if m == m0:  # the record keeps the training token count

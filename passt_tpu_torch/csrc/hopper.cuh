@@ -1,12 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the attention forward
 // (attention_fwd.cu) and backward (attention_bwd.cu, attention_bwd_fp32.cu)
-// kernels, the int8 GEMM (int8_gemm.cu) and F1 and B2 (ln_qkv.cu): mbarriers, TMA tensor maps and
-// copies (4-D and 2-D tiles, 1-D bulk), the wgmma products with their
-// descriptors (K-major and MN-major, 128-byte swizzle; bf16/fp16 products
-// at N = 128, 192 and 256 with either B layout, which the GEMM and B2 use,
-// F1's at N = 192 and 256 with A from registers, and the GEMM's s8 ones),
-// fences, waits and named barriers,
-// and the acquire / release accesses of the backward's ordered dQ sums. The tensor maps are encoded on the host with
+// kernels, the int8 GEMM (int8_gemm.cu), F1 and B2 (ln_qkv.cu) and the fused
+// MLP (fused_mlp.cu): mbarriers (local, and arrivals from another CTA of a
+// cluster), TMA tensor maps and copies (4-D and 2-D tile loads, 2-D
+// stores, 1-D bulk, shared memory to another CTA's), the wgmma
+// products with their descriptors (K-major and MN-major, one or several
+// 64-wide MN blocks, 128-byte swizzle; bf16/fp16 products at N = 64, 128,
+// 192 and 256 with either B layout, F1's at N = 192 and 256 with A from
+// registers, and the GEMM's s8 ones), fences, waits and named barriers, the
+// acquire / release accesses of the backward's ordered dQ sums, the
+// thread-block cluster's rank, barrier and distributed shared memory loads,
+// and the launch configuration with a cluster or programmatic dependent
+// launch. The tensor maps are encoded on the host with
 // cuTensorMapEncodeTiled fetched from the CUDA driver at run time, so no
 // library needs -lcuda.
 #pragma once
@@ -110,12 +115,24 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
            ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// An MN-major operand's 64-wide block: 64 rows of K, 128 bytes each.
+constexpr int MN_BLOCK_BYTES = 64 * 128;
+
+// wgmma descriptor of an MN-major operand several 64-wide blocks wide: each
+// block is 64 rows of K of 128 bytes (128-byte swizzle), the blocks
+// MN_BLOCK_BYTES apart (the leading byte offset), 8-row K groups 1024 bytes
+// apart. A k step of 16 rows is 2048 bytes: + 128.
+__device__ __forceinline__ uint64_t sw128_mn_blocks_desc(const void* p) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(MN_BLOCK_BYTES >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // wgmma descriptor of an MN-major operand (the transposed flag set): rows of
 // 128 bytes along K, each holding the 64 values of the M (or N) dimension,
 // with the 128-byte swizzle; 8-row K groups 1024 bytes apart (the stride
 // byte offset). The leading byte offset would step between 64-wide M (or N)
-// blocks; every MN-major operand here is one block wide, so the bits are
-// sw128_desc's. A k step of 16 rows is 2048 bytes: + 128.
+// blocks; for an operand one block wide the bits are sw128_desc's (several
+// blocks: sw128_mn_blocks_desc). A k step of 16 rows is 2048 bytes: + 128.
 __device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) { return sw128_desc(p); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -233,6 +250,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
         : "memory");
 }
 
+// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from this CTA's shared memory into the shared memory of a CTA of the
+// cluster, completing its bytes on that CTA's barrier (dst and bar:
+// addresses from map_rank).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+    asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 // Bulk copies from shared memory to device memory (`bytes` a multiple of 16,
 // both ends 16-byte aligned), tracked as bulk groups of this thread: a plain
 // store, and an element-wise fp32 add into what is there.
@@ -277,6 +303,94 @@ __device__ __forceinline__ int ld_acquire_gpu(const int* p) {
 __device__ __forceinline__ void st_release_gpu(int* p, int v) {
     asm volatile("st.release.gpu.global.s32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
 }
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+    return r;
+}
+// Every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire) for the others' arrivals of the same phase.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_sync() {
+    cluster_arrive();
+    cluster_wait();
+}
+
+// The address of this CTA's shared variable p in the shared memory of CTA
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+    return r;
+}
+__device__ __forceinline__ float2 ld_cluster(uint32_t addr) {
+    float2 v;
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+    return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(addr)
+                 : "memory");
+    return v;
+}
+
+// Arrive (release at CTA scope: no data is handed over, only a slot) on an
+// mbarrier of a CTA of the cluster (an address from map_rank).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" :: "r"(addr) : "memory");
+}
+
+// TMA: shared memory into the box at (c0, c1) of a 2-D map (the parts past
+// the tensor's edges are not written), tracked as a bulk group of this
+// thread (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+                 : "memory");
+}
+
+// ---- host side: launches ----
+
+// A launch configuration with a cluster of `cluster` CTAs along x (0: no
+// cluster attribute) and, if pdl, programmatic dependent launch behind the
+// previous kernel.
+struct Launch {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[2];
+    Launch(int grid, int threads, size_t smem, cudaStream_t stream, int cluster, bool pdl) {
+        cfg.gridDim = dim3(grid);
+        cfg.blockDim = dim3(threads);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        int n = 0;
+        if (cluster > 0) {
+            attr[n].id = cudaLaunchAttributeClusterDimension;
+            attr[n].val.clusterDim.x = cluster;
+            attr[n].val.clusterDim.y = 1;
+            attr[n].val.clusterDim.z = 1;
+            ++n;
+        }
+        if (pdl) {
+            attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+            attr[n].val.programmaticStreamSerializationAllowed = 1;
+            ++n;
+        }
+        cfg.attrs = attr;
+        cfg.numAttrs = n;
+    }
+};
 
 // ---- host side: TMA tensor maps ----
 
@@ -345,6 +459,7 @@ template <typename T, int N, int TB> struct WgmmaF32;
                          : "l"(a), "l"(b), "r"(accumulate), "n"(TB));                                       \
         }                                                                                                 \
     };
+PASST_WGMMA_F32(__nv_bfloat16, "bf16", 64, 32, "32", "33", "34", "35")
 PASST_WGMMA_F32(__nv_bfloat16, "bf16", 128, 64, "64", "65", "66", "67")
 PASST_WGMMA_F32(__nv_bfloat16, "bf16", 192, 96, "96", "97", "98", "99")
 PASST_WGMMA_F32(__nv_bfloat16, "bf16", 256, 128, "128", "129", "130", "131")

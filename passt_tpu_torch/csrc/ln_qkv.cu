@@ -113,6 +113,16 @@ using passt::store2;
 using passt::warp_sum;
 
 namespace H = passt_hopper;
+using H::cluster_arrive;
+using H::cluster_rank;
+using H::cluster_size;
+using H::cluster_sync;
+using H::cluster_wait;
+using H::ld_cluster;
+using H::ld_cluster4;
+using H::map_rank;
+using H::sw128_mn_blocks_desc;
+using H::Launch;
 
 constexpr int MAX_C = 1024;
 
@@ -192,46 +202,6 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
     return p + ((1024 - (H::smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-    return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-    return r;
-}
-// Every thread of every CTA of the cluster: arrive (release), then wait
-// (acquire) for the others' arrivals of the same phase.
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_sync() {
-    cluster_arrive();
-    cluster_wait();
-}
-
-// The address of this CTA's shared variable p in the shared memory of CTA
-// `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
-    uint32_t r;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(H::smem_u32(p)), "r"(rank));
-    return r;
-}
-__device__ __forceinline__ float2 ld_cluster(uint32_t addr) {
-    float2 v;
-    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
-    return v;
-}
-__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
-    float4 v;
-    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                 : "r"(addr)
-                 : "memory");
-    return v;
-}
-
 // A 2-D tensor map over a row-major [rows, cols] 2-byte operand (row pitch
 // cols * 2 bytes): boxes of 64 columns x box_rows rows, 128-byte swizzle,
 // zero fill past the edges.
@@ -247,35 +217,6 @@ inline bool tma_map(CUtensorMap* map, const void* ptr, bool bf16, long long rows
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-// A launch configuration with a cluster of `cluster` CTAs along x (0: no
-// cluster attribute) and, if pdl, programmatic dependent launch behind the
-// previous kernel.
-struct Launch {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[2];
-    Launch(int grid, int threads, size_t smem, cudaStream_t stream, int cluster, bool pdl) {
-        cfg.gridDim = dim3(grid);
-        cfg.blockDim = dim3(threads);
-        cfg.dynamicSmemBytes = smem;
-        cfg.stream = stream;
-        int n = 0;
-        if (cluster > 0) {
-            attr[n].id = cudaLaunchAttributeClusterDimension;
-            attr[n].val.clusterDim.x = cluster;
-            attr[n].val.clusterDim.y = 1;
-            attr[n].val.clusterDim.z = 1;
-            ++n;
-        }
-        if (pdl) {
-            attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-            attr[n].val.programmaticStreamSerializationAllowed = 1;
-            ++n;
-        }
-        cfg.attrs = attr;
-        cfg.numAttrs = n;
-    }
-};
 
 // ---- F1's statistics: the prologue kernel -----------------------------------------------
 
@@ -708,6 +649,7 @@ constexpr int B2_THREADS = B2_CONSUMERS + 128;  // the consumer warpgroups, then
 constexpr int B2_PRODUCER_REGS = 40, B2_CONSUMER_REGS = 152;
 constexpr int B2_A_BYTES = B2_BM * 128;     // a stage's dqkv tile: B2_BM rows x 64 of K
 constexpr int B2_W_BLOCK = B2_KS * 128;     // a stage's block of W: 64 rows of K x 64 columns
+static_assert(B2_W_BLOCK == H::MN_BLOCK_BYTES, "sw128_mn_blocks_desc steps between W's blocks");
 constexpr int B2_MAX_NB = 3;                // 64-column blocks a CTA holds at most
 
 // The CTAs of a cluster (the column slices of C) and the 64-column blocks
@@ -733,14 +675,6 @@ template <int NB> struct B2Tile {
     static constexpr int SMEM = 1024 + FRONT + RING;
     static_assert(B2_CONSUMERS / 32 * COLS * 2 <= B2_BM * DP, "the columns' sums fit where dxn was");
 };
-
-// wgmma descriptor of an MN-major operand NB blocks of 64 wide: each block
-// is B2_KS rows of 128 bytes (128-byte swizzle), the blocks B2_W_BLOCK bytes
-// apart (the leading byte offset), 8-row K groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_mn_blocks_desc(const void* p) {
-    return (uint64_t)((H::smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(B2_W_BLOCK >> 4) << 16) |
-           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 
 // The pair of x at column cl (even) of block nb, row r, from x's blocks in
 // shared memory (B2_BM rows of 128 bytes each, 128-byte swizzle: the

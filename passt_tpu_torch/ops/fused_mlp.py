@@ -18,6 +18,10 @@ GELU):
 Limits (the kernel's tiles): C a multiple of 64 up to 768, H a multiple of
 64, any M; checked on every device.
 
+The bf16 kernels run one thread-block cluster per row block, C split over
+its CTAs and H walked in chunks shared through distributed shared memory;
+:func:`plan` mirrors what they launch (``csrc/fused_mlp.cu`` ``mlp_plan``).
+
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor launches the
 kernel or raises. ``_build.LAUNCHES`` counts ``fused_mlp_fwd`` and
 ``fused_mlp_bwd``.
@@ -41,6 +45,11 @@ for _key in (_KEY_FWD, _KEY_BWD):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: C and H must be multiples of this; C at most MAX_C
 ALIGN, MAX_C = 64, 768
+#: 64-column blocks of y (dx) a CTA of the bf16 kernels' cluster holds at most
+MAX_BLOCKS = 3
+#: rows of the bf16 kernels' row block (a cluster): two consumer warpgroups
+#: of 64 rows (``ROW_WG`` in csrc/fused_mlp.cu)
+ROWS = 128
 
 
 def fused_mlp_fwd_plain(x, w1, b1, w2, b2, *, residuals: bool):
@@ -71,16 +80,47 @@ def _lib():
     lib.passt_fused_mlp_fwd.restype = ctypes.c_int
     lib.passt_fused_mlp_bwd.argtypes = [vp] * 6 + [i32] * 4 + [vp]
     lib.passt_fused_mlp_bwd.restype = ctypes.c_int
-    lib.passt_fused_mlp_row_block.argtypes = [i32]
-    lib.passt_fused_mlp_row_block.restype = ctypes.c_int
+    lib.passt_fused_mlp_plan.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]  # m, c, bwd, plan
+    lib.passt_fused_mlp_plan.restype = ctypes.c_int
     return lib
 
 
-def row_block(m: int) -> int:
-    """The rows a bfloat16 kernel block takes at M = m on the current card:
-    32, 48 or 64, whichever needs the fewest waves over its SMs (see
-    ``csrc/fused_mlp.cu`` ``row_warps``)."""
-    return _lib().passt_fused_mlp_row_block(m)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split(c: int) -> tuple:
+    """The bf16 kernels' split of C = 64 q over a cluster (csrc/fused_mlp.cu
+    ``mlp_split``): ``(CTAs, blocks)``, ceil(q / 3) CTAs of ceil(q / CTAs)
+    64-column blocks of y (dx) each; the last CTA's blocks past C are empty.
+    Each CTA owns 64 hidden units of every chunk of ``64 CTAs`` units."""
+    q = c // ALIGN
+    cs = _cdiv(q, MAX_BLOCKS)
+    return cs, _cdiv(q, cs)
+
+
+def plan(m: int, c: int, sms: int, resident: int | None = None) -> tuple:
+    """What a bf16 entry launches at ``[m, c]`` over ``sms`` SMs
+    (csrc/fused_mlp.cu ``mlp_plan``): ``(rows, CTAs a cluster, CTAs,
+    waves)``, one cluster per :data:`ROWS` rows, a wave being the
+    ``resident`` clusters the card holds at once: at most ``sms // CTAs a
+    cluster`` (one CTA an SM), which is the default; the card may place
+    fewer (:func:`plan_kernel` asks it)."""
+    cs, _ = split(c)
+    clusters = _cdiv(m, ROWS)
+    resident = max(sms // cs, 1) if resident is None else resident
+    return ROWS, cs, clusters * cs, _cdiv(clusters, resident)
+
+
+def plan_kernel(m: int, c: int, bwd: bool = False) -> tuple:
+    """The plan as the kernel library computes it on this card (it needs the
+    card's build): ``(rows, CTAs a cluster, CTAs, clusters resident, waves)``,
+    the clusters resident from ``cudaOccupancyMaxActiveClusters`` for the
+    forward's (``bwd``: the backward's) kernel."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.passt_fused_mlp_plan(m, c, int(bwd), out), "fused MLP plan")
+    return tuple(out)
 
 
 def _check(named: dict, shapes: dict) -> torch.device:

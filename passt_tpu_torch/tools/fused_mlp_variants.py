@@ -1,7 +1,8 @@
-"""Time text variants of ``csrc/fused_mlp.cu`` (the fused MLP's forward and
-backward kernels) on the card, all in one process: each fixed row block
-against the per-call choice, and variants that remove work to show what
-sets the time.
+"""Time text variants of ``csrc/fused_mlp.cu`` (the fused MLP's bf16 forward
+and backward kernels) on the card, all in one process: the cluster split,
+the row block, the TMA multicast of x (the whole path is the variant's
+text: the source loads x into each CTA on its own), the producer, the ring
+depth, and variants that remove work to show what sets the time.
 
     python3 -m passt_tpu_torch.tools.fused_mlp_variants [VARIANTS.json]
 
@@ -14,7 +15,9 @@ versions in bf16 at M = 5688 (max error relative to max|ref|; a variant that
 removes work is wrong on purpose) and timed by CUDA-graph replay at the
 A/B's shapes (bf16, C = 768, H = 3072, M = 5688 and 14280; the forward
 without residuals). Prints the card (nvidia-smi name and power limit), then
-one line per variant.
+one line per variant with ptxas's registers and spill stores of the
+``mlp_kernel`` instances and its "Performance Loss" notes; a variant that
+does not build or whose launch is refused is reported and skipped.
 """
 
 from __future__ import annotations
@@ -55,11 +58,16 @@ def main(argv=None) -> int:
     print(gpu_line(), flush=True)
 
     for name, log in V.builds("fused_mlp", variants, F._lib):
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = max([int(s) for s in re.findall(r"(\d+) bytes spill stores", log)] or [0])
-        got_f = F.fused_mlp_fwd(x, w1, b1, w2, b2, residuals=True)
-        got_b = F.fused_mlp_bwd(dy, d, w1, w2)
-        torch.cuda.synchronize()
+        regs = {f"{'bwd' if bwd else 'fwd'} W={w} NB={nb}": V.registers(log, f"mlp_kernelILb{bwd}ELi{w}ELi{nb}E")
+                for bwd in (0, 1) for w in (2, 3) for nb in (1, 2, 3)}
+        losses = len(re.findall(r"Potential Performance Loss", log))
+        try:
+            got_f = F.fused_mlp_fwd(x, w1, b1, w2, b2, residuals=True)
+            got_b = F.fused_mlp_bwd(dy, d, w1, w2)
+            torch.cuda.synchronize()
+        except RuntimeError as err:  # a refused launch (shared memory, cluster): reported, the others still run
+            print(f"{name}: does not run: {err}", flush=True)
+            continue
         ef = max(rel_err(g, r) for g, r in zip(got_f, ref_f))
         eb = max(rel_err(g, r) for g, r in zip(got_b, ref_b))
         times = []
@@ -68,8 +76,9 @@ def main(argv=None) -> int:
             tf = graph_ms(lambda: F.fused_mlp_fwd(xm, w1, b1, w2, b2, residuals=False))
             tb = graph_ms(lambda: F.fused_mlp_bwd(dym, dm, w1, w2))
             times.append(f"M={m} fwd {tf:.4f} ms, bwd {tb:.4f} ms")
-        print(f"{name}: {'; '.join(times)} (err fwd {ef:.3g}, bwd {eb:.3g}); registers per kernel {regs}, "
-              f"max spill stores {spills} B", flush=True)
+        print(f"{name}: {'; '.join(times)} (err fwd {ef:.3g}, bwd {eb:.3g}); registers, spill stores (B): "
+              + ", ".join(f"{k} {v}" for k, v in regs.items() if v != (0, 0))
+              + f"; {losses} performance-loss notes", flush=True)
     return 0
 
 

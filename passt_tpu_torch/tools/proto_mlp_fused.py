@@ -20,7 +20,9 @@ token count M (12 x 474 = 5688 in training, 12 x 1190 = 14280 in eval) it
 prints fuse_f's and fuse's forward against xla (max error), fuse's and
 fuse2's gradients of all five arguments of mean(y^2) against xla (the
 largest max error relative to max|xla|), the ms of each variant (the best
-of 3 CUDA-event timings of back-to-back eager calls), the kernel's row block, and fuse_f's peak
+of 3 CUDA-event timings of back-to-back eager calls), the bf16 kernels' config
+(rows and CTAs a cluster, CTAs, clusters resident, waves:
+``fused_mlp.plan_kernel``), and fuse_f's peak
 memory growth beside the size of one [M, H] tensor. Runs on the card and
 raises without one; ``run(device="cpu")`` runs the same checks untimed and
 prints "not measured" for the times and the memory.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from passt_tpu_torch.ops.activations import tanh_gelu
-from passt_tpu_torch.ops.fused_mlp import fused_mlp, row_block
+from passt_tpu_torch.ops.fused_mlp import fused_mlp, plan_kernel
 from passt_tpu_torch.tools.timing import cuda_ms, gpu_line
 
 C, H = 768, 3072
@@ -112,7 +114,7 @@ def measure(x: torch.Tensor, weights) -> Dict:
     gx = _grads(xla_mlp, args)()
     leaves = [t.detach().clone().requires_grad_() for t in args]
     y_fuse = fuse(*leaves).detach()  # with grad: the forward that writes the residuals
-    res = dict(M=m, row_block=row_block(m) if device.type == "cuda" else "none (the plain version)",
+    res = dict(M=m, config=config_text(m, device),
                fwd_err_fuse_f=float((y_f.float() - y_ref.float()).abs().max()),
                fwd_err_fuse=float((y_fuse.float() - y_ref.float()).abs().max()),
                y_max=float(y_ref.float().abs().max()))
@@ -142,6 +144,15 @@ def measure(x: torch.Tensor, weights) -> Dict:
     return res
 
 
+def config_text(m: int, device: torch.device) -> str:
+    """The bf16 kernels' launch at [m, C] on ``device``'s card, as text."""
+    if device.type != "cuda":
+        return "none (the plain version)"
+    rows, cs, ctas, resident, waves = plan_kernel(m, C)
+    return (f"rows {rows}, {cs} CTAs a cluster, {ctas} CTAs, {resident} clusters resident, "
+            f"{waves} wave{'s' * (waves != 1)}")
+
+
 def _ms(v) -> str:
     return f"{v:.4f} ms" if isinstance(v, float) else str(v)
 
@@ -157,7 +168,7 @@ def run(device="cuda", sizes: Sequence[int] = SIZES) -> List[Dict]:
     results = []
     for m in sizes:
         r = measure(_bf16(rng.standard_normal((m, C)), device), weights)
-        print(f"M={m} (kernel row block {r['row_block']}): fwd max err vs xla: fuse_f {r['fwd_err_fuse_f']:.4g}, "
+        print(f"M={m} (kernel config {r['config']}): fwd max err vs xla: fuse_f {r['fwd_err_fuse_f']:.4g}, "
               f"fuse {r['fwd_err_fuse']:.4g} (max|y| {r['y_max']:.4g}); grad rel err vs xla: fuse "
               f"{r['grad_rel_fuse']:.3g}, fuse2 {r['grad_rel_fuse2']:.3g}", flush=True)
         print(f"M={m} fwd: xla {_ms(r['fwd_ms_xla'])}, fuse_f {_ms(r['fwd_ms_fuse_f'])}; fwd+bwd: xla "

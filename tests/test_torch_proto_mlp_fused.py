@@ -150,7 +150,7 @@ def test_tool_on_cpu(capsys):
     on the CPU."""
     res = tool.run(device="cpu", sizes=(37,))
     out = capsys.readouterr().out
-    assert "M=37 (kernel row block none (the plain version))" in out and "fwd: xla not measured" in out
+    assert "M=37 (kernel config none (the plain version))" in out and "fwd: xla not measured" in out
     (r,) = res
     assert r["fwd_calls"] == 4 and r["bwd_calls"] == 1
     assert r["fwd_err_fuse_f"] == r["fwd_err_fuse"] <= 2.0**-6 * r["y_max"]
