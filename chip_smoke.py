@@ -67,7 +67,23 @@ Phases (each prints one line or more; the first failure exits non-zero):
 12. the fused-MLP A/B (``python3 -m passt_tpu_torch.tools.proto_mlp_fused``:
    the prototype's xla composition, fuse_f, fuse and fuse2) at M = 5688 and
    14280, with exact launch counts, the variants' errors against xla, and
-   fuse_f's peak memory growth below one [M, 3072] bf16 tensor.
+   fuse_f's peak memory growth below one [M, 3072] bf16 tensor;
+13. ``fit`` at full PaSST-S width on the port's own data path (the bench's
+   model and step config): 48 10-s wav clips written with the stdlib
+   ``wave`` module, read by FolderDataset -> RollDataset -> WavMixDataset,
+   a class-balanced WeightedEpochSampler, the DataLoader's 4 threads and the
+   pinned side-stream DeviceFeed with int16 transfer; 3 epochs of 4 steps
+   with ``evaluate`` on 40 clips at B = 20 each epoch, SWA from epoch 2,
+   keep-2-best checkpoints by "ap": the losses finite, ap/val_loss/n_eval in
+   every record, the SWA count as ``swa_should_update`` says, the kept
+   epochs, the best and latest restores, a run preempted by SIGTERM after
+   its first epoch and resumed from its checkpoint bit-equal to the
+   uninterrupted run, exact launch counts (steps x (mel, 12 qkv forward, 12
+   qkv backward) + eval batches x (mel, 12 forward)); fit's steady ms/step
+   beside ``bench.timed_steps``, eval clips/s, the loader's items/s; and one
+   line on the native host plane (``native/libhostplane.so``, or a build of
+   ``native/hostplane.cpp`` into build/ when the checkout has none) with
+   ``assemble_batch``/``wavmix`` against the numpy chain.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -96,8 +112,8 @@ once (``cudaOccupancyMaxActiveClusters``), and times them beside the bare
 cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
 clusters resident, waves).
 
-Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12 and the
-kernel sides of 7 and 9) starts with every count at 0 and reads the counts
+Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
+uninterrupted fit and the kernel sides of 7 and 9) starts with every count at 0 and reads the counts
 right after; the ``launches`` of the kernels' record (thirteen entries) sum
 those runs. The comparisons of phases 3, 3b, 3c, 3d and 3e are outside them. A count
 is of wrapper calls: phase 11 times with CUDA-graph replays, so its
@@ -1523,6 +1539,282 @@ def phase_proto_mlp(gpu: str, dev: torch.device) -> dict:
     return launches
 
 
+# [13] the data layer and fit: clips written as wav files, the port's loaders
+FIT_TRAIN_CLIPS, FIT_VAL_CLIPS = 48, 40
+FIT_CLASSES = 12  # classes in use of the 527 (a tone per class)
+FIT_EPOCHS, FIT_STEPS, FIT_VAL_B = 3, 4, 20
+FIT_SWA_START = 2
+
+
+class _Collated:
+    """A loader of batches collated in advance (fit's data path without the
+    datasets and the loader)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def write_clips(root: str, n: int, seed: int) -> dict:
+    """``n`` 10-s 32 kHz 16-bit wav clips of seeded noise plus one tone per
+    label (1-3 of FIT_CLASSES classes), written with the stdlib ``wave``
+    module; returns the labels dict (file name -> multi-hot 527)."""
+    import wave as wavemod
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(CLIP, dtype=np.float64) / 32000.0
+    labels = {}
+    for i in range(n):
+        classes = rng.choice(FIT_CLASSES, size=int(rng.integers(1, 4)), replace=False)
+        x = rng.standard_normal(CLIP) * 0.05
+        for c in classes:
+            x += 0.2 * np.sin(2 * np.pi * (220.0 + 140.0 * c) * t + rng.uniform(0, 2 * np.pi))
+        pcm = np.clip(np.rint(x * 32767.0), -32768, 32767).astype(np.int16)
+        name = f"clip_{seed}_{i:03d}.wav"
+        with wavemod.open(os.path.join(root, name), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(32000)
+            w.writeframes(pcm.tobytes())
+        target = np.zeros(527, np.float32)
+        target[classes] = 1.0
+        labels[name] = target
+    return labels
+
+
+def native_line(gpu: str) -> str:
+    """Whether the native host plane loads here, and if it does (as found,
+    or built from native/hostplane.cpp into build/ when the checkout has no
+    library), assemble_batch and wavmix against the numpy chain."""
+    import subprocess
+
+    from passt_tpu_torch.data import native as N
+    from passt_tpu_torch.data.datasets import pad_or_truncate
+
+    found = N._lib_path()
+    how = f"found {os.path.relpath(found, ROOT)}" if found else "native/libhostplane.so not in the checkout"
+    if found is None:
+        out = os.path.join(ROOT, "build", "hostplane", "libhostplane.so")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        res = subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", os.path.join(ROOT, "native", "hostplane.cpp"),
+                              "-o", out, "-shared", "-pthread", "-ldl"], capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            return f"[13] native host plane: {how}; building it failed: {res.stderr.strip()[-300:]}"
+        os.environ["PASST_TPU_HOSTPLANE"] = out
+        how += "; built from native/hostplane.cpp into build/hostplane/"
+    try:
+        if not N.available():
+            return f"[13] native host plane: {how}; does not load"
+    except Exception as e:  # a stale or broken library is reported, not hidden
+        return f"[13] native host plane: {how}; does not load: {e}"
+    rng = np.random.default_rng(13)
+    pcm = [(rng.standard_normal(int(n)) * 6000).astype(np.int16) for n in rng.integers(200000, 400000, 12)]
+    t0 = time.perf_counter()
+    got = N.assemble_batch(pcm, CLIP)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = np.stack([pad_or_truncate(p.astype(np.float32) / 32768.0, CLIP) for p in pcm])
+    numpy_s = time.perf_counter() - t0
+    check(np.array_equal(got, ref), "[13] native assemble_batch != the numpy chain")
+    other = rng.standard_normal((12, CLIP)).astype(np.float32)
+    lam = rng.uniform(0.5, 1.0, 12).astype(np.float32)
+    apply = (rng.uniform(size=12) < 0.5).astype(np.uint8)
+    mixed = got.copy()
+    N.wavmix(mixed, other, lam, apply)
+    err = 0.0
+    for i in range(12):
+        if apply[i]:
+            a, b = got[i] - got[i].mean(), other[i] - other[i].mean()
+            r = a * lam[i] + b * (1 - lam[i])
+            err = max(err, float(np.abs(mixed[i] - (r - r.mean())).max()))
+        else:
+            check(np.array_equal(mixed[i], got[i]), "[13] native wavmix changed an unmixed row")
+    check(err < 1e-5, f"[13] native wavmix vs numpy: {err:.3g}")
+    return (f"[13] native host plane: {how}; loads; assemble_batch of 12 x 10 s bit-equal to the numpy chain "
+            f"({12 / native_s:.1f} items/s against numpy's {12 / numpy_s:.1f}), wavmix within {err:.2g} of numpy "
+            f"(tol 1e-5)")
+
+
+def phase_fit(gpu: str, dev: torch.device) -> dict:
+    """[13] ``fit`` at full PaSST-S width on the port's own data path: wav
+    clips read by FolderDataset -> RollDataset -> WavMixDataset, a
+    class-balanced WeightedEpochSampler, the DataLoader's worker threads and
+    the pinned side-stream DeviceFeed with int16 transfer; validation by
+    ``evaluate`` each epoch, SWA, keep-2-best checkpoints by "ap", restores,
+    and a preempted run resumed from its checkpoint against the
+    uninterrupted one. Exact launch counts of the fit run."""
+    import signal
+    import tempfile
+
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.data import (
+        DataLoader, FolderDataset, RollDataset, SequentialSampler, WavMixDataset, WeightedEpochSampler,
+        class_balanced_sample_weights,
+    )
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.ops.frontend import MelConfig
+    from passt_tpu_torch.train import loop
+    from passt_tpu_torch.train.steps import make_eval_step
+    from passt_tpu_torch.train.swa import SWAState, swa_should_update
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        t0 = time.perf_counter()
+        train_labels = write_clips(os.path.join(tmp, "train"), FIT_TRAIN_CLIPS, seed=1)
+        val_labels = write_clips(os.path.join(tmp, "val"), FIT_VAL_CLIPS, seed=2)
+        write_s = time.perf_counter() - t0
+        base = FolderDataset(os.path.join(tmp, "train"), clip_length=CLIP / 32000, labels=train_labels)
+        train_ds = WavMixDataset(RollDataset(base, shift_range=50, seed=3), seed=4)
+        weights = class_balanced_sample_weights(np.stack([train_labels[os.path.basename(f)] for f in base.files]))
+        sampler = WeightedEpochSampler(weights, epoch_len=FIT_TRAIN_CLIPS, seed=5)
+        train_loader = DataLoader(train_ds, batch_size=TRAIN_B, sampler=sampler, drop_last=True, num_workers=4)
+        val_ds = FolderDataset(os.path.join(tmp, "val"), clip_length=CLIP / 32000, labels=val_labels)
+        val_loader = DataLoader(val_ds, batch_size=FIT_VAL_B, sampler=SequentialSampler(len(val_ds)), num_workers=4)
+        check(len(train_loader) == FIT_STEPS and len(val_loader) == FIT_VAL_CLIPS // FIT_VAL_B, "[13] loader sizes")
+
+        model, state0, step, bench_batch = bench.setup(dev)
+        cfg = model.cfg
+        check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.num_classes) == (768, 12, 12, 527),
+              f"[13] not PaSST-S width: {cfg}")
+        eval_step = make_eval_step(model, MelConfig(fmin_aug_range=10, fmax_aug_range=2000))
+        starts = []
+
+        def timed_step(s, batch, seed):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return step(s, batch, seed)
+
+        kw = dict(eval_step=eval_step, train_loader=train_loader, val_loader=val_loader, max_epochs=FIT_EPOCHS,
+                  seed=bench.SEED, swa_epoch_start=FIT_SWA_START, swa_freq=1, log_every_steps=2, keep_last_n=2,
+                  monitor="ap", transfer_dtype="int16", logger=loop.MetricsLogger(quiet=True))
+        full_dir = os.path.join(tmp, "ckpt_full")
+        _build.reset_launches()
+        A.reset_path_launches()
+        t0 = time.perf_counter()
+        res = loop.fit(train_step=timed_step, state=state0, checkpoint_dir=full_dir, **kw)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+        paths, bwd_paths = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+
+        # what fit did: steps, records, SWA as swa_should_update says
+        steps = FIT_EPOCHS * FIT_STEPS
+        check(res.state.step == steps and len(starts) == steps and not res.interrupted, "[13] fit steps")
+        probe = SWAState(avg_params=None, swa_epoch_start=FIT_SWA_START, swa_freq=1)
+        fires = [e for e in range(FIT_EPOCHS) if swa_should_update(probe, e, FIT_EPOCHS)]
+        check(res.swa is not None and res.swa.n_averaged == len(fires) > 0, f"[13] SWA {res.swa and res.swa.n_averaged}"
+              f" updates, swa_should_update fires at {fires}")
+        check(all(v.dtype == torch.float32 and v.device == dev for v in res.swa.avg_params.values()),
+              "[13] the SWA average is fp32 on the card")
+        for e, rec in enumerate(res.history):
+            check(math.isfinite(rec["train_loss"]), f"[13] epoch {e} loss {rec['train_loss']}")
+            for key in ("ap", "val_loss", "n_eval", "roc"):
+                check(key in rec and math.isfinite(rec[key]), f"[13] epoch {e}: {key} missing or not finite")
+            check(rec["n_eval"] == FIT_VAL_CLIPS, f"[13] n_eval {rec['n_eval']}")
+            check(rec.get("swa_n") == (fires.index(e) + 1 if e in fires else None), f"[13] epoch {e} swa_n")
+            check(("swa_ap" in rec) == (e >= fires[0]), f"[13] epoch {e}: SWA eval")
+        evals = sum(1 + (e >= fires[0]) for e in range(FIT_EPOCHS)) * (FIT_VAL_CLIPS // FIT_VAL_B)
+        eval_entry = ("fused_attention_qkv" if A.flat_kernel_supports(1190, 12, 64, backward=False, itemsize=2,
+                                                                      batch=FIT_VAL_B) else "fused_attention")
+        counts = dict(fused_log_mel=steps + evals, fused_attention_qkv=12 * steps, fused_attention_qkv_bwd=12 * steps)
+        counts[eval_entry] = counts.get(eval_entry, 0) + 12 * evals
+        want = want_launches(**counts)
+        check(launches == want, f"[13] fit launches {launches} != {want}")
+        want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals))
+        check(paths == want_paths and bwd_paths == dict(fma=0, mma=0, wgmma=12 * steps, simt=0),
+              f"[13] paths {paths}, {bwd_paths}")
+
+        # checkpoints: the 2 best by ap kept, the best and the latest restored
+        aps = {r["epoch"]: r["ap"] for r in res.history}
+        kept = loop.checkpoint_epochs(full_dir)
+        best2 = sorted(sorted(aps, key=lambda e: (aps[e], e))[-2:])
+        check(kept == best2, f"[13] kept checkpoints {kept} != the 2 best by ap {best2} ({aps})")
+        latest, _, latest_epoch = loop.restore_checkpoint(full_dir, state0)
+        best, _, best_epoch = loop.restore_checkpoint(full_dir, state0, monitor="ap")
+        check(latest_epoch == kept[-1] and latest.step == (latest_epoch + 1) * FIT_STEPS, "[13] latest restore")
+        check(best_epoch == max(kept, key=lambda e: (aps[e], e)) and best.step == (best_epoch + 1) * FIT_STEPS,
+              "[13] best restore")
+        if latest_epoch == FIT_EPOCHS - 1:
+            check(all(torch.equal(latest.params[k], v) for k, v in res.state.params.items()),
+                  "[13] restored latest params != fit's")
+
+        # preempted after the first epoch (SIGTERM in its last step), restored, resumed
+        def preempted(s, batch, seed):
+            if s.step == FIT_STEPS - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(s, batch, seed)
+
+        cut_dir = os.path.join(tmp, "ckpt_cut")
+        cut = loop.fit(train_step=preempted, state=state0, checkpoint_dir=cut_dir, **dict(kw, keep_last_n=3))
+        check(cut.interrupted and len(cut.history) == 1 and loop.checkpoint_epochs(cut_dir) == [0],
+              "[13] the preempted run did not stop after its first epoch")
+        restored, swa_rest, epoch = loop.restore_checkpoint(cut_dir, state0)
+        resumed = loop.fit(train_step=step, state=restored, checkpoint_dir=cut_dir, start_epoch=epoch + 1,
+                           swa_restore=swa_rest, **dict(kw, keep_last_n=3))
+        torch.cuda.synchronize()
+        check(resumed.state.step == steps and not resumed.interrupted, "[13] resumed steps")
+        diff = {k: max_err(resumed.state.params[k].float(), v.float()) for k, v in res.state.params.items()}
+        swa_diff = max(max_err(resumed.swa.avg_params[k], v) for k, v in res.swa.avg_params.items())
+        exact = all(torch.equal(resumed.state.params[k], v) for k, v in res.state.params.items())
+        exact_swa = all(torch.equal(resumed.swa.avg_params[k], v) for k, v in res.swa.avg_params.items())
+        check(exact and exact_swa, f"[13] resumed run differs from the uninterrupted one: params max err "
+              f"{max(diff.values()):.3g} ({max(diff, key=diff.get)}), SWA {swa_diff:.3g}")
+        losses_full = [r["train_loss"] for r in res.history]
+        losses_cut = [r["train_loss"] for r in cut.history + resumed.history]
+
+        # the time: fit's steady steps (each epoch's first step, which waits
+        # for the loader's first batch, left out) beside bench's timed steps
+        gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(steps - 1) if (i + 1) % FIT_STEPS != 0]
+        fit_ms = sum(gaps) / len(gaps)
+        _, bench_ms, _ = bench.timed_steps(step, res.state, bench_batch, 10, 2)
+        t0 = time.perf_counter()
+        loop.evaluate(eval_step, res.state.params, val_loader, transfer_dtype="int16")
+        eval_s = time.perf_counter() - t0
+        train_loader.set_epoch(0)
+        t0 = time.perf_counter()
+        collated = list(train_loader)
+        load_s = time.perf_counter() - t0
+        n_items = sum(len(b["name"]) for b in collated)
+        # the feed alone: the same fit on these batches collated in advance
+        starts.clear()
+        loop.fit(train_step=timed_step, state=res.state, train_loader=_Collated(collated), eval_step=eval_step,
+                 max_epochs=2, seed=bench.SEED, transfer_dtype="int16", logger=loop.MetricsLogger(quiet=True))
+        torch.cuda.synchronize()
+        feed_gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(len(starts) - 1)
+                     if (i + 1) % FIT_STEPS != 0]
+        feed_ms = sum(feed_gaps) / len(feed_gaps)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[13] fit PaSST-S bf16 B={TRAIN_B} (bench config) on {FIT_TRAIN_CLIPS} wav clips (written in "
+        f"{write_s:.1f} s; FolderDataset -> Roll -> WavMix, class-balanced sampler, 4 loader threads, DeviceFeed "
+        f"int16): {FIT_EPOCHS} epochs x {FIT_STEPS} steps in {fit_s:.1f} s; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses_full)}; ap {', '.join(f'{aps[e]:.4f}' for e in sorted(aps))}; "
+        f"val_loss {res.history[-1]['val_loss']:.5f}, n_eval {res.history[-1]['n_eval']}; SWA n={res.swa.n_averaged}"
+        f" (fires at epochs {fires}); kept {kept}, best {best_epoch}, latest {latest_epoch}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({steps} steps, {evals} eval batches of {FIT_VAL_B})")
+    say(f"[13] resumed after epoch 0 (SIGTERM, restore, start_epoch=1): params and SWA average bit-equal to the "
+        f"uninterrupted run; losses {', '.join(f'{x:.5f}' for x in losses_cut)}")
+    say(f"[13] fit {fit_ms:.3f} ms/step steady (CUDA events between step starts, {len(gaps)} steps) against "
+        f"bench.timed_steps {bench_ms:.3f} ms/step on a resident batch (ratio {fit_ms / bench_ms:.3f}), fit on the "
+        f"same batches collated in advance (the feed alone) {feed_ms:.3f} ms/step ({len(feed_gaps)} steps); eval "
+        f"{FIT_VAL_CLIPS / eval_s:.2f} clips/s (B={FIT_VAL_B}, int16 feed); train loader alone "
+        f"{n_items / load_s:.2f} items/s ({n_items} items, wavmix reads included) ({gpu})")
+    say(native_line(gpu))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1580,6 +1872,7 @@ def main() -> int:
     runs += [train_steps(gpu, dev, variant) for variant in ("fuse_ln_qkv", "ln_impl=fused")]
     runs += phase_variant_correctness(dev)
     runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev), phase_proto_mlp(gpu, dev)]
+    runs.append(phase_fit(gpu, dev))
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

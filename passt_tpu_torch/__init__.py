@@ -12,15 +12,18 @@ Layout
   mel and attention kernels (``ops/_build.py`` builds and binds them)
 - ``passt_tpu_torch.models`` : the PaSST transformer, arch registry, weights
 - ``passt_tpu_torch.hear``   : the waveform-in ``Predictor`` and the HEAR API
+- ``passt_tpu_torch.data``   : datasets, samplers, the loader and the
+  pinned side-stream feed to the card
 - ``passt_tpu_torch.train``  : the train and eval steps, losses, mixup,
-  schedules and the AdamW variants (the attention backward kernel runs
-  under the train step)
+  schedules, the AdamW variants, metrics, SWA and the loop (``evaluate``,
+  ``fit``, checkpoints; the attention backward kernel runs under the train
+  step)
 - ``passt_tpu_torch.bench``  : training throughput on the card
   (``python3 -m passt_tpu_torch.bench``)
 
 Entry points put their models on the card unless the caller asks for the
-CPU (``device="cpu"``). The training loop, recipes, CLI, DDP and export are
-queued in ROADMAP.md.
+CPU (``device="cpu"``); ``fit``/``evaluate`` run where the state's tensors
+live. Recipes, CLI, DDP and export are queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Training throughput of the port on one CUDA card.
 
-    python3 -m passt_tpu_torch.bench [--steps 20] [--warmup 2] [--ln-impl fused | --fuse-ln-qkv]
+    python3 -m passt_tpu_torch.bench [--steps 200] [--runs 3] [--warmup 2] [--ln-impl fused | --fuse-ln-qkv]
 
 The workload of the JAX package's root ``bench.py``: PaSST-S (12 x 768, 12
 heads, 527 classes) in bf16 with structured patchout 40/4 (N = 474 tokens),
@@ -9,10 +9,15 @@ train-mode frontend, mixup, BCE, AdamW with bf16 moments and a
 stochastically rounded second moment, and bf16 parameters applied with
 stochastic rounding. Random weights from seed 0; no checkpoint is read.
 
-The steps are timed with CUDA events around ``--steps`` back-to-back calls
-after ``--warmup`` calls, so the time includes whatever the card waits on
-the host. Prints one JSON line: specs/s, ms/step, ``"platform": "cuda"``
-and the card's name (``device_kind``). There is no TPU baseline to divide by.
+The steps are timed as the root ``bench.py`` times them: after
+``--warmup`` calls, ``--runs`` runs of ``--steps`` back-to-back calls, each
+run timed with CUDA events (so the time includes whatever the card waits on
+the host), and the best run counts. Prints each run's ms/step and the
+spread (slowest less best, over best) on a line of its own, then one JSON
+line: specs/s and ms/step of the best run, every run's ms/step, the spread,
+``"platform": "cuda"`` and the card's name (``device_kind``). There is no
+TPU baseline to divide by. ``--runs 1 --steps 20`` is the single run of
+20 steps this bench took before.
 
 ``--ln-impl fused`` and ``--fuse-ln-qkv`` are the JAX config's own switches
 (``PaSSTConfig.ln_impl`` / ``fuse_ln_qkv``): the same step with the
@@ -29,7 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +85,20 @@ def timed_steps(step, state: TrainState, batch: Dict[str, torch.Tensor], steps: 
     return state, start.elapsed_time(end) / steps, loss_sum / steps
 
 
+def best_of_runs(run: Callable[[], float], runs: int) -> Tuple[float, List[float]]:
+    """Call ``run`` (one timed run, returning its ms/step) ``runs`` times;
+    returns the best (least) ms/step and every run's, in order."""
+    if runs < 1:
+        raise ValueError(f"runs must be >= 1, got {runs}")
+    times = [run() for _ in range(runs)]
+    return min(times), times
+
+
+def spread(times: List[float]) -> float:
+    """(slowest - best) / best of a list of run times."""
+    return (max(times) - min(times)) / min(times)
+
+
 #: kernel name patterns -> group, first match wins
 GROUPS = (
     ("LayerNorm backward kernel", r"layernorm_bwd"),
@@ -126,7 +145,8 @@ def profile_steps(step, state, batch, steps: int):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--steps", type=int, default=200, help="steps in each timed run")
+    parser.add_argument("--runs", type=int, default=3, help="timed runs; the best counts")
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="profile N more steps and print where their device time goes")
@@ -139,7 +159,20 @@ def main(argv=None) -> int:
         raise SystemExit("passt_tpu_torch.bench: no CUDA device; the bench runs on the card only")
     overrides = dict(ln_impl=args.ln_impl, fuse_ln_qkv=args.fuse_ln_qkv)
     _, state, step, batch = setup("cuda", **overrides)
-    state, ms, loss = timed_steps(step, state, batch, args.steps, args.warmup)
+    for _ in range(args.warmup):
+        state, _ = step(state, batch, SEED)
+    losses = []
+
+    def one_run() -> float:
+        nonlocal state
+        state, run_ms, run_loss = timed_steps(step, state, batch, args.steps, 0)
+        losses.append(run_loss)
+        return run_ms
+
+    ms, times = best_of_runs(one_run, args.runs)
+    loss = losses[times.index(ms)]
+    print(f"runs of {args.steps} steps, ms/step: {', '.join(f'{t:.3f}' for t in times)}; best {ms:.3f}, "
+          f"spread {100.0 * spread(times):.2f}% ({torch.cuda.get_device_name(0)})")
     if args.profile:
         state, report = profile_steps(step, state, batch, args.profile)
         print(json.dumps({"profile": report}, indent=1))
@@ -148,8 +181,11 @@ def main(argv=None) -> int:
         "value": BATCH * 1000.0 / ms,
         "unit": "specs/second",
         "ms_per_step": ms,
+        "ms_per_step_runs": times,
+        "spread": spread(times),
         "loss": float(loss),
         "steps": args.steps,
+        "runs": args.runs,
         "model_overrides": overrides,
         "platform": "cuda",
         "device_kind": torch.cuda.get_device_name(0),

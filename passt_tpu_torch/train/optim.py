@@ -16,6 +16,7 @@ corrections are host scalars and nothing waits on the card.
   :func:`apply_updates_sr` adds them in fp32 before its own SR store.
 - :func:`cast_params_storage`: matrices and embeddings (ndim >= 2) stored in
   bf16, vectors (biases, LayerNorm scales) in fp32.
+- :func:`multi_steps`: optax ``MultiSteps`` (gradient accumulation).
 
 All arithmetic is fp32; only the storage is bf16. The SR bits come from a
 Philox ``torch.Generator`` seeded from the update count, so
@@ -228,3 +229,51 @@ def adamw_bf16sr(
         return dict(zip(keys, upd)), AdamState(count=count, mu=dict(zip(keys, mu)), nu=dict(zip(keys, nu)))
 
     return GradientTransformation(init, update)
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: int  # micro-steps accumulated since the last update
+    gradient_step: int  # updates emitted so far
+    inner_opt_state: object
+    acc_grads: Params
+
+
+def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransformation:
+    """optax ``MultiSteps(inner, every_k_schedule=every_k)`` with the
+    gradient mean: each micro-step folds its gradients into a running mean
+    (``acc + (g - acc) / (n + 1)``, Welford's order, as optax); on the K-th
+    the inner optimizer updates on the mean and the mean resets to zeros.
+    The other micro-steps return zero updates and leave the inner state as
+    it was. The accumulator starts in the dtype of the parameters given to
+    ``init`` (fp32: the optimizer is initialised before the storage cast)
+    and continues in the inner update's dtype after each update."""
+
+    def init(params: Params) -> MultiStepsState:
+        return MultiStepsState(
+            mini_step=0, gradient_step=0, inner_opt_state=inner.init(params),
+            acc_grads={k: torch.zeros_like(p) for k, p in params.items()},
+        )
+
+    def update(grads: Params, state: MultiStepsState, params: Params):
+        keys = list(state.acc_grads)
+        acc = [state.acc_grads[k] for k in keys]
+        g = [grads[k].to(torch.promote_types(grads[k].dtype, a.dtype)) for k, a in zip(keys, acc)]
+        delta = torch._foreach_sub(g, acc)
+        torch._foreach_div_(delta, float(state.mini_step + 1))
+        acc = dict(zip(keys, torch._foreach_add(acc, delta)))
+        if state.mini_step == every_k - 1:
+            updates, inner_state = inner.update(acc, state.inner_opt_state, params)
+            zeros = {k: torch.zeros_like(u) for k, u in updates.items()}
+            return updates, MultiStepsState(0, state.gradient_step + 1, inner_state, zeros)
+        # optax returns emit * (the inner update): zeros in the update's dtype,
+        # which is fp32 for every inner optimizer here
+        updates = {k: torch.zeros_like(a, dtype=torch.float32) for k, a in acc.items()}
+        return updates, MultiStepsState(state.mini_step + 1, state.gradient_step, state.inner_opt_state, acc)
+
+    return GradientTransformation(init, update)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax ``global_norm``: the square root of the sum over tensors of
+    each tensor's sum of squares (each sum in its tensor's dtype)."""
+    return torch.sqrt(sum((t * t).sum() for t in tensors))

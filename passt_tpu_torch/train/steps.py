@@ -84,17 +84,26 @@ def make_optimizer(
     (optax AdamW), "bfloat16" stores the first moment in bf16,
     "bfloat16_sr" stores both in bf16 with a stochastically rounded second
     (:func:`adamw_bf16sr`). ``adamw=False`` drops the weight decay (Adam).
+    ``grad_accum=K`` wraps the optimizer in :func:`optim.multi_steps`: K
+    micro-batch gradients average into one update, and the inner schedule,
+    indexed by update count u, reads the step schedule at u·K, so the
+    learning rate against the epoch is the unaccumulated run's for any K.
     """
-    if grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet (ROADMAP.md: training loop)")
     schedule = make_schedule(lr, steps_per_epoch, schedule_mode, warm_up_len, ramp_down_start,
                              ramp_down_len, last_lr_value)
+    if grad_accum > 1:
+        base_schedule = schedule
+        schedule = lambda u: base_schedule(u * grad_accum)  # noqa: E731
     wd = weight_decay if adamw else 0.0
     if moments_dtype == "bfloat16_sr":
-        return optim.adamw_bf16sr(schedule, weight_decay=wd)
-    if moments_dtype not in (None, "bfloat16"):
+        tx = optim.adamw_bf16sr(schedule, weight_decay=wd)
+    elif moments_dtype in (None, "bfloat16"):
+        tx = optim.adamw(schedule, weight_decay=wd, mu_dtype=torch.bfloat16 if moments_dtype else None)
+    else:
         raise ValueError(f"unknown moments_dtype {moments_dtype!r}; known: None, bfloat16, bfloat16_sr")
-    return optim.adamw(schedule, weight_decay=wd, mu_dtype=torch.bfloat16 if moments_dtype else None)
+    if grad_accum > 1:
+        tx = optim.multi_steps(tx, grad_accum)
+    return tx
 
 
 def create_train_state(
@@ -130,6 +139,18 @@ LOSS_FNS: Dict[str, Callable] = {
 }
 
 
+def _param_group(name: str) -> str:
+    """The JAX package's top-level parameter group of a port parameter name
+    (``blocks.3.attn.qkv.weight`` -> ``blocks_3``; the inverse of the
+    grouping ``state_dict_from_flax`` reads)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return f"blocks_{parts[1]}"
+    if parts[0] == "head":
+        return {"0": "head_norm", "1": "head_linear"}[parts[1]]
+    return parts[0]
+
+
 def make_train_step(
     model: PaSST,
     tx: GradientTransformation,
@@ -137,6 +158,9 @@ def make_train_step(
     loss_type: str = "multilabel",
     use_mixup: bool = True,
     mixup_alpha: float = 0.3,
+    input_tdim: Optional[int] = None,
+    log_grad_norm: bool = False,
+    log_grad_norm_per_block: bool = False,
     param_sr: bool = False,
 ):
     """Build the train step ``step(state, batch, seed) -> (state, metrics)``.
@@ -145,11 +169,15 @@ def make_train_step(
     skips the frontend) and ``target`` ([B, C] multilabel/masked, [B] int for
     single-label), on the model's device. ``seed`` is the run's base seed
     (an int); the step's draws come from :func:`step_generators` at
-    ``state.step``. ``metrics["loss"]`` stays on the device. The gradient
-    norms the JAX step can log are not ported (ROADMAP.md).
+    ``state.step``. ``input_tdim`` crops the mel frames (the model's
+    ``input_tdim`` when None). Every metric stays on the device:
+    ``metrics["loss"]``, and with ``log_grad_norm`` the gradients' global
+    norm ``grad_norm``, with ``log_grad_norm_per_block`` one
+    ``grad_norm/<group>`` per top-level parameter group of the JAX package
+    (``patch_embed``, ``blocks_0``, ..., ``head_linear``).
     """
     loss_fn = LOSS_FNS[loss_type]
-    tdim = model.cfg.input_tdim
+    tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         y = batch["target"]
@@ -182,7 +210,16 @@ def make_train_step(
             params = apply_updates_sr(state.params, updates, gen)
         else:
             params = apply_updates(state.params, updates)
-        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), {"loss": loss.detach()}
+        metrics = {"loss": loss.detach()}
+        if log_grad_norm:
+            metrics["grad_norm"] = optim.global_norm(grads.values())
+        if log_grad_norm_per_block:
+            groups: Dict[str, list] = {}
+            for k, g in grads.items():
+                groups.setdefault(_param_group(k), []).append(g)
+            for group, gs in groups.items():
+                metrics[f"grad_norm/{group}"] = optim.global_norm(gs)
+        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
 
     return step
 
@@ -191,13 +228,15 @@ def make_eval_step(
     model: PaSST,
     mel_cfg: Optional[MelConfig] = MelConfig(),
     loss_type: str = "multilabel",
+    input_tdim: Optional[int] = None,
 ):
     """Eval step ``(params, batch) -> dict(out, loss, loss_per_example,
     features)``: ``out`` is sigmoid probabilities for multilabel/masked and
-    the log-softmax for single-label."""
+    the log-softmax for single-label. ``input_tdim`` crops the mel frames
+    (the model's ``input_tdim`` when None)."""
     if loss_type not in LOSS_FNS:
         raise KeyError(f"unknown loss_type {loss_type!r}; known: {sorted(LOSS_FNS)}")
-    tdim = model.cfg.input_tdim
+    tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
 
     def step(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
         with torch.inference_mode():
