@@ -83,7 +83,22 @@ Phases (each prints one line or more; the first failure exits non-zero):
    beside ``bench.timed_steps``, eval clips/s, the loader's items/s; and one
    line on the native host plane (``native/libhostplane.so``, or a build of
    ``native/hostplane.cpp`` into build/ when the checkout has none) with
-   ``assemble_batch``/``wavmix`` against the numpy chain.
+   ``assemble_batch``/``wavmix`` against the numpy chain;
+14. the graphed entry points (``passt_tpu_torch.graphs``, the counterpart
+   of ``jax.jit``; the default of phases 4-6, 8 and 13) against the eager
+   ones (``jit=False``): the bf16 train step under each config bit-equal
+   over 5 steps from step 0 and 5 steps from a restored step-3 state
+   (params, both moments, counts, loss, grad norms), its launches over
+   three replays exact; the eval step (B = 20 and a tail of 8) and the
+   ``Predictor`` (B = 1, B = 20, timestamp windows) bit-equal over their
+   warm-up, capture and replay, the ``Predictor``'s replays' launches
+   exact; [13]'s ``fit`` rerun with the eager steps bit-equal to the
+   graphed run (printed after [13]); the times, graphed and eager in
+   turns: the step's best of 3 runs of 200 with the spread, its first
+   calls and peak memory, a 5-step profile of each (kernel time, kernels
+   and host launch calls a step, idle share), the eager fit's steady
+   ms/step against the eager ``timed_steps``, and the ``Predictor``'s
+   ms/call and clips/s at B = 1 and B = 20.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -113,12 +128,15 @@ cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
 clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
-uninterrupted fit and the kernel sides of 7 and 9) starts with every count at 0 and reads the counts
-right after; the ``launches`` of the kernels' record (thirteen entries) sum
-those runs. The comparisons of phases 3, 3b, 3c, 3d and 3e are outside them. A count
-is of wrapper calls: phase 11 times with CUDA-graph replays, so its
-int8_matmul count includes the calls captured into the graphs, and the
-replays run the kernel more times than that without the wrapper.
+uninterrupted fit, the kernel sides of 7 and 9, and 14's replays) starts
+with every count at 0 and reads the counts right after; the ``launches``
+of the kernels' record (thirteen entries) sum those runs. The comparisons
+of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
+run: the graphs of ``passt_tpu_torch.graphs`` take back the counts their
+capture added and add them once per replay. Phase 11 times with
+``tools.timing.graph_ms``, whose plain CUDA graphs do not: its
+int8_matmul count is of wrapper calls, the captured ones included, and
+its replays run the kernel more times than that.
 
 fp32 is compared with TF32 off: ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False for the whole run.
@@ -627,9 +645,12 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             worst_abs[name] = max(worst_abs[name], err)
         # SDPA's backward alone: the kernel time of its forward and
         # autograd.grad together less that of its forward alone, from
-        # profiler traces (a CUDA graph cannot capture the autograd engine's
-        # backward here); beside it the backward alone by CUDA events, and
-        # the port's backward by the same profiled kernel time
+        # profiler traces. A CUDA graph captures an autograd backward only
+        # with its forward (each backward op runs on its forward op's
+        # stream; the train step is captured so, [14]), and this
+        # forward-and-backward capture of SDPA fails here with
+        # cudaErrorStreamCaptureImplicit. Beside it the backward alone by CUDA
+        # events, and the port's backward by the same profiled kernel time
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         fwd = lambda: sdpa(ql, kl, vl, scale)
         fwd_bwd = lambda: torch.autograd.grad(sdpa(ql, kl, vl, scale), (ql, kl, vl), do4)
@@ -1164,7 +1185,7 @@ def phase_serving(gpu: str, dev: torch.device) -> dict:
     scene = pred.scene_embeddings(w20)
     ts_emb, ts = pred.timestamp_embeddings(w2s)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
     paths = dict(A.FWD_PATH_LAUNCHES)
 
     check(tuple(logits1.shape) == (1, 527) and tuple(logits20.shape) == (20, 527), "logits shape")
@@ -1279,7 +1300,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     A.reset_path_launches()
     state, ms, loss = bench.timed_steps(step, state, batch, steps, warmup)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
     paths = dict(A.FWD_PATH_LAUNCHES)
     bwd_paths = dict(A.BWD_PATH_LAUNCHES)
 
@@ -1301,7 +1322,8 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     check(bwd_paths == want_bwd, f"{variant}: backward paths {bwd_paths} != {want_bwd}")
     phase = "[6]" if variant == "default" else "[8]"
     say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
-        f"params): {ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after {warmup}; "
+        f"params; graphed): {ms:.3f} ms/step = {TRAIN_B * 1000.0 / ms:.2f} specs/s over {steps} steps after "
+        f"{warmup}; "
         f"mean loss {float(loss):.5f}; {moved}/{len(before)} leaves moved; launches per step "
         f"{ {k: v // n for k, v in launches.items() if v} }; forward paths per step "
         f"{ {k: v // n for k, v in paths.items() if v} }, backward paths per step "
@@ -1325,16 +1347,17 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
     tx = make_optimizer(lr=2e-5, steps_per_epoch=1000)
     grads, updates = {}, {}
 
-    def update(g, opt_state, params):
+    def update(g, opt_state, params, inputs=None):
         grads.update(g)  # the step's gradients, on their way to the optimizer
-        u, opt_state = tx.update(g, opt_state, params)
+        u, opt_state = tx.update(g, opt_state, params, inputs)
         updates.update(u)  # and the optimizer's updates, before the apply
         return u, opt_state
 
-    recorder = GradientTransformation(tx.init, update)
+    recorder = GradientTransformation(tx.init, update, tx.plan)
     model, state = create_train_state(cfg, recorder, torch.Generator().manual_seed(0), device=dev)
+    # eager: the recorder keeps the tensors of this one call
     step = make_train_step(model, recorder,
-                           MelConfig(fmin_aug_range=10, fmax_aug_range=2000, stft_method=stft_method))
+                           MelConfig(fmin_aug_range=10, fmax_aug_range=2000, stft_method=stft_method), jit=False)
     rng = np.random.default_rng(5)
     batch = {
         "wave": torch.from_numpy(rng.standard_normal((2, CLIP)).astype(np.float32) * 0.1).to(dev),
@@ -1659,9 +1682,8 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
     )
     from passt_tpu_torch.ops import _build
     from passt_tpu_torch.ops import attention as A
-    from passt_tpu_torch.ops.frontend import MelConfig
     from passt_tpu_torch.train import loop
-    from passt_tpu_torch.train.steps import make_eval_step
+    from passt_tpu_torch.train.steps import make_eval_step, make_train_step
     from passt_tpu_torch.train.swa import SWAState, swa_should_update
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
@@ -1683,14 +1705,22 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         cfg = model.cfg
         check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.num_classes) == (768, 12, 12, 527),
               f"[13] not PaSST-S width: {cfg}")
-        eval_step = make_eval_step(model, MelConfig(fmin_aug_range=10, fmax_aug_range=2000))
+        eval_step = make_eval_step(model, bench.MEL_CFG)
         starts = []
 
-        def timed_step(s, batch, seed):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            starts.append(ev)
-            return step(s, batch, seed)
+        def timed(train_step):
+            def run(s, batch, seed):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                starts.append(ev)
+                return train_step(s, batch, seed)
+            return run
+
+        def steady_ms(n_steps: int):
+            """Mean CUDA-event time between step starts, each epoch's first
+            step (which waits for the loader's first batch) left out."""
+            gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(n_steps - 1) if (i + 1) % FIT_STEPS != 0]
+            return sum(gaps) / len(gaps), len(gaps)
 
         kw = dict(eval_step=eval_step, train_loader=train_loader, val_loader=val_loader, max_epochs=FIT_EPOCHS,
                   seed=bench.SEED, swa_epoch_start=FIT_SWA_START, swa_freq=1, log_every_steps=2, keep_last_n=2,
@@ -1699,17 +1729,20 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         _build.reset_launches()
         A.reset_path_launches()
         t0 = time.perf_counter()
-        res = loop.fit(train_step=timed_step, state=state0, checkpoint_dir=full_dir, **kw)
+        res = loop.fit(train_step=timed(step), state=state0, checkpoint_dir=full_dir, **kw)
         end = torch.cuda.Event(enable_timing=True)
         end.record()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
         paths, bwd_paths = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+        # the graphed step donates: its next call overwrites res.state's tensors
+        final = clone_state(res.state)
 
         # what fit did: steps, records, SWA as swa_should_update says
         steps = FIT_EPOCHS * FIT_STEPS
         check(res.state.step == steps and len(starts) == steps and not res.interrupted, "[13] fit steps")
+        fit_ms, n_gaps = steady_ms(steps)
         probe = SWAState(avg_params=None, swa_epoch_start=FIT_SWA_START, swa_freq=1)
         fires = [e for e in range(FIT_EPOCHS) if swa_should_update(probe, e, FIT_EPOCHS)]
         check(res.swa is not None and res.swa.n_averaged == len(fires) > 0, f"[13] SWA {res.swa and res.swa.n_averaged}"
@@ -1745,7 +1778,7 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         check(best_epoch == max(kept, key=lambda e: (aps[e], e)) and best.step == (best_epoch + 1) * FIT_STEPS,
               "[13] best restore")
         if latest_epoch == FIT_EPOCHS - 1:
-            check(all(torch.equal(latest.params[k], v) for k, v in res.state.params.items()),
+            check(all(torch.equal(latest.params[k], v) for k, v in final.params.items()),
                   "[13] restored latest params != fit's")
 
         # preempted after the first epoch (SIGTERM in its last step), restored, resumed
@@ -1763,22 +1796,36 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
                            swa_restore=swa_rest, **dict(kw, keep_last_n=3))
         torch.cuda.synchronize()
         check(resumed.state.step == steps and not resumed.interrupted, "[13] resumed steps")
-        diff = {k: max_err(resumed.state.params[k].float(), v.float()) for k, v in res.state.params.items()}
+        diff = {k: max_err(resumed.state.params[k].float(), v.float()) for k, v in final.params.items()}
         swa_diff = max(max_err(resumed.swa.avg_params[k], v) for k, v in res.swa.avg_params.items())
-        exact = all(torch.equal(resumed.state.params[k], v) for k, v in res.state.params.items())
+        exact = all(torch.equal(resumed.state.params[k], v) for k, v in final.params.items())
         exact_swa = all(torch.equal(resumed.swa.avg_params[k], v) for k, v in res.swa.avg_params.items())
         check(exact and exact_swa, f"[13] resumed run differs from the uninterrupted one: params max err "
               f"{max(diff.values()):.3g} ({max(diff, key=diff.get)}), SWA {swa_diff:.3g}")
         losses_full = [r["train_loss"] for r in res.history]
         losses_cut = [r["train_loss"] for r in cut.history + resumed.history]
 
-        # the time: fit's steady steps (each epoch's first step, which waits
-        # for the loader's first batch, left out) beside bench's timed steps
-        gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(steps - 1) if (i + 1) % FIT_STEPS != 0]
-        fit_ms = sum(gaps) / len(gaps)
-        _, bench_ms, _ = bench.timed_steps(step, res.state, bench_batch, 10, 2)
+        # [14] the same fit with the eager steps (jit=False), no checkpoints:
+        # bit-equal to the graphed run, and its steady ms/step
+        eager_step = make_train_step(model, bench.optimizer(), bench.MEL_CFG, jit=False, **bench.STEP_KW)
+        eager_eval = make_eval_step(model, bench.MEL_CFG, jit=False)
+        starts.clear()
+        eager = loop.fit(train_step=timed(eager_step), state=state0, **dict(kw, eval_step=eager_eval))
+        torch.cuda.synchronize()
+        eager_fit_ms, _ = steady_ms(steps)
+        fit_diff = [k for k, v in final.params.items() if not torch.equal(eager.state.params[k], v)]
+        fit_diff += [f"swa {k}" for k, v in res.swa.avg_params.items() if not torch.equal(eager.swa.avg_params[k], v)]
+        check(not fit_diff and [r["train_loss"] for r in eager.history] == losses_full
+              and [r["ap"] for r in eager.history] == [aps[e] for e in sorted(aps)]
+              and [r["val_loss"] for r in eager.history] == [r["val_loss"] for r in res.history],
+              f"[14] graphed fit != eager fit: {fit_diff[:5]}, losses {losses_full} vs "
+              f"{[r['train_loss'] for r in eager.history]}")
+
+        # the time: fit's steady steps beside bench's timed steps, graphed and eager
+        _, bench_ms, _ = bench.timed_steps(step, final, bench_batch, 10, 2)
+        _, eager_bench_ms, _ = bench.timed_steps(eager_step, final, bench_batch, 10, 2)
         t0 = time.perf_counter()
-        loop.evaluate(eval_step, res.state.params, val_loader, transfer_dtype="int16")
+        loop.evaluate(eval_step, final.params, val_loader, transfer_dtype="int16")
         eval_s = time.perf_counter() - t0
         train_loader.set_epoch(0)
         t0 = time.perf_counter()
@@ -1787,17 +1834,15 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         n_items = sum(len(b["name"]) for b in collated)
         # the feed alone: the same fit on these batches collated in advance
         starts.clear()
-        loop.fit(train_step=timed_step, state=res.state, train_loader=_Collated(collated), eval_step=eval_step,
+        loop.fit(train_step=timed(step), state=final, train_loader=_Collated(collated), eval_step=eval_step,
                  max_epochs=2, seed=bench.SEED, transfer_dtype="int16", logger=loop.MetricsLogger(quiet=True))
         torch.cuda.synchronize()
-        feed_gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(len(starts) - 1)
-                     if (i + 1) % FIT_STEPS != 0]
-        feed_ms = sum(feed_gaps) / len(feed_gaps)
+        feed_ms, n_feed = steady_ms(len(starts))
     finally:
         import shutil
 
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"[13] fit PaSST-S bf16 B={TRAIN_B} (bench config) on {FIT_TRAIN_CLIPS} wav clips (written in "
+    say(f"[13] fit PaSST-S bf16 B={TRAIN_B} (bench config, graphed steps) on {FIT_TRAIN_CLIPS} wav clips (written in "
         f"{write_s:.1f} s; FolderDataset -> Roll -> WavMix, class-balanced sampler, 4 loader threads, DeviceFeed "
         f"int16): {FIT_EPOCHS} epochs x {FIT_STEPS} steps in {fit_s:.1f} s; losses "
         f"{', '.join(f'{x:.5f}' for x in losses_full)}; ap {', '.join(f'{aps[e]:.4f}' for e in sorted(aps))}; "
@@ -1806,13 +1851,192 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         f"{ {k: v for k, v in launches.items() if v} } ({steps} steps, {evals} eval batches of {FIT_VAL_B})")
     say(f"[13] resumed after epoch 0 (SIGTERM, restore, start_epoch=1): params and SWA average bit-equal to the "
         f"uninterrupted run; losses {', '.join(f'{x:.5f}' for x in losses_cut)}")
-    say(f"[13] fit {fit_ms:.3f} ms/step steady (CUDA events between step starts, {len(gaps)} steps) against "
+    say(f"[13] fit {fit_ms:.3f} ms/step steady (graphed; CUDA events between step starts, {n_gaps} steps) against "
         f"bench.timed_steps {bench_ms:.3f} ms/step on a resident batch (ratio {fit_ms / bench_ms:.3f}), fit on the "
-        f"same batches collated in advance (the feed alone) {feed_ms:.3f} ms/step ({len(feed_gaps)} steps); eval "
+        f"same batches collated in advance (the feed alone) {feed_ms:.3f} ms/step ({n_feed} steps); eval "
         f"{FIT_VAL_CLIPS / eval_s:.2f} clips/s (B={FIT_VAL_B}, int16 feed); train loader alone "
         f"{n_items / load_s:.2f} items/s ({n_items} items, wavmix reads included) ({gpu})")
+    say(f"[14] graphed fit bit-equal to the eager fit (jit=False train and eval steps) on [13]'s data: params, SWA "
+        f"average, losses, ap, val_loss; eager fit {eager_fit_ms:.3f} ms/step steady against eager "
+        f"bench.timed_steps {eager_bench_ms:.3f} (ratio {eager_fit_ms / eager_bench_ms:.3f}); graphed ratio "
+        f"{fit_ms / bench_ms:.3f} ({gpu})")
     say(native_line(gpu))
     return launches
+
+
+def clone_state(state):
+    """A copy of a TrainState whose tensors no step owns."""
+    from torch.utils import _pytree as pytree
+
+    from passt_tpu_torch.train.steps import TrainState
+
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    return TrainState({k: v.clone() for k, v in state.params.items()}, pytree.tree_map(copy, state.opt_state),
+                      state.step)
+
+
+def state_diff(a, b) -> list:
+    """The leaves (params by name, optimizer state by position) and counts
+    in which two TrainStates differ, bit for bit, with the max error."""
+    from torch.utils import _pytree as pytree
+
+    out = [(k, max_err(a.params[k], v)) for k, v in b.params.items() if not torch.equal(a.params[k], v)]
+    la, lb = pytree.tree_leaves(a.opt_state), pytree.tree_leaves(b.opt_state)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            out.append((f"opt_state[{i}] {tuple(x.shape)} {x.dtype}", max_err(x, y)))
+        elif not isinstance(x, torch.Tensor) and x != y:
+            out.append((f"opt_state[{i}] count", abs(x - y)))
+    if a.step != b.step or len(la) != len(lb):
+        out.append(("step", abs(a.step - b.step)))
+    return out
+
+
+def metrics_diff(a: dict, b: dict) -> list:
+    return [(k, max_err(a[k], b[k])) for k in b if not torch.equal(a[k], b[k])] + [(k, None) for k in a if k not in b]
+
+
+def replay_launches(fn, calls: int) -> tuple:
+    """The launch counts (and the attention paths) of ``calls`` calls of
+    ``fn`` that are all graph replays."""
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    A.reset_path_launches()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}, dict(A.FWD_PATH_LAUNCHES), \
+        dict(A.BWD_PATH_LAUNCHES)
+
+
+def in_turns(fns: dict, rounds: int, run) -> dict:
+    """``run(fn)`` for each of ``fns`` in turns, ``rounds`` times; returns
+    name -> the list of its readings."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(run(fn))
+    return out
+
+
+def phase_graphs(gpu: str, dev: torch.device) -> list:
+    """[14] the graphed entry points (the counterpart of jax.jit) against
+    the eager ones at full PaSST-S width: the bf16 train step under the
+    three configs bit-equal over 5 steps from step 0 and 5 steps from a
+    state restored at step 3 (params, both moments, counts, loss, grad
+    norms), its launches over replays exact; the eval step and the
+    Predictor (B = 1, B = 20, timestamp windows) bit-equal; the times, in
+    turns: the step's best of 3 runs of 200 with the spread, its warm-up
+    (eager call, capture) and peak memory, a profile of each (kernel time,
+    kernels and host launch calls a step, idle share), and the Predictor's
+    ms/call and clips/s."""
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.hear import Predictor
+    from passt_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    runs = []
+    for variant, overrides in VARIANTS.items():
+        model, state0, _, batch = bench.setup(dev, jit=False, **overrides)
+        kw = dict(log_grad_norm=True, **bench.STEP_KW)
+        eager = make_train_step(model, bench.optimizer(), bench.MEL_CFG, jit=False, **kw)
+        graphed = make_train_step(model, bench.optimizer(), bench.MEL_CFG, **kw)
+        batches = [dict(batch, wave=torch.roll(batch["wave"], 997 * i, 1)) for i in range(8)]
+        states, metrics = [state0], []
+        for b in batches:  # eager: states 0..8 and the metrics of steps 0..7
+            st, m = eager(states[-1], b, bench.SEED)
+            states.append(st)
+            metrics.append(m)
+        diffs = []
+        g = state0
+        for i in range(5):
+            g, m = graphed(g, batches[i], bench.SEED)
+            diffs += [(f"step {i} {k}", e) for k, e in metrics_diff(m, metrics[i])]
+        diffs += [(f"state 5 {k}", e) for k, e in state_diff(g, states[5])]
+        # the next call replays: count what replays launch
+        launches, paths, bwd_paths = replay_launches(lambda: graphed(clone_state(states[5]), batches[5], bench.SEED), 3)
+        want = {k: 3 * v for k, v in STEP_LAUNCHES[variant].items()}
+        check(launches == want and paths["wgmma"] == bwd_paths["wgmma"] == 36,
+              f"[14] {variant}: replay launches {launches} != {want} ({paths}, {bwd_paths})")
+        runs.append(launches)
+        g = states[3]  # restored: not the graph's tensors
+        for i in range(3, 8):
+            g, m = graphed(g, batches[i], bench.SEED)
+            diffs += [(f"resumed step {i} {k}", e) for k, e in metrics_diff(m, metrics[i])]
+        diffs += [(f"resumed state 8 {k}", e) for k, e in state_diff(g, states[8])]
+        check(not diffs, f"[14] {variant}: graphed step != eager step: {diffs[:8]} ({len(diffs)} differ)")
+        del states, metrics, g, eager, graphed
+
+        # the times, graphed and eager in turns, each from a fresh bench set-up
+        steps = {}
+        for name, jit in (("graph", True), ("eager", False)):
+            st, stp, b, warm_s, peak = bench.warmed(dev, jit, 2, **overrides)
+            steps[name] = dict(state=st, step=stp, batch=b, warm_s=warm_s, peak=peak, runs=[])
+        for _ in range(3):
+            for rec in steps.values():
+                rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], 200, 0)
+                rec["runs"].append(ms)
+        for rec in steps.values():
+            rec["state"], rec["profile"] = bench.profile_steps(rec["step"], rec["state"], rec["batch"], 5)
+        parts = []
+        for name, rec in steps.items():
+            p = rec["profile"]
+            parts.append(
+                f"{name} {', '.join(f'{t:.3f}' for t in rec['runs'])} ms/step (best {min(rec['runs']):.3f}, spread "
+                f"{100 * (max(rec['runs']) - min(rec['runs'])) / min(rec['runs']):.2f}%), first calls "
+                f"{', '.join(f'{t:.2f}' for t in rec['warm_s'])} s, peak memory {rec['peak'] / 2**30:.2f} GiB; profiled: {p['wall_ms_per_step']:.3f} "
+                f"ms/step wall, {p['kernel_ms_per_step']:.3f} of kernels, idle {100 * p['idle_share']:.1f}%, "
+                f"{p['kernel_launches_per_step']:.0f} kernels and host launch calls "
+                f"{ {k: round(v, 1) for k, v in p['host_launch_calls_per_step'].items()} } a step")
+        say(f"[14] bf16 train step B={TRAIN_B} ({variant}): graphed bit-equal to eager over 5 steps from step 0 and 5 "
+            f"from a restored step-3 state (params, mu, nu, counts, loss, grad norms); 3 replays launch "
+            f"{ {k: v // 3 for k, v in launches.items() if v} } a step; runs of 200: " + "; ".join(parts) + f" ({gpu})")
+        del steps
+
+    # the eval step and the Predictor, graphed against eager
+    pred = Predictor.create(arch=ARCH, dtype="bfloat16", device=dev, generator=torch.Generator().manual_seed(0))
+    plain = Predictor(model=pred.model, mel_cfg=pred.mel_cfg, jit=False)
+    rng = np.random.default_rng(14)
+    waves = {b: [torch.from_numpy(rng.standard_normal((b, CLIP)).astype(np.float32) * 0.1).to(dev) for _ in range(3)]
+             for b in (1, 20)}
+    windows = [torch.from_numpy(rng.standard_normal((1, 64000)).astype(np.float32) * 0.1).to(dev) for _ in range(3)]
+    diffs = []
+    for b, ws in waves.items():
+        for i, w in enumerate(ws):  # warm-up, capture, replay
+            diffs += [(f"B={b} call {i} {n}", max_err(x, y)) for n, x, y in
+                      zip(("logits", "features"), pred.logits_and_features(w), plain.logits_and_features(w))
+                      if not torch.equal(x, y)]
+    for i, w in enumerate(windows):
+        diffs += [(f"timestamps call {i} {n}", max_err(x, y)) for n, x, y in
+                  zip(("embeddings", "ms"), pred.timestamp_embeddings(w), plain.timestamp_embeddings(w))
+                  if not torch.equal(x, y)]
+    params = {k: p.detach() for k, p in pred.model.named_parameters()}
+    ev_graph, ev_eager = make_eval_step(pred.model, pred.mel_cfg), make_eval_step(pred.model, pred.mel_cfg, jit=False)
+    for b in (20, 8):  # a full batch and a tail
+        for i in range(3):
+            batch = {"wave": waves[20][i][:b],
+                     "target": torch.from_numpy((rng.uniform(size=(b, 527)) < 0.05).astype(np.float32)).to(dev)}
+            diffs += [(f"eval B={b} call {i} {k}", e) for k, e in metrics_diff(ev_graph(params, batch),
+                                                                               ev_eager(params, batch))]
+    check(not diffs, f"[14] graphed serving != eager: {diffs[:8]}")
+    launches, paths, _ = replay_launches(lambda: (pred(waves[20][0]), pred.timestamp_embeddings(windows[0])), 2)
+    want = want_launches(fused_log_mel=4, fused_attention=24, fused_attention_qkv=24)
+    check(launches == want and paths == dict(fma=0, mma=0, short=24, wgmma=24),
+          f"[14] Predictor replay launches {launches} != {want} ({paths})")
+    runs.append(launches)
+    times = {}
+    for b, reps in ((20, 5), (1, 20)):
+        fns = {"graph": lambda: pred(waves[b][0]), "eager": lambda: plain(waves[b][0])}
+        times[b] = in_turns(fns, 3, lambda fn: cuda_ms(fn, reps=reps, warmup=1))
+    say(f"[14] Predictor bf16 graphed bit-equal to eager at B=1 and B=20 (3 calls each: warm-up, capture, replay), "
+        f"timestamp windows (B=256, N=14) and the eval step at B=20 and a tail of 8; replays launch "
+        f"{ {k: v // 2 for k, v in launches.items() if v} } a (B=20 call + 2-s timestamp call); in turns, ms/call: "
+        + "; ".join(f"B={b} " + ", ".join(f"{name} {', '.join(f'{t:.3f}' for t in ts)} (best {min(ts):.3f} = "
+                                           f"{b * 1000.0 / min(ts):.2f} clips/s)" for name, ts in tt.items())
+                    for b, tt in times.items()) + f" ({gpu})")
+    return runs
 
 
 def main() -> int:
@@ -1873,6 +2097,7 @@ def main() -> int:
     runs += phase_variant_correctness(dev)
     runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev), phase_proto_mlp(gpu, dev)]
     runs.append(phase_fit(gpu, dev))
+    runs += phase_graphs(gpu, dev)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

@@ -18,11 +18,14 @@ Layout
   schedules, the AdamW variants, metrics, SWA and the loop (``evaluate``,
   ``fit``, checkpoints; the attention backward kernel runs under the train
   step)
+- ``passt_tpu_torch.graphs`` : CUDA graphs of the train step, the eval
+  step and the ``Predictor``, the counterpart of ``jax.jit``
 - ``passt_tpu_torch.bench``  : training throughput on the card
   (``python3 -m passt_tpu_torch.bench``)
 
 Entry points put their models on the card unless the caller asks for the
-CPU (``device="cpu"``); ``fit``/``evaluate`` run where the state's tensors
+CPU (``device="cpu"``), and run there as CUDA graphs unless the caller asks
+for ``jit=False``; ``fit``/``evaluate`` run where the state's tensors
 live. Recipes, CLI, DDP and export are queued in ROADMAP.md.
 """
 

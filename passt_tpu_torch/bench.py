@@ -1,6 +1,7 @@
 """Training throughput of the port on one CUDA card.
 
-    python3 -m passt_tpu_torch.bench [--steps 200] [--runs 3] [--warmup 2] [--ln-impl fused | --fuse-ln-qkv]
+    python3 -m passt_tpu_torch.bench [--steps 200] [--runs 3] [--warmup 2] [--eager]
+        [--ln-impl fused | --fuse-ln-qkv] [--profile N]
 
 The workload of the JAX package's root ``bench.py``: PaSST-S (12 x 768, 12
 heads, 527 classes) in bf16 with structured patchout 40/4 (N = 474 tokens),
@@ -9,24 +10,33 @@ train-mode frontend, mixup, BCE, AdamW with bf16 moments and a
 stochastically rounded second moment, and bf16 parameters applied with
 stochastic rounding. Random weights from seed 0; no checkpoint is read.
 
-The steps are timed as the root ``bench.py`` times them: after
-``--warmup`` calls, ``--runs`` runs of ``--steps`` back-to-back calls, each
-run timed with CUDA events (so the time includes whatever the card waits on
-the host), and the best run counts. Prints each run's ms/step and the
-spread (slowest less best, over best) on a line of its own, then one JSON
-line: specs/s and ms/step of the best run, every run's ms/step, the spread,
-``"platform": "cuda"`` and the card's name (``device_kind``). There is no
-TPU baseline to divide by. ``--runs 1 --steps 20`` is the single run of
-20 steps this bench took before.
+The step is the graphed one (``make_train_step(jit=True)``, CUDA graphs
+with the state donated), as the root ``bench.py`` times the jitted step;
+``--eager`` also times the eager step (``jit=False``, its own state from
+the same seed), run for run in turns with the graphed one. The steps are
+timed as the root ``bench.py`` times them: after ``--warmup`` calls (the
+graphed step's first call runs eagerly, its second captures the graph; the
+seconds they take are reported, and the device memory the step's set-up
+and warm-up peaked at), ``--runs`` runs
+of ``--steps`` back-to-back calls, each run timed with CUDA events (so the
+time includes whatever the card waits on the host), and the best run
+counts. Prints each run's ms/step and the spread (slowest less best, over
+best) on a line of its own, then one JSON line: specs/s and ms/step of the
+best run, every run's ms/step, the spread, the eager step's (with
+``--eager``), ``"platform": "cuda"`` and the card's name
+(``device_kind``). There is no TPU baseline to divide by. ``--runs 1
+--steps 20`` is the single run of 20 steps this bench took before.
 
 ``--ln-impl fused`` and ``--fuse-ln-qkv`` are the JAX config's own switches
 (``PaSSTConfig.ln_impl`` / ``fuse_ln_qkv``): the same step with the
 LayerNorm-backward kernel in every norm, or with norm1 fused into the qkv
 projection and attention (the F1 and B2 kernels). The JSON line names them.
 
-``--profile N`` runs N more steps under ``torch.profiler`` and prints, before
-the JSON line, where their device time goes: per kernel group and per
-kernel, and the share of the wall time the card sat idle.
+``--profile N`` runs N more steps (of each step timed) under
+``torch.profiler`` and prints, before the JSON line, where their device
+time goes: per kernel group and per kernel, the kernels run and the host's
+launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...) per step, and
+the share of the wall time the card sat idle.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -48,21 +59,51 @@ CLIP = 320000  # 10 s at 32 kHz
 SEED = 42  # the runs' base seed for the per-step draws
 
 
-def setup(device="cuda", **model_overrides):
+#: the bench step's frontend and step options (``make_train_step``)
+MEL_CFG = MelConfig(fmin_aug_range=10, fmax_aug_range=2000)
+STEP_KW = dict(loss_type="multilabel", use_mixup=True, param_sr=True)
+
+
+def optimizer():
+    """AdamW with bf16 moments and a stochastically rounded second moment."""
+    return make_optimizer(lr=2e-5, steps_per_epoch=1000, moments_dtype="bfloat16_sr")
+
+
+def setup(device="cuda", jit: bool = True, **model_overrides):
     """The bench configuration, with ``model_overrides`` on its
-    :class:`PaSSTConfig`: returns (model, state, step, batch)."""
+    :class:`PaSSTConfig`, the step graphed (``jit``) or eager: returns
+    (model, state, step, batch)."""
     cfg = PaSSTConfig(**dict(dict(dtype="bfloat16", s_patchout_t=40, s_patchout_f=4), **model_overrides))
-    mel_cfg = MelConfig(fmin_aug_range=10, fmax_aug_range=2000)
-    tx = make_optimizer(lr=2e-5, steps_per_epoch=1000, moments_dtype="bfloat16_sr")
+    tx = optimizer()
     model, state = create_train_state(cfg, tx, torch.Generator().manual_seed(0),
                                       param_dtype="bfloat16_sr", device=device)
-    step = make_train_step(model, tx, mel_cfg, loss_type="multilabel", use_mixup=True, param_sr=True)
+    step = make_train_step(model, tx, MEL_CFG, jit=jit, **STEP_KW)
     rng = np.random.default_rng(0)
     batch = {
         "wave": torch.from_numpy(rng.standard_normal((BATCH, CLIP)).astype(np.float32)).to(device),
         "target": torch.from_numpy((rng.uniform(size=(BATCH, 527)) < 0.05).astype(np.float32)).to(device),
     }
     return model, state, step, batch
+
+
+def warmed(device, jit: bool, warmup: int, **model_overrides):
+    """:func:`setup`, then ``warmup`` steps (the graphed step's first call
+    runs eagerly, its second captures the graph and replays it): returns
+    (state, step, batch, each warm-up call's seconds, the device memory the
+    set-up and warm-up peaked at above what was allocated before, in
+    bytes)."""
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, state, step, batch = setup(device, jit=jit, **model_overrides)
+    seconds = []
+    for _ in range(warmup):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, SEED)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return state, step, batch, seconds, torch.cuda.max_memory_allocated(device) - before
 
 
 def timed_steps(step, state: TrainState, batch: Dict[str, torch.Tensor], steps: int,
@@ -113,20 +154,27 @@ GROUPS = (
 )
 
 
+#: the host's calls that put work on the card (`cuda*` and `cu*` launch entry points)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchKernelEx|LaunchKernelExC|LaunchCooperativeKernel|GraphLaunch)")
+
+
 def profile_steps(step, state, batch, steps: int):
     """Run ``steps`` train steps under ``torch.profiler``; returns the state
     and a report: kernel device time per group and per kernel (ms per step),
-    the wall time per step and the card's idle share of it."""
+    the kernels run and the host's launch calls per step, the wall time per
+    step and the card's idle share of it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, ms, _ = timed_steps(step, state, batch, steps, 0)
-    kernels = {}
+    kernels, host_calls = {}, {}
     for event in prof.events():
         if event.device_type == torch.autograd.DeviceType.CUDA:
             kernels.setdefault(event.name, [0.0, 0])
             kernels[event.name][0] += event.time_range.elapsed_us() / 1000.0 / steps
             kernels[event.name][1] += 1
+        elif HOST_LAUNCH.match(event.name):
+            host_calls[event.name] = host_calls.get(event.name, 0) + 1
     groups = {}
     for name, (t, _) in kernels.items():
         group = next((g for g, pat in GROUPS if re.search(pat, name, re.I)), "other")
@@ -138,6 +186,7 @@ def profile_steps(step, state, batch, steps: int):
         "kernel_ms_per_step": busy,
         "idle_share": 1.0 - busy / ms,
         "kernel_launches_per_step": sum(n for _, n in kernels.values()) / steps,
+        "host_launch_calls_per_step": {k: v / steps for k, v in sorted(host_calls.items())},
         "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels": [(name[:120], t, n // steps) for name, (t, n) in top],
     }
@@ -148,6 +197,8 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=200, help="steps in each timed run")
     parser.add_argument("--runs", type=int, default=3, help="timed runs; the best counts")
     parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--eager", action="store_true",
+                        help="also time the eager step, run for run in turns with the graphed one")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="profile N more steps and print where their device time goes")
     parser.add_argument("--ln-impl", choices=("auto", "fused"), default="auto",
@@ -158,38 +209,52 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("passt_tpu_torch.bench: no CUDA device; the bench runs on the card only")
     overrides = dict(ln_impl=args.ln_impl, fuse_ln_qkv=args.fuse_ln_qkv)
-    _, state, step, batch = setup("cuda", **overrides)
-    for _ in range(args.warmup):
-        state, _ = step(state, batch, SEED)
-    losses = []
+    steps = {}  # name -> [state, step]
+    first_s, peak = {}, {}
+    for name, jit in (("graph", True),) + ((("eager", False),) if args.eager else ()):
+        state, step, batch, first_s[name], peak[name] = warmed(torch.device("cuda"), jit, args.warmup, **overrides)
+        steps[name] = [state, step]
+    times = {name: [] for name in steps}
+    losses = {name: [] for name in steps}
 
     def one_run() -> float:
-        nonlocal state
-        state, run_ms, run_loss = timed_steps(step, state, batch, args.steps, 0)
-        losses.append(run_loss)
-        return run_ms
+        for name, pair in steps.items():
+            pair[0], run_ms, run_loss = timed_steps(pair[1], pair[0], batch, args.steps, 0)
+            times[name].append(run_ms)
+            losses[name].append(run_loss)
+        return times["graph"][-1]
 
-    ms, times = best_of_runs(one_run, args.runs)
-    loss = losses[times.index(ms)]
-    print(f"runs of {args.steps} steps, ms/step: {', '.join(f'{t:.3f}' for t in times)}; best {ms:.3f}, "
-          f"spread {100.0 * spread(times):.2f}% ({torch.cuda.get_device_name(0)})")
+    ms, _ = best_of_runs(one_run, args.runs)
+    for name, t in times.items():
+        print(f"{name} step, runs of {args.steps} steps, ms/step: {', '.join(f'{x:.3f}' for x in t)}; best "
+              f"{min(t):.3f}, spread {100.0 * spread(t):.2f}% ({torch.cuda.get_device_name(0)})")
     if args.profile:
-        state, report = profile_steps(step, state, batch, args.profile)
-        print(json.dumps({"profile": report}, indent=1))
-    print(json.dumps({
+        for name, pair in steps.items():
+            pair[0], report = profile_steps(pair[1], pair[0], batch, args.profile)
+            print(json.dumps({"profile": dict(step=name, **report)}, indent=1))
+    graph_times = times["graph"]
+    record = {
         "metric": "train_throughput_b12_fwd_bwd_adamw_incl_mel",
         "value": BATCH * 1000.0 / ms,
         "unit": "specs/second",
         "ms_per_step": ms,
-        "ms_per_step_runs": times,
-        "spread": spread(times),
-        "loss": float(loss),
+        "ms_per_step_runs": graph_times,
+        "spread": spread(graph_times),
+        "loss": float(losses["graph"][graph_times.index(ms)]),
+        "step": "graph",
+        "warmup_s": first_s["graph"],
+        "peak_memory_bytes": peak["graph"],
         "steps": args.steps,
         "runs": args.runs,
         "model_overrides": overrides,
         "platform": "cuda",
         "device_kind": torch.cuda.get_device_name(0),
-    }))
+    }
+    if args.eager:
+        record.update(eager_ms_per_step=min(times["eager"]), eager_ms_per_step_runs=times["eager"],
+                      eager_spread=spread(times["eager"]), eager_warmup_s=first_s["eager"],
+                      eager_peak_memory_bytes=peak["eager"])
+    print(json.dumps(record))
     return 0
 
 

@@ -4,7 +4,9 @@
 A :class:`Predictor` bundles the frontend config and the model behind one
 waveform -> (logits, features) function, run under ``torch.inference_mode``.
 On a CUDA device that function goes through the Hopper mel kernel and the
-Hopper attention kernel. The HEAR entry points ``load_model``,
+Hopper attention kernel, and runs as CUDA graphs, one per input shape (the
+JAX package's jitted ``Predictor``; ``jit=False`` runs it eagerly, and so
+does a CPU model). The HEAR entry points ``load_model``,
 ``get_scene_embeddings`` and ``get_timestamp_embeddings`` follow hear21passt.
 """
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from passt_tpu_torch import graphs
 from passt_tpu_torch.models.passt import PaSST
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
 
@@ -61,6 +64,10 @@ class Predictor:
     #: windows per forward in timestamp_embeddings; the tail chunk is
     #: padded to this size, so every clip length runs one shape
     timestamp_chunk: int = 256
+    #: CUDA graphs of the inference function on a CUDA device (one per input
+    #: shape: B = 1, B = 20 and the timestamp chunk each get one); the
+    #: outputs are copies the next call leaves alone
+    jit: bool = True
     _apply: Optional[Callable] = dataclasses.field(default=None, repr=False)
 
     @classmethod
@@ -73,6 +80,7 @@ class Predictor:
         mode: str = "all",
         device="cuda",
         generator: Optional[torch.Generator] = None,
+        jit: bool = True,
         **overrides,
     ) -> "Predictor":
         """Build the model on ``device`` (the card by default; without a
@@ -94,7 +102,7 @@ class Predictor:
             dtype=dtype,
             **overrides,
         )
-        return cls(model=model, mel_cfg=mel_cfg, mode=mode)
+        return cls(model=model, mel_cfg=mel_cfg, mode=mode, jit=jit)
 
     @property
     def device(self) -> torch.device:
@@ -102,8 +110,18 @@ class Predictor:
 
     def _fn(self) -> Callable:
         if self._apply is None:
-            self._apply = make_inference_fn(self.model, self.mel_cfg, self.model.cfg.input_tdim)
+            infer = make_inference_fn(self.model, self.mel_cfg, self.model.cfg.input_tdim)
+            if self.jit:
+                # the model's tensors are read in place: passed so that the
+                # cache keys its graphs on them
+                cache = graphs.GraphCache(lambda wave, _tensors: infer(wave))
+                self._apply = lambda wave: cache(wave, graphs.InPlace(self._model_tensors()))[0]
+            else:
+                self._apply = infer
         return self._apply
+
+    def _model_tensors(self) -> list:
+        return [*self.model.parameters(), *self.model.buffers()]
 
     def _wave(self, wave) -> torch.Tensor:
         return torch.as_tensor(wave, dtype=torch.float32, device=self.device)

@@ -14,7 +14,12 @@ runs, and a later synchronize would not report it).
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper: the wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show which
-kernels its main path went through.
+kernels its main path went through. A wrapper runs on the host, so a CUDA
+graph's replay calls none: ``passt_tpu_torch.graphs`` takes the counts that
+capturing a graph added (:func:`launch_counts` before and after), puts them
+back, and adds them once per replay (:func:`add_launches`), so a count is
+of kernels run. The attention and int8 wrappers' per-path counts are
+registered here (:data:`COUNTERS`) and follow the same rule.
 """
 
 from __future__ import annotations
@@ -46,10 +51,40 @@ NVCC_FLAGS = (
 #: wrapper name -> kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {}
 
+#: every launch counter by name: ``LAUNCHES`` and the per-path counts the
+#: wrapper modules register when imported
+COUNTERS: Dict[str, Dict[str, int]] = {"launches": LAUNCHES}
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, Dict[str, int]]:
+    """A snapshot of every counter of :data:`COUNTERS`."""
+    return {name: dict(counts) for name, counts in COUNTERS.items()}
+
+
+def launch_delta(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """What the counters added since the snapshot ``before``: non-zero
+    entries only."""
+    delta = {}
+    for name, counts in COUNTERS.items():
+        old = before.get(name, {})
+        moved = {k: v - old.get(k, 0) for k, v in counts.items() if v != old.get(k, 0)}
+        if moved:
+            delta[name] = moved
+    return delta
+
+
+def add_launches(delta: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    """Add ``delta`` (from :func:`launch_delta`) ``times`` times; ``times=-1``
+    takes it back."""
+    for name, moved in delta.items():
+        counts = COUNTERS[name]
+        for k, v in moved.items():
+            counts[k] = counts.get(k, 0) + v * times
 
 
 def _nvcc() -> str:

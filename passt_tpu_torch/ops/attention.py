@@ -75,6 +75,7 @@ FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3}
 #: backward launches per path since the last :func:`reset_path_launches`
 BWD_PATH_LAUNCHES = dict.fromkeys(BWD_PATHS, 0)
+_build.COUNTERS.update(attention_fwd_paths=FWD_PATH_LAUNCHES, attention_bwd_paths=BWD_PATH_LAUNCHES)
 
 
 def reset_path_launches() -> None:

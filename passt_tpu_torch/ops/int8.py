@@ -62,6 +62,7 @@ MAX_K_INT8 = (2**31 - 1) // (128 * 128)
 PATHS = ("wgmma", "mma")
 #: launches of each main loop since the last :func:`reset_path_launches`
 PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
+_build.COUNTERS["int8_paths"] = PATH_LAUNCHES
 #: the wgmma loop's compiled output tiles (rows, columns), by the index its C
 #: entry takes (``launch_tile`` in ``csrc/int8_gemm.cu``)
 TILES = ((128, 128), (128, 192), (128, 256))

@@ -83,5 +83,9 @@ def kernel_times(fn, reps: int = 10) -> dict:
 def kernel_ms(fn, reps: int = 10) -> float:
     """The summed device time of the CUDA kernels ``fn`` launches, per call
     (:func:`kernel_times`): the gaps between kernels drop out. For calls
-    that a CUDA graph cannot capture (an autograd backward)."""
+    that a CUDA graph cannot capture: the autograd backward of a forward run
+    outside the capture, whose ops run on the forward's stream (a backward
+    is captured only together with its forward, as the train step is), and
+    SDPA's forward and backward in chip_smoke's phase 3b, whose capture
+    fails there with ``cudaErrorStreamCaptureImplicit``."""
     return sum(kernel_times(fn, reps).values())

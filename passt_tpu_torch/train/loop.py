@@ -7,7 +7,14 @@ Covers (reference file:line):
   ``reload_dataloaders_every_epoch=True``, ex_audioset.py:75),
 - train steps queued on the card with no per-step synchronisation: the loss
   is read (``float``) only every ``log_every_steps`` and at the epoch's
-  end, and the step count is mirrored on the host,
+  end, and the step count is mirrored on the host; with the steps of
+  ``make_train_step`` / ``make_eval_step`` at their default (``jit=True``)
+  each step and eval batch is one CUDA graph replay, whose metrics and
+  outputs are copies the next replay leaves alone (``pending_loss``, the
+  grad norms and ``evaluate``'s ``outs`` hold them across steps), and
+  whose returned state holds the train graph's own tensors (donated: the
+  next step overwrites them, and the state is copied into them when it is
+  not theirs, as at a resume),
 - validation with per-class AP / ROC-AUC and 'allap' (ex_audioset.py:245-291),
 - SWA running average on epoch boundaries + separate eval of the averaged
   weights (helpers/swa_callback.py; ex_audioset.py:231-243),

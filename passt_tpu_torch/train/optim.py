@@ -1,11 +1,19 @@
 """AdamW for the train step (port of passt_tpu/train/optim.py, plus the
 optax ``adamw``/``adam`` the JAX package uses for fp32 moments).
 
-An optimizer is a pair of functions, as in optax: ``init(params) -> state``
-and ``update(grads, state, params) -> (updates, state)``. Parameters,
+An optimizer is a triple of functions: optax's ``init(params) -> state``
+and ``update(grads, state, params, inputs=None) -> (updates, state)``, and
+``plan(state) -> UpdatePlan``, which runs on the host alone. Parameters,
 gradients, updates and moments are dicts of tensors keyed by parameter
-name; the step count is a Python int, so the learning rate and the bias
-corrections are host scalars and nothing waits on the card.
+name; the counts in the state are Python ints, so nothing waits on the
+card. The plan says what the next update needs from the host: the branch it
+takes, its scalars (the learning rate and the bias corrections, Welford's
+divisor) in float32, the seeds of its generators, and the state's counts
+after it. ``inputs`` carries them into ``update``: the scalars as 0-d fp32
+tensors on the device and the generators seeded, so a CUDA graph of the
+update reads them where they lie and its replays follow the host
+(``train/steps.py``); ``inputs=None`` makes them from the plan, the scalars
+as host floats (the same bits).
 
 - :func:`adamw`: optax's AdamW (``mu_dtype`` stores the first moment in
   that dtype, the second stays in the parameters' init dtype).
@@ -36,9 +44,31 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
+class UpdatePlan(NamedTuple):
+    """What an update needs from the host, from the state alone."""
+
+    branch: tuple  # host values the update branches on (a graph cache keys on them)
+    scalars: Dict[str, float]  # the update's scalars, each a float32 value
+    seeds: Dict[str, tuple]  # generator name -> the parts of its seed (:func:`fold_seed`)
+    after: object  # the state's counts after the update (its tensors are the input's)
+
+
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    plan: Callable
+
+
+def host_inputs(plan: UpdatePlan, device) -> Dict[str, object]:
+    """The ``inputs`` of an update from its plan: the scalars as host floats
+    and a new generator per seed, on ``device``."""
+    inputs: Dict[str, object] = dict(plan.scalars)
+    inputs.update({name: seeded_generator(device, *parts) for name, parts in plan.seeds.items()})
+    return inputs
+
+
+def _device_of(params: Params) -> torch.device:
+    return next(iter(params.values())).device
 
 
 class AdamState(NamedTuple):
@@ -118,13 +148,19 @@ def _schedule(learning_rate) -> Callable[[int], float]:
     return lambda _: float(np.float32(learning_rate))
 
 
+def _scalars(**values) -> Dict[str, float]:
+    """Each value rounded to float32, as a host float."""
+    return {k: float(np.float32(v)) for k, v in values.items()}
+
+
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (on the host)."""
     return float(torch.tensor(value, dtype=dtype))
 
 
 def _adam_direction(grads, mu, nu, params, *, b1, b2, eps, weight_decay, c1, c2, lr, optax_order):
-    """The fp32 AdamW update and moments over leaf lists:
+    """The fp32 AdamW update and moments over leaf lists (``c1``, ``c2`` and
+    ``lr`` host floats or 0-d fp32 tensors: the same bits):
     ``m = b1 mu + (1 - b1) g``, ``v = b2 nu + (1 - b2) g^2``,
     ``u = -lr ((m / c1) / (sqrt(v / c2) + eps) + wd p)``. ``optax_order``
     rounds as optax does: ``b1 mu`` and ``b2 nu`` in the moments' storage
@@ -174,21 +210,26 @@ def adamw(
             nu={k: torch.zeros_like(p) for k, p in params.items()},
         )
 
-    def update(grads: Params, state: AdamState, params: Params):
-        keys = list(params)
+    def plan(state: AdamState) -> UpdatePlan:
         count = state.count + 1
-        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+        c1 = np.float32(1.0) - np.float32(b1) ** np.float32(count)
+        c2 = np.float32(1.0) - np.float32(b2) ** np.float32(count)
+        return UpdatePlan((), _scalars(lr=sched(state.count), c1=c1, c2=c2), {}, state._replace(count=count))
+
+    def update(grads: Params, state: AdamState, params: Params, inputs=None):
+        keys = list(params)
+        if inputs is None:
+            inputs = host_inputs(plan(state), _device_of(params))
         upd, m, v = _adam_direction(
             [grads[k] for k in keys], [state.mu[k] for k in keys], [state.nu[k] for k in keys],
             [params[k] for k in keys], b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-            c1=c1, c2=c2, lr=sched(state.count), optax_order=True,
+            c1=inputs["c1"], c2=inputs["c2"], lr=inputs["lr"], optax_order=True,
         )
         mu = {k: t.to(mu_dtype or state.mu[k].dtype) for k, t in zip(keys, m)}
         nu = {k: t.to(state.nu[k].dtype) for k, t in zip(keys, v)}
-        return dict(zip(keys, upd)), AdamState(count=count, mu=mu, nu=nu)
+        return dict(zip(keys, upd)), AdamState(count=state.count + 1, mu=mu, nu=nu)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, plan)
 
 
 def adamw_bf16sr(
@@ -209,26 +250,29 @@ def adamw_bf16sr(
         zeros = {k: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device) for k, p in params.items()}
         return AdamState(count=0, mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
 
-    def update(grads: Params, state: AdamState, params: Params):
-        keys = list(params)
+    def plan(state: AdamState) -> UpdatePlan:
         count = state.count + 1
         t = np.float32(count)
-        c1 = float(np.float32(1.0) - np.exp(t * np.log(np.float32(b1))))
-        c2 = float(np.float32(1.0) - np.exp(t * np.log(np.float32(b2))))
+        c1 = np.float32(1.0) - np.exp(t * np.log(np.float32(b1)))
+        c2 = np.float32(1.0) - np.exp(t * np.log(np.float32(b2)))
+        seeds = {"nu": ("adamw_bf16sr.nu", count)} if sr_nu else {}
+        return UpdatePlan((), _scalars(lr=sched(state.count), c1=c1, c2=c2), seeds, state._replace(count=count))
+
+    def update(grads: Params, state: AdamState, params: Params, inputs=None):
+        keys = list(params)
+        if inputs is None:
+            inputs = host_inputs(plan(state), _device_of(params))
         upd, m, v = _adam_direction(
             [grads[k] for k in keys], [state.mu[k] for k in keys], [state.nu[k] for k in keys],
             [params[k] for k in keys], b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-            c1=c1, c2=c2, lr=sched(state.count), optax_order=False,
+            c1=inputs["c1"], c2=inputs["c2"], lr=inputs["lr"], optax_order=False,
         )
         mu = [x.to(torch.bfloat16) for x in m]
-        if sr_nu:
-            device = next(iter(params.values())).device
-            nu = _stochastic_round_many(v, seeded_generator(device, "adamw_bf16sr.nu", count))
-        else:
-            nu = [x.to(torch.bfloat16) for x in v]
-        return dict(zip(keys, upd)), AdamState(count=count, mu=dict(zip(keys, mu)), nu=dict(zip(keys, nu)))
+        nu = _stochastic_round_many(v, inputs["nu"]) if sr_nu else [x.to(torch.bfloat16) for x in v]
+        return dict(zip(keys, upd)), AdamState(count=state.count + 1, mu=dict(zip(keys, mu)),
+                                               nu=dict(zip(keys, nu)))
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, plan)
 
 
 class MultiStepsState(NamedTuple):
@@ -246,7 +290,11 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
     The other micro-steps return zero updates and leave the inner state as
     it was. The accumulator starts in the dtype of the parameters given to
     ``init`` (fp32: the optimizer is initialised before the storage cast)
-    and continues in the inner update's dtype after each update."""
+    and continues in the inner update's dtype after each update.
+
+    The branch (accumulate or update) is taken on the host, from the
+    state's ``mini_step``: a graph of the step is captured once per branch.
+    The divisor ``n + 1`` is the scalar ``"div"``."""
 
     def init(params: Params) -> MultiStepsState:
         return MultiStepsState(
@@ -254,15 +302,26 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
             acc_grads={k: torch.zeros_like(p) for k, p in params.items()},
         )
 
-    def update(grads: Params, state: MultiStepsState, params: Params):
+    def plan(state: MultiStepsState) -> UpdatePlan:
+        div = _scalars(div=state.mini_step + 1)
+        if state.mini_step == every_k - 1:
+            p = inner.plan(state.inner_opt_state)
+            after = MultiStepsState(0, state.gradient_step + 1, p.after, state.acc_grads)
+            return UpdatePlan(("update",) + p.branch, dict(div, **p.scalars), p.seeds, after)
+        after = state._replace(mini_step=state.mini_step + 1)
+        return UpdatePlan(("accumulate",), div, {}, after)
+
+    def update(grads: Params, state: MultiStepsState, params: Params, inputs=None):
+        if inputs is None:
+            inputs = host_inputs(plan(state), _device_of(params))
         keys = list(state.acc_grads)
         acc = [state.acc_grads[k] for k in keys]
         g = [grads[k].to(torch.promote_types(grads[k].dtype, a.dtype)) for k, a in zip(keys, acc)]
         delta = torch._foreach_sub(g, acc)
-        torch._foreach_div_(delta, float(state.mini_step + 1))
+        torch._foreach_div_(delta, inputs["div"])
         acc = dict(zip(keys, torch._foreach_add(acc, delta)))
         if state.mini_step == every_k - 1:
-            updates, inner_state = inner.update(acc, state.inner_opt_state, params)
+            updates, inner_state = inner.update(acc, state.inner_opt_state, params, inputs)
             zeros = {k: torch.zeros_like(u) for k, u in updates.items()}
             return updates, MultiStepsState(0, state.gradient_step + 1, inner_state, zeros)
         # optax returns emit * (the inner update): zeros in the update's dtype,
@@ -270,7 +329,7 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
         updates = {k: torch.zeros_like(a, dtype=torch.float32) for k, a in acc.items()}
         return updates, MultiStepsState(state.mini_step + 1, state.gradient_step, state.inner_opt_state, acc)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, plan)
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -2,14 +2,18 @@
 train-mode log-mel -> mixup -> PaSST in train mode -> loss -> backward ->
 AdamW -> parameter apply.
 
-The JAX package jits this as one graph; here it runs eagerly, with the same
-order of operations, and on a CUDA device it goes through the Hopper mel
-kernel and the attention forward and backward kernels. Nothing in the step
-waits on the host: the step count is a Python int, the learning rate and
-bias corrections are host scalars, and every random draw comes from a
-``torch.Generator`` on the batch's device, seeded on the host from
-``(seed, step, stream)`` by :func:`step_generators` (the stand-in for the
-JAX package's ``step_keys``), so resuming at step k reproduces the draws.
+The JAX package jits this as one graph (with the state donated); here one
+body, in the same order of operations, runs as CUDA graphs on a CUDA device
+(``passt_tpu_torch.graphs``, ``jit=True``, the default) or eagerly
+(``jit=False``, or on the CPU), and on the card it goes through the Hopper
+mel kernel and the attention forward and backward kernels. Nothing in the
+step waits on the host: the step count is a Python int, and what the body
+reads from the host (:class:`StepInputs`) is set before each call: the
+optimizer's learning rate, bias corrections and divisor as 0-d fp32 tensors
+on the device, and one persistent ``torch.Generator`` per random stream,
+reseeded from ``(seed, step, stream)`` (the stand-in for the JAX package's
+``step_keys``; :func:`step_generators` makes the same generators anew), so
+resuming at step k reproduces the draws.
 
 Parameters live in :class:`TrainState` as a dict of tensors keyed by the
 module's parameter names; the step runs the module on them with
@@ -23,7 +27,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
+from torch.utils import _pytree as pytree
 
+from passt_tpu_torch import graphs
 from passt_tpu_torch.models.passt import PaSST, PaSSTConfig, init_weights
 from passt_tpu_torch.models.registry import resolve_device
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
@@ -35,6 +41,7 @@ from passt_tpu_torch.train.optim import (
     apply_updates,
     apply_updates_sr,
     cast_params_storage,
+    fold_seed,
     seeded_generator,
 )
 from passt_tpu_torch.train.schedules import get_scheduler_lambda, make_lr_schedule
@@ -128,8 +135,41 @@ def create_train_state(
 
 def step_generators(seed: int, step: int, device) -> Dict[str, torch.Generator]:
     """The generators of one train step, one per stream of :data:`STREAMS`,
-    seeded from ``(seed, step, stream)`` on the host."""
-    return {name: seeded_generator(device, "step", seed, step, name) for name in STREAMS}
+    seeded from ``(seed, step, stream)`` on the host: new ones, with the
+    seeds the step's own generators take at that step."""
+    return {name: seeded_generator(device, *parts) for name, parts in _stream_seeds(seed, step).items()}
+
+
+def _stream_seeds(seed: int, step: int) -> Dict[str, tuple]:
+    return {name: ("step", seed, step, name) for name in STREAMS}
+
+
+class StepInputs:
+    """What a step reads besides its state and batch, on the step's device:
+    the optimizer's per-update scalars as 0-d fp32 tensors and one
+    persistent generator per random stream. :meth:`refresh` sets them on
+    the host before each call, so an eager call and a graph replay read the
+    same values; a step's draws stay a function of ``(seed, step, stream)``.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.scalars: Dict[str, torch.Tensor] = {}
+        self.generators: Dict[str, torch.Generator] = {}
+
+    def refresh(self, scalars: Dict[str, float], seeds: Dict[str, tuple]) -> None:
+        for name, value in scalars.items():
+            if name not in self.scalars:
+                self.scalars[name] = torch.zeros((), dtype=torch.float32, device=self.device)
+            self.scalars[name].fill_(value)
+        for name, parts in seeds.items():
+            if name not in self.generators:
+                self.generators[name] = torch.Generator(device=self.device)
+            self.generators[name].manual_seed(fold_seed(*parts))
+
+    def optimizer(self) -> Dict[str, object]:
+        """The ``inputs`` of the optimizer's update."""
+        return {**self.scalars, **self.generators}
 
 
 LOSS_FNS: Dict[str, Callable] = {
@@ -162,26 +202,40 @@ def make_train_step(
     log_grad_norm: bool = False,
     log_grad_norm_per_block: bool = False,
     param_sr: bool = False,
+    donate: bool = True,
+    jit: bool = True,
 ):
     """Build the train step ``step(state, batch, seed) -> (state, metrics)``.
 
     ``batch`` holds ``wave`` [B, T] float32 (or ``mel`` [B, 1, F, T], which
     skips the frontend) and ``target`` ([B, C] multilabel/masked, [B] int for
     single-label), on the model's device. ``seed`` is the run's base seed
-    (an int); the step's draws come from :func:`step_generators` at
-    ``state.step``. ``input_tdim`` crops the mel frames (the model's
-    ``input_tdim`` when None). Every metric stays on the device:
-    ``metrics["loss"]``, and with ``log_grad_norm`` the gradients' global
-    norm ``grad_norm``, with ``log_grad_norm_per_block`` one
-    ``grad_norm/<group>`` per top-level parameter group of the JAX package
-    (``patch_embed``, ``blocks_0``, ..., ``head_linear``).
+    (an int); the step's draws come from its generators seeded from
+    ``(seed, state.step, stream)`` (:func:`step_generators` makes the same).
+    ``input_tdim`` crops the mel frames (the model's ``input_tdim`` when
+    None). Every metric stays on the device: ``metrics["loss"]``, and with
+    ``log_grad_norm`` the gradients' global norm ``grad_norm``, with
+    ``log_grad_norm_per_block`` one ``grad_norm/<group>`` per top-level
+    parameter group of the JAX package (``patch_embed``, ``blocks_0``, ...,
+    ``head_linear``).
+
+    ``jit`` (the JAX step's switch): on a CUDA device the step runs as CUDA
+    graphs (``passt_tpu_torch.graphs``), one per batch signature and
+    optimizer branch; ``jit=False``, or a CPU batch, runs it eagerly. Both
+    run one body. ``donate`` (the JAX step's ``donate_argnums=(0,)``): the
+    graph writes the new parameters and optimizer state into its own state
+    tensors, and the returned state holds them, so the step's next call
+    overwrites them, as a donated buffer is consumed. A state whose tensors
+    are not the graph's (fresh, restored, averaged) is copied in first.
+    ``donate=False`` returns copies and leaves every state as it was.
     """
     loss_fn = LOSS_FNS[loss_type]
     tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
+    def body(params, opt_state, batch: Dict[str, torch.Tensor], inputs: StepInputs):
+        """One step on tensors: (params, opt_state, metrics)."""
+        gens = inputs.generators
         y = batch["target"]
-        gens = step_generators(seed, state.step, y.device)
         if "mel" in batch:
             x = batch["mel"]
         else:
@@ -193,7 +247,7 @@ def make_train_step(
             perm, lam = sample_mixup(gens["mix"], x.shape[0], mixup_alpha)
             x = apply_mixup(x, perm, lam)
 
-        leaves = {k: p.detach().requires_grad_() for k, p in state.params.items()}
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         logits, _ = functional_call(
             model, leaves, (x,),
             dict(train=True, generators={k: gens[k] for k in ("patchout", "dropout", "droppath")}),
@@ -202,14 +256,13 @@ def make_train_step(
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
         grads = dict(zip(leaves, grads))
 
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        updates, opt_state = tx.update(grads, opt_state, params, inputs.optimizer())
         if param_sr:
             # bf16 storage: fp32 add, stochastically rounded store, from a
             # stream apart from the augmentation's and the optimizer's
-            gen = seeded_generator(y.device, "apply_updates_sr", state.step)
-            params = apply_updates_sr(state.params, updates, gen)
+            params = apply_updates_sr(params, updates, gens["apply_updates_sr"])
         else:
-            params = apply_updates(state.params, updates)
+            params = apply_updates(params, updates)
         metrics = {"loss": loss.detach()}
         if log_grad_norm:
             metrics["grad_norm"] = optim.global_norm(grads.values())
@@ -219,9 +272,74 @@ def make_train_step(
                 groups.setdefault(_param_group(k), []).append(g)
             for group, gs in groups.items():
                 metrics[f"grad_norm/{group}"] = optim.global_norm(gs)
-        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
+        return params, opt_state, metrics
+
+    runners: Dict[torch.device, _TrainRunner] = {}
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
+        device = batch["target"].device
+        if device not in runners:
+            runners[device] = _TrainRunner(body, tx, device, graphed=jit, donate=donate)
+        seeds = _stream_seeds(seed, state.step)
+        if param_sr:
+            seeds["apply_updates_sr"] = ("apply_updates_sr", state.step)
+        return runners[device](state, batch, seeds)
 
     return step
+
+
+def _with_tensors(tree, tensors):
+    """``tree`` with its tensor leaves replaced, in order, by ``tensors``."""
+    leaves, spec = pytree.tree_flatten(tree)
+    it = iter(tensors)
+    return pytree.tree_unflatten([next(it) if isinstance(x, torch.Tensor) else x for x in leaves], spec)
+
+
+class _TrainRunner:
+    """Runs the step body on one device, eagerly or as CUDA graphs (a
+    :class:`~passt_tpu_torch.graphs.GraphCache` keyed on the batch
+    signature and the optimizer's branch)."""
+
+    def __init__(self, body, tx: GradientTransformation, device: torch.device, graphed: bool, donate: bool):
+        self.body, self.tx, self.donate = body, tx, donate
+        self.inputs = StepInputs(device)
+        self.cache = None
+        if graphed and graphs.graph_type(device) is not None:
+            self.cache = graphs.GraphCache(self._graphed_body, generators=self.inputs.generators)
+        self._opt_state = None  # the optimizer state of the call being run (its counts)
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], seeds: Dict[str, tuple]):
+        plan = self.tx.plan(state.opt_state)
+        self.inputs.refresh(plan.scalars, dict(seeds, **plan.seeds))
+        if self.cache is None:
+            params, opt_state, metrics = self.body(state.params, state.opt_state, batch, self.inputs)
+            return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
+        self._opt_state = state.opt_state
+        opt_tensors = [x for x in pytree.tree_leaves(state.opt_state) if isinstance(x, torch.Tensor)]
+        metrics, (params, opt_tensors, _) = self.cache(state.params, opt_tensors, batch, key=plan.branch)
+        if not self.donate:
+            params = {k: p.clone() for k, p in params.items()}
+            opt_tensors = [t.clone() for t in opt_tensors]
+        return TrainState(params=dict(params), opt_state=_with_tensors(plan.after, opt_tensors),
+                          step=state.step + 1), metrics
+
+    def _graphed_body(self, params, opt_tensors, batch):
+        """The body on the cache's state tensors, with the new parameters and
+        optimizer state written back into them (donation); returns the
+        metrics."""
+        opt_state = _with_tensors(self._opt_state, opt_tensors)
+        new_params, new_opt, metrics = self.body(params, opt_state, batch, self.inputs)
+        new_opt_tensors = [x for x in pytree.tree_leaves(new_opt) if isinstance(x, torch.Tensor)]
+        pairs = [(d, s) for d, s in zip(list(params.values()) + list(opt_tensors),
+                                        list(new_params.values()) + new_opt_tensors) if d is not s]
+        for d, s in pairs:
+            if d.shape != s.shape or d.dtype != s.dtype:
+                raise RuntimeError(f"the step changed a state tensor's shape or dtype: {tuple(d.shape)} "
+                                   f"{d.dtype} -> {tuple(s.shape)} {s.dtype}")
+        if pairs:
+            with torch.no_grad():
+                torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+        return metrics
 
 
 def make_eval_step(
@@ -229,16 +347,21 @@ def make_eval_step(
     mel_cfg: Optional[MelConfig] = MelConfig(),
     loss_type: str = "multilabel",
     input_tdim: Optional[int] = None,
+    jit: bool = True,
 ):
     """Eval step ``(params, batch) -> dict(out, loss, loss_per_example,
     features)``: ``out`` is sigmoid probabilities for multilabel/masked and
     the log-softmax for single-label. ``input_tdim`` crops the mel frames
-    (the model's ``input_tdim`` when None)."""
+    (the model's ``input_tdim`` when None). ``jit``: on a CUDA device the
+    step runs as CUDA graphs, one per batch signature and per set of
+    ``params`` (read in place, by identity); the outputs are copies the
+    next call leaves alone. ``jit=False``, or a CPU batch, runs it
+    eagerly."""
     if loss_type not in LOSS_FNS:
         raise KeyError(f"unknown loss_type {loss_type!r}; known: {sorted(LOSS_FNS)}")
     tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
 
-    def step(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+    def body(batch: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]):
         with torch.inference_mode():
             if "mel" in batch:
                 x = batch["mel"]
@@ -259,4 +382,7 @@ def make_eval_step(
                 out = torch.sigmoid(logits)
             return {"out": out, "loss": loss_pe.mean(), "loss_per_example": loss_pe, "features": features}
 
-    return step
+    if not jit:
+        return lambda params, batch: body(batch, params)
+    cache = graphs.GraphCache(body)
+    return lambda params, batch: cache(batch, graphs.InPlace(params))[0]
