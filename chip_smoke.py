@@ -98,7 +98,25 @@ Phases (each prints one line or more; the first failure exits non-zero):
    calls and peak memory, a 5-step profile of each (kernel time, kernels
    and host launch calls a step, idle share), the eager fit's steady
    ms/step against the eager ``timed_steps``, and the ``Predictor``'s
-   ms/call and clips/s at B = 1 and B = 20.
+   ms/call and clips/s at B = 1 and B = 20;
+15. the CLI (``python -m passt_tpu_torch.cli <experiment> <command>``,
+   driven in-process through ``passt_tpu_torch.cli.run``, what
+   ``cli.main`` runs) at full PaSST-S width, bf16, the recipes' defaults
+   but where listed, each command timed
+   (first calls included) with its exact launches: ``audioset print_config``
+   and ``print_named_configs``; ``audioset model_speed_test`` (B = 12 on a
+   resident mel batch) beside ``bench.timed_steps``; ``audioset main
+   mini_train`` (2 epochs x 12 steps, the weighted sampler, SWA, keep-1-best
+   checkpoints by ap, the metrics JSONL; fit's steady ms/step and the
+   start-up to the first step); ``evaluate_only`` on that checkpoint
+   directory, bit-equal to the best epoch's logged eval; ``predict``;
+   ``evaluate_ensemble ensemble_s16_14`` on two random members written with
+   ``save_params_npz``; ``esc50 main`` and ``openmic main`` (1 epoch x 2
+   steps); ``test_loaders``. The card's machine has no h5py: the three
+   functions of ``experiments/common.py`` that open an HDF5 container are
+   replaced by FolderDatasets over 10-s wav clips, and ``common.fit`` is
+   wrapped to time each step (the wrapper calls the package's ``fit`` and
+   its step); nothing else is replaced.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -128,7 +146,8 @@ cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
 clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
-uninterrupted fit, the kernel sides of 7 and 9, and 14's replays) starts
+uninterrupted fit, the kernel sides of 7 and 9, 14's replays and each of
+15's CLI commands) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -1718,8 +1737,10 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
 
         def steady_ms(n_steps: int):
             """Mean CUDA-event time between step starts, each epoch's first
-            step (which waits for the loader's first batch) left out."""
-            gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(n_steps - 1) if (i + 1) % FIT_STEPS != 0]
+            step (which waits for the loader's first batch) and the run's
+            first two (a graphed step's eager warm-up call and its capture)
+            left out."""
+            gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(2, n_steps - 1) if (i + 1) % FIT_STEPS != 0]
             return sum(gaps) / len(gaps), len(gaps)
 
         kw = dict(eval_step=eval_step, train_loader=train_loader, val_loader=val_loader, max_epochs=FIT_EPOCHS,
@@ -2039,6 +2060,310 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
     return runs
 
 
+# [15] the CLI on the card: python -m passt_tpu_torch.cli <experiment> <command>, in-process
+CLI_TRAIN_CLIPS, CLI_VAL_CLIPS = 144, 40  # 12 steps of 12; 2 eval batches of 20
+CLI_EPOCHS, CLI_STEPS, CLI_EVAL_BATCHES = 2, 12, 2
+CLI_ENSEMBLE = "ensemble_s16_14"
+
+
+def attn_counts(n: int, b: int, train: bool, calls: int) -> dict:
+    """The attention launches of ``calls`` forward passes (and their
+    backward when ``train``) of PaSST-S at N tokens, batch b, in bf16: the
+    entry the model picks (``flat_kernel_supports``, the JAX package's rule)."""
+    from passt_tpu_torch.ops import attention as A
+
+    if A.flat_kernel_supports(n, 12, 64, backward=train, itemsize=2, batch=b):
+        out = {"fused_attention_qkv": 12 * calls}
+        if train:
+            out["fused_attention_qkv_bwd"] = 12 * calls
+        return out
+    out = {"fused_attention": 12 * calls}
+    if train:
+        out["fused_attention_bwd"] = 12 * calls
+    return out
+
+
+def add_counts(*parts: dict) -> dict:
+    total: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_cli(gpu: str, dev: torch.device) -> dict:
+    """[15] the port's CLI (``passt_tpu_torch.cli.run``) at full PaSST-S
+    width, bf16, the recipes' defaults but where listed: print_config and
+    print_named_configs; audioset model_speed_test (B = 12, a resident mel
+    batch) beside ``bench.timed_steps``; audioset main mini_train (2 epochs x
+    12 steps, weighted sampler, SWA, keep-1-best checkpoints by ap, the
+    metrics JSONL); evaluate_only on that checkpoint, bit-equal to the
+    logged eval; predict; evaluate_ensemble on two random members written
+    with ``save_params_npz``; esc50 and openmic main (1 epoch x 2 steps);
+    test_loaders. Each command goes through ``cli.run``, which ``cli.main``
+    calls, and its result is read from there. The card's machine has no
+    h5py, so the functions of ``experiments/common.py`` that open an HDF5
+    container (the two dataset builders and the target reader) are replaced
+    by FolderDatasets over wav clips; ``common.fit`` is wrapped to time each
+    step, the wrapper calling the package's ``fit`` with the package's step.
+    Everything after the container is the package's own. The launches of
+    every command are exact."""
+    import contextlib
+    import io
+    import subprocess
+    import tempfile
+
+    from passt_tpu_torch import bench, cli
+    from passt_tpu_torch.data import FolderDataset
+    from passt_tpu_torch.experiments import common
+    from passt_tpu_torch.models import registry
+    from passt_tpu_torch.models.pretrained import save_params_npz
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.train.swa import SWAState, swa_should_update
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    saved = {name: getattr(common, name) for name in ("build_base_train_dataset", "build_eval_dataset",
+                                                      "train_target_chunks", "fit")}
+    lines, total, runs = [], {}, []
+    try:
+        t0 = time.perf_counter()
+        train_labels = write_clips(os.path.join(tmp, "train"), CLI_TRAIN_CLIPS, seed=21)
+        val_labels = write_clips(os.path.join(tmp, "val"), CLI_VAL_CLIPS, seed=22)
+        write_s = time.perf_counter() - t0
+
+        def recipe_labels(name: str, labels: dict) -> dict:
+            """The recipe's targets for the clips: multi-hot 527 (audioset),
+            a class index (esc50), 20 labels and 20 observed-masks (openmic)."""
+            if name == "esc50":
+                return {k: int(np.argmax(v)) for k, v in labels.items()}
+            if name == "openmic":
+                return {k: np.concatenate([v[:20], np.ones(20, np.float32)]) for k, v in labels.items()}
+            return labels
+
+        def folder(cfg, path):
+            labels = train_labels if os.path.basename(path) == "train" else val_labels
+            return FolderDataset(path, num_classes=cfg.data.num_classes, sample_rate=cfg.data.sample_rate,
+                                 clip_length=cfg.data.clip_length, labels=recipe_labels(cfg.name, labels))
+
+        def target_chunks(cfg, chunk_rows=131072):
+            ds = folder(cfg, cfg.data.train_hdf5)
+            yield np.stack([np.asarray(ds.labels[os.path.basename(f)], np.float32) for f in ds.files])
+
+        common.build_base_train_dataset = lambda cfg, path, seed: folder(cfg, path)
+        def eval_folder(cfg, which="eval"):
+            path = cfg.data.eval_hdf5 if which == "eval" else cfg.data.valid_hdf5
+            if path is None:
+                raise FileNotFoundError(f"data.{which}_hdf5 is not set")
+            return folder(cfg, path)
+
+        common.build_eval_dataset = eval_folder
+        common.train_target_chunks = target_chunks
+        results = []
+        step_t = []  # per train step: (host start, CUDA event at its start)
+
+        def timed_fit(**kw):
+            train_step = kw["train_step"]
+
+            def run(s, batch, seed):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                step_t.append((time.perf_counter(), ev))
+                out = train_step(s, batch, seed)
+                if len(step_t) <= 2:  # the eager warm-up and the capture, each timed alone
+                    torch.cuda.synchronize()
+                    step_t[-1] = step_t[-1] + (time.perf_counter(),)
+                return out
+
+            return saved["fit"](**dict(kw, train_step=run))
+
+        common.fit = timed_fit
+        data = [f"data.train_hdf5={os.path.join(tmp, 'train')}", f"data.eval_hdf5={os.path.join(tmp, 'val')}"]
+
+        def run_cli(what: str, argv: list, want: dict, fwd_paths=None, bwd_paths=None):
+            """One CLI call, timed, its stdout captured, its launches exact."""
+            step_t.clear()
+            _build.reset_launches()
+            A.reset_path_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                results.append(cli.run(list(argv)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+            paths, bwd = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+            want = want_launches(**want)
+            check(launches == want, f"[15] {what}: launches {launches} != {want}")
+            n_fwd = sum(v for k, v in want.items() if k in ("fused_attention", "fused_attention_qkv"))
+            n_bwd = sum(v for k, v in want.items() if k.endswith("_bwd") and k.startswith("fused_attention"))
+            check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd), f"[15] {what}: forward paths {paths}")
+            check(bwd == dict(fma=0, mma=0, wgmma=n_bwd, simt=0), f"[15] {what}: backward paths {bwd}")
+            runs.append(launches)
+            out = buf.getvalue()
+            lines.append(f"[15] {what}: {wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
+            return out, wall, launches
+
+        # 1. the config
+        out, _, _ = run_cli("audioset print_config", ["audioset", "print_config"], {})
+        printed = json.loads(out)
+        check(printed["model"]["arch"] == ARCH and printed["model"]["dtype"] == "bfloat16"
+              and printed["data"]["num_classes"] == 527, f"[15] print_config: {printed['model']}")
+        out, _, _ = run_cli("audioset print_named_configs", ["audioset", "print_named_configs"], {})
+        check("mini_train: {" in out and results[-1]["presets"][0] == "mini_train", "[15] print_named_configs")
+
+        # 2. model_speed_test between two runs of the bench's graphed step
+        _, state, step, batch = bench.setup(dev)
+        state, bench_before, _ = bench.timed_steps(step, state, batch, 100, 2)
+        steps = 2 * 100  # the warm-up run and the timed run
+        out, _, speed_launches = run_cli("audioset model_speed_test (B=12, resident mel)",
+                                         ["audioset", "model_speed_test"], attn_counts(TRAIN_N, TRAIN_B, True, steps))
+        specs = results[-1]["specs_per_second"]
+        check("average speed: " in out and math.isfinite(specs) and specs > 0, f"[15] model_speed_test: {out[-300:]}")
+        speed_ms = TRAIN_B * 1000.0 / specs
+        _, bench_after, _ = bench.timed_steps(step, state, batch, 100, 0)
+        del state, step, batch
+        bench_ms = (bench_before + bench_after) / 2
+        lines.append(f"[15] model_speed_test: {specs:.2f} specs/s = {speed_ms:.3f} ms/step (graphed step on a resident "
+                     f"mel batch, 100 steps after 100) between bench.timed_steps runs of {bench_before:.3f} and "
+                     f"{bench_after:.3f} ms/step (100 steps each; the graphed step with the frontend on a resident "
+                     f"wave batch) in the same call (ratio to their mean {speed_ms / bench_ms:.3f}); launches a step: "
+                     f"{ {k: v // steps for k, v in speed_launches.items() if v} }, no mel ({gpu})")
+
+        # 3. audioset main mini_train
+        ckpt = os.path.join(tmp, "ckpt")
+        main_argv = ["audioset", "main", "with", "mini_train"] + data + [
+            f"trainer.max_epochs={CLI_EPOCHS}", f"trainer.limit_train_batches={CLI_STEPS}",
+            f"trainer.limit_eval_batches={CLI_EVAL_BATCHES}", "trainer.swa_epoch_start=1", "trainer.swa_freq=1",
+            f"trainer.checkpoint_dir={ckpt}", "trainer.keep_last_n=1", "trainer.monitor=ap"]
+        probe = SWAState(avg_params=None, swa_epoch_start=1, swa_freq=1)
+        fires = [e for e in range(CLI_EPOCHS) if swa_should_update(probe, e, CLI_EPOCHS)]
+        check(bool(fires), f"[15] SWA never fires in {CLI_EPOCHS} epochs")
+        n_steps = CLI_EPOCHS * CLI_STEPS
+        n_evals = sum(1 + (e >= fires[0]) for e in range(CLI_EPOCHS)) * CLI_EVAL_BATCHES
+        t_cli = time.perf_counter()
+        out, _, _ = run_cli("audioset main mini_train", main_argv, add_counts(
+            {"fused_log_mel": n_steps + n_evals}, attn_counts(TRAIN_N, TRAIN_B, True, n_steps),
+            attn_counts(1190, 20, False, n_evals)))
+        res = results[-1]
+        hist = res["history"]
+        check(res["done"] and not res["interrupted"] and len(hist) == CLI_EPOCHS, f"[15] main: {res}")
+        check(("native_loader=true but" in out) and "numpy loader path" in out,
+              "[15] main: maybe_native_builder's line missing")
+        for rec in hist:
+            check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["ap"]) and rec["n_eval"] == CLI_VAL_CLIPS,
+                  f"[15] main record {rec}")
+        check("ap" in hist[-1] and "swa_ap" in hist[-1] and math.isfinite(hist[-1]["swa_ap"]),
+              f"[15] main: no ap / swa_ap in the last record {sorted(hist[-1])}")
+        logged = [json.loads(x) for x in open(os.path.join(ckpt, "audioset_metrics.jsonl"))]
+        check([r["epoch"] for r in logged] == list(range(CLI_EPOCHS)) and logged[-1]["swa_ap"] == hist[-1]["swa_ap"],
+              "[15] main: the metrics JSONL")
+        from passt_tpu_torch.train.loop import checkpoint_epochs
+
+        best = max(range(CLI_EPOCHS), key=lambda e: (hist[e]["ap"], e))
+        check(checkpoint_epochs(ckpt) == [best], f"[15] main: kept {checkpoint_epochs(ckpt)}, best by ap {best}")
+        check(len(step_t) == n_steps and all(len(t) == 3 for t in step_t[:2]), "[15] main: steps timed")
+        start_up = step_t[0][0] - t_cli
+        first_calls = [t[2] - t[0] for t in step_t[:2]]
+        gaps = [step_t[i][1].elapsed_time(step_t[i + 1][1]) for i in range(n_steps - 1)
+                if (i + 1) % CLI_STEPS != 0 and i >= 2]
+        fit_ms = sum(gaps) / len(gaps)
+        imp = subprocess.run([sys.executable, "-c", "import time; t = time.perf_counter(); "
+                              "import passt_tpu_torch.cli, passt_tpu_torch.experiments; "
+                              "print(time.perf_counter() - t)"], cwd=ROOT, capture_output=True, text=True,
+                             timeout=120, check=True)
+        import_s = float(imp.stdout.strip().splitlines()[-1])
+        losses = ", ".join(f"{r['train_loss']:.5f}" for r in hist)
+        aps = ", ".join(f"{r['ap']:.4f}" for r in hist)
+        gap_list = ", ".join(f"{g:.1f}" for g in gaps)
+        lines.append(f"[15] main: losses {losses}; ap {aps}; swa_ap {hist[-1]['swa_ap']:.4f} (SWA fires at epochs "
+                     f"{fires}); kept checkpoint {best}; fit {fit_ms:.3f} ms/step steady ({len(gaps)} steps: "
+                     f"{gap_list}; CUDA events between step starts) against bench.timed_steps {bench_ms:.3f} (ratio "
+                     f"{fit_ms / bench_ms:.3f}); start-up: import {import_s:.2f} s (a fresh interpreter), cli.run to "
+                     f"the first step {start_up:.2f} s (loaders, build), first step (eager) {first_calls[0]:.2f} s, "
+                     f"second (capture + replay) {first_calls[1]:.2f} s ({gpu})")
+
+        # 4. evaluate_only on the same checkpoint dir: bit-equal to the logged eval of the best epoch
+        ev_argv = ["audioset", "evaluate_only"] + main_argv[3:]
+        n_ev = 2 * CLI_EVAL_BATCHES if best >= fires[0] else CLI_EVAL_BATCHES
+        run_cli("audioset evaluate_only (best checkpoint)", ev_argv,
+                add_counts({"fused_log_mel": n_ev}, attn_counts(1190, 20, False, n_ev)))
+        got = results[-1]
+        keys = ["val_loss", "ap", "roc", "n_eval"] + (["swa_val_loss", "swa_ap"] if best >= fires[0] else [])
+        diff = {k: (got.get(k), hist[best].get(k)) for k in keys if got.get(k) != hist[best].get(k)}
+        check(not diff, f"[15] evaluate_only != the logged eval of epoch {best}: {diff}")
+        lines.append(f"[15] evaluate_only: restored epoch {best}; {', '.join(keys)} bit-equal to the logged eval "
+                     f"(ap {got['ap']:.6f}, val_loss {got['val_loss']:.6f})")
+
+        # 5. predict
+        run_cli("audioset predict", ["audioset", "predict"] + main_argv[3:],
+                add_counts({"fused_log_mel": CLI_EVAL_BATCHES}, attn_counts(1190, 20, False, CLI_EVAL_BATCHES)))
+        with np.load(results[-1]["path"]) as f:
+            probs, names = f["out"], f["names"]
+        check(probs.shape == (CLI_EVAL_BATCHES * 20, 527) and np.isfinite(probs).all()
+              and probs.min() >= 0 and probs.max() <= 1 and len(names) == len(probs), f"[15] predict {probs.shape}")
+
+        # 6. evaluate_ensemble on two random members written with save_params_npz
+        members = os.path.join(tmp, "members")
+        os.makedirs(members)
+        arch_list = registry.ENSEMBLES[CLI_ENSEMBLE][0]
+        for i, (arch, fs, ts) in enumerate(arch_list):
+            model = registry.get_model(arch, pretrained=False, generator=torch.Generator().manual_seed(100 + i),
+                                       device="cpu", fstride=fs, tstride=ts)
+            save_params_npz(os.path.join(members, f"{arch}.npz"), dict(model.named_parameters()))
+            del model
+        tokens = [registry.get_model_config(a, fstride=fs, tstride=ts).seq_len(train=False) for a, fs, ts in arch_list]
+        run_cli(f"audioset evaluate_ensemble ({CLI_ENSEMBLE}, N = {tokens})",
+                ["audioset", "evaluate_ensemble", f"model.ensemble={CLI_ENSEMBLE}",
+                 f"model.ensemble_checkpoint_dir={members}", f"trainer.limit_eval_batches={CLI_EVAL_BATCHES}"] + data,
+                add_counts({"fused_log_mel": CLI_EVAL_BATCHES},
+                           *[attn_counts(n, 20, False, CLI_EVAL_BATCHES) for n in tokens]))
+        ens = results[-1]
+        check(math.isfinite(ens["ap"]) and ens["published_map"] == 0.48579, f"[15] evaluate_ensemble {ens}")
+        lines.append(f"[15] evaluate_ensemble {CLI_ENSEMBLE}: ap {ens['ap']:.4f} (random members) beside the published "
+                     f"{ens['published_map']}")
+
+        # 7. esc50 (single-label CE) and openmic (masked BCE), 1 epoch x 2 steps each
+        from passt_tpu_torch.experiments import EXPERIMENTS
+
+        for name, key in (("esc50", "accuracy"), ("openmic", "ap")):
+            rcfg = EXPERIMENTS[name].default_config
+            pcfg = rcfg.passt_config()
+            frames = min(rcfg.mel.frames(int(rcfg.data.clip_length * 32000)), pcfg.input_tdim)
+            t_grid = (frames - pcfg.patch_size[1]) // pcfg.stride[1] + 1
+            n_train, n_eval = pcfg.seq_len(train=True, t_grid=t_grid), pcfg.seq_len(train=False, t_grid=t_grid)
+            b = rcfg.data.batch_size
+            run_cli(f"{name} main (1 epoch x 2 steps, B={b})",
+                    [name, "main"] + data + ["trainer.max_epochs=1", "trainer.limit_train_batches=2",
+                                             "trainer.limit_eval_batches=1"],
+                    add_counts({"fused_log_mel": 2 + 1}, attn_counts(n_train, b, True, 2),
+                               attn_counts(n_eval, 20, False, 1)))
+            rec = results[-1]["history"][-1]
+            check(math.isfinite(rec["train_loss"]) and math.isfinite(rec[key]) and rec["n_eval"] == 20,
+                  f"[15] {name}: {rec}")
+            lines.append(f"[15] {name} main: train_loss {rec['train_loss']:.5f}, {key} {rec[key]:.4f}, val_loss "
+                         f"{rec['val_loss']:.5f} (N = {n_train} train, {n_eval} eval)")
+
+        # 8. test_loaders
+        run_cli("audioset test_loaders", ["audioset", "test_loaders"] + data, {})
+        check(results[-1] == {"training": (TRAIN_B, CLIP), "test": (20, CLIP)}, f"[15] test_loaders {results[-1]}")
+        total = add_counts(*runs)
+    finally:
+        import shutil
+
+        for name, fn in saved.items():
+            setattr(common, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[15] the CLI (python -m passt_tpu_torch.cli <experiment> <command>, in-process) at full PaSST-S width, bf16: "
+        f"HDF5 containers replaced by FolderDatasets over {CLI_TRAIN_CLIPS} + {CLI_VAL_CLIPS} 10-s wav clips (written "
+        f"in {write_s:.1f} s; the card's machine has no h5py): the two dataset builders and the target reader of "
+        f"experiments/common.py; common.fit wrapped to time each step (it calls the package's fit and step); "
+        f"nothing else replaced")
+    for line in lines:
+        say(line)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2098,6 +2423,7 @@ def main() -> int:
     runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev), phase_proto_mlp(gpu, dev)]
     runs.append(phase_fit(gpu, dev))
     runs += phase_graphs(gpu, dev)
+    runs.append(phase_cli(gpu, dev))
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

@@ -22,11 +22,15 @@ Layout
   step and the ``Predictor``, the counterpart of ``jax.jit``
 - ``passt_tpu_torch.bench``  : training throughput on the card
   (``python3 -m passt_tpu_torch.bench``)
+- ``passt_tpu_torch.config``, ``.experiments``, ``.cli`` : the typed
+  experiment config, the recipes and their commands, and
+  ``python -m passt_tpu_torch.cli <experiment> [command] [overrides]``
+- ``passt_tpu_torch.utils``  : parameter counts
 
 Entry points put their models on the card unless the caller asks for the
 CPU (``device="cpu"``), and run there as CUDA graphs unless the caller asks
 for ``jit=False``; ``fit``/``evaluate`` run where the state's tensors
-live. Recipes, CLI, DDP and export are queued in ROADMAP.md.
+live. DDP and export are queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

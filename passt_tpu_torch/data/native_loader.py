@@ -1,6 +1,6 @@
 """Native batch assembly: the C++ host plane wired into the DataLoader
-(port of passt_tpu/data/native_loader.py; ``maybe_native_builder``, which
-builds one from a recipe's config, comes with the port's recipes).
+(port of passt_tpu/data/native_loader.py; :func:`maybe_native_builder`
+builds one from a recipe's config).
 
 The reference's training loader spends its time in native code outside
 Python — PyAV decode + torch collate across 16 worker processes
@@ -261,3 +261,52 @@ class NativeBatchBuilder:
                 target = np.where(apply[:, None] > 0, mixed, target)
 
         return {"wave": wave, "target": target, "name": names}
+
+
+def maybe_native_builder(cfg, build_base) -> Optional[NativeBatchBuilder]:
+    """A NativeBatchBuilder for the recipe's cfg-derived train chain, or
+    None when the native plane is unavailable or the chain is ineligible
+    (variable-length or resampled containers keep the numpy path). Callers
+    with a custom dataset keep the numpy path: this builder is bound to the
+    cfg-derived chain only. ``build_base(cfg, path, seed)`` makes the
+    un-augmented base dataset of one container, the one the numpy chain
+    starts from (the recipes pass
+    ``experiments.common.build_base_train_dataset``).
+
+    Every fallback is LOUD (one line at loader-build time): with
+    ``data.native_loader=true`` the user believes the C++ plane is active,
+    and training on the numpy path unannounced misrepresents throughput."""
+    d = cfg.data
+    if not getattr(d, "native_loader", False):
+        return None
+    if not native.available():
+        print(
+            "[data] native_loader=true but libhostplane.so is not built "
+            "(make -C native) -> numpy loader path"
+        )
+        return None
+    if getattr(d, "ir_augment", 0.0) and getattr(d, "ir_path", None):
+        # decided before building: the builder rejects IR chains anyway, and
+        # build_base would load and resample the whole .wav
+        # bank just to throw it away
+        print(
+            "[data] native_loader=true but ir_augment is python-side only "
+            "-> numpy loader path"
+        )
+        return None
+    try:
+        bases = [build_base(cfg, d.train_hdf5, d.seed)]
+        if d.train_hdf5_extra:
+            # the flagship balanced+unbalanced ConcatDataset chain
+            bases.append(build_base(cfg, d.train_hdf5_extra, d.seed + 1))
+        return NativeBatchBuilder(
+            bases if len(bases) > 1 else bases[0],
+            roll_shift_range=d.roll_shift_range if d.roll else 0,
+            wavmix=d.wavmix,
+            merge_masks=d.merge_mask_wavmix,
+            seed=d.seed + 31,
+            num_workers=d.num_workers,
+        )
+    except (TypeError, ValueError, RuntimeError) as e:
+        print(f"[data] native_loader=true but chain ineligible ({e}) -> numpy loader path")
+        return None

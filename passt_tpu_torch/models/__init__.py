@@ -2,9 +2,11 @@
 
 from passt_tpu_torch.models.passt import PaSST, PaSSTConfig
 from passt_tpu_torch.models.pretrained import (
+    flax_from_state_dict,
     load_params_npz,
     load_pretrained,
     load_torch_checkpoint,
+    save_params_npz,
     state_dict_from_flax,
 )
 from passt_tpu_torch.models.registry import ARCHS, DEFAULT_CFGS, get_model, get_model_config
@@ -14,10 +16,12 @@ __all__ = [
     "DEFAULT_CFGS",
     "PaSST",
     "PaSSTConfig",
+    "flax_from_state_dict",
     "get_model",
     "get_model_config",
     "load_params_npz",
     "load_pretrained",
     "load_torch_checkpoint",
+    "save_params_npz",
     "state_dict_from_flax",
 ]

@@ -168,7 +168,7 @@ class PaSSTConfig:
 def _check_supported(cfg: PaSSTConfig) -> None:
     if cfg.blocks_impl != "loop":
         raise NotImplementedError(
-            f"blocks_impl={cfg.blocks_impl!r} is not ported yet (ROADMAP.md); use 'loop'"
+            f"blocks_impl={cfg.blocks_impl!r} is not ported yet (ROADMAP.md queue 1 item 8); use 'loop'"
         )
     if cfg.fuse_ln_qkv:
         # the JAX package's contradictory combinations, with its messages
@@ -181,7 +181,7 @@ def _check_supported(cfg: PaSSTConfig) -> None:
                 "fuse_ln_qkv requires the fused attention kernel; attn_impl='xla' contradicts it"
             )
     if cfg.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md: off-path variants)")
+        raise NotImplementedError("remat is not ported yet (ROADMAP.md queue 1 item 8: off-path variants)")
     if cfg.patch_embed_impl not in ("unfold", "conv"):
         raise ValueError(f"patch_embed_impl must be 'unfold'|'conv', got {cfg.patch_embed_impl!r}")
     if cfg.representation_size and not cfg.distilled:

@@ -6,6 +6,9 @@
 - :func:`load_torch_checkpoint`: a reference ``.pt`` file.
 - :func:`load_params_npz`: the ``.npz`` trees that ``passt_tpu``'s
   ``save_params_npz`` writes.
+- :func:`flax_from_state_dict` and :func:`save_params_npz`: the inverse
+  bridge, and an ``.npz`` that both packages' ``load_params_npz`` read
+  (the ensemble's ``<arch>.npz`` members, written where jax is absent).
 - :func:`load_pretrained`: either file into a built :class:`PaSST`.
 
 ImageNet/DeiT checkpoints (square position grid, RGB patch conv) are not
@@ -77,6 +80,73 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     if "head_dist" in params:
         dense("head_dist", params["head_dist"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state dict (or parameter dict) -> ``passt_tpu``'s flax
+    param tree of fp32 numpy arrays (per-block layout): the exact inverse
+    of :func:`state_dict_from_flax`."""
+    sd = {k: _np(v.detach().float() if isinstance(v, torch.Tensor) else v).astype(np.float32)
+          for k, v in sd.items()}
+    tree: dict = {}
+
+    def put(path, value):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    def dense(prefix, path):
+        put(path + ("kernel",), sd[prefix + ".weight"].T.copy())
+        if prefix + ".bias" in sd:
+            put(path + ("bias",), sd[prefix + ".bias"])
+
+    def norm(prefix, path):
+        put(path + ("scale",), sd[prefix + ".weight"])
+        put(path + ("bias",), sd[prefix + ".bias"])
+
+    for name in ("cls_token", "dist_token", "new_pos_embed"):
+        if name in sd:
+            put((name,), sd[name])
+    for name in ("freq_new_pos_embed", "time_new_pos_embed"):
+        put((name,), sd[name].transpose(0, 2, 3, 1).copy())
+    put(("patch_embed", "proj", "kernel"), sd["patch_embed.proj.weight"].transpose(2, 3, 1, 0).copy())
+    put(("patch_embed", "proj", "bias"), sd["patch_embed.proj.bias"])
+    depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(depth):
+        p, b = f"blocks.{i}", f"blocks_{i}"
+        norm(f"{p}.norm1", (b, "norm1"))
+        dense(f"{p}.attn.qkv", (b, "attn", "qkv"))
+        dense(f"{p}.attn.proj", (b, "attn", "proj"))
+        norm(f"{p}.norm2", (b, "norm2"))
+        dense(f"{p}.mlp.fc1", (b, "mlp", "fc1"))
+        dense(f"{p}.mlp.fc2", (b, "mlp", "fc2"))
+    norm("norm", ("norm",))
+    if "pre_logits.fc.weight" in sd:
+        dense("pre_logits.fc", ("pre_logits",))
+    if "head.0.weight" in sd:
+        norm("head.0", ("head_norm",))
+        dense("head.1", ("head_linear",))
+    if "head_dist.weight" in sd:
+        dense("head_dist", ("head_dist",))
+    return tree
+
+
+def save_params_npz(path: str, params: Mapping[str, torch.Tensor]) -> None:
+    """Write the port's parameters as the ``.npz`` the JAX package's
+    ``save_params_npz`` writes: the flax tree's leaves under '/'-joined
+    keys, fp32 (bf16 storage is widened, exactly)."""
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                out["/".join(prefix + (k,))] = v
+
+    walk(flax_from_state_dict(params), ())
+    np.savez(path, **out)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -1,14 +1,18 @@
 """Architecture registry and pretrained zoo metadata (port of
-passt_tpu/models/registry.py): the same data, and ``get_model`` building a
-PyTorch module from a seeded ``torch.Generator`` or a local checkpoint."""
+passt_tpu/models/registry.py): the same data, ``get_model`` building a
+PyTorch module from a seeded ``torch.Generator`` or a local checkpoint, the
+reference's model surgery (``fix_embedding_layer``, ``lighten_params``) and
+the published ensembles (``ENSEMBLES``, ``get_ensemble_model``,
+``ensemble_apply``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.func import functional_call
 
 from passt_tpu_torch.models.passt import PaSST, PaSSTConfig, init_weights
 
@@ -204,3 +208,144 @@ def get_model(
 
         load_pretrained(model, checkpoint_path)
     return model.eval().to(device)
+
+
+def fix_embedding_layer(model: PaSST, params: Optional[Dict[str, torch.Tensor]] = None, embed: str = "default"):
+    """Patch-embedding surgery (reference passt.py:922-930). Only
+    ``embed="default"`` works in the reference too: its "overlap" /
+    "am_keepconv" branches name classes defined nowhere in its repo, so they
+    raise here as they do in the JAX package. Returns (model, params)."""
+    if embed == "default":
+        return model, params
+    raise NotImplementedError(
+        f"embed={embed!r}: the reference's adaptive-mean patch embeds are "
+        "undefined in its codebase (passt.py:922-930 NameError); not ported"
+    )
+
+
+def _block_ids(params: Dict[str, torch.Tensor]) -> List[int]:
+    return sorted({int(k.split(".")[1]) for k in params if k.startswith("blocks.")})
+
+
+def lighten_params(params: Dict[str, torch.Tensor], cut_depth: int) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Remove transformer blocks from a parameter dict — the reference
+    ``lighten_model`` (passt.py:932-954), on the port's names
+    (``blocks.{i}.…``). Positive ``cut_depth`` keeps block 0 plus
+    ``blocks[cut_depth+1:]``; negative keeps every ``-cut_depth``-th
+    interior block plus the first and last. The kept blocks are renumbered
+    from 0. Returns (new_params, new_depth)."""
+    block_ids = _block_ids(params)
+    if cut_depth == 0:
+        return params, len(block_ids)
+    if cut_depth < 0:
+        keep = [block_ids[0]] + block_ids[1:-1][::-cut_depth] + [block_ids[-1]]
+    else:
+        if len(block_ids) < cut_depth + 2:
+            raise ValueError(
+                f"cut_depth for a ViT with {len(block_ids)} layers must be "
+                f"between 1 and {len(block_ids) - 2}"
+            )
+        keep = [block_ids[0]] + block_ids[cut_depth + 1:]
+    out = {k: v for k, v in params.items() if not k.startswith("blocks.")}
+    for new_i, old_i in enumerate(keep):
+        prefix = f"blocks.{old_i}."
+        for k, v in params.items():
+            if k.startswith(prefix):
+                out[f"blocks.{new_i}.{k[len(prefix):]}"] = v
+    return out, len(keep)
+
+
+#: Published ensemble recipes: name -> ([(arch, fstride, tstride), ...], mAP)
+#: (reference config_updates.py:136-222; README.md:313-326).
+ENSEMBLES: Dict[str, Tuple[List[Tuple[str, int, int]], float]] = {
+    "ensemble_s10": (
+        [
+            ("passt_s_swa_p16_128_ap476", 10, 10),
+            ("passt_s_swa_p16_128_ap4761", 10, 10),
+            ("passt_s_p16_128_ap472", 10, 10),
+        ],
+        0.4864,
+    ),
+    "ensemble_many": (
+        [
+            ("passt_s_swa_p16_128_ap476", 10, 10),
+            ("passt_s_swa_p16_128_ap4761", 10, 10),
+            ("passt_s_p16_128_ap472", 10, 10),
+            ("passt_s_p16_s12_128_ap470", 12, 12),
+            ("passt_s_swa_p16_s12_128_ap473", 12, 12),
+            ("passt_s_p16_s14_128_ap469", 14, 14),
+            ("passt_s_swa_p16_s14_128_ap471", 14, 14),
+            ("passt_s_swa_p16_s16_128_ap473", 16, 16),
+            ("passt_s_p16_s16_128_ap468", 16, 16),
+        ],
+        0.4956,
+    ),
+    "ensemble_4": (
+        [
+            ("passt_s_swa_p16_128_ap476", 10, 10),
+            ("passt_s_swa_p16_s12_128_ap473", 12, 12),
+            ("passt_s_swa_p16_s14_128_ap471", 14, 14),
+            ("passt_s_swa_p16_s16_128_ap473", 16, 16),
+        ],
+        0.4926,
+    ),
+    "ensemble_5": (
+        [
+            ("passt_s_swa_p16_128_ap476", 10, 10),
+            ("passt_s_swa_p16_128_ap4761", 10, 10),
+            ("passt_s_swa_p16_s12_128_ap473", 12, 12),
+            ("passt_s_swa_p16_s14_128_ap471", 14, 14),
+            ("passt_s_swa_p16_s16_128_ap473", 16, 16),
+        ],
+        0.49459,
+    ),
+    "ensemble_s16_14": (
+        [
+            ("passt_s_swa_p16_s14_128_ap471", 14, 14),
+            ("passt_s_swa_p16_s16_128_ap473", 16, 16),
+        ],
+        0.48579,
+    ),
+}
+
+
+def get_ensemble_model(
+    arch_list: Sequence[Tuple[str, int, int]],
+    seed: int = 0,
+    checkpoint_paths: Optional[Sequence[Optional[str]]] = None,
+    device="cuda",
+    **overrides,
+) -> List[Tuple[PaSST, Dict[str, torch.Tensor]]]:
+    """Build [(model, params), ...] for an ensemble spec — the reference
+    ``get_ensemble_model`` (passt.py:1039-1045): each member at its own
+    stride, its random weights from a CPU generator of its own (seed
+    ``seed + i`` for member i), then its checkpoint where a path is given.
+    ``params`` are the model's own parameter tensors. Apply with
+    :func:`ensemble_apply`."""
+    out = []
+    for i, (arch, fstride, tstride) in enumerate(arch_list):
+        path = checkpoint_paths[i] if checkpoint_paths else None
+        model = get_model(
+            arch=arch,
+            pretrained=path is not None,
+            checkpoint_path=path,
+            generator=torch.Generator().manual_seed(seed + i),
+            device=device,
+            fstride=fstride,
+            tstride=tstride,
+            **overrides,
+        )
+        out.append((model, {k: p.detach() for k, p in model.named_parameters()}))
+    return out
+
+
+def ensemble_apply(models_and_params: Sequence[Tuple[PaSST, Dict[str, torch.Tensor]]], x: torch.Tensor):
+    """Average the logits of independently built models — the reference
+    ``EnsembelerModel`` (passt.py:1021-1036): returns (mean_logits,
+    mean_logits), its (out, out) convention."""
+    total = None
+    for model, params in models_and_params:
+        out, _ = functional_call(model, params, (x,), dict(train=False))
+        total = out if total is None else total + out
+    mean = total / len(models_and_params)
+    return mean, mean

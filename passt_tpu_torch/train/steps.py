@@ -119,14 +119,22 @@ def create_train_state(
     generator: Optional[torch.Generator] = None,
     param_dtype: Optional[str] = None,
     device="cuda",
+    checkpoint_path: Optional[str] = None,
 ) -> Tuple[PaSST, TrainState]:
     """A model with random weights from ``generator`` (a CPU generator; seed
-    0 when None) and its train state on ``device``. The optimizer is
-    initialised on the fp32 parameters *before* the storage cast
-    (``param_dtype="bfloat16_sr"``), so no moment starts nearest-rounded."""
+    0 when None), then the weights of ``checkpoint_path`` when given (an
+    ``.npz`` of '/'-joined keys, :func:`~passt_tpu_torch.models.pretrained.load_pretrained`),
+    and its train state on ``device``. The optimizer is initialised on
+    those fp32 parameters *before* the storage cast
+    (``param_dtype="bfloat16_sr"``), so no moment starts from random or
+    nearest-rounded tensors."""
     device = resolve_device(device)
     model = PaSST(cfg)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    if checkpoint_path is not None:
+        from passt_tpu_torch.models.pretrained import load_pretrained
+
+        load_pretrained(model, checkpoint_path)
     model = model.to(device)
     params = {k: p.detach() for k, p in model.named_parameters()}
     opt_state = tx.init(params)
