@@ -116,7 +116,27 @@ Phases (each prints one line or more; the first failure exits non-zero):
    functions of ``experiments/common.py`` that open an HDF5 container are
    replaced by FolderDatasets over 10-s wav clips, and ``common.fit`` is
    wrapped to time each step (the wrapper calls the package's ``fit`` and
-   its step); nothing else is replaced.
+   its step); nothing else is replaced;
+16. data parallelism through NCCL at world size 1 (one card: NCCL puts no
+   two ranks on one GPU), after [15] on its clips: a one-rank NCCL group on
+   a FileStore; the train step's collectives (``DataParallel.gather_rows``,
+   ``all_reduce_mean``) captured in one CUDA graph and replayed on new
+   inputs, the replay's device ops profiled; ``audioset main`` (PaSST-S,
+   B = 12, N = 474, bf16, graphed; 8 steps and one eval batch) without the
+   runtime and with ``trainer.n_data=1`` (``maybe_ddp_runtime`` on the
+   group): each step's loss, every parameter and the epoch record
+   bit-equal, the launches exact in both, the collectives counted over the
+   graph's replays (2 all-gathers and 1 all-reduce a step), fit's ms/step
+   of each;
+17. export -> load -> serve on the card: ``export_inference`` of PaSST-S
+   (random weights from seed 0, a symbolic batch) in fp32 and bf16,
+   ``load_exported``, a B = 20 x 10 s and a B = 1 call with exact launches
+   (the mel kernel and the attention forward kernel inside the loaded
+   program, as ``torch.library`` custom ops) against the graphed
+   ``Predictor`` of the same weights (fp32 within 1e-4 of max|ref|, bf16
+   within 1e-2), ``python -m passt_tpu_torch.tools.serve`` on 6 wav clips,
+   and the loaded program's ms/call and clips/s beside the ``Predictor``'s,
+   in turns.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -146,8 +166,8 @@ cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
 clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
-uninterrupted fit, the kernel sides of 7 and 9, 14's replays and each of
-15's CLI commands) starts
+uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
+15's and 16's CLI commands and 17's loaded-program and serve calls) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -2100,8 +2120,9 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
     metrics JSONL); evaluate_only on that checkpoint, bit-equal to the
     logged eval; predict; evaluate_ensemble on two random members written
     with ``save_params_npz``; esc50 and openmic main (1 epoch x 2 steps);
-    test_loaders. Each command goes through ``cli.run``, which ``cli.main``
-    calls, and its result is read from there. The card's machine has no
+    test_loaders; then [16] (:func:`ddp_main`) on the same clips. Each
+    command goes through ``cli.run``, which ``cli.main`` calls, and its
+    result is read from there. The card's machine has no
     h5py, so the functions of ``experiments/common.py`` that open an HDF5
     container (the two dataset builders and the target reader) are replaced
     by FolderDatasets over wav clips; ``common.fit`` is wrapped to time each
@@ -2161,6 +2182,7 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
         common.train_target_chunks = target_chunks
         results = []
         step_t = []  # per train step: (host start, CUDA event at its start)
+        step_losses, fit_results = [], []  # each step's loss (a graph output copy) and each fit's result
 
         def timed_fit(**kw):
             train_step = kw["train_step"]
@@ -2170,19 +2192,22 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
                 ev.record()
                 step_t.append((time.perf_counter(), ev))
                 out = train_step(s, batch, seed)
+                step_losses.append(out[1]["loss"])
                 if len(step_t) <= 2:  # the eager warm-up and the capture, each timed alone
                     torch.cuda.synchronize()
                     step_t[-1] = step_t[-1] + (time.perf_counter(),)
                 return out
 
-            return saved["fit"](**dict(kw, train_step=run))
+            fit_results.append(saved["fit"](**dict(kw, train_step=run)))
+            return fit_results[-1]
 
         common.fit = timed_fit
         data = [f"data.train_hdf5={os.path.join(tmp, 'train')}", f"data.eval_hdf5={os.path.join(tmp, 'val')}"]
 
-        def run_cli(what: str, argv: list, want: dict, fwd_paths=None, bwd_paths=None):
+        def run_cli(what: str, argv: list, want: dict, fwd_paths=None, bwd_paths=None, phase="[15]"):
             """One CLI call, timed, its stdout captured, its launches exact."""
             step_t.clear()
+            step_losses.clear()
             _build.reset_launches()
             A.reset_path_launches()
             buf = io.StringIO()
@@ -2194,14 +2219,14 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
             launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
             paths, bwd = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
             want = want_launches(**want)
-            check(launches == want, f"[15] {what}: launches {launches} != {want}")
+            check(launches == want, f"{phase} {what}: launches {launches} != {want}")
             n_fwd = sum(v for k, v in want.items() if k in ("fused_attention", "fused_attention_qkv"))
             n_bwd = sum(v for k, v in want.items() if k.endswith("_bwd") and k.startswith("fused_attention"))
-            check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd), f"[15] {what}: forward paths {paths}")
-            check(bwd == dict(fma=0, mma=0, wgmma=n_bwd, simt=0), f"[15] {what}: backward paths {bwd}")
+            check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd), f"{phase} {what}: forward paths {paths}")
+            check(bwd == dict(fma=0, mma=0, wgmma=n_bwd, simt=0), f"{phase} {what}: backward paths {bwd}")
             runs.append(launches)
             out = buf.getvalue()
-            lines.append(f"[15] {what}: {wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
+            lines.append(f"{phase} {what}: {wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
             return out, wall, launches
 
         # 1. the config
@@ -2347,6 +2372,9 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
         # 8. test_loaders
         run_cli("audioset test_loaders", ["audioset", "test_loaders"] + data, {})
         check(results[-1] == {"training": (TRAIN_B, CLIP), "test": (20, CLIP)}, f"[15] test_loaders {results[-1]}")
+
+        # 9. [16] audioset main at trainer.n_data=1: the data-parallel step in a one-rank NCCL group
+        lines += ddp_main(gpu, dev, tmp, data, run_cli, step_t, step_losses, fit_results)
         total = add_counts(*runs)
     finally:
         import shutil
@@ -2362,6 +2390,223 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
     for line in lines:
         say(line)
     return total
+
+
+DDP_STEPS = 8  # [16]: steps of main, 1 eval batch of 20
+
+
+def ddp_main(gpu: str, dev: torch.device, tmp: str, data: list, run_cli, step_t: list, step_losses: list,
+             fit_results: list) -> list:
+    """[16] data parallelism through NCCL at world size 1 (one card: NCCL
+    puts no two ranks on one GPU). A one-rank NCCL group on a FileStore; the
+    step's collectives (``DataParallel.gather_rows`` and
+    ``all_reduce_mean``) captured in a CUDA graph and replayed on new
+    inputs, the replay profiled; then ``audioset main`` (PaSST-S, B = 12,
+    N = 474, bf16, graphed, DDP_STEPS steps and one eval batch, on
+    [15]'s clips and replaced containers) without the runtime and with
+    ``trainer.n_data=1`` (``maybe_ddp_runtime`` on the group): the
+    per-step losses and the final parameters bit-equal, the launches exact
+    in both, the collectives counted inside the graph's replays (2
+    all-gathers and 1 all-reduce a step), ms/step of each. The group is
+    destroyed at the end. Returns the lines to print."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from passt_tpu_torch.parallel import COLLECTIVES, DataParallel, reset_collectives
+
+    lines = []
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        torch.cuda.set_device(dev)
+        # the collectives in a captured graph, replayed on new inputs
+        dp = DataParallel(1, 0)
+        x = torch.randn(TRAIN_B, 1, 128, 998, device=dev)
+        g = torch.randn(1 << 20, device=dev).to(torch.bfloat16)
+        loss = torch.zeros((), device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dp.gather_rows(x)
+            dp.all_reduce_mean({"g": g}, [loss])
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        reset_collectives()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            xg = dp.gather_rows(x)
+            red, (loss_r,) = dp.all_reduce_mean({"g": g}, [loss])
+        captured = dict(COLLECTIVES)
+        check(captured == {"all_gather": 1, "all_reduce": 1}, f"[16] collectives captured {captured}")
+        for i in range(3):
+            x.normal_()
+            g.copy_(torch.randn(g.shape, device=dev))
+            loss.fill_(float(i) + 0.5)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(torch.equal(xg, x) and torch.equal(red["g"], g) and float(loss_r) == i + 0.5,
+                  f"[16] replay {i}: the captured collectives did not follow their inputs")
+        device_ops = sorted(kernel_times(graph.replay, reps=2))
+        nccl_ops = [k for k in device_ops if "nccl" in k.lower() or "memcpy" in k.lower()]
+        lines.append(f"[16] one-rank NCCL group (FileStore): gather_rows [12, 1, 128, 998] fp32 and all_reduce_mean of "
+                     f"1M bf16 + the loss captured in one CUDA graph (the capture counted {captured}), 3 replays on new "
+                     f"inputs bit-equal to them; a profiled replay's device ops: {device_ops} (NCCL or copies: "
+                     f"{nccl_ops})")
+        del graph, x, xg, g, red
+
+        argv = ["audioset", "main", "with"] + data + [
+            "trainer.max_epochs=1", f"trainer.limit_train_batches={DDP_STEPS}", "trainer.limit_eval_batches=1",
+            "trainer.log_every_steps=1000"]
+        want = add_counts({"fused_log_mel": DDP_STEPS + 1}, attn_counts(TRAIN_N, TRAIN_B, True, DDP_STEPS),
+                          attn_counts(1190, 20, False, 1))
+        got = {}
+        for name, extra in (("without the runtime", []), ("trainer.n_data=1", ["trainer.n_data=1",
+                                                                                "data.num_replicas=0"])):
+            reset_collectives()
+            fit_results.clear()
+            out, wall, _ = run_cli(f"audioset main {name} ({DDP_STEPS} steps + 1 eval batch)", argv + extra, want,
+                                   phase="[16]")
+            collectives = dict(COLLECTIVES)
+            res = fit_results[-1]
+            check(len(step_losses) == DDP_STEPS and len(step_t) == DDP_STEPS, f"[16] {name}: steps {len(step_t)}")
+            gaps = [step_t[i][1].elapsed_time(step_t[i + 1][1]) for i in range(2, DDP_STEPS - 1)]
+            got[name] = dict(losses=[float(v) for v in step_losses],
+                             params={k: p.detach().clone() for k, p in res.state.params.items()},
+                             record=res.history[-1], collectives=collectives, ms=sum(gaps) / len(gaps), wall=wall,
+                             printed="data parallel: rank 0 of 1" in out)
+        plain, ddp = got["without the runtime"], got["trainer.n_data=1"]
+        check(plain["collectives"] == {"all_gather": 0, "all_reduce": 0} and not plain["printed"],
+              f"[16] the plain run issued collectives {plain['collectives']}")
+        check(ddp["collectives"] == {"all_gather": 2 * DDP_STEPS, "all_reduce": DDP_STEPS} and ddp["printed"],
+              f"[16] the data-parallel run's collectives {ddp['collectives']} (2 all-gathers and 1 all-reduce a step)")
+        check(ddp["losses"] == plain["losses"] and all(math.isfinite(v) for v in ddp["losses"]),
+              f"[16] losses {ddp['losses']} != {plain['losses']}")
+        diffs = [k for k, p in plain["params"].items() if not torch.equal(p, ddp["params"][k])]
+        check(not diffs, f"[16] parameters differ: {diffs[:6]}")
+        drop = ("epoch_time_s", "it_per_s")
+        check({k: v for k, v in ddp["record"].items() if k not in drop}
+              == {k: v for k, v in plain["record"].items() if k not in drop},
+              f"[16] epoch records {ddp['record']} != {plain['record']}")
+        lines.append(f"[16] audioset main at trainer.n_data=1 (DDPRuntime over the one-rank NCCL group, the "
+                     f"data-parallel step graphed with its collectives) bit-equal to main without the runtime: "
+                     f"{DDP_STEPS} losses ({', '.join(f'{v:.6f}' for v in ddp['losses'])}), all "
+                     f"{len(plain['params'])} parameters, the epoch record (ap {ddp['record']['ap']:.6f}); "
+                     f"collectives over the graph's replays {ddp['collectives']}; fit ms/step (CUDA events between "
+                     f"step starts, steps 3-{DDP_STEPS}): {plain['ms']:.3f} without, {ddp['ms']:.3f} with the "
+                     f"runtime (ratio {ddp['ms'] / plain['ms']:.3f}); run wall {plain['wall']:.1f} / "
+                     f"{ddp['wall']:.1f} s ({gpu})")
+    finally:
+        dist.destroy_process_group()
+    return lines
+
+
+def phase_export(gpu: str, dev: torch.device) -> list:
+    """[17] export -> load -> serve on the card: ``export_inference``
+    (PaSST-S, random weights from seed 0, symbolic batch) in fp32 and bf16,
+    ``load_exported``, calls at B = 20 x 10 s and B = 1 with exact launches
+    (the mel kernel and the attention forward kernel run inside the loaded
+    program, as custom ops; the forward's "wgmma" path in bf16, "fma" in
+    fp32) against the live graphed ``Predictor`` of the
+    same weights (fp32 within 1e-4 of max|ref|, bf16 within 1e-2: the
+    program runs the same kernels and ATen ops as the live model, eagerly;
+    bf16 GEMMs may pick other tilings per batch, the bound of [4]'s B = 1
+    against B = 20), ``python -m passt_tpu_torch.tools.serve`` on a folder
+    of 6 wav clips, and ms/call and clips/s of the loaded program beside the
+    Predictor, in turns. Returns the launch counts of its runs."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch import export
+    from passt_tpu_torch.hear import Predictor
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.tools import serve
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    runs, lines = [], []
+
+    def counted(fn):
+        _build.reset_launches()
+        A.reset_path_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+        runs.append(launches)
+        return out, launches, dict(A.FWD_PATH_LAUNCHES)
+
+    try:
+        rng = np.random.default_rng(17)
+        w20 = torch.from_numpy(rng.standard_normal((20, CLIP)).astype(np.float32) * 0.1).to(dev)
+        artifacts = {}
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-2)):
+            prefix = os.path.join(tmp, f"passt_s_{dtype}")
+            t0 = time.perf_counter()
+            artifact, _ = export.export_inference(ARCH, prefix, device=dev, dtype=dtype, batch="b")
+            export_s = time.perf_counter() - t0
+            manifest = export.read_manifest(prefix)
+            check(manifest["platforms"] == ["cuda"] and manifest["input"]["shape"] == [None, CLIP]
+                  and manifest["outputs"] == {"logits": 527, "features": 768} and manifest["dtype"] == dtype,
+                  f"[17] manifest {manifest}")
+            t0 = time.perf_counter()
+            fn = export.load_exported(prefix)
+            load_s = time.perf_counter() - t0
+            artifacts[dtype] = prefix
+            live = Predictor.create(arch=ARCH, dtype=dtype, device=dev)  # export_inference's weights: seed 0
+            (got20, got1), launches, paths = counted(lambda: (fn(w20), fn(w20[:1])))
+            want = want_launches(fused_log_mel=2, fused_attention=24)
+            path = "fma" if dtype == "float32" else "wgmma"  # forward_path: fp32 takes "fma"
+            check(launches == want and paths == dict(dict(fma=0, mma=0, short=0, wgmma=0), **{path: 24}),
+                  f"[17] {dtype}: launches {launches} != {want} (forward paths {paths})")
+            errs, equal = {}, True
+            for b, got in ((20, got20), (1, got1)):
+                ref = live.logits_and_features(w20[:b])
+                for name, x, y in zip(("logits", "features"), got, ref):
+                    check(tuple(x.shape) == tuple(y.shape) and bool(torch.isfinite(x).all()),
+                          f"[17] {dtype} B={b} {name} {tuple(x.shape)}")
+                    errs[f"B={b} {name}"] = max_err(x, y) / float(y.float().abs().max())
+                    equal = equal and torch.equal(x, y)
+            check(max(errs.values()) <= tol, f"[17] {dtype}: artifact vs Predictor {errs} > {tol}")
+            times = {}
+            for b, reps in ((20, 5), (1, 20)):
+                fns = {"artifact": lambda: fn(w20[:b]), "Predictor": lambda: live(w20[:b])}
+                times[b] = in_turns(fns, 3, lambda f: cuda_ms(f, reps=reps, warmup=1))
+            lines.append(
+                f"[17] {dtype}: export_inference {export_s:.1f} s ({os.path.getsize(artifact) / 1e6:.1f} MB), "
+                f"load_exported {load_s:.1f} s; B=20 and B=1 calls launch {launches} (forward paths {paths}); "
+                f"against the graphed Predictor {'bit-equal' if equal else 'not bit-equal'}, max|diff| / max|ref| "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (bound {tol}); in turns, ms/call: "
+                + "; ".join(f"B={b} " + ", ".join(f"{name} {', '.join(f'{t:.3f}' for t in ts)} (best {min(ts):.3f} = "
+                                                  f"{b * 1000.0 / min(ts):.2f} clips/s)" for name, ts in tt.items())
+                            for b, tt in times.items()) + f" ({gpu})")
+            del live, fn
+        # the serve tool on a folder of wav clips, the bf16 artifact
+        labels = write_clips(os.path.join(tmp, "wavs"), 6, seed=23)
+        npz = os.path.join(tmp, "pred.npz")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, launches, _ = counted(lambda: serve.main(["--artifact", artifacts["bfloat16"], "--wav-dir",
+                                                         os.path.join(tmp, "wavs"), "--out", npz, "--batch", "4",
+                                                         "--probs"]))
+        serve_s = time.perf_counter() - t0
+        want = want_launches(fused_log_mel=2, fused_attention=24)
+        check(launches == want, f"[17] serve launches {launches} != {want}")
+        with np.load(npz) as f:
+            names, probs = list(f["names"]), f["out"]
+        check(names == sorted(labels) and probs.shape == (6, 527) and np.isfinite(probs).all()
+              and probs.min() >= 0 and probs.max() <= 1, f"[17] serve: {names} {probs.shape}")
+        lines.append(f"[17] serve (python -m passt_tpu_torch.tools.serve, bf16 artifact, --batch 4 --probs): 6 10-s "
+                     f"wav clips tagged in {serve_s:.2f} s (load, decode, 2 calls) into [6, 527] probabilities; "
+                     f"launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("[17] export -> load -> serve, PaSST-S (random weights, seed 0), symbolic batch, on the card:")
+    for line in lines:
+        say(line)
+    return runs
 
 
 def main() -> int:
@@ -2424,6 +2669,7 @@ def main() -> int:
     runs.append(phase_fit(gpu, dev))
     runs += phase_graphs(gpu, dev)
     runs.append(phase_cli(gpu, dev))
+    runs += phase_export(gpu, dev)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

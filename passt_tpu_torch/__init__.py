@@ -25,12 +25,19 @@ Layout
 - ``passt_tpu_torch.config``, ``.experiments``, ``.cli`` : the typed
   experiment config, the recipes and their commands, and
   ``python -m passt_tpu_torch.cli <experiment> [command] [overrides]``
+- ``passt_tpu_torch.parallel`` : data-parallel training across processes
+  (``trainer.n_data=N`` under ``torchrun``; NCCL on the card, gloo on the
+  CPU)
+- ``passt_tpu_torch.export`` : the serving artifact (``torch.export`` with
+  the serving kernels as custom ops, ``ops/library.py``) and its loader;
+  ``python -m passt_tpu_torch.tools.export_inference`` / ``.serve``
 - ``passt_tpu_torch.utils``  : parameter counts
 
 Entry points put their models on the card unless the caller asks for the
 CPU (``device="cpu"``), and run there as CUDA graphs unless the caller asks
 for ``jit=False``; ``fit``/``evaluate`` run where the state's tensors
-live. DDP and export are queued in ROADMAP.md.
+live. Tensor parallelism and the off-path model variants are queued in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -40,7 +40,13 @@ def main(argv=None):
         print(__doc__)
         print("experiments:", ", ".join(EXPERIMENTS))
         return 0
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()  # a data-parallel run's group (trainer.n_data) ends with the process
     return 0
 
 

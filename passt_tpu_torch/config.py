@@ -12,8 +12,10 @@ port's own :class:`~passt_tpu_torch.ops.frontend.MelConfig` and
 A few trainer knobs name JAX machinery; they stay so that command lines
 carry over, and mean here: ``profile_dir`` a ``torch.profiler`` trace of
 ``fit``'s steps; ``compilation_cache_dir`` nothing (the port compiles no
-XLA program; ``run_command`` says so); ``n_data``/``n_model`` one card
-(more raises until the port's DDP, ROADMAP.md queue 1 item 6).
+XLA program; ``run_command`` says so); ``n_data`` the processes of a
+data-parallel run, one card each (``torch.distributed``, started by
+``torchrun``; ``passt_tpu_torch.parallel``); ``n_model > 1`` raises
+(tensor parallelism is not ported, ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -142,8 +144,9 @@ class TrainerConfig:
     # training steps [profile_start_step, +profile_num_steps) in this dir
     profile_start_step: int = 10
     profile_num_steps: int = 5
-    n_data: Optional[int] = None  # devices: None or 1 is one card; more
-    n_model: int = 1  # raises until the port's DDP (ROADMAP.md queue 1 item 6)
+    n_data: Optional[int] = None  # data-parallel processes (one card each),
+    # the size of the torchrun group; None: one process, no group
+    n_model: int = 1  # > 1 raises (tensor parallelism: ROADMAP.md queue 1 item 10)
     seed: int = 0
     device_prefetch: int = 2  # batches the pinned side-stream feed keeps in
     # flight ahead of the step (0: inline copies)

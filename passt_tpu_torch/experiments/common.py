@@ -11,8 +11,11 @@ Each recipe exposes the reference's commands (``main``, ``evaluate_only``,
 The commands that run the model take ``device`` ("cuda" unless the caller
 asks for the CPU, as the tests do; no card raises, nothing falls back) and
 run the steps as CUDA graphs there, the counterpart of the JAX package's
-``jax.jit``. One process drives one card: ``trainer.n_data``/``n_model``
-asking for more raise until the port's DDP (ROADMAP.md queue 1 item 6).
+``jax.jit``. One process drives one card; ``main``, ``evaluate_only`` and
+``model_speed_test`` with ``trainer.n_data=N`` run data-parallel across the
+N processes of a ``torchrun`` group (``passt_tpu_torch.parallel``), as the
+JAX package's do across a mesh; ``trainer.n_model > 1`` raises (ROADMAP.md
+queue 1 item 10).
 
 HDF5 containers are opened (and ``h5py`` imported) only where one is read:
 the dataset builders, :func:`train_target_chunks`, ``_steps_per_epoch``'s
@@ -232,17 +235,6 @@ def build_eval_loader(
     )
 
 
-def check_one_device(trainer) -> None:
-    """One process drives one card: ``n_data`` None or 1 and ``n_model`` 1.
-    A mesh (the JAX package's ``maybe_mesh_runtime``) raises."""
-    n_data, n_model = trainer.n_data, trainer.n_model or 1
-    if n_data not in (None, 1) or n_model != 1:
-        raise NotImplementedError(
-            f"trainer.n_data={n_data} trainer.n_model={n_model} asks for more than one device; the port runs "
-            "one card per process until its DDP (ROADMAP.md queue 1 item 6)"
-        )
-
-
 def _process_rank() -> int:
     dist = torch.distributed
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
@@ -318,6 +310,7 @@ class Experiment:
         generator: Optional[torch.Generator] = None,
         steps_per_epoch: Optional[int] = None,
         device="cuda",
+        runtime=None,
     ):
         """(model, state, train_step, eval_step, tx) from a config, on
         ``device``. The order is the JAX package's, kept by
@@ -326,9 +319,10 @@ class Experiment:
         ``model.checkpoint_path``, then the optimizer's init on those fp32
         weights, and only then the storage cast (``trainer.param_dtype``).
         The steps are the graphed ones (``jit=True``; the train step donates
-        its state)."""
-        check_one_device(cfg.trainer)
-        device = resolve_device(device)
+        its state). With ``runtime`` (a ``DDPRuntime``) the state is rank
+        0's on every rank and the train step is the data-parallel one, on
+        the rank's device."""
+        device = runtime.device if runtime is not None else resolve_device(device)
         if steps_per_epoch is None:
             steps_per_epoch = self._steps_per_epoch(cfg)
         tx = make_optimizer(
@@ -372,6 +366,9 @@ class Experiment:
             param_sr=param_dtype == "bfloat16_sr",
         )
         eval_step = make_eval_step(model, cfg.mel, loss_type=cfg.trainer.loss_type)
+        if runtime is not None:
+            state = runtime.replicate_state(state)
+            train_step = runtime.wrap_train_step(train_step)
         return model, state, train_step, eval_step, tx
 
     # ------------------------------------------------------------------
@@ -415,14 +412,30 @@ class Experiment:
             transfer_dtype=cfg.trainer.transfer_dtype,
         )
 
+    def _runtime(self, cfg: ExperimentConfig, device):
+        """(the ``DDPRuntime`` of ``trainer.n_data``, or None; the device the
+        command runs on)."""
+        from passt_tpu_torch.parallel.runtime import maybe_ddp_runtime
+
+        runtime = maybe_ddp_runtime(cfg.trainer, device)
+        if runtime is None:
+            return None, resolve_device(device)
+        print(f"data parallel: rank {runtime.rank} of {runtime.n_data} on {runtime.device} "
+              f"(global batch {cfg.data.batch_size * runtime.n_data})")
+        if runtime.spans_processes and cfg.data.num_replicas == 1:
+            print("WARNING: data.num_replicas=1: every rank reads the whole dataset; "
+                  "data.num_replicas=0 gives each rank its slice")
+        return runtime, runtime.device
+
     def main(self, cfg: ExperimentConfig, device="cuda") -> Dict:
         """Train (the reference ``main`` command, ex_audioset.py:336-361) on
-        one card."""
-        check_one_device(cfg.trainer)
-        device = resolve_device(device)
+        one card, or with ``trainer.n_data=N`` data-parallel on N (the
+        reference's ``DDP=N``)."""
+        runtime, device = self._runtime(cfg, device)
         train_loader = build_train_loader(cfg)
         steps_per_epoch = self._steps_per_epoch(cfg, train_loader)
-        model, state, train_step, eval_step, _ = self.build(cfg, steps_per_epoch=steps_per_epoch, device=device)
+        model, state, train_step, eval_step, _ = self.build(cfg, steps_per_epoch=steps_per_epoch, device=device,
+                                                            runtime=runtime)
         from passt_tpu_torch.utils import count_non_zero_params
 
         desc, total, non_zero = count_non_zero_params(state.params)
@@ -447,7 +460,8 @@ class Experiment:
             from passt_tpu_torch.train.loop import restore_checkpoint
 
             try:
-                state, swa_restore, last_epoch = restore_checkpoint(cfg.trainer.checkpoint_dir, state)
+                state, swa_restore, last_epoch = restore_checkpoint(cfg.trainer.checkpoint_dir, state,
+                                                                    runtime=runtime)
                 start_epoch = last_epoch + 1
                 print(f"resumed from epoch {last_epoch} (step {int(state.step)})")
             except FileNotFoundError:
@@ -484,6 +498,7 @@ class Experiment:
             start_epoch=start_epoch,
             dump_spectrograms=cfg.trainer.dump_spectrograms,
             mel_cfg=cfg.mel,
+            runtime=runtime,
         )
         logger.close()
         return {
@@ -498,8 +513,11 @@ class Experiment:
         With ``trainer.checkpoint_dir`` set and populated, restores the
         TRAINED checkpoint first — best-by-``trainer.monitor`` when set,
         else latest. When the restored checkpoint carries SWA weights, the
-        averaged model is evaluated too (``swa_``-prefixed metrics)."""
-        model, state, _, eval_step, _ = self.build(cfg, device=device)
+        averaged model is evaluated too (``swa_``-prefixed metrics). With
+        ``trainer.n_data=N`` each rank evaluates its slice of the eval set
+        (``data.num_replicas=0``) and the outputs are gathered."""
+        runtime, device = self._runtime(cfg, device)
+        model, state, _, eval_step, _ = self.build(cfg, device=device, runtime=runtime)
         val_loader = build_eval_loader(cfg)
         swa_params = None
         if cfg.trainer.checkpoint_dir:
@@ -512,6 +530,7 @@ class Experiment:
                     state,
                     monitor=monitor,
                     monitor_mode=cfg.trainer.monitor_mode,
+                    runtime=runtime,
                 )
                 which = f"best by {monitor!r}" if monitor is not None else "latest"
                 print(
@@ -525,9 +544,9 @@ class Experiment:
                     f"evaluate_only: no checkpoint in "
                     f"{cfg.trainer.checkpoint_dir}; evaluating the built model"
                 )
-        metrics = evaluate(eval_step, state.params, val_loader, **self._eval_kw(cfg))
+        metrics = evaluate(eval_step, state.params, val_loader, runtime=runtime, **self._eval_kw(cfg))
         if swa_params is not None:
-            sm = evaluate(eval_step, swa_params, val_loader, **self._eval_kw(cfg))
+            sm = evaluate(eval_step, swa_params, val_loader, runtime=runtime, **self._eval_kw(cfg))
             metrics.update({f"swa_{k}": v for k, v in sm.items()})
         print({"validation": metrics})
         return metrics
@@ -554,7 +573,6 @@ class Experiment:
                 "evaluate_ensemble (a directory of ported <arch>.npz "
                 "checkpoints; see scripts/port_checkpoint.py)"
             )
-        check_one_device(cfg.trainer)
         device = resolve_device(device)
         paths = [os.path.join(cfg.model.ensemble_checkpoint_dir, f"{arch}.npz") for arch, _, _ in arch_list]
         pairs = get_ensemble_model(
@@ -603,11 +621,14 @@ class Experiment:
         ``test_length`` timed steps, printed as specs/second. Timed with CUDA
         events on the card (the host clock on the CPU). The default batch is
         per recipe (``speed_test_batch_size``): 12 for AudioSet/OpenMIC, 100
-        for the ESC-50/FSD50K fine-tune recipes (ex_esc50.py:281)."""
+        for the ESC-50/FSD50K fine-tune recipes (ex_esc50.py:281). With
+        ``trainer.n_data=N`` it times the data-parallel step, each rank on its
+        own batch, and reports the aggregate rate (global batch
+        ``speed_test_batch_size x N``)."""
         if speed_test_batch_size is None:
             speed_test_batch_size = self.speed_test_batch_size
-        device = resolve_device(device)
-        model, state, train_step, _, _ = self.build(cfg, device=device)
+        runtime, device = self._runtime(cfg, device)
+        model, state, train_step, _, _ = self.build(cfg, device=device, runtime=runtime)
         b = speed_test_batch_size
         x = torch.ones((b, 1, cfg.model.input_fdim, cfg.model.input_tdim), dtype=torch.float32, device=device)
         n_out = cfg.model.n_classes * (2 if cfg.trainer.loss_type == "masked" else 1)
@@ -639,7 +660,7 @@ class Experiment:
             state, loss = run(state, test_length)
             float(loss)
             dt = time.perf_counter() - t0
-        speed = test_length * b / dt
+        speed = test_length * b * (runtime.n_data if runtime is not None else 1) / dt
         print("average speed: ", speed, " specs/second")
         return {"specs_per_second": speed}
 

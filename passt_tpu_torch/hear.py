@@ -24,14 +24,21 @@ from passt_tpu_torch.models.passt import PaSST
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
 
 
-def make_inference_fn(model: PaSST, mel_cfg: MelConfig, input_tdim: int) -> Callable:
+def inference_forward(model: PaSST, mel_cfg: MelConfig, input_tdim: int, wave: torch.Tensor):
     """waveform [B, T] float32 -> (logits [B, C], features [B, D]): eval-mode
-    mel, cropped to ``input_tdim`` frames, then the eval-mode forward."""
+    mel, cropped to ``input_tdim`` frames, then the eval-mode forward. What
+    :func:`make_inference_fn` runs, and what ``passt_tpu_torch.export``
+    traces (without the inference mode, which tracing refuses)."""
+    mel = log_mel_spectrogram(wave, mel_cfg, train=False)
+    return model(mel[:, None, :, :input_tdim], train=False)
+
+
+def make_inference_fn(model: PaSST, mel_cfg: MelConfig, input_tdim: int) -> Callable:
+    """:func:`inference_forward` of ``model`` under ``torch.inference_mode``."""
 
     def infer(wave: torch.Tensor):
         with torch.inference_mode():
-            mel = log_mel_spectrogram(wave, mel_cfg, train=False)
-            return model(mel[:, None, :, :input_tdim], train=False)
+            return inference_forward(model, mel_cfg, input_tdim, wave)
 
     return infer
 

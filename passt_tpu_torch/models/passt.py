@@ -263,16 +263,28 @@ class PatchEmbed(nn.Module):
         return out.reshape(b, -1, fg, tg).to(dtype)
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+Rows = Optional[Tuple[int, int]]  # (first row, global batch): data parallelism
+
+
+def batch_rand(shape, generator: torch.Generator, device, rows: Rows = None) -> torch.Tensor:
+    """U[0, 1) of ``shape`` (batch first). ``rows=(start, total)``: the batch
+    is rows ``start ..`` of a global batch of ``total``, so the draw is made
+    at the global batch and these rows are kept (every rank draws alike)."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    start, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator, device=device)[start: start + shape[0]]
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator, rows: Rows = None) -> torch.Tensor:
     """Stochastic depth on the batch axis: a whole sample's branch is kept
     with probability ``1 - rate`` and scaled by its inverse."""
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
-                      device=x.device) < keep
+    mask = batch_rand((x.shape[0],) + (1,) * (x.ndim - 1), generator, x.device, rows) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], rows: Rows = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale by its
     inverse; the identity at rate 0 (no generator needed then)."""
     if rate == 0.0:
@@ -282,7 +294,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = batch_rand(x.shape, generator, x.device, rows) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -326,7 +338,7 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
-                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, rows: Rows = None) -> torch.Tensor:
         """``ln=(scale, bias)``: x arrives before norm1, which is fused into
         the qkv projection and attention (``fused_ln_qkv_attention``) where
         the JAX gate holds, else applied inline."""
@@ -337,24 +349,28 @@ class Attention(nn.Module):
         drop_gen = (generators or {}).get("dropout")
         proj_drop = self.proj_drop if train else 0.0
         fused_ok = self.fused and not (train and self.attn_drop > 0.0)
+        # the gates' batch bound is a TPU VMEM limit; a symbolic batch
+        # (torch.export) skips it rather than tie the program to one side of
+        # it (on the card both entries launch the same kernel, to the bit)
+        gate_batch = b if isinstance(b, int) else None
         if ln is not None:
             if fused_ok and ln_qkv_supports(n, heads, head_dim, backward=train,
-                                            itemsize=x.element_size(), batch=b):
+                                            itemsize=x.element_size(), batch=gate_batch):
                 qkv_bias = self.qkv.bias if self.qkv.bias is not None else x.new_zeros(3 * c)
                 out = fused_ln_qkv_attention(x, ln[0], ln[1], self.qkv.weight, qkv_bias, heads=heads,
                                              head_dim=head_dim, scale=scale, plus1=self.plus1)
-                return dropout(self.proj(out), proj_drop, drop_gen)
+                return dropout(self.proj(out), proj_drop, drop_gen, rows)
             x = _inline_ln(x, ln)
         qkv = self.qkv(x)
         if fused_ok:
             if flat_kernel_supports(n, heads, head_dim, backward=train,
-                                    itemsize=x.element_size(), batch=b):
+                                    itemsize=x.element_size(), batch=gate_batch):
                 out = fused_attention_qkv(qkv, heads=heads, head_dim=head_dim,
                                           scale=scale, plus1=self.plus1)
             else:
                 q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
                 out = fused_attention(q, k, v, scale=scale, plus1=self.plus1).reshape(b, n, c)
-            return dropout(self.proj(out), proj_drop, drop_gen)
+            return dropout(self.proj(out), proj_drop, drop_gen, rows)
 
         q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
@@ -366,9 +382,9 @@ class Attention(nn.Module):
             attn = torch.softmax(attn, dim=-1)
         if self.plus1:
             attn = attn[..., :-1]
-        attn = dropout(attn, self.attn_drop if train else 0.0, drop_gen)
+        attn = dropout(attn, self.attn_drop if train else 0.0, drop_gen, rows)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
-        return dropout(self.proj(out), proj_drop, drop_gen)
+        return dropout(self.proj(out), proj_drop, drop_gen, rows)
 
 
 class Mlp(nn.Module):
@@ -381,7 +397,8 @@ class Mlp(nn.Module):
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
+                rows: Rows = None) -> torch.Tensor:
         drop = self.drop if train else 0.0
         gen = (generators or {}).get("dropout")
         h = self.fc1(x)
@@ -390,8 +407,8 @@ class Mlp(nn.Module):
         else:
             approximate = "tanh" if self.gelu_approximate else "none"
             h = F.gelu(h.float(), approximate=approximate).to(h.dtype)
-        h = dropout(h, drop, gen)
-        return dropout(self.fc2(h), drop, gen)
+        h = dropout(h, drop, gen, rows)
+        return dropout(self.fc2(h), drop, gen, rows)
 
 
 class Block(nn.Module):
@@ -412,18 +429,19 @@ class Block(nn.Module):
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), cfg.gelu_approximate, cfg.gelu_saved_deriv,
                        drop=cfg.drop_rate)
 
-    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
+                rows: Rows = None) -> torch.Tensor:
         def branch(h):
             if train and self.drop_path_rate > 0.0:
-                return drop_path(h, self.drop_path_rate, _stream(generators or {}, "droppath"))
+                return drop_path(h, self.drop_path_rate, _stream(generators or {}, "droppath"), rows)
             return h
 
         if self.ln_in_attn:
-            h = self.attn(x, train, generators, ln=(self.norm1.weight, self.norm1.bias))
+            h = self.attn(x, train, generators, ln=(self.norm1.weight, self.norm1.bias), rows=rows)
         else:
-            h = self.attn(self.norm1(x).to(x.dtype), train, generators)
+            h = self.attn(self.norm1(x).to(x.dtype), train, generators, rows=rows)
         x = x + branch(h)
-        return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators))
+        return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators, rows))
 
 
 class PaSST(nn.Module):
@@ -450,9 +468,13 @@ class PaSST(nn.Module):
         # in checkpoints, unused by the reference forward
         self.head_dist = Linear(d, cfg.num_classes) if cfg.distilled else None
 
-    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None):
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
+                rows: Rows = None):
         """``generators``: the "patchout", "dropout" and "droppath" streams
-        a training forward draws from (each only where it draws)."""
+        a training forward draws from (each only where it draws).
+        ``rows=(start, total)``: ``x`` is rows ``start ..`` of a global batch
+        of ``total`` (data parallelism): the per-example draws (dropout,
+        drop-path) are made at the global batch and these rows kept."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b = x.shape[0]
@@ -504,10 +526,10 @@ class PaSST(nn.Module):
         if cfg.verbose_shapes:
             print(f" final sequence: {tuple(x.shape)}")
         if train:
-            x = dropout(x, cfg.drop_rate, generators.get("dropout"))
+            x = dropout(x, cfg.drop_rate, generators.get("dropout"), rows)
 
         for block in self.blocks:
-            x = block(x, train, generators)
+            x = block(x, train, generators, rows)
         x = self.norm(x)  # fp32
 
         features = (x[:, 0] + x[:, 1]) / 2.0 if cfg.distilled else x[:, 0]

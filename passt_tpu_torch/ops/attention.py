@@ -374,19 +374,45 @@ def fused_attention_qkv_bwd(
     return dqkv
 
 
+def attention_on_device(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        plus1: bool) -> torch.Tensor:
+    """The body of ``passt::attention`` (``ops/library.py``): the plain
+    version on a CPU tensor, the forward kernel on a CUDA tensor; ``[B, N,
+    H, D]`` in, ``[B, N, H, D]`` contiguous out."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale=scale, plus1=plus1).contiguous()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, scale, plus1)
+    _build.LAUNCHES[_KEY_BNHD] += 1
+    return out
+
+
+def attention_qkv_on_device(qkv: torch.Tensor, heads: int, head_dim: int, scale: float,
+                            plus1: bool) -> torch.Tensor:
+    """The body of ``passt::attention_qkv``: the forward kernel on the
+    q, k, v views of the raw qkv ``[B, N, 3C]`` (its plain version on a CPU
+    tensor); ``[B, N, C]`` out."""
+    b, n, _ = qkv.shape
+    if qkv.device.type == "cpu":
+        q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
+        return attention_plain(q, k, v, scale=scale, plus1=plus1).reshape(b, n, heads * head_dim)
+    if qkv.stride(2) != 1:
+        raise ValueError(f"qkv needs a contiguous last dim, strides {qkv.stride()}")
+    out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
+    _launch(*_head_views(qkv, heads, head_dim), out.view(b, n, heads, head_dim), scale, plus1)
+    _build.LAUNCHES[_KEY_QKV] += 1
+    return out
+
+
 class _FusedAttention(torch.autograd.Function):
-    """Forward kernel; backward kernel from the saved q, k, v."""
+    """Forward kernel (the custom op ``passt::attention``); backward kernel
+    from the saved q, k, v."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, plus1: bool):
         ctx.save_for_backward(q, k, v)
         ctx.scale, ctx.plus1 = scale, plus1
-        if q.device.type == "cpu":
-            return attention_plain(q, k, v, scale=scale, plus1=plus1)
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _launch(q, k, v, out, scale, plus1)
-        _build.LAUNCHES[_KEY_BNHD] += 1
-        return out
+        return torch.ops.passt.attention(q, k, v, scale, plus1)
 
     @staticmethod
     def backward(ctx, do):
@@ -395,23 +421,14 @@ class _FusedAttention(torch.autograd.Function):
 
 
 class _FusedAttentionQKV(torch.autograd.Function):
-    """Forward kernel on raw qkv; backward kernel writes d(qkv) from the
-    saved qkv."""
+    """Forward kernel on raw qkv (the custom op ``passt::attention_qkv``);
+    backward kernel writes d(qkv) from the saved qkv."""
 
     @staticmethod
     def forward(ctx, qkv, heads: int, head_dim: int, scale: float, plus1: bool):
         ctx.save_for_backward(qkv)
         ctx.args = dict(heads=heads, head_dim=head_dim, scale=scale, plus1=plus1)
-        b, n, _ = qkv.shape
-        if qkv.device.type == "cpu":
-            q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
-            return attention_plain(q, k, v, scale=scale, plus1=plus1).reshape(b, n, heads * head_dim)
-        if qkv.stride(2) != 1:
-            raise ValueError(f"qkv needs a contiguous last dim, strides {qkv.stride()}")
-        out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-        _launch(*_head_views(qkv, heads, head_dim), out.view(b, n, heads, head_dim), scale, plus1)
-        _build.LAUNCHES[_KEY_QKV] += 1
-        return out
+        return torch.ops.passt.attention_qkv(qkv, heads, head_dim, scale, plus1)
 
     @staticmethod
     def backward(ctx, do):

@@ -26,7 +26,7 @@ the reference's 3-D masking call behaves (see :func:`_axis_mask`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,11 +111,14 @@ def log_mel_spectrogram(
     *,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """[B, T] float waveform -> [B, n_mels, frames] normalised log-mel (fp32).
 
     ``train=True`` needs ``generator`` (on the wave's device) and adds the
-    mel-range jitter and SpecAugment."""
+    mel-range jitter and SpecAugment. ``rows=(start, total)``: the wave is
+    rows ``start .. start + B`` of a global batch of ``total`` (data
+    parallelism), and the masks are drawn for the global batch."""
     if wave.ndim != 2:
         raise ValueError(f"expected [B, T], got {tuple(wave.shape)}")
     if train and generator is None:
@@ -149,11 +152,12 @@ def log_mel_spectrogram(
         mel = torch.log(torch.matmul(bank.float(), power[:, : bank.shape[1], :]) + LOG_OFFSET)
     if train:
         b, n_mels, frames = mel.shape
+        start, total = rows if rows is not None else (0, b)
         if cfg.freqm > 0:
-            fm = _axis_mask(generator, b, n_mels, cfg.freqm, cfg.iid_masks)
+            fm = _axis_mask(generator, total, n_mels, cfg.freqm, cfg.iid_masks)[start: start + b]
             mel = torch.where(fm[:, :, None], 0.0, mel)
         if cfg.timem > 0:
-            tm = _axis_mask(generator, b, frames, cfg.timem, cfg.iid_masks)
+            tm = _axis_mask(generator, total, frames, cfg.timem, cfg.iid_masks)[start: start + b]
             mel = torch.where(tm[:, None, :], 0.0, mel)
     return (mel + NORM_SHIFT) / NORM_SCALE
 

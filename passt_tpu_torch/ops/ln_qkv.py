@@ -52,15 +52,7 @@ from typing import Optional
 import torch
 
 from passt_tpu_torch.ops import _build
-from passt_tpu_torch.ops.attention import (
-    _DTYPE_CODE,
-    _KEY_QKV,
-    _head_views,
-    _launch,
-    attention_plain,
-    flat_kernel_supports,
-    fused_attention_qkv_bwd,
-)
+from passt_tpu_torch.ops.attention import _DTYPE_CODE, flat_kernel_supports, fused_attention_qkv_bwd
 
 _KEY_F1 = "ln_qkv_f1"
 _KEY_B2 = "ln_qkv_b2"
@@ -278,11 +270,18 @@ def _check_weight(w, c):
 
 def ln_qkv_f1(x, s, b, w, wb, eps: float = 1e-6) -> torch.Tensor:
     """F1: qkv ``[B, N, 3C]`` of x ``[B, N, C]`` by the kernel on a CUDA
-    tensor, by its plain version on a CPU tensor."""
+    tensor, by its plain version on a CPU tensor (the custom op
+    ``passt::ln_qkv_f1``, ``ops/library.py``)."""
     c = x.shape[-1]
     _check_weight(w, c)
     if tuple(wb.shape) != (3 * c,):
         raise ValueError(f"qkv bias shape {tuple(wb.shape)} != {(3 * c,)}")
+    return torch.ops.passt.ln_qkv_f1(x, s, b, w, wb, float(eps))
+
+
+def ln_qkv_f1_on_device(x, s, b, w, wb, eps: float) -> torch.Tensor:
+    """The body of ``passt::ln_qkv_f1``."""
+    c = x.shape[-1]
     if x.device.type == "cpu":
         return ln_qkv_f1_plain(x, s, b, w, wb, eps)
     ops = _operands(dict(x=x, s=s, b=b, w=w, wb=wb), x.dtype, x.device, c)
@@ -337,14 +336,7 @@ class _LnQkvAttention(torch.autograd.Function):
         qkv = ln_qkv_f1(x, s, b, w, wb, eps)
         ctx.save_for_backward(x, s, b, w, qkv)
         ctx.args = (heads, head_dim, scale, plus1, eps)
-        bsz, n, _ = qkv.shape
-        if qkv.device.type == "cpu":
-            q, k, v = qkv.reshape(bsz, n, 3, heads, head_dim).unbind(2)
-            return attention_plain(q, k, v, scale=scale, plus1=plus1).reshape(bsz, n, heads * head_dim)
-        out = torch.empty((bsz, n, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-        _launch(*_head_views(qkv, heads, head_dim), out.view(bsz, n, heads, head_dim), scale, plus1)
-        _build.LAUNCHES[_KEY_QKV] += 1
-        return out
+        return torch.ops.passt.attention_qkv(qkv, heads, head_dim, scale, plus1)
 
     @staticmethod
     def backward(ctx, do):

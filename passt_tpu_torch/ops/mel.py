@@ -74,12 +74,24 @@ def _scalar(value, device) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=16)
 def _fft_bin_mels(n_fft: int, sample_rate: float, device: torch.device) -> torch.Tensor:
     """The mel value of each FFT bin ``0 .. n_fft//2 - 1``, from float64,
-    kept on ``device`` once (the training frontend builds a bank per step)."""
+    kept on ``device`` once (the training frontend builds a bank per step).
+    A traced call (``torch.export``) makes its own: the tensor it would keep
+    is the tracer's fake one."""
+    if torch.compiler.is_compiling():
+        return _fft_bin_mels_host(n_fft, sample_rate).to(device)
+    return _fft_bin_mels_on(n_fft, sample_rate, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_bin_mels_on(n_fft: int, sample_rate: float, device: torch.device) -> torch.Tensor:
+    return _fft_bin_mels_host(n_fft, sample_rate).to(device)
+
+
+def _fft_bin_mels_host(n_fft: int, sample_rate: float) -> torch.Tensor:
     freqs = (sample_rate / n_fft) * np.arange(n_fft // 2, dtype=np.float64)
-    return torch.from_numpy(hz_to_mel(freqs).astype(np.float32)).to(device)
+    return torch.from_numpy(hz_to_mel(freqs).astype(np.float32))
 
 
 def kaldi_mel_banks_np(

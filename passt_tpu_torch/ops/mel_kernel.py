@@ -167,9 +167,20 @@ def fused_log_mel(
     """[B, T] waveform + [n_mels, n_freq] mel bank -> [B, n_mels, frames] fp32.
 
     ``n_freq`` is ``n_fft // 2`` for the frontend's bank (the Nyquist bin is
-    dropped). A CPU tensor takes :func:`fused_log_mel_plain`.
+    dropped). A CPU tensor takes :func:`fused_log_mel_plain`. The call goes
+    through the custom op ``passt::log_mel`` (``ops/library.py``), so that
+    ``torch.export`` keeps the kernel in an exported program.
     """
     check_geometry(wave, mel_bank, n_fft, hop, win_length)
+    return torch.ops.passt.log_mel(wave, mel_bank, n_fft, hop, win_length, log_offset, norm_shift, norm_scale)
+
+
+def log_mel_on_device(
+    wave: torch.Tensor, mel_bank: torch.Tensor, n_fft: int, hop: int, win_length: int,
+    log_offset: float, norm_shift: float, norm_scale: float,
+) -> torch.Tensor:
+    """The body of ``passt::log_mel``: the plain version on a CPU tensor,
+    the kernel on a CUDA tensor (raises on another device)."""
     kwargs = dict(
         n_fft=n_fft, hop=hop, win_length=win_length,
         log_offset=log_offset, norm_shift=norm_shift, norm_scale=norm_scale,
@@ -188,7 +199,7 @@ def fused_log_mel(
     x = wave.float().contiguous()
     bank = mel_bank.float().contiguous()
     n_mels, n_freq = bank.shape
-    frames = 1 + (t - 1) // hop
+    frames = num_frames(t, hop)
     spans = torch.empty((n_mels + 1, 4), dtype=torch.int32, device=wave.device)
     taps = torch.empty(n_mels * n_freq, dtype=torch.float32, device=wave.device)
     out = torch.empty((b, n_mels, frames), dtype=torch.float32, device=wave.device)
@@ -203,3 +214,9 @@ def fused_log_mel(
     _build.check(lib, code, "mel kernel launch")
     _build.LAUNCHES[_LAUNCHES_KEY] += 1
     return out
+
+
+def num_frames(num_samples: int, hop: int) -> int:
+    """Frames of a ``num_samples`` wave: the centred STFT of its pre-emphasis
+    (one sample shorter), on the kernel and the plain version alike."""
+    return 1 + (num_samples - 1) // hop

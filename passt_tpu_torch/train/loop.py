@@ -35,8 +35,15 @@ orbax is not on the card's machine): one file per epoch,
 holding the params, the optimizer state's leaves, the step, the epoch, the
 SWA average and count, and the monitored metric.
 
-Multi-process parts of the JAX loop (the cross-process eval gather, the
-stop agreement) come with the port's DDP.
+With a ``runtime`` (``passt_tpu_torch.parallel.runtime.DDPRuntime``)
+spanning processes, as in the JAX loop: each rank evaluates its slice of
+the eval set and the outputs are gathered (padded to the largest count,
+gathered, trimmed; a rank with no rows takes part) before the metrics, so
+``allap`` is the same on every rank; a SIGTERM seen by any rank stops every
+rank at the same batch (the flag is agreed on at the log cadence and at
+each epoch's end); progress, logging, the spectrogram dump, checkpoint
+writes and profiling run on rank 0, the other ranks waiting for each
+checkpoint; and a restore reads on every rank what rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from passt_tpu_torch.data.pipeline import DeviceFeed
@@ -162,6 +170,55 @@ def _stop_iter(it, base_it=None) -> None:
         base_it.stop()
 
 
+def _spans(runtime) -> bool:
+    return runtime is not None and runtime.spans_processes
+
+
+def _all_gather_np(a: np.ndarray, runtime) -> np.ndarray:
+    """Every rank's ``a`` (the same shape and dtype on every rank), stacked
+    in rank order, through the group's backend on the rank's device."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(runtime.device)
+    parts = [torch.empty_like(t) for _ in range(runtime.world_size)]
+    dist.all_gather(parts, t)
+    return np.stack([p.cpu().numpy() for p in parts])
+
+
+def _gather_across_processes(out: np.ndarray, target: np.ndarray, loss: np.ndarray, runtime):
+    """Concatenate every rank's eval outputs in rank order — the reference's
+    DDP ``all_gather`` before 'allap' (ex_audioset.py:274-285). Ranks may
+    hold different example counts (rank-sliced loaders), so each pads to the
+    largest count, and the gathered rows are trimmed by the gathered counts.
+    A rank with no rows cannot know the trailing shapes, yet it must enter
+    every collective: the shapes are gathered too, and it sends zero rows of
+    them. Everything travels as float32 (labels are small integers, exactly
+    cast). The identity without a runtime spanning processes."""
+    if not _spans(runtime):
+        return out, target, loss
+    counts = _all_gather_np(np.array([len(out)], np.int64), runtime).reshape(-1)
+    m = int(counts.max())
+    if m == 0:
+        raise ValueError("no eval batches on any process")
+
+    def shape_desc(a):
+        return (list(a.shape[1:]) + [-1, -1])[:2] if len(a) else [-2, -2]
+
+    descs = _all_gather_np(np.array(shape_desc(out) + shape_desc(target) + shape_desc(loss), np.int64),
+                           runtime).reshape(len(counts), 3, 2)
+    ref = descs[int(np.argmax(counts > 0))]
+
+    def norm(a, r):
+        if len(a):
+            return np.asarray(a, np.float32)
+        return np.zeros((0,) + tuple(int(x) for x in r if x >= 0), np.float32)
+
+    def gathered(a):
+        padded = np.pad(a, ((0, m - len(a)),) + ((0, 0),) * (a.ndim - 1))
+        g = _all_gather_np(padded, runtime)
+        return np.concatenate([g[p, : int(counts[p])] for p in range(len(counts))])
+
+    return tuple(gathered(norm(a, r)) for a, r in zip((out, target, loss), ref))
+
+
 def evaluate(
     eval_step: Callable,
     params: Dict[str, torch.Tensor],
@@ -171,6 +228,7 @@ def evaluate(
     masked: bool = False,
     device_prefetch: int = 2,
     transfer_dtype: str = "float32",
+    runtime=None,
 ) -> Dict[str, float]:
     """Run the eval loader on the device of ``params`` and compute loss +
     AP/ROC (multilabel), the masked OpenMIC metrics, or accuracy
@@ -182,7 +240,9 @@ def evaluate(
     loader is done (one copy to the host at the end, no per-batch
     synchronisation). ``device_prefetch`` is the feed's depth (0: inline
     transfer); ``transfer_dtype="int16"`` halves the host->card bytes with
-    fit()'s quantization."""
+    fit()'s quantization. ``runtime`` spanning processes: ``loader`` is this
+    rank's slice (possibly empty), and the metrics are those of every
+    rank's outputs gathered, the same on every rank."""
     _check_transfer_dtype(transfer_dtype)
     int16 = transfer_dtype == "int16"
     device = _device_of(params)
@@ -212,11 +272,13 @@ def evaluate(
             targets.append(host_target)
     finally:
         _stop_iter(it, base_it)
-    if not outs:
+    if not outs and not _spans(runtime):
         raise ValueError("no eval batches (empty eval loader)")
-    out = torch.cat(outs).float().cpu().numpy()
-    loss = torch.cat(losses).float().cpu().numpy()
-    target = np.concatenate(targets)
+    empty = np.zeros((0,), np.float32)  # a rank with no rows: its shapes come from the others
+    out = torch.cat(outs).float().cpu().numpy() if outs else empty
+    loss = torch.cat(losses).float().cpu().numpy() if outs else empty
+    target = np.concatenate(targets) if outs else empty
+    out, target, loss = _gather_across_processes(out, target, loss, runtime)
     metrics: Dict[str, float] = {"val_loss": float(np.mean(loss)), "n_eval": len(out)}
     if single_label:
         metrics["accuracy"] = float((out.argmax(axis=1) == target.reshape(-1)).mean())
@@ -241,7 +303,7 @@ def evaluate(
             print("roc_auc undefined on this eval set (no two-class labels); omitting 'roc'")
         else:
             metrics["roc"] = float(np.nanmean(per_class))
-        metrics["allap"] = metrics["ap"]  # one process: ap == allap
+        metrics["allap"] = metrics["ap"]  # over every rank's outputs
     return metrics
 
 
@@ -341,6 +403,7 @@ def restore_checkpoint(
     step: Optional[int] = None,
     monitor: Optional[str] = None,
     monitor_mode: str = "max",
+    runtime=None,
 ):
     """Restore the latest (or the given epoch's) checkpoint into a TrainState
     template, on the template's device and in its dtypes. Returns (state,
@@ -350,7 +413,13 @@ def restore_checkpoint(
     checkpoint by that recorded metric instead of the latest — the partner
     of fit(monitor=...)'s best retention. The template's optimizer state
     must have the structure of the saved one (the same ``moments_dtype``
-    and ``grad_accum``)."""
+    and ``grad_accum``).
+
+    ``runtime`` spanning processes: every rank waits for the others, reads
+    the checkpoint (rank 0 wrote it), and takes rank 0's tensors, so the
+    ranks start from one state."""
+    if _spans(runtime):
+        dist.barrier()
     if monitor_mode not in ("max", "min"):
         raise ValueError(f"monitor_mode must be 'max' or 'min', got {monitor_mode!r}")
     epochs = checkpoint_epochs(checkpoint_dir)
@@ -394,6 +463,12 @@ def restore_checkpoint(
     swa = None
     if saved.get("swa_params") is not None:
         swa = (like(state.params, saved["swa_params"], "swa_params", torch.float32), int(saved["swa_n"]))
+    if _spans(runtime):
+        runtime.replicate_state(new_state)
+        if swa is not None:
+            from passt_tpu_torch.parallel.mesh import replicate
+
+            replicate(list(swa[0].values()))
     return new_state, swa, epoch
 
 
@@ -442,6 +517,7 @@ def fit(
     profile_num_steps: int = 5,
     device_prefetch: int = 2,
     transfer_dtype: str = "float32",
+    runtime=None,
 ) -> FitResult:
     """Train ``max_epochs - start_epoch`` epochs of ``train_step`` on the
     device of ``state.params``; ``seed`` is the step's base seed (the JAX
@@ -453,8 +529,14 @@ def fit(
     ``profile_dir`` writes a ``torch.profiler`` chrome trace of
     ``profile_num_steps`` steps from ``profile_start_step``;
     ``dump_spectrograms`` saves the train-mode mel of the first steps, drawn
-    from the step's own generators."""
+    from the step's own generators.
+
+    ``runtime`` (a ``DDPRuntime`` spanning processes; ``train_step`` its
+    data-parallel step): every rank runs this loop on its own loader slice;
+    see the module docstring for what runs on rank 0 and what is agreed."""
     logger = logger or MetricsLogger()
+    multi = _spans(runtime)
+    main = not multi or runtime.is_main
     device = _device_of(state.params)
     _check_transfer_dtype(transfer_dtype)
     int16 = transfer_dtype == "int16"
@@ -492,6 +574,24 @@ def fit(
     # the batch loop honours at the next batch boundary (during eval or a
     # checkpoint, at the epoch's end)
     stop = {"sig": None}
+
+    def stop_agreed(collective_point: bool) -> bool:
+        """One stop decision for every rank. One process: the flag, at every
+        batch. Several: ranks may see a SIGTERM at different batches, and a
+        rank that leaves mid-epoch blocks the others in the next step's
+        collectives, so the flag is combined (any rank's) at the log cadence
+        and the epoch's end only, where every rank reaches the same point."""
+        if not multi:
+            return stop["sig"] is not None
+        if not collective_point:
+            return False
+        flag = torch.tensor([0 if stop["sig"] is None else 1], dtype=torch.int32, device=runtime.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if int(flag.item()):
+            stop["sig"] = stop["sig"] or -1  # this rank follows the agreement
+            return True
+        return False
+
     prev_sigterm = None
     if handle_sigterm:
         import signal
@@ -508,7 +608,7 @@ def fit(
     prof = None
     prof_done = False  # one-shot, at the first step >= profile_start_step
     prof_start = profile_start_step
-    show_progress = sys.stdout.isatty()
+    show_progress = sys.stdout.isatty() and main
     host_step = int(state.step)  # the step count, mirrored without a device read
     train_it = base_it = None
     try:
@@ -523,13 +623,13 @@ def fit(
                 base_it = iter(train_loader)
                 train_it = _feed(base_it, convert, device, device_prefetch)
                 for i, (dev_batch, _) in enumerate(train_it):
-                    if stop["sig"] is not None:
+                    if stop_agreed(i % log_every_steps == 0):
                         _stop_iter(train_it, base_it)
                         raise KeyboardInterrupt  # the same clean exit as Ctrl-C
                     if limit_train_batches is not None and i >= limit_train_batches:
                         _stop_iter(train_it, base_it)
                         break
-                    if profile_dir and prof is None and not prof_done and host_step >= profile_start_step:
+                    if profile_dir and main and prof is None and not prof_done and host_step >= profile_start_step:
                         from torch.profiler import ProfilerActivity, profile
 
                         activities = [ProfilerActivity.CPU]
@@ -541,13 +641,17 @@ def fit(
                     if int16:
                         # main thread, the consumer's stream
                         dev_batch = dict(dev_batch, wave=_dequant_int16(dev_batch["wave"]))
-                    if dump_spectrograms and host_step < dump_spectrograms and mel_cfg is not None:
+                    if dump_spectrograms and main and host_step < dump_spectrograms and mel_cfg is not None:
                         # the train step's own mel generator for this step
+                        # (rank 0's rows are the global batch's first)
                         from passt_tpu_torch.ops.frontend import log_mel_spectrogram
 
                         gen = step_generators(seed, host_step, device)["mel"]
+                        b = len(dev_batch["wave"])
+                        rows = (0, b * runtime.world_size) if multi else None
                         with torch.no_grad():
-                            mel_img = log_mel_spectrogram(dev_batch["wave"], mel_cfg, generator=gen, train=True)
+                            mel_img = log_mel_spectrogram(dev_batch["wave"], mel_cfg, generator=gen, train=True,
+                                                          rows=rows)
                         out_dir = checkpoint_dir or "."
                         os.makedirs(out_dir, exist_ok=True)
                         np.save(os.path.join(out_dir, f"spectrograms_step{host_step}.npy"),
@@ -573,7 +677,8 @@ def fit(
                                 row[k] = float(v)
                         if show_progress:
                             print("\r\x1b[K", end="")
-                        logger.log(row)
+                        if main:
+                            logger.log(row)
                         progress_tail = f"loss {row['loss']:.4f} {row['it_per_s']:.2f} it/s"
                     elif show_progress:
                         total = len(train_loader) if hasattr(train_loader, "__len__") else "?"
@@ -620,14 +725,16 @@ def fit(
                 for set_name, loader in val_loaders.items():
                     pre = f"{set_name}_" if (multi_val and set_name) else ""
                     em = evaluate(eval_step, state.params, loader, limit_eval_batches, single_label, masked,
-                                  device_prefetch=device_prefetch, transfer_dtype=transfer_dtype)
+                                  device_prefetch=device_prefetch, transfer_dtype=transfer_dtype, runtime=runtime)
                     record.update({f"{pre}{k}": v for k, v in em.items()})
                     if swa_state is not None and swa_state.n_averaged > 0:
                         sm = evaluate(eval_step, swa_state.avg_params, loader, limit_eval_batches, single_label,
-                                      masked, device_prefetch=device_prefetch, transfer_dtype=transfer_dtype)
+                                      masked, device_prefetch=device_prefetch, transfer_dtype=transfer_dtype,
+                                      runtime=runtime)
                         record.update({f"{pre}swa_{k}": v for k, v in sm.items()})
 
-            logger.log(record)
+            if main:
+                logger.log(record)
             history.append(record)
 
             if ckpt is not None:
@@ -642,7 +749,7 @@ def fit(
                     # no eval are not checkpointed
                     print(f"checkpoint skipped at epoch {epoch}: monitored metric {monitor!r} not in this "
                           "epoch's record (no eval ran)")
-                else:
+                elif main:
                     ckpt.save(epoch, {
                         "epoch": epoch,
                         "step": host_step,
@@ -652,8 +759,10 @@ def fit(
                         "swa_n": 0 if swa_state is None else swa_state.n_averaged,
                         "metrics": {} if monitor is None else {monitor: float(record[monitor])},
                     })
+                if multi:
+                    dist.barrier()  # the other ranks go on once rank 0's checkpoint is on disk
 
-            if stop["sig"] is not None:
+            if stop_agreed(True):
                 # SIGTERM landed during eval/checkpoint: this epoch is
                 # complete and checkpointed
                 interrupted = True
@@ -669,7 +778,7 @@ def fit(
             prof.stop()
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, f"trace_step{prof_start}.json"))
-        if profile_dir and not prof_done and prof is None:
+        if profile_dir and main and not prof_done and prof is None:
             print(f"profile_dir was set but the profile window never fired (run ended before step "
                   f"{profile_start_step})")
         if prev_sigterm is not None:

@@ -28,16 +28,28 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels[:, None].long())[:, 0]
 
 
+def _pair(targets: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor, rows: Optional[slice]):
+    """(own targets, partner targets, lambda) of the rows the logits cover:
+    all of them, or ``rows`` of a global batch whose ``targets``, ``perm``
+    and ``lam`` are global (data parallelism)."""
+    if rows is None:
+        return targets, targets[perm], lam
+    return targets[rows], targets[perm[rows]], lam[rows]
+
+
 def multilabel_loss(
     logits: torch.Tensor,
     targets: torch.Tensor,
     perm: Optional[torch.Tensor] = None,
     lam: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """AudioSet/FSD50K loss; with mixup (perm, lam) the targets are blended
-    as the inputs were."""
+    as the inputs were. ``rows``: the logits are these rows of the global
+    batch that ``targets``, ``perm`` and ``lam`` cover."""
     if perm is not None:
-        targets = targets * lam[:, None] + targets[perm] * (1.0 - lam[:, None])
+        own, other, lam = _pair(targets, perm, lam, rows)
+        targets = own * lam[:, None] + other * (1.0 - lam[:, None])
     return bce_with_logits(logits, targets).mean()
 
 
@@ -46,13 +58,13 @@ def single_label_mixup_loss(
     labels: torch.Tensor,
     perm: Optional[torch.Tensor] = None,
     lam: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """ESC-50 loss."""
     if perm is None:
         return softmax_ce(logits, labels).mean()
-    return (
-        softmax_ce(logits, labels) * lam + softmax_ce(logits, labels[perm]) * (1.0 - lam)
-    ).mean()
+    own, other, lam = _pair(labels, perm, lam, rows)
+    return (softmax_ce(logits, own) * lam + softmax_ce(logits, other) * (1.0 - lam)).mean()
 
 
 def masked_bce_loss(
@@ -61,14 +73,19 @@ def masked_bce_loss(
     perm: Optional[torch.Tensor] = None,
     lam: Optional[torch.Tensor] = None,
     mix_masks: bool = False,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """OpenMIC loss: ``targets_with_mask`` is [B, 2K] = labels || mask.
     Labels are binarized at 0.5 first."""
     k = targets_with_mask.shape[1] // 2
-    mask = targets_with_mask[:, k:]
-    y = (targets_with_mask[:, :k] > 0.5).to(logits.dtype)
+    if perm is None:
+        own = targets_with_mask
+    else:
+        own, other, lam = _pair(targets_with_mask, perm, lam, rows)
+    mask = own[:, k:]
+    y = (own[:, :k] > 0.5).to(logits.dtype)
     if perm is not None:
-        y = y * lam[:, None] + y[perm] * (1.0 - lam[:, None])
+        y = y * lam[:, None] + (other[:, :k] > 0.5).to(logits.dtype) * (1.0 - lam[:, None])
         if mix_masks:
-            mask = ((mask > 0.5) | (mask[perm] > 0.5)).to(logits.dtype)
+            mask = ((mask > 0.5) | (other[:, k:] > 0.5)).to(logits.dtype)
     return (mask * bce_with_logits(logits, y)).mean()

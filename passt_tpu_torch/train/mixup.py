@@ -59,3 +59,11 @@ def apply_mixup(x: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor) -> torch
     ``lam`` broadcasts over the non-batch axes."""
     lam = lam.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
     return x * lam + x[perm] * (1.0 - lam)
+
+
+def apply_mixup_rows(x: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor, rows: slice) -> torch.Tensor:
+    """``rows`` of :func:`apply_mixup` (x, perm, lam): only those rows are
+    blended, each with its partner anywhere in ``x`` (data parallelism:
+    ``x`` is the all-gathered batch)."""
+    lam = lam[rows].reshape((-1,) + (1,) * (x.ndim - 1))
+    return x[rows] * lam + x[perm[rows]] * (1.0 - lam)

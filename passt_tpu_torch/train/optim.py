@@ -294,7 +294,9 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
 
     The branch (accumulate or update) is taken on the host, from the
     state's ``mini_step``: a graph of the step is captured once per branch.
-    The divisor ``n + 1`` is the scalar ``"div"``."""
+    The divisor ``n + 1`` is the scalar ``"div"``. ``inputs["reduce_grads"]``,
+    where given, maps the accumulated mean before the inner update (the
+    data-parallel step's all-reduce: once an update, not once a micro-step)."""
 
     def init(params: Params) -> MultiStepsState:
         return MultiStepsState(
@@ -321,6 +323,8 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
         torch._foreach_div_(delta, inputs["div"])
         acc = dict(zip(keys, torch._foreach_add(acc, delta)))
         if state.mini_step == every_k - 1:
+            if "reduce_grads" in inputs:
+                acc = inputs["reduce_grads"](acc)
             updates, inner_state = inner.update(acc, state.inner_opt_state, params, inputs)
             zeros = {k: torch.zeros_like(u) for k, u in updates.items()}
             return updates, MultiStepsState(0, state.gradient_step + 1, inner_state, zeros)

@@ -34,7 +34,7 @@ from passt_tpu_torch.models.passt import PaSST, PaSSTConfig, init_weights
 from passt_tpu_torch.models.registry import resolve_device
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
 from passt_tpu_torch.train import losses as L
-from passt_tpu_torch.train.mixup import apply_mixup, sample_mixup
+from passt_tpu_torch.train.mixup import apply_mixup, apply_mixup_rows, sample_mixup
 from passt_tpu_torch.train import optim
 from passt_tpu_torch.train.optim import (
     GradientTransformation,
@@ -212,6 +212,7 @@ def make_train_step(
     param_sr: bool = False,
     donate: bool = True,
     jit: bool = True,
+    data_parallel=None,
 ):
     """Build the train step ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -236,42 +237,76 @@ def make_train_step(
     overwrites them, as a donated buffer is consumed. A state whose tensors
     are not the graph's (fresh, restored, averaged) is copied in first.
     ``donate=False`` returns copies and leaves every state as it was.
+
+    ``data_parallel`` (a :class:`passt_tpu_torch.parallel.mesh.DataParallel`,
+    the JAX package's ``make_parallel_train_step``): the batch is this rank's
+    rows of the global batch, and the step computes the step over the
+    global batch: the per-example draws at the global batch (each rank
+    keeps its rows), mixup over the all-gathered batch and targets, and the
+    gradients and the loss averaged by one all-reduce of one flat buffer
+    before the optimizer (under ``grad_accum``, the gradient mean once an
+    update, unless grad norms are logged, which need the global gradient
+    each micro-step). The metrics are the global ones, and every rank's
+    new state is the same, bit for bit.
     """
     loss_fn = LOSS_FNS[loss_type]
     tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
+
+    dp = data_parallel
+    log_norms = log_grad_norm or log_grad_norm_per_block
 
     def body(params, opt_state, batch: Dict[str, torch.Tensor], inputs: StepInputs):
         """One step on tensors: (params, opt_state, metrics)."""
         gens = inputs.generators
         y = batch["target"]
+        b = y.shape[0]
+        rows = None if dp is None else dp.rows(b)
         if "mel" in batch:
             x = batch["mel"]
         else:
-            mel = log_mel_spectrogram(batch["wave"], mel_cfg, generator=gens["mel"], train=True)
+            mel = log_mel_spectrogram(batch["wave"], mel_cfg, generator=gens["mel"], train=True, rows=rows)
             x = mel[:, None, :, :tdim]
 
-        perm = lam = None
+        perm = lam = loss_rows = None
         if use_mixup:
-            perm, lam = sample_mixup(gens["mix"], x.shape[0], mixup_alpha)
-            x = apply_mixup(x, perm, lam)
+            if dp is None:
+                perm, lam = sample_mixup(gens["mix"], b, mixup_alpha)
+                x = apply_mixup(x, perm, lam)
+            else:
+                # the partners of a global permutation live on other ranks
+                start, total = rows
+                perm, lam = sample_mixup(gens["mix"], total, mixup_alpha)
+                loss_rows = slice(start, start + b)
+                x = apply_mixup_rows(dp.gather_rows(x), perm, lam, loss_rows)
+                y = dp.gather_rows(y)
 
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         logits, _ = functional_call(
             model, leaves, (x,),
-            dict(train=True, generators={k: gens[k] for k in ("patchout", "dropout", "droppath")}),
+            dict(train=True, generators={k: gens[k] for k in ("patchout", "dropout", "droppath")}, rows=rows),
         )
-        loss = loss_fn(logits, y, perm, lam)
+        loss = loss_fn(logits, y, perm, lam, rows=loss_rows)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
         grads = dict(zip(leaves, grads))
+        loss = loss.detach()
 
-        updates, opt_state = tx.update(grads, opt_state, params, inputs.optimizer())
+        opt_inputs = inputs.optimizer()
+        if dp is not None:
+            if isinstance(opt_state, optim.MultiStepsState) and not log_norms:
+                # the gradient mean is reduced once an update, inside multi_steps
+                _, (loss,) = dp.all_reduce_mean({}, [loss])
+                opt_inputs["reduce_grads"] = lambda acc: dp.all_reduce_mean(acc)[0]
+            else:
+                grads, (loss,) = dp.all_reduce_mean(grads, [loss])
+
+        updates, opt_state = tx.update(grads, opt_state, params, opt_inputs)
         if param_sr:
             # bf16 storage: fp32 add, stochastically rounded store, from a
             # stream apart from the augmentation's and the optimizer's
             params = apply_updates_sr(params, updates, gens["apply_updates_sr"])
         else:
             params = apply_updates(params, updates)
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": loss}
         if log_grad_norm:
             metrics["grad_norm"] = optim.global_norm(grads.values())
         if log_grad_norm_per_block:
@@ -293,6 +328,13 @@ def make_train_step(
             seeds["apply_updates_sr"] = ("apply_updates_sr", state.step)
         return runners[device](state, batch, seeds)
 
+    # what make_parallel_train_step rebuilds the step from
+    step.build_args = (
+        (model, tx, mel_cfg),
+        dict(loss_type=loss_type, use_mixup=use_mixup, mixup_alpha=mixup_alpha, input_tdim=input_tdim,
+             log_grad_norm=log_grad_norm, log_grad_norm_per_block=log_grad_norm_per_block, param_sr=param_sr,
+             donate=donate, jit=jit, data_parallel=data_parallel),
+    )
     return step
 
 

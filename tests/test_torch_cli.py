@@ -138,16 +138,22 @@ def test_cli_help_print_config_and_errors(capsys):
 
 def test_cli_runs_on_the_card_and_one_device_only(capsys):
     """The CLI's model commands run on the card: without one they raise
-    (nothing falls back to the CPU); more than one device names ROADMAP
-    queue 1 item 6, blocks_impl scan/stacked item 8;
+    (nothing falls back to the CPU); one process drives one device, so
+    ``trainer.n_data=2`` without a process group of two raises the
+    runtime's world-size check before any work, and ``trainer.n_model=2``
+    names tensor parallelism's label, ROADMAP queue 1 item 10;
+    blocks_impl scan/stacked name item 8;
     ``trainer.compilation_cache_dir`` prints one line and changes nothing."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["audioset", "model_speed_test"])
     exp = EXPERIMENTS["audioset"]
-    for argv in (["trainer.n_data=2"], ["trainer.n_model=2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-            common.run_command(exp, ["model_speed_test"] + argv, device="cpu")
+    for command in ("model_speed_test", "main", "evaluate_only"):
+        with pytest.raises(RuntimeError, match="trainer.n_data=2 n_model=1 needs 2 devices, have 1 "):
+            common.run_command(exp, [command, "trainer.n_data=2"], device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+            common.run_command(exp, [command, "trainer.n_model=2"], device="cpu")
+    assert not torch.distributed.is_initialized()
     for argv in (["model.blocks_impl=scan"], ["model.blocks_impl=stacked"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
             common.run_command(exp, ["model_speed_test"] + argv, device="cpu")
@@ -156,6 +162,35 @@ def test_cli_runs_on_the_card_and_one_device_only(capsys):
     out = capsys.readouterr().out
     assert out.splitlines()[0].startswith("trainer.compilation_cache_dir='/tmp/xla': the port compiles no XLA")
     assert sum("compilation_cache_dir" in line for line in out.splitlines()) == 2  # the note and the JSON key
+
+
+def test_main_at_n_data_1_in_a_one_rank_group_equals_main_without(tmp_path):
+    """``audioset main`` at ``trainer.n_data=1`` in a one-rank gloo group
+    (the data-parallel step, its collectives over one rank, the eval
+    gather, the rank-0 checkpoint) is ``main`` without a runtime, bit for
+    bit: the same epoch records and checkpoints."""
+    from passt_tpu_torch.parallel.runtime import init_process_group
+
+    def run(name, extra):
+        argv = ["main", "with"] + _recipe_argv("audioset", str(tmp_path)) + [
+            "mel.freqm=8", "mel.timem=20", "trainer.use_mixup=true", "model.s_patchout_t=2",
+            "trainer.max_epochs=1", f"trainer.checkpoint_dir={tmp_path / name}"] + extra
+        res = common.run_command(EXPERIMENTS["audioset"], argv, device="cpu")
+        return res["history"], torch.load(tmp_path / name / "epoch_0.pt", weights_only=True)
+
+    with _tiny_archs("passt_s_swa_p16_128_ap476"):
+        ref_hist, ref_ckpt = run("plain", [])
+        init_process_group("cpu", timeout_s=30)
+        try:
+            hist, ckpt = run("ddp", ["trainer.n_data=1", "data.num_replicas=0"])
+        finally:
+            torch.distributed.destroy_process_group()
+    drop = ("epoch_time_s", "it_per_s")
+    assert [{k: v for k, v in r.items() if k not in drop} for r in hist] == \
+        [{k: v for k, v in r.items() if k not in drop} for r in ref_hist]
+    assert ckpt["step"] == ref_ckpt["step"] > 0
+    for k, p in ref_ckpt["params"].items():
+        assert torch.equal(ckpt["params"][k], p), k
 
 
 def test_resolve_monitor_matches_jax():
