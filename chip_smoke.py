@@ -94,7 +94,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    warm-up, capture and replay, the ``Predictor``'s replays' launches
    exact; [13]'s ``fit`` rerun with the eager steps bit-equal to the
    graphed run (printed after [13]); the times, graphed and eager in
-   turns: the step's best of 3 runs of 200 with the spread, its first
+   turns: the step's best of 3 runs of 200 (the eager step's: runs of 50)
+   with the spread, its first
    calls and peak memory, a 5-step profile of each (kernel time, kernels
    and host launch calls a step, idle share), the eager fit's steady
    ms/step against the eager ``timed_steps``, and the ``Predictor``'s
@@ -136,7 +137,25 @@ Phases (each prints one line or more; the first failure exits non-zero):
    ``Predictor`` of the same weights (fp32 within 1e-4 of max|ref|, bf16
    within 1e-2), ``python -m passt_tpu_torch.tools.serve`` on 6 wav clips,
    and the loaded program's ms/call and clips/s beside the ``Predictor``'s,
-   in turns.
+   in turns;
+18. the depth's forms at the bench's bf16 step (PaSST-S, B = 12, N = 474,
+   graphed): ``blocks_impl`` "loop", "scan" and "stacked" and loop with
+   ``remat``, 3 calls each from one state: scan (restacked) and remat
+   bit-equal to loop (losses, parameters, both moments), stacked within the
+   bf16 bound and its first moment within its bound, the launches exact;
+   the four timed in turns (``tools/ab_scan_blocks``: best of 3 runs of
+   200, first calls, peak memory, one eager step's own peak and what its
+   forward holds, remat's under half the loop's, device time per kernel
+   group, kernels a step, idle share, launches a step); the batched
+   weight-gradient product against float64; one fp32 B = 2 stacked step (the hand-written
+   backward) with the kernels against the loop step on the plain versions
+   from the same weights, under [7]'s tolerances; a stacked ``Predictor``
+   at B = 20, N = 1190 against the loop's logits, timed in turns;
+   ``tools/ab_batched_dw`` (48 per-block weight-gradient products with
+   their AdamW-SR updates against 4 batched products and one stacked
+   update); the fp32 attention forward on its "fma" path at B = 20,
+   N = 1190 and B = 2, N = 474 against plain and each SDPA backend that
+   takes fp32, with its bound.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -167,7 +186,8 @@ clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
-15's and 16's CLI commands and 17's loaded-program and serve calls) starts
+15's and 16's CLI commands, 17's loaded-program and serve calls, and 18's
+equality runs, fp32 stacked step and stacked ``Predictor``) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -1370,10 +1390,11 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     return launches
 
 
-def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
-    """One fp32 training step at full width (B = 2) from seed-0 weights and
-    the bench's seed, recording the gradients and the optimizer's updates;
-    returns the loss, gradients, updates, new parameters and launches."""
+def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str, init_params=None) -> dict:
+    """One fp32 training step at full width (B = 2) from seed-0 weights (or
+    ``init_params``) and the bench's seed, recording the gradients and the
+    optimizer's updates; returns the loss, gradients, updates, new
+    parameters, launches and the attention's paths."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.models.passt import PaSSTConfig
     from passt_tpu_torch.ops import _build
@@ -1394,6 +1415,11 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
 
     recorder = GradientTransformation(tx.init, update, tx.plan)
     model, state = create_train_state(cfg, recorder, torch.Generator().manual_seed(0), device=dev)
+    if init_params is not None:
+        from passt_tpu_torch.train.steps import TrainState
+
+        params = {k: v.to(dev) for k, v in init_params.items()}
+        state = TrainState(params=params, opt_state=recorder.init(params), step=0)
     # eager: the recorder keeps the tensors of this one call
     step = make_train_step(model, recorder,
                            MelConfig(fmin_aug_range=10, fmax_aug_range=2000, stft_method=stft_method), jit=False)
@@ -1407,7 +1433,8 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str) -> dict:
     new_state, metrics = step(state, batch, bench.SEED)
     torch.cuda.synchronize()
     return dict(loss=float(metrics["loss"]), grads=grads, updates=updates, params=new_state.params,
-                launches=dict(_build.LAUNCHES), bwd_paths=dict(A.BWD_PATH_LAUNCHES), n=cfg.seq_len(train=True))
+                launches=dict(_build.LAUNCHES), bwd_paths=dict(A.BWD_PATH_LAUNCHES),
+                fwd_paths=dict(A.FWD_PATH_LAUNCHES), n=cfg.seq_len(train=True))
 
 
 def hold_fp32_step(k: dict, p: dict, what: str) -> str:
@@ -2015,9 +2042,12 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
         for name, jit in (("graph", True), ("eager", False)):
             st, stp, b, warm_s, peak = bench.warmed(dev, jit, 2, **overrides)
             steps[name] = dict(state=st, step=stp, batch=b, warm_s=warm_s, peak=peak, runs=[])
+        # the eager runs are 50 steps long (host-bound; the run's time
+        # limit), the graphed ones 200
+        lengths = {"graph": 200, "eager": 50}
         for _ in range(3):
-            for rec in steps.values():
-                rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], 200, 0)
+            for name, rec in steps.items():
+                rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], lengths[name], 0)
                 rec["runs"].append(ms)
         for rec in steps.values():
             rec["state"], rec["profile"] = bench.profile_steps(rec["step"], rec["state"], rec["batch"], 5)
@@ -2025,7 +2055,8 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
         for name, rec in steps.items():
             p = rec["profile"]
             parts.append(
-                f"{name} {', '.join(f'{t:.3f}' for t in rec['runs'])} ms/step (best {min(rec['runs']):.3f}, spread "
+                f"{name} (runs of {lengths[name]}) {', '.join(f'{t:.3f}' for t in rec['runs'])} ms/step (best "
+                f"{min(rec['runs']):.3f}, spread "
                 f"{100 * (max(rec['runs']) - min(rec['runs'])) / min(rec['runs']):.2f}%), first calls "
                 f"{', '.join(f'{t:.2f}' for t in rec['warm_s'])} s, peak memory {rec['peak'] / 2**30:.2f} GiB; profiled: {p['wall_ms_per_step']:.3f} "
                 f"ms/step wall, {p['kernel_ms_per_step']:.3f} of kernels, idle {100 * p['idle_share']:.1f}%, "
@@ -2033,7 +2064,7 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
                 f"{ {k: round(v, 1) for k, v in p['host_launch_calls_per_step'].items()} } a step")
         say(f"[14] bf16 train step B={TRAIN_B} ({variant}): graphed bit-equal to eager over 5 steps from step 0 and 5 "
             f"from a restored step-3 state (params, mu, nu, counts, loss, grad norms); 3 replays launch "
-            f"{ {k: v // 3 for k, v in launches.items() if v} } a step; runs of 200: " + "; ".join(parts) + f" ({gpu})")
+            f"{ {k: v // 3 for k, v in launches.items() if v} } a step; " + "; ".join(parts) + f" ({gpu})")
         del steps
 
     # the eval step and the Predictor, graphed against eager
@@ -2609,6 +2640,284 @@ def phase_export(gpu: str, dev: torch.device) -> list:
     return runs
 
 
+# [18] the depth's forms (blocks_impl loop / scan / stacked, remat) at the
+# bench's step, the stacked backward's fp32 step and serving, and the fp32
+# attention forward ("fma") that the fp32 paths take
+BLOCK_STEPS = 3  # graphed calls per form in the equality runs: eager, capture + replay, replay
+#: the bench step's launches per step under each form (remat recomputes
+#: each block's forward, its attention forward included, in the backward)
+BLOCK_LAUNCHES = {
+    "loop": STEP_LAUNCHES["default"],
+    "scan": STEP_LAUNCHES["default"],
+    "stacked": STEP_LAUNCHES["default"],
+    "loop+remat": want_launches(fused_log_mel=1, fused_attention_qkv=24, fused_attention_qkv_bwd=12),
+}
+# stacked against loop in bf16: the stack normalises in the JAX stack's
+# order ((x - mu) rstd) s, the loop in flax's (x - mu) (rstd s), and keeps
+# its weight gradients in fp32 before the cast; a bf16 value may round the
+# other way and the difference rides through 12 blocks: the port's bf16
+# bound, 2e-2 of max(1, max|ref|)
+TOL_STACKED_BF16 = 2e-2
+# stacked's first moment against loop's after the 3 steps (mu ~ 0.27 of the
+# gradient; the parameters move ~lr a step whatever the gradient, so they
+# cannot show a wrong one): the largest leaf's relative L2 error. Sound, it
+# read 3.5e-3 (weight families 2.3e-3 to 2.5e-3); a zeroed weight gradient
+# reads 1, one taken a block off 1.35 to 1.42 (PERF.md §6, PR 17): ten
+# times the sound reading
+TOL_STACKED_MU = 0.035
+# the batched weight-gradient product (stacked_blocks._bdw: bf16 operands,
+# an fp32 result) against the float64 product of the same values, relative
+# to max|ref|: it read 7.2e-6 to 7.6e-6, its bf16-rounded result 2.3e-3 to
+# 2.6e-3 (PERF.md §6, PR 17)
+TOL_BDW = 1e-4
+#: the weight-gradient products of the stacked backward: (activation,
+#: cotangent) widths of qkv, proj, fc1, fc2 at PaSST-S
+BDW_FAMILIES = {"attn.qkv": (768, 2304), "attn.proj": (768, 768), "mlp.fc1": (768, 3072), "mlp.fc2": (3072, 768)}
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| / ||ref||, in fp32."""
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def phase_blocks(gpu: str, dev: torch.device) -> tuple:
+    """[18] the bench's bf16 step (PaSST-S, B = 12, N = 474, graphed) under
+    blocks_impl "loop", "scan", "stacked" and loop + remat from one state:
+    3 calls each, scan and remat bit-equal to loop (loss, parameters, both
+    moments; scan restacked), stacked within the bf16 bound and its first
+    moment within TOL_STACKED_MU, the launches exact; the four timed in
+    turns (tools/ab_scan_blocks: best of 3 x 200, peak memory, one eager
+    step's memory, kernel groups, launches a step); the batched dW product
+    against float64; one fp32 B = 2 stacked
+    step with the kernels against the loop step on the plain versions (as
+    [7]); a stacked Predictor at B = 20, N = 1190 against the loop's
+    logits; tools/ab_batched_dw; and the fp32 attention forward on its
+    "fma" path at the serving and the fp32 step's shapes. Returns (the
+    main-path runs' launches, the fp32 forward's record)."""
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.models.pretrained import stack_block_params
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.tools import ab_scan_blocks
+    from passt_tpu_torch.train.steps import TrainState
+
+    runs = []
+    _, base, _, batch = bench.setup(dev, jit=False)
+    params0 = {k: v.clone() for k, v in base.params.items()}
+    del base
+    out = {}
+    for name, overrides in ab_scan_blocks.VARIANTS.items():
+        _, _, step, _ = bench.setup(dev, **overrides)  # its own weights are replaced by the loop's
+        params = {k: v.clone() for k, v in params0.items()}
+        if overrides.get("blocks_impl"):
+            params = stack_block_params(params)
+        state = TrainState(params=params, opt_state=bench.optimizer().init(params), step=0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        losses = []
+        for _ in range(BLOCK_STEPS):
+            state, m = step(state, batch, bench.SEED)
+            losses.append(m["loss"].clone())
+        torch.cuda.synchronize()
+        launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNEL_NAMES}
+        want = {k: v * BLOCK_STEPS for k, v in BLOCK_LAUNCHES[name].items()}
+        check(launches == want, f"[18] {name}: launches {launches} != {want}")
+        runs.append(launches)
+        out[name] = dict(losses=torch.stack(losses), state=clone_state(state))
+        del step, state
+    ref = out["loop"]
+    ref_stacked = {part: stack_block_params(getattr(ref["state"], "params") if part == "params"
+                                            else getattr(ref["state"].opt_state, part))
+                   for part in ("params", "mu", "nu")}
+    notes = []
+    for name in ("scan", "loop+remat", "stacked"):
+        got = out[name]
+        want = ref_stacked if name != "loop+remat" else {
+            "params": ref["state"].params, "mu": ref["state"].opt_state.mu, "nu": ref["state"].opt_state.nu}
+        leaves = {part: (got["state"].params if part == "params" else getattr(got["state"].opt_state, part))
+                  for part in ("params", "mu", "nu")}
+        if name != "stacked":
+            diffs = [f"{part} {k}" for part in want for k in want[part]
+                     if not torch.equal(want[part][k], leaves[part][k])]
+            check(torch.equal(got["losses"], ref["losses"]) and not diffs,
+                  f"[18] {name} != loop: losses {got['losses'].tolist()} vs {ref['losses'].tolist()}, "
+                  f"{len(diffs)} leaves differ: {diffs[:6]}")
+            notes.append(f"{name} bit-equal to loop (3 losses, {len(want['params'])} parameter leaves, mu, nu)")
+        else:
+            loss_err = max_err(got["losses"], ref["losses"])
+            leaf_err = max(max_err(leaves["params"][k], w) / max(1.0, float(w.float().abs().max()))
+                           for k, w in want["params"].items())
+            mu_err = {k: rel_l2(leaves["mu"][k], w) for k, w in want["mu"].items()}
+            worst = max(mu_err, key=mu_err.get)
+            # what a wrong batched dW would read: each family's mu a block off
+            rolled = {f: rel_l2(leaves["mu"][f"blocks.block.{f}.weight"].roll(1, 0),
+                                want["mu"][f"blocks.block.{f}.weight"]) for f in BDW_FAMILIES}
+            check(loss_err <= TOL_STACKED_BF16 and leaf_err <= TOL_STACKED_BF16 and mu_err[worst] <= TOL_STACKED_MU,
+                  f"[18] stacked vs loop: loss err {loss_err:.3g}, parameter err {leaf_err:.3g} (tol "
+                  f"{TOL_STACKED_BF16}), mu rel L2 err {mu_err[worst]:.3g} at {worst} (tol {TOL_STACKED_MU})")
+            notes.append(f"stacked vs loop: losses max err {loss_err:.3g}, parameters max err {leaf_err:.3g} of "
+                         f"max(1, max|ref|) (tol {TOL_STACKED_BF16:g}), mu rel L2 err max {mu_err[worst]:.3g} at "
+                         f"{worst} (tol {TOL_STACKED_MU:g}; weight families "
+                         + ", ".join(f"{f} {mu_err[f'blocks.block.{f}.weight']:.3g}" for f in BDW_FAMILIES)
+                         + "; a zeroed dW reads 1, one a block off reads "
+                         + ", ".join(f"{f} {e:.3g}" for f, e in rolled.items()) + ")")
+    del out, ref, ref_stacked
+    say(f"[18] bf16 train step PaSST-S B={TRAIN_B} N={TRAIN_N} (bench config, graphed), {BLOCK_STEPS} calls from "
+        f"one state under each form: " + "; ".join(notes) + "; launches a step "
+        + "; ".join(f"{n} { {k: v for k, v in w.items() if v} }" for n, w in BLOCK_LAUNCHES.items()))
+
+    ab = ab_scan_blocks.run(dev, steps=200, runs=3, profile=5)
+    for name, r in ab.items():
+        groups = ", ".join(f"{g} {t:.3f}" for g, t in r["groups_ms_per_step"].items())
+        say(f"[18] {name}: {', '.join(f'{t:.3f}' for t in r['ms_per_step_runs'])} ms/step in turns (best "
+            f"{r['ms_per_step']:.3f}, spread {100 * r['spread']:.2f}%), first calls "
+            f"{', '.join(f'{t:.2f}' for t in r['warmup_s'])} s, peak memory {r['peak_memory_bytes'] / 2**30:.3f} GiB "
+            f"(max_memory_allocated over set-up and warm-up); launches a step {r['launches_per_step']}; profiled "
+            f"{r['kernel_ms_per_step']:.3f} ms of kernels a step, {r['kernel_launches_per_step']:.0f} kernels, idle "
+            f"{100 * r['idle_share']:.1f}%; ms a step by group: {groups} ({gpu})")
+        check(r["launches_per_step"] == {k: v for k, v in BLOCK_LAUNCHES[name].items() if v},
+              f"[18] {name}: timed launches a step {r['launches_per_step']}")
+    say("[18] one eager step on a warmed state (bench.step_memory), GiB: " + "; ".join(
+        f"{name} peak {r['step_peak_bytes'] / 2**30:.3f}, the training forward holds "
+        f"{r['forward_saved_bytes'] / 2**30:.3f}" for name, r in ab.items()) + f" ({gpu})")
+    held, held_remat = ab["loop"]["forward_saved_bytes"], ab["loop+remat"]["forward_saved_bytes"]
+    check(held_remat < held / 2, f"[18] remat's forward holds {held_remat} B, not under half the loop's {held} B")
+    say("[18] ab_scan_blocks JSON: " + json.dumps(ab))
+    blocks_bdw(gpu, dev)
+    runs.append(blocks_fp32_step(dev))
+    runs.append(blocks_predictor(gpu, dev))
+    blocks_batched_dw(gpu, dev)
+    return runs, fp32_attention_forward(gpu, dev)
+
+
+def blocks_bdw(gpu: str, dev: torch.device) -> None:
+    """[18] the stacked backward's batched weight-gradient product on the
+    card (bf16 operands, an fp32 result: the branch only the card takes) at
+    the bench step's shapes, against the float64 product of the same
+    values."""
+    from passt_tpu_torch.models.stacked_blocks import _bdw
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    notes = []
+    for fam, (k_in, k_out) in BDW_FAMILIES.items():
+        acts = torch.randn(12, TRAIN_B, TRAIN_N, k_in, generator=gen, device=dev).bfloat16()
+        cots = torch.randn(12, TRAIN_B, TRAIN_N, k_out, generator=gen, device=dev).bfloat16()
+        got = _bdw(acts, cots)
+        ref = torch.bmm(cots.double().reshape(12, -1, k_out).transpose(1, 2), acts.double().reshape(12, -1, k_in))
+        err, err_bf16 = rel_err(got, ref), rel_err(got.bfloat16(), ref)
+        check(got.dtype == torch.float32 and err <= TOL_BDW,
+              f"[18] batched dW {fam}: {got.dtype}, err {err:.3g} (tol {TOL_BDW:g})")
+        notes.append(f"{fam} [12, {k_out}, {k_in}] err {err:.3g} (bf16-rounded {err_bf16:.3g})")
+    say(f"[18] batched weight-gradient product (stacked_blocks._bdw, B={TRAIN_B} N={TRAIN_N}, 12 blocks) vs float64, "
+        f"max err of max|ref| (tol {TOL_BDW:g}): " + "; ".join(notes) + f" ({gpu})")
+
+
+def blocks_fp32_step(dev: torch.device) -> dict:
+    """[18] one fp32 B = 2 stacked step with the kernels against the loop
+    step on the plain versions, from the same weights and draws (as [7])."""
+    from passt_tpu_torch.models.passt import PaSSTConfig
+    from passt_tpu_torch.models.pretrained import stack_block_params
+    from passt_tpu_torch.train.steps import create_train_state, make_optimizer
+
+    patchout = dict(s_patchout_t=40, s_patchout_f=4)
+    _, init = create_train_state(PaSSTConfig(dtype="float32", **patchout), make_optimizer(),
+                                 torch.Generator().manual_seed(0), device="cpu")
+    k = fp32_step(dev, dict(attn_impl="fused", blocks_impl="stacked", **patchout), "auto",
+                  init_params=stack_block_params(init.params))
+    p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul", init_params=init.params)
+    for part in ("grads", "updates", "params"):
+        p[part] = stack_block_params(p[part])
+    want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_qkv_bwd=12)
+    launches = {name: k["launches"].get(name, 0) for name in KERNEL_NAMES}
+    check(launches == want, f"[18] fp32 stacked step launches {launches} != {want}")
+    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12) and k["fwd_paths"]["fma"] == 12,
+          f"[18] fp32 stacked step paths: forward {k['fwd_paths']}, backward {k['bwd_paths']}")
+    say(f"[18] fp32 stacked training step PaSST-S B=2 N={TRAIN_N} (the hand-written backward, 4 batched weight-"
+        f"gradient products), kernels vs the loop step on plain versions: {hold_fp32_step(k, p, '[18] stacked')}; "
+        f"forward paths {k['fwd_paths']}, backward paths {k['bwd_paths']}")
+    return launches
+
+
+def blocks_predictor(gpu: str, dev: torch.device) -> dict:
+    """[18] a stacked Predictor at B = 20, N = 1190 (no gradient: the
+    forward unrolled, outside the Function) against the loop's."""
+    from passt_tpu_torch.hear import Predictor
+    from passt_tpu_torch.models.pretrained import stack_block_params
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+
+    loop_pred = Predictor.create(arch=ARCH, dtype="bfloat16", device=dev, generator=torch.Generator().manual_seed(0))
+    st_pred = Predictor.create(arch=ARCH, dtype="bfloat16", device=dev, blocks_impl="stacked")
+    st_pred.model.load_state_dict(stack_block_params(loop_pred.model.state_dict()))
+    rng = np.random.default_rng(18)
+    waves = [torch.from_numpy(rng.standard_normal((20, CLIP)).astype(np.float32) * 0.1).to(dev) for _ in range(3)]
+    refs = [loop_pred(w) for w in waves]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    A.reset_path_launches()
+    gots = [st_pred(w) for w in waves]  # warm-up, capture, replay
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNEL_NAMES}
+    want = want_launches(fused_log_mel=3, fused_attention=36)
+    check(launches == want, f"[18] stacked Predictor launches {launches} != {want}")
+    errs = [max_err(g, r) / max(1.0, float(r.abs().max())) for g, r in zip(gots, refs)]
+    check(max(errs) <= TOL_STACKED_BF16, f"[18] stacked Predictor vs loop: errs {errs}")
+    times = in_turns({"stacked": lambda: st_pred(waves[0]), "loop": lambda: loop_pred(waves[0])}, 3,
+                     lambda fn: cuda_ms(fn, reps=5, warmup=1))
+    say(f"[18] stacked Predictor bf16 B=20 N=1190 (graphed; warm-up, capture, replay) vs the loop Predictor on the "
+        f"same weights: logits max err {max(errs):.3g} of max(1, max|ref|) (tol {TOL_STACKED_BF16:g}); launches "
+        f"{ {k: v for k, v in launches.items() if v} } over 3 calls (forward paths {dict(A.FWD_PATH_LAUNCHES)}); in "
+        f"turns, ms/call: " + ", ".join(f"{n} {', '.join(f'{t:.3f}' for t in ts)}" for n, ts in times.items())
+        + f" ({gpu})")
+    return launches
+
+
+def blocks_batched_dw(gpu: str, dev: torch.device) -> None:
+    """[18] tools/ab_batched_dw once."""
+    from passt_tpu_torch.tools import ab_batched_dw
+
+    dw = ab_batched_dw.run(dev, reps=5)
+    say(f"[18] ab_batched_dw (12 blocks x 4 weight families at M = {ab_batched_dw.M}, bf16, AdamW-SR): per block "
+        f"{dw['per_block']['best_kernel_ms']:.3f} ms of kernels an iteration ({dw['per_block']['product_tflops']:.1f} "
+        f"TFLOP/s of products over it; eager events {dw['per_block']['best_events_ms']:.3f} ms), batched "
+        f"{dw['batched']['best_kernel_ms']:.3f} ms ({dw['batched']['product_tflops']:.1f} TFLOP/s; eager events "
+        f"{dw['batched']['best_events_ms']:.3f} ms); the products alone {dw['products_only']['per_block_ms']:.3f} "
+        f"per block, {dw['products_only']['batched_ms']:.3f} batched ({gpu})")
+    say("[18] ab_batched_dw JSON: " + json.dumps(dw))
+
+
+def fp32_attention_forward(gpu: str, dev: torch.device) -> dict:
+    """[18] the fp32 attention forward on its "fma" path, at the fp32
+    Predictor's (B = 20, N = 1190) and the fp32 step's (B = 2, N = 474)
+    shapes, against plain and each SDPA backend that takes fp32."""
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.ops.attention import attention_plain, fused_attention
+
+    fma = {}
+    for b, n in ((20, 1190), (2, TRAIN_N)):
+        gen = torch.Generator().manual_seed(n)
+        q, kk, v = (torch.randn(b, n, 12, 64, generator=gen).to(dev) for _ in range(3))
+        scale = 64 ** -0.5
+        A.reset_path_launches()
+        got = fused_attention(q, kk, v, scale=scale)
+        check(A.FWD_PATH_LAUNCHES["fma"] == 1, f"[18] fp32 forward took {A.FWD_PATH_LAUNCHES}")
+        err = max_err(got, attention_plain(q, kk, v, scale=scale))
+        check(err < 1e-4, f"[18] fp32 forward B={b} N={n}: err {err:.3g}")
+        rec = dict(ms=graph_ms(lambda: fused_attention(q, kk, v, scale=scale)),
+                   ms_events=cuda_ms(lambda: fused_attention(q, kk, v, scale=scale), reps=20),
+                   plain_ms=cuda_ms(lambda: attention_plain(q, kk, v, scale=scale), reps=5), max_abs_err=err,
+                   **bound(4.0 * n * n * 64 * b * 12, 4.0 * 4 * b * n * 12 * 64, PEAK_FP32))
+        rec["library_backend_ms"] = {be.name: cuda_ms(under(be, lambda: sdpa(q, kk, v, scale)), reps=10)
+                                     for be in sdpa_backends(q, kk, v, scale)}
+        fma[f"B{b}_N{n}"] = rec
+    say("[18] fp32 attention forward ('fma' path) vs plain and each SDPA backend that takes fp32: " + "; ".join(
+        f"{shape}: {r['ms']:.4f} ms (graph replay; events {r['ms_events']:.4f}), plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA { {k: round(v, 4) for k, v in r['library_backend_ms'].items()} }, "
+        f"max err {r['max_abs_err']:.3g}" for shape, r in fma.items()) + f" ({gpu})")
+    say("[18] fp32 attention forward JSON: " + json.dumps(fma))
+    return fma
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2670,6 +2979,8 @@ def main() -> int:
     runs += phase_graphs(gpu, dev)
     runs.append(phase_cli(gpu, dev))
     runs += phase_export(gpu, dev)
+    blocks_runs, rec["fused_attention"]["fp32_fma"] = phase_blocks(gpu, dev)
+    runs += blocks_runs
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

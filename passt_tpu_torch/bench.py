@@ -106,6 +106,38 @@ def warmed(device, jit: bool, warmup: int, **model_overrides):
     return state, step, batch, seconds, torch.cuda.max_memory_allocated(device) - before
 
 
+def step_memory(device, **model_overrides) -> Dict[str, int]:
+    """The device memory of the bench step, eager, on a warmed state (one
+    step taken first), in bytes above what was allocated just before:
+    ``step_peak``, the peak of one whole step (activations, gradients, the
+    optimizer's temporaries); ``forward_saved``, what the model's training
+    forward on the step's spectrogram holds when it returns (the tensors
+    saved for its backward and the logits; what remat cuts)."""
+    from torch.func import functional_call
+
+    from passt_tpu_torch.ops.frontend import log_mel_spectrogram
+
+    model, state, step, batch = setup(device, jit=False, **model_overrides)
+    state, _ = step(state, batch, SEED)
+    out = {}
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    state, _ = step(state, batch, SEED)
+    torch.cuda.synchronize(device)
+    out["step_peak"] = torch.cuda.max_memory_allocated(device) - before
+    x = log_mel_spectrogram(batch["wave"], MEL_CFG)[:, None, :, :model.cfg.input_tdim]
+    leaves = {k: p.detach().requires_grad_() for k, p in state.params.items()}
+    gens = {k: torch.Generator(device).manual_seed(SEED) for k in ("patchout", "dropout", "droppath")}
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    held = functional_call(model, leaves, (x,), dict(train=True, generators=gens))
+    torch.cuda.synchronize(device)
+    out["forward_saved"] = torch.cuda.memory_allocated(device) - before
+    del held
+    return out
+
+
 def timed_steps(step, state: TrainState, batch: Dict[str, torch.Tensor], steps: int,
                 warmup: int) -> Tuple[TrainState, float, torch.Tensor]:
     """Run ``warmup`` then ``steps`` train steps; returns the state, the mean

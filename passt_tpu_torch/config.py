@@ -14,8 +14,9 @@ carry over, and mean here: ``profile_dir`` a ``torch.profiler`` trace of
 ``fit``'s steps; ``compilation_cache_dir`` nothing (the port compiles no
 XLA program; ``run_command`` says so); ``n_data`` the processes of a
 data-parallel run, one card each (``torch.distributed``, started by
-``torchrun``; ``passt_tpu_torch.parallel``); ``n_model > 1`` raises
-(tensor parallelism is not ported, ROADMAP.md queue 1 item 10).
+``torchrun``; ``passt_tpu_torch.parallel``); ``n_model`` the processes
+that split each block's weights (tensor parallelism), so a run takes
+``n_data * n_model`` processes.
 """
 
 from __future__ import annotations
@@ -54,8 +55,11 @@ class ModelSelect:
     patch_embed_impl: str = "unfold"  # "unfold" | "conv": the same function here
     fuse_ln_qkv: bool = False  # norm1 absorbed into the attention boundary
     # (the F1 / B2 kernels; see PaSSTConfig.fuse_ln_qkv)
-    blocks_impl: str = "loop"  # "loop"; "scan"/"stacked" are not ported
-    # (ROADMAP.md queue 1 item 8) and raise when the model is built
+    blocks_impl: str = "loop"  # transformer depth: "loop" (per-block
+    # params) | "scan" (one Block over stacked [depth, ...] params) |
+    # "stacked" (the same params, the hand-written backward with batched
+    # weight gradients; see PaSSTConfig). Checkpoints interconvert between
+    # the layouts.
     # ensemble evaluation (reference ensemble named configs,
     # config_updates.py:136-222): name into registry.ENSEMBLES plus a
     # directory of checkpoints named <arch>.npz
@@ -146,7 +150,8 @@ class TrainerConfig:
     profile_num_steps: int = 5
     n_data: Optional[int] = None  # data-parallel processes (one card each),
     # the size of the torchrun group; None: one process, no group
-    n_model: int = 1  # > 1 raises (tensor parallelism: ROADMAP.md queue 1 item 10)
+    n_model: int = 1  # tensor-parallel processes a data rank's model is
+    # split over (heads and MLP hidden units; passt_tpu_torch.parallel)
     seed: int = 0
     device_prefetch: int = 2  # batches the pinned side-stream feed keeps in
     # flight ahead of the step (0: inline copies)

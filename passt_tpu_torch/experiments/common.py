@@ -14,8 +14,8 @@ run the steps as CUDA graphs there, the counterpart of the JAX package's
 ``jax.jit``. One process drives one card; ``main``, ``evaluate_only`` and
 ``model_speed_test`` with ``trainer.n_data=N`` run data-parallel across the
 N processes of a ``torchrun`` group (``passt_tpu_torch.parallel``), as the
-JAX package's do across a mesh; ``trainer.n_model > 1`` raises (ROADMAP.md
-queue 1 item 10).
+JAX package's do across a mesh, and with ``trainer.n_model=M`` each data
+rank's model split over M processes (tensor parallelism).
 
 HDF5 containers are opened (and ``h5py`` imported) only where one is read:
 the dataset builders, :func:`train_target_chunks`, ``_steps_per_epoch``'s
@@ -133,14 +133,16 @@ def train_target_chunks(cfg: ExperimentConfig, chunk_rows: int = 131072) -> Iter
                 yield t
 
 
-def _resolve_rank(d):
-    """``num_replicas=0`` -> the world size and rank of the initialised
-    ``torch.distributed`` process group, (1, 0) without one (the reference
-    reads DDP/NODE_RANK env vars, audioset/dataset.py:296-300)."""
+def _resolve_rank(d, n_model: int = 1):
+    """``num_replicas=0`` -> the data-parallel size and data rank of the
+    initialised ``torch.distributed`` process group (its size and rank over
+    ``n_model``: the model ranks of a data rank read the same rows), (1, 0)
+    without one (the reference reads DDP/NODE_RANK env vars,
+    audioset/dataset.py:296-300)."""
     if d.num_replicas == 0:
         dist = torch.distributed
         if dist.is_available() and dist.is_initialized():
-            return dist.get_world_size(), dist.get_rank()
+            return dist.get_world_size() // n_model, dist.get_rank() // n_model
         return 1, 0
     return d.num_replicas, d.rank
 
@@ -148,7 +150,7 @@ def _resolve_rank(d):
 def build_train_loader(cfg: ExperimentConfig, dataset=None):
     d = cfg.data
     ds = dataset if dataset is not None else build_train_dataset(cfg)
-    num_replicas, rank = _resolve_rank(d)
+    num_replicas, rank = _resolve_rank(d, cfg.trainer.n_model)
     if d.weighted_sampler:
         from passt_tpu_torch.data.sampler import class_balanced_sample_weights_streamed
 
@@ -191,7 +193,7 @@ def build_eval_loader(
     d = cfg.data
     ds = build_eval_dataset(cfg, which)
     bs = batch_size or d.eval_batch_size
-    num_replicas, rank = _resolve_rank(d) if sharded else (1, 0)
+    num_replicas, rank = _resolve_rank(d, cfg.trainer.n_model) if sharded else (1, 0)
     if d.clip_length is None and not d.eval_pad_multiple_s and bs > 1:
         # EXACT variable-length eval, batched: clips grouped by exact length
         # so no clip is padded (bitwise the reference's batch_size=1
@@ -301,7 +303,7 @@ class Experiment:
                         f"falls back to epoch_len={n}"
                     )
                 self._len_cache[key] = n
-        num_replicas = _resolve_rank(cfg.data)[0]
+        num_replicas = _resolve_rank(cfg.data, cfg.trainer.n_model)[0]
         return max(1, n // max(1, num_replicas) // cfg.data.batch_size)
 
     def build(
@@ -365,7 +367,8 @@ class Experiment:
             log_grad_norm_per_block=cfg.trainer.log_grad_norm_per_block,
             param_sr=param_dtype == "bfloat16_sr",
         )
-        eval_step = make_eval_step(model, cfg.mel, loss_type=cfg.trainer.loss_type)
+        eval_step = make_eval_step(model, cfg.mel, loss_type=cfg.trainer.loss_type,
+                                   tensor_parallel=None if runtime is None else runtime.tensor_parallel)
         if runtime is not None:
             state = runtime.replicate_state(state)
             train_step = runtime.wrap_train_step(train_step)
@@ -420,7 +423,8 @@ class Experiment:
         runtime = maybe_ddp_runtime(cfg.trainer, device)
         if runtime is None:
             return None, resolve_device(device)
-        print(f"data parallel: rank {runtime.rank} of {runtime.n_data} on {runtime.device} "
+        print(f"data parallel: rank {runtime.rank} of {runtime.world_size} (data rank {runtime.data_rank} of "
+              f"{runtime.n_data}, model rank {runtime.model_rank} of {runtime.n_model}) on {runtime.device} "
               f"(global batch {cfg.data.batch_size * runtime.n_data})")
         if runtime.spans_processes and cfg.data.num_replicas == 1:
             print("WARNING: data.num_replicas=1: every rank reads the whole dataset; "

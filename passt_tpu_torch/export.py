@@ -234,7 +234,7 @@ def export_model(
     manifest_fields = {
         "seconds": seconds,
         "weights": "baked" if bake_weights else "external",
-        "outputs": {"logits": cfg.num_classes, "features": cfg.embed_dim},
+        "outputs": {"logits": cfg.num_classes, "features": cfg.num_features},
         "dtype": cfg.dtype,
         **(manifest_extra or {}),
     }

@@ -48,6 +48,7 @@ caller still reads.
 from __future__ import annotations
 
 import contextlib
+import gc
 import weakref
 from typing import Callable, Dict, Iterable, Optional
 
@@ -107,8 +108,10 @@ class CudaGraph:
     def capture(self, fn: Callable):
         """Capture ``fn()``; returns its outputs, which every replay rewrites.
         ``thread_local``: other threads (a loader feeding the card) may keep
-        allocating and copying while this one captures."""
-        with torch.cuda.device(self.device), torch.cuda.graph(
+        allocating and copying while this one captures. Python's cyclic
+        collector runs before, and not during, the capture
+        (:func:`no_collection`)."""
+        with no_collection(), torch.cuda.device(self.device), torch.cuda.graph(
             self.graph, pool=self.shared["pool"], stream=self.shared["stream"],
             capture_error_mode="thread_local",
         ):
@@ -116,6 +119,22 @@ class CudaGraph:
 
     def replay(self) -> None:
         self.graph.replay()
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Collect the garbage now and keep the cyclic collector off inside:
+    a graph of a dropped cache that waits in a reference cycle, destroyed
+    by a collection in the middle of a capture, invalidates that capture
+    (``cudaErrorStreamCaptureInvalidated``)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def graph_type(device: torch.device):

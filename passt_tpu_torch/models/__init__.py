@@ -2,12 +2,15 @@
 
 from passt_tpu_torch.models.passt import PaSST, PaSSTConfig
 from passt_tpu_torch.models.pretrained import (
+    adapt_state_dict,
     flax_from_state_dict,
     load_params_npz,
     load_pretrained,
     load_torch_checkpoint,
     save_params_npz,
+    stack_block_params,
     state_dict_from_flax,
+    unstack_block_params,
 )
 from passt_tpu_torch.models.registry import ARCHS, DEFAULT_CFGS, get_model, get_model_config
 
@@ -16,6 +19,7 @@ __all__ = [
     "DEFAULT_CFGS",
     "PaSST",
     "PaSSTConfig",
+    "adapt_state_dict",
     "flax_from_state_dict",
     "get_model",
     "get_model_config",
@@ -23,5 +27,7 @@ __all__ = [
     "load_pretrained",
     "load_torch_checkpoint",
     "save_params_npz",
+    "stack_block_params",
     "state_dict_from_flax",
+    "unstack_block_params",
 ]

@@ -43,19 +43,39 @@ The two LayerNorm variants of the JAX package are here:
   unfused, as in the JAX package.
 
 Both keep the parameters where the module path has them (``norm1.weight``,
-``norm1.bias``, ...), so state dicts are unchanged. The ``blocks_impl``
-"scan"/"stacked" and ``remat`` variants are not ported; they raise when set.
+``norm1.bias``, ...), so state dicts are unchanged.
+
+The depth runs in one of three forms (``blocks_impl``), as in the JAX
+package:
+
+- "loop": ``blocks.{i}.*``, one :class:`Block` per layer;
+- "scan": one set of ``[depth, ...]`` leaves at ``blocks.block.*`` (the JAX
+  scan layout, leaf for leaf, in torch's orientation), the same
+  :class:`Block` applied to each layer's slice, so logits and gradients
+  equal the loop's bit for bit;
+- "stacked": the same leaves, the depth unrolled by
+  ``models/stacked_blocks.py`` with its hand-written backward (the weight
+  gradients of every layer as four batched products).
+
+``remat`` recomputes each block (or scan step) in the backward
+(``torch.utils.checkpoint``); the draws made inside a block are recorded by
+its forward and replayed by the recompute, so remat changes no bit.
+``representation_size`` (no distillation) adds the pre-logits ``Linear`` +
+tanh before the head.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from passt_tpu_torch.ops.activations import tanh_gelu
 from passt_tpu_torch.ops.attention import (
@@ -98,7 +118,7 @@ class PaSSTConfig:
     gelu_saved_deriv: bool = True  # tanh GELU: the backward multiplies by the saved derivative
     ln_impl: str = "auto"  # "auto"/"xla": flax-order LayerNorm; "fused": the
     # LayerNorm-backward kernel (FusedLayerNorm)
-    remat: bool = False  # not ported
+    remat: bool = False  # recompute each block in the backward
     softmax_fp32: bool = True  # "xla" attention: fp32 softmax
     patch_embed_impl: str = "unfold"  # "unfold" or "conv": the same function here
     attn_impl: str = "auto"  # "fused": the Hopper kernel (its plain version on
@@ -107,7 +127,7 @@ class PaSSTConfig:
     verbose_shapes: bool = False
     fuse_ln_qkv: bool = False  # norm1 absorbed into the attention boundary
     # (ops/ln_qkv.py); needs the fused attention and ln_impl != "fused"
-    blocks_impl: str = "loop"  # "scan"/"stacked" wait for a later slice
+    blocks_impl: str = "loop"  # "loop" | "scan" | "stacked" (module docstring)
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -154,6 +174,69 @@ class PaSSTConfig:
             raise ValueError(f"gelu must be 'auto'|'erf'|'tanh', got {self.gelu!r}")
         return self.gelu == "tanh"
 
+    @property
+    def num_features(self) -> int:
+        """Width of the features the head reads (the pre-logits width where
+        that layer is on)."""
+        if self.representation_size and not self.distilled:
+            return self.representation_size
+        return self.embed_dim
+
+    @property
+    def use_scan_blocks(self) -> bool:
+        """Resolve ``blocks_impl`` and check its constraints, with the JAX
+        package's messages: the stacked forms need one static config per
+        block (no stochastic-depth decay), and "stacked" covers only what
+        its hand-written backward honors. True for "scan"."""
+        if self.blocks_impl not in ("loop", "scan", "stacked"):
+            raise ValueError(f"blocks_impl must be 'loop'|'scan'|'stacked', got {self.blocks_impl!r}")
+        if self.blocks_impl != "loop" and self.drop_path_rate > 0.0:
+            raise NotImplementedError(
+                f"blocks_impl={self.blocks_impl!r} requires drop_path_rate == 0 (per-block "
+                "stochastic-depth rates need the unrolled 'loop' form)"
+            )
+        if self.blocks_impl == "stacked":
+            if self.drop_rate > 0.0 or self.attn_drop_rate > 0.0:
+                raise NotImplementedError(
+                    "blocks_impl='stacked' requires drop_rate == attn_drop_rate == 0 (no dropout in "
+                    "the hand-written stack backward; use 'loop')"
+                )
+            if not self.qkv_bias:
+                raise NotImplementedError(
+                    "blocks_impl='stacked' assumes qkv_bias=True (every published PaSST config; use 'loop' otherwise)"
+                )
+            if self.attn_impl == "xla":
+                raise NotImplementedError(
+                    "blocks_impl='stacked' always uses the flat Pallas attention (with its internal "
+                    "fallback); attn_impl='xla' is not honored — use 'loop' to A/B attention"
+                )
+            if not self.softmax_fp32:
+                raise NotImplementedError(
+                    "blocks_impl='stacked' computes fp32 attention softmax unconditionally; "
+                    "softmax_fp32=False is not honored — use 'loop'"
+                )
+            if self.remat:
+                raise NotImplementedError(
+                    "blocks_impl='stacked' has a hand-written backward; remat is not honored — use 'loop' or 'scan'"
+                )
+            if self.fuse_ln_qkv:
+                raise NotImplementedError(
+                    "blocks_impl='stacked' ignores fuse_ln_qkv (its own fused norms are hand-written); "
+                    "A/B fuse_ln_qkv under 'loop'"
+                )
+            if self.use_fused_ln:
+                raise NotImplementedError("blocks_impl='stacked' ignores ln_impl='fused' for block norms — use 'loop'")
+        if self.fuse_ln_qkv:
+            if self.use_fused_ln:
+                raise NotImplementedError(
+                    "fuse_ln_qkv absorbs norm1 into the attention boundary and cannot combine with ln_impl='fused'"
+                )
+            if self.attn_impl == "xla":
+                raise NotImplementedError(
+                    "fuse_ln_qkv requires the fused attention kernel; attn_impl='xla' contradicts it"
+                )
+        return self.blocks_impl == "scan"
+
     def seq_len(self, train: bool, f_grid: Optional[int] = None, t_grid: Optional[int] = None) -> int:
         """Transformer sequence length (incl. CLS/DIST tokens)."""
         f = self.grid_size[0] if f_grid is None else f_grid
@@ -166,28 +249,9 @@ class PaSSTConfig:
 
 
 def _check_supported(cfg: PaSSTConfig) -> None:
-    if cfg.blocks_impl != "loop":
-        raise NotImplementedError(
-            f"blocks_impl={cfg.blocks_impl!r} is not ported yet (ROADMAP.md queue 1 item 8); use 'loop'"
-        )
-    if cfg.fuse_ln_qkv:
-        # the JAX package's contradictory combinations, with its messages
-        if cfg.use_fused_ln:
-            raise NotImplementedError(
-                "fuse_ln_qkv absorbs norm1 into the attention boundary and cannot combine with ln_impl='fused'"
-            )
-        if cfg.attn_impl == "xla":
-            raise NotImplementedError(
-                "fuse_ln_qkv requires the fused attention kernel; attn_impl='xla' contradicts it"
-            )
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md queue 1 item 8: off-path variants)")
+    cfg.use_scan_blocks  # blocks_impl and its constraints
     if cfg.patch_embed_impl not in ("unfold", "conv"):
         raise ValueError(f"patch_embed_impl must be 'unfold'|'conv', got {cfg.patch_embed_impl!r}")
-    if cfg.representation_size and not cfg.distilled:
-        raise NotImplementedError(
-            "representation_size (the in21k ViT pre-logits layer) is not ported: no PaSST arch uses it"
-        )
 
 
 class Linear(nn.Linear):
@@ -266,14 +330,59 @@ class PatchEmbed(nn.Module):
 Rows = Optional[Tuple[int, int]]  # (first row, global batch): data parallelism
 
 
+class _DrawTape:
+    """The draws of one recomputed block: its forward records them and its
+    recompute in the backward replays them, so remat draws no new mask
+    (``torch.utils.checkpoint`` restores only the default generators, and
+    the blocks draw from named ones)."""
+
+    def __init__(self):
+        self.draws: List[torch.Tensor] = []
+        self.replay_at: Optional[int] = None  # None while recording
+
+    @contextlib.contextmanager
+    def active(self, replay: bool):
+        self.replay_at = 0 if replay else None
+        _TAPES.append(self)
+        try:
+            yield
+        finally:
+            _TAPES.pop()
+
+
+_TAPES: List[_DrawTape] = []  # the tapes of the blocks being run, innermost last
+
+
 def batch_rand(shape, generator: torch.Generator, device, rows: Rows = None) -> torch.Tensor:
     """U[0, 1) of ``shape`` (batch first). ``rows=(start, total)``: the batch
     is rows ``start ..`` of a global batch of ``total``, so the draw is made
-    at the global batch and these rows are kept (every rank draws alike)."""
+    at the global batch and these rows are kept (every rank draws alike).
+    Inside a recomputed block the draw is recorded, and replayed by the
+    recompute (:class:`_DrawTape`)."""
+    tape = _TAPES[-1] if _TAPES else None
+    if tape is not None and tape.replay_at is not None:
+        tape.replay_at += 1
+        return tape.draws[tape.replay_at - 1]
     if rows is None:
-        return torch.rand(shape, generator=generator, device=device)
-    start, total = rows
-    return torch.rand((total,) + tuple(shape[1:]), generator=generator, device=device)[start: start + shape[0]]
+        out = torch.rand(shape, generator=generator, device=device)
+    else:
+        start, total = rows
+        out = torch.rand((total,) + tuple(shape[1:]), generator=generator, device=device)[start: start + shape[0]]
+    if tape is not None:
+        tape.draws.append(out)
+    return out
+
+
+def remat(fn, *args):
+    """``fn(*args)`` recomputed in the backward instead of saving its
+    activations (the JAX package's ``nn.remat``): non-reentrant
+    ``torch.utils.checkpoint`` with the block's draws taped. Without grad
+    mode it is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    tape = _DrawTape()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (tape.active(replay=False), tape.active(replay=True)))
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator, rows: Rows = None) -> torch.Tensor:
@@ -284,9 +393,13 @@ def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator, rows: Ro
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], rows: Rows = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], rows: Rows = None,
+            split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale by its
-    inverse; the identity at rate 0 (no generator needed then)."""
+    inverse; the identity at rate 0 (no generator needed then).
+    ``split=(axis, start, full)``: ``x`` is a tensor-parallel rank's share
+    ``start ..`` of a tensor ``full`` long on ``axis``, so the mask is drawn
+    for the full tensor and this share kept."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -294,7 +407,12 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], 
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = batch_rand(x.shape, generator, x.device, rows) < keep
+    if split is None:
+        mask = batch_rand(x.shape, generator, x.device, rows) < keep
+    else:
+        axis, start, full = split
+        shape = x.shape[:axis] + (full,) + x.shape[axis + 1:]
+        mask = batch_rand(shape, generator, x.device, rows).narrow(axis, start, x.shape[axis]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -338,16 +456,26 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
-                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, rows: Rows = None) -> torch.Tensor:
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, rows: Rows = None,
+                tp=None) -> torch.Tensor:
         """``ln=(scale, bias)``: x arrives before norm1, which is fused into
         the qkv projection and attention (``fused_ln_qkv_attention``) where
-        the JAX gate holds, else applied inline."""
+        the JAX gate holds, else applied inline. ``tp`` (a
+        :class:`~passt_tpu_torch.parallel.mesh.TensorParallel`): the qkv and
+        proj weights are this rank's heads' share."""
         b, n, c = x.shape
-        heads = self.num_heads
-        head_dim = c // heads
+        head_dim = c // self.num_heads
+        heads = self.num_heads if tp is None else tp.local(self.num_heads, "num_heads")
         scale = head_dim ** -0.5
         drop_gen = (generators or {}).get("dropout")
         proj_drop = self.proj_drop if train else 0.0
+        if tp is not None:
+            # the fused entry takes the whole qkv weight; under tp norm1
+            # runs inline before the copy, so its gradient is summed over
+            # the model group with x's
+            if ln is not None:
+                x, ln = _inline_ln(x, ln), None
+            x = tp.copy(x)
         fused_ok = self.fused and not (train and self.attn_drop > 0.0)
         # the gates' batch bound is a TPU VMEM limit; a symbolic batch
         # (torch.export) skips it rather than tie the program to one side of
@@ -356,10 +484,10 @@ class Attention(nn.Module):
         if ln is not None:
             if fused_ok and ln_qkv_supports(n, heads, head_dim, backward=train,
                                             itemsize=x.element_size(), batch=gate_batch):
-                qkv_bias = self.qkv.bias if self.qkv.bias is not None else x.new_zeros(3 * c)
+                qkv_bias = self.qkv.bias if self.qkv.bias is not None else x.new_zeros(3 * heads * head_dim)
                 out = fused_ln_qkv_attention(x, ln[0], ln[1], self.qkv.weight, qkv_bias, heads=heads,
                                              head_dim=head_dim, scale=scale, plus1=self.plus1)
-                return dropout(self.proj(out), proj_drop, drop_gen, rows)
+                return dropout(self._proj(out, tp), proj_drop, drop_gen, rows)
             x = _inline_ln(x, ln)
         qkv = self.qkv(x)
         if fused_ok:
@@ -369,8 +497,8 @@ class Attention(nn.Module):
                                           scale=scale, plus1=self.plus1)
             else:
                 q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
-                out = fused_attention(q, k, v, scale=scale, plus1=self.plus1).reshape(b, n, c)
-            return dropout(self.proj(out), proj_drop, drop_gen, rows)
+                out = fused_attention(q, k, v, scale=scale, plus1=self.plus1).reshape(b, n, heads * head_dim)
+            return dropout(self._proj(out, tp), proj_drop, drop_gen, rows)
 
         q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
@@ -382,9 +510,18 @@ class Attention(nn.Module):
             attn = torch.softmax(attn, dim=-1)
         if self.plus1:
             attn = attn[..., :-1]
-        attn = dropout(attn, self.attn_drop if train else 0.0, drop_gen, rows)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
-        return dropout(self.proj(out), proj_drop, drop_gen, rows)
+        split = None if tp is None else (1, tp.rank * heads, self.num_heads)
+        attn = dropout(attn, self.attn_drop if train else 0.0, drop_gen, rows, split)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, heads * head_dim)
+        return dropout(self._proj(out, tp), proj_drop, drop_gen, rows)
+
+    def _proj(self, out: torch.Tensor, tp) -> torch.Tensor:
+        """The output projection; under ``tp`` the share's partial product,
+        all-reduced, then the bias once."""
+        if tp is None:
+            return self.proj(out)
+        y = tp.reduce(F.linear(out, self.proj.weight.to(out.dtype)))
+        return y + self.proj.bias.to(y.dtype)
 
 
 class Mlp(nn.Module):
@@ -398,17 +535,25 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
-                rows: Rows = None) -> torch.Tensor:
+                rows: Rows = None, tp=None) -> torch.Tensor:
+        """``tp``: fc1 and fc2 hold this rank's share of the hidden units."""
         drop = self.drop if train else 0.0
         gen = (generators or {}).get("dropout")
+        if tp is not None:
+            x = tp.copy(x)
         h = self.fc1(x)
         if self.gelu_approximate and self.gelu_saved_deriv:
             h = tanh_gelu(h)
         else:
             approximate = "tanh" if self.gelu_approximate else "none"
             h = F.gelu(h.float(), approximate=approximate).to(h.dtype)
-        h = dropout(h, drop, gen, rows)
-        return dropout(self.fc2(h), drop, gen, rows)
+        if tp is None:
+            h = dropout(h, drop, gen, rows)
+            return dropout(self.fc2(h), drop, gen, rows)
+        hidden = h.shape[-1]
+        h = dropout(h, drop, gen, rows, (h.ndim - 1, tp.rank * hidden, hidden * tp.size))
+        y = tp.reduce(F.linear(h, self.fc2.weight.to(h.dtype)))
+        return dropout(y + self.fc2.bias.to(y.dtype), drop, gen, rows)
 
 
 class Block(nn.Module):
@@ -430,18 +575,101 @@ class Block(nn.Module):
                        drop=cfg.drop_rate)
 
     def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
-                rows: Rows = None) -> torch.Tensor:
+                rows: Rows = None, tp=None) -> torch.Tensor:
         def branch(h):
             if train and self.drop_path_rate > 0.0:
                 return drop_path(h, self.drop_path_rate, _stream(generators or {}, "droppath"), rows)
             return h
 
         if self.ln_in_attn:
-            h = self.attn(x, train, generators, ln=(self.norm1.weight, self.norm1.bias), rows=rows)
+            h = self.attn(x, train, generators, ln=(self.norm1.weight, self.norm1.bias), rows=rows, tp=tp)
         else:
-            h = self.attn(self.norm1(x).to(x.dtype), train, generators, rows=rows)
+            h = self.attn(self.norm1(x).to(x.dtype), train, generators, rows=rows, tp=tp)
         x = x + branch(h)
-        return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators, rows))
+        return x + branch(self.mlp(self.norm2(x).to(x.dtype), train, generators, rows, tp))
+
+
+def _tensors_in_use(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's parameter tensors as its forward reads them now (those a
+    ``functional_call`` put in, where one is running)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        owner = module
+        *path, leaf = name.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        out[name] = getattr(owner, leaf)
+    return out
+
+
+def remat_module(module: nn.Module, x: torch.Tensor, *args):
+    """:func:`remat` of ``module(x, *args)``. The parameters in use go in
+    as inputs, so the recompute, which runs in the backward after a
+    ``functional_call`` has put the module's own tensors back, reads the
+    forward's."""
+    params = _tensors_in_use(module)
+
+    def run(x, *tensors):
+        return functional_call(module, dict(zip(params, tensors)), (x,) + args)
+
+    return remat(run, x, *params.values())
+
+
+class _Stacked(nn.Module):
+    """``weight`` (and ``bias``) of one block layer, stacked ``[depth, ...]``."""
+
+    def __init__(self, depth: int, weight_shape, bias_shape=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(depth, *weight_shape))
+        self.bias = nn.Parameter(torch.zeros(depth, *bias_shape)) if bias_shape else None
+
+
+class StackedBlocks(nn.Module):
+    """The depth over stacked ``[depth, ...]`` leaves at ``block.*`` (names
+    as :class:`Block`'s, torch orientation: Linear weights ``[depth, out,
+    in]``). "scan": the loop's :class:`Block` on each layer's slice (taken
+    with ``unbind``, whose backward stacks the layer gradients once);
+    "stacked": ``stacked_blocks_apply``."""
+
+    def __init__(self, cfg: PaSSTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, depth = cfg.embed_dim, cfg.depth
+        hidden = int(d * cfg.mlp_ratio)
+        self.block = nn.Module()
+        blk = self.block
+        blk.norm1 = _Stacked(depth, (d,), (d,))
+        blk.attn = nn.Module()
+        blk.attn.qkv = _Stacked(depth, (3 * d, d), (3 * d,) if cfg.qkv_bias else None)
+        blk.attn.proj = _Stacked(depth, (d, d), (d,))
+        blk.norm2 = _Stacked(depth, (d,), (d,))
+        blk.mlp = nn.Module()
+        blk.mlp.fc1 = _Stacked(depth, (hidden, d), (hidden,))
+        blk.mlp.fc2 = _Stacked(depth, (d, hidden), (d,))
+        if cfg.blocks_impl == "scan":
+            # the one Block the scan applies; its own parameters are never
+            # read (meta tensors, outside the module tree)
+            with torch.device("meta"):
+                object.__setattr__(self, "_step", Block(cfg))
+
+    def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
+                rows: Rows = None, tp=None) -> torch.Tensor:
+        cfg = self.cfg
+        leaves = _tensors_in_use(self.block)  # by block parameter name
+        if cfg.blocks_impl == "stacked":
+            from passt_tpu_torch.models.stacked_blocks import stacked_blocks_apply
+
+            return stacked_blocks_apply(leaves, x, cfg.num_heads, cfg.plus1_attn,
+                                        (cfg.embed_dim // cfg.num_heads) ** -0.5, cfg.gelu_approximate, train, tp)
+        names = list(leaves)
+        slices = [t.unbind(0) for t in leaves.values()]
+
+        def step(x, *layer):
+            return functional_call(self._step, dict(zip(names, layer)), (x, train, generators, rows, tp))
+
+        for layer in zip(*slices):
+            x = remat(step, x, *layer) if cfg.remat else step(x, *layer)
+        return x
 
 
 class PaSST(nn.Module):
@@ -461,20 +689,29 @@ class PaSST(nn.Module):
         self.freq_new_pos_embed = nn.Parameter(torch.zeros(1, d, f_grid, 1))
         self.time_new_pos_embed = nn.Parameter(torch.zeros(1, d, 1, t_grid))
         # the stochastic-depth decay rule: rates rise linearly over the blocks
-        dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
-        self.blocks = nn.ModuleList(Block(cfg, float(dpr[i])) for i in range(cfg.depth))
+        if cfg.blocks_impl == "loop":
+            dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+            self.blocks = nn.ModuleList(Block(cfg, float(dpr[i])) for i in range(cfg.depth))
+        else:
+            self.blocks = StackedBlocks(cfg)
         self.norm = _ln(cfg.use_fused_ln, d)
-        self.head = nn.Sequential(LayerNorm(d, eps=1e-5), Linear(d, cfg.num_classes))
+        if cfg.num_features != d:
+            # the pre-logits layer (reference passt.py:452-458)
+            self.pre_logits = nn.Module()
+            self.pre_logits.fc = Linear(d, cfg.num_features)
+        self.head = nn.Sequential(LayerNorm(cfg.num_features, eps=1e-5), Linear(cfg.num_features, cfg.num_classes))
         # in checkpoints, unused by the reference forward
         self.head_dist = Linear(d, cfg.num_classes) if cfg.distilled else None
 
     def forward(self, x: torch.Tensor, train: bool = False, generators: Optional[Generators] = None,
-                rows: Rows = None):
+                rows: Rows = None, tp=None):
         """``generators``: the "patchout", "dropout" and "droppath" streams
         a training forward draws from (each only where it draws).
         ``rows=(start, total)``: ``x`` is rows ``start ..`` of a global batch
         of ``total`` (data parallelism): the per-example draws (dropout,
-        drop-path) are made at the global batch and these rows kept."""
+        drop-path) are made at the global batch and these rows kept.
+        ``tp`` (a :class:`~passt_tpu_torch.parallel.mesh.TensorParallel`):
+        the block parameters are this model rank's share."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         b = x.shape[0]
@@ -528,11 +765,19 @@ class PaSST(nn.Module):
         if train:
             x = dropout(x, cfg.drop_rate, generators.get("dropout"), rows)
 
-        for block in self.blocks:
-            x = block(x, train, generators, rows)
+        if cfg.blocks_impl != "loop":
+            x = self.blocks(x, train, generators, rows, tp)
+        else:
+            for block in self.blocks:
+                if cfg.remat:
+                    x = remat_module(block, x, train, generators, rows, tp)
+                else:
+                    x = block(x, train, generators, rows, tp)
         x = self.norm(x)  # fp32
 
         features = (x[:, 0] + x[:, 1]) / 2.0 if cfg.distilled else x[:, 0]
+        if cfg.num_features != cfg.embed_dim:
+            features = torch.tanh(self.pre_logits.fc(features))
         logits = self.head(features)
         return logits, features
 

@@ -223,8 +223,6 @@ def fix_embedding_layer(model: PaSST, params: Optional[Dict[str, torch.Tensor]] 
     )
 
 
-def _block_ids(params: Dict[str, torch.Tensor]) -> List[int]:
-    return sorted({int(k.split(".")[1]) for k in params if k.startswith("blocks.")})
 
 
 def lighten_params(params: Dict[str, torch.Tensor], cut_depth: int) -> Tuple[Dict[str, torch.Tensor], int]:
@@ -233,7 +231,13 @@ def lighten_params(params: Dict[str, torch.Tensor], cut_depth: int) -> Tuple[Dic
     (``blocks.{i}.…``). Positive ``cut_depth`` keeps block 0 plus
     ``blocks[cut_depth+1:]``; negative keeps every ``-cut_depth``-th
     interior block plus the first and last. The kept blocks are renumbered
-    from 0. Returns (new_params, new_depth)."""
+    from 0; a stacked layout (``blocks.block.*``) stays stacked. Returns
+    (new_params, new_depth)."""
+    from passt_tpu_torch.models.pretrained import _block_ids, stack_block_params, unstack_block_params
+
+    if any(k.startswith("blocks.block.") for k in params):
+        out, depth = lighten_params(unstack_block_params(params), cut_depth)
+        return stack_block_params(out), depth
     block_ids = _block_ids(params)
     if cut_depth == 0:
         return params, len(block_ids)

@@ -23,8 +23,21 @@ Each rank's loader builds ``data.batch_size`` rows (``local_batch_scale`` is
 The train step computes the step over that global batch
 (:mod:`passt_tpu_torch.parallel.mesh`); eval runs each rank's slice of the
 eval set and gathers the outputs before the metrics
-(``train/loop.py``). Tensor parallelism (``trainer.n_model > 1``) is not
-ported (ROADMAP.md queue 1 item 10).
+(``train/loop.py``).
+
+``trainer.n_model=M`` adds tensor parallelism: the group of ``n_data * M``
+processes forms a (data, model) grid (``mesh.process_grid``), each data
+rank's block weights split over its M model ranks
+(``mesh.TensorParallel``), every model rank of a data rank reading the same
+rows. The train state lives as each rank's share; checkpoints are written
+by rank 0 in the full, gathered layout (which the JAX loader and a run
+without tensor parallelism read), and a resume shards them again. Eval
+gathers outputs over the data group only::
+
+    torchrun --nproc-per-node 4 -m passt_tpu_torch.cli audioset main \
+        trainer.n_data=2 trainer.n_model=2 data.num_replicas=0 ...
+
+(gloo on the CPU; one H100 has no second card to split a model over).
 """
 
 from __future__ import annotations
@@ -38,12 +51,17 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from passt_tpu_torch.parallel.mesh import DataParallel, make_parallel_train_step, replicate
+from passt_tpu_torch.parallel.mesh import (
+    DataParallel,
+    TensorParallel,
+    make_parallel_train_step,
+    process_grid,
+    replicate,
+)
+from passt_tpu_torch.train.optim import map_param_dicts
 
 #: the process group's timeout: how long a collective waits for a lost peer
 DEFAULT_TIMEOUT_S = 600.0
-
-TP_LABEL = "ROADMAP.md queue 1 item 10"
 
 
 def init_process_group(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> Tuple[int, int, torch.device]:
@@ -70,23 +88,28 @@ def init_process_group(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> T
 @dataclasses.dataclass
 class DDPRuntime:
     """Everything the recipes, ``fit`` and ``evaluate`` need to train and
-    evaluate data-parallel across the processes of the default group."""
+    evaluate data-parallel (and, with ``n_model > 1``, tensor-parallel)
+    across the processes of the default group."""
 
     world_size: int
     rank: int
     device: torch.device
+    n_model: int = 1
+
+    def __post_init__(self):
+        (self.n_data, self.data_rank, self.model_rank,
+         self.data_group, self.model_group) = process_grid(self.world_size, self.rank, self.n_model)
 
     @property
     def data_parallel(self) -> DataParallel:
-        return DataParallel(self.world_size, self.rank)
+        return DataParallel(self.n_data, self.data_rank, self.data_group)
 
     @property
-    def n_data(self) -> int:
-        return self.world_size
-
-    @property
-    def n_model(self) -> int:
-        return 1
+    def tensor_parallel(self) -> Optional[TensorParallel]:
+        """This rank's model share, None without a model axis."""
+        if self.n_model == 1:
+            return None
+        return TensorParallel(self.n_model, self.model_rank, self.model_group)
 
     @property
     def spans_processes(self) -> bool:
@@ -116,35 +139,66 @@ class DDPRuntime:
         return arrays, len(next(iter(arrays.values())))
 
     def replicate_state(self, state):
-        """Rank 0's parameters and optimizer state on every rank, in place
-        (the JAX package's ``replicate``)."""
+        """Rank 0's full parameters and optimizer state on every rank (the
+        JAX package's ``replicate``), in place; under tensor parallelism
+        then each rank's share of them (:meth:`shard_state`)."""
         tensors = list(state.params.values())
         tensors += [x for x in pytree.tree_leaves(state.opt_state) if isinstance(x, torch.Tensor)]
         replicate(tensors)
-        return state
+        return self.shard_state(state)
+
+    def shard_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full parameters -> this rank's share (the identity without a
+        model axis)."""
+        tp = self.tensor_parallel
+        return params if tp is None else tp.shard(params)
+
+    def shard_state(self, state):
+        """A full train state -> this rank's share (the identity without a
+        model axis)."""
+        tp = self.tensor_parallel
+        if tp is None:
+            return state
+        return dataclasses.replace(state, params=tp.shard(state.params),
+                                   opt_state=map_param_dicts(state.opt_state, state.params, tp.shard))
+
+    def gather_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Shares -> the full parameters (collective over the model group;
+        the identity without a model axis)."""
+        tp = self.tensor_parallel
+        return params if tp is None else tp.gather(params)
+
+    def gather_state(self, state):
+        """This rank's share of a train state -> the full one (collective;
+        the identity without a model axis)."""
+        tp = self.tensor_parallel
+        if tp is None:
+            return state
+        return dataclasses.replace(state, params=tp.gather(state.params),
+                                   opt_state=map_param_dicts(state.opt_state, state.params, tp.gather))
 
     def wrap_train_step(self, step):
-        """The data-parallel form of a step of ``make_train_step``
+        """The parallel form of a step of ``make_train_step``
         (:func:`~passt_tpu_torch.parallel.mesh.make_parallel_train_step`)."""
-        return make_parallel_train_step(step, self.data_parallel)
+        return make_parallel_train_step(step, self.data_parallel, self.tensor_parallel)
 
 
 def maybe_ddp_runtime(trainer_cfg, device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[DDPRuntime]:
     """A :class:`DDPRuntime` iff the config asks for one (``n_data`` set or
     ``n_model > 1``); None keeps the plain one-device step. Raises before
-    any work where the config and the group disagree."""
+    any work where the config and the group disagree; ``n_data`` unset
+    under ``n_model > 1`` is the group's size over ``n_model``."""
     n_data = getattr(trainer_cfg, "n_data", None)
     n_model = getattr(trainer_cfg, "n_model", 1) or 1
     if n_data is None and n_model == 1:
         return None
-    if n_model > 1:
-        raise NotImplementedError(
-            f"trainer.n_model={n_model}: tensor parallelism is not ported ({TP_LABEL}); "
-            "the port trains data-parallel only (trainer.n_data)"
-        )
+    have = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+    if n_model > have:
+        raise RuntimeError(f"trainer.n_model={n_model} exceeds the {have} available devices")
+    if n_data is None:
+        n_data = max(1, have // n_model)
     if n_data < 1:
         raise RuntimeError(f"trainer.n_data must be >= 1, got {n_data}")
-    have = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
     need = n_data * n_model
     if need != have:
         raise RuntimeError(
@@ -153,4 +207,4 @@ def maybe_ddp_runtime(trainer_cfg, device="cuda", timeout_s: float = DEFAULT_TIM
             f"torchrun --nproc-per-node {need})"
         )
     world, rank, device = init_process_group(device, timeout_s)
-    return DDPRuntime(world_size=world, rank=rank, device=device)
+    return DDPRuntime(world_size=world, rank=rank, device=device, n_model=n_model)

@@ -6,6 +6,8 @@ import subprocess
 
 import torch
 
+from passt_tpu_torch.graphs import no_collection
+
 
 def gpu_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
@@ -43,7 +45,7 @@ def graph_ms(fn, reps: int = 20) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()

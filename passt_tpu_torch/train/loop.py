@@ -68,6 +68,8 @@ from passt_tpu_torch.train.metrics import (
     mean_average_precision,
     roc_auc,
 )
+from passt_tpu_torch.models.pretrained import match_block_layout
+from passt_tpu_torch.train.optim import map_param_dicts
 from passt_tpu_torch.train.steps import TrainState, step_generators
 from passt_tpu_torch.train.swa import SWAState, swa_init, swa_should_update, swa_update
 
@@ -175,11 +177,12 @@ def _spans(runtime) -> bool:
 
 
 def _all_gather_np(a: np.ndarray, runtime) -> np.ndarray:
-    """Every rank's ``a`` (the same shape and dtype on every rank), stacked
-    in rank order, through the group's backend on the rank's device."""
+    """Every data rank's ``a`` (the same shape and dtype on every rank),
+    stacked in data-rank order, through the group's backend on the rank's
+    device (the model ranks of a data rank hold the same rows)."""
     t = torch.from_numpy(np.ascontiguousarray(a)).to(runtime.device)
-    parts = [torch.empty_like(t) for _ in range(runtime.world_size)]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(runtime.n_data)]
+    dist.all_gather(parts, t, group=runtime.data_group)
     return np.stack([p.cpu().numpy() for p in parts])
 
 
@@ -417,9 +420,11 @@ def restore_checkpoint(
 
     ``runtime`` spanning processes: every rank waits for the others, reads
     the checkpoint (rank 0 wrote it), and takes rank 0's tensors, so the
-    ranks start from one state."""
+    ranks start from one state; under tensor parallelism the checkpoint
+    holds the full state and each rank keeps its share."""
     if _spans(runtime):
         dist.barrier()
+        state = runtime.gather_state(state)  # the full template
     if monitor_mode not in ("max", "min"):
         raise ValueError(f"monitor_mode must be 'max' or 'min', got {monitor_mode!r}")
     epochs = checkpoint_epochs(checkpoint_dir)
@@ -439,14 +444,26 @@ def restore_checkpoint(
     if epoch is None or epoch not in epochs:
         raise FileNotFoundError(f"no checkpoint{'' if epoch is None else f' for epoch {epoch}'} in {checkpoint_dir}")
     saved = _load(_ckpt_path(checkpoint_dir, epoch), "cpu")
+    # a checkpoint of another blocks_impl: its block layout, re-laid
+    names = set(state.params)
+    saved_names = set(saved["params"])
+    relay = match_block_layout if saved_names != names else None
 
     def like(tmpl: Dict[str, torch.Tensor], got: Dict[str, torch.Tensor], what: str, dtype=None):
+        if relay is not None:
+            got = relay(got, tmpl)
         if set(got) != set(tmpl):
             raise RuntimeError(f"checkpoint {checkpoint_dir}@{epoch}: {what} keys differ from the template's")
         return {k: got[k].to(device=t.device, dtype=dtype or t.dtype).clone() for k, t in tmpl.items()}
 
     params = like(state.params, saved["params"], "params")
-    leaves, spec = pytree.tree_flatten(state.opt_state)
+    opt_template = state.opt_state
+    if relay is not None:
+        # the template's optimizer state in the saved layout, to read the
+        # saved leaves into; re-laid back after
+        saved_layout = relay(state.params, saved["params"])
+        opt_template = map_param_dicts(state.opt_state, names, lambda d: relay(d, saved_layout))
+    leaves, spec = pytree.tree_flatten(opt_template)
     got = saved["opt_state"]
     if len(got) != len(leaves) or any(
         isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor)
@@ -459,16 +476,19 @@ def restore_checkpoint(
         )
     opt_state = pytree.tree_unflatten(
         [b.to(a.device).clone() if isinstance(b, torch.Tensor) else b for a, b in zip(leaves, got)], spec)
+    if relay is not None:
+        opt_state = map_param_dicts(opt_state, saved_names, lambda d: relay(d, state.params))
     new_state = TrainState(params=params, opt_state=opt_state, step=int(saved["step"]))
     swa = None
     if saved.get("swa_params") is not None:
         swa = (like(state.params, saved["swa_params"], "swa_params", torch.float32), int(saved["swa_n"]))
     if _spans(runtime):
-        runtime.replicate_state(new_state)
+        new_state = runtime.replicate_state(new_state)
         if swa is not None:
             from passt_tpu_torch.parallel.mesh import replicate
 
             replicate(list(swa[0].values()))
+            swa = (runtime.shard_params(swa[0]), swa[1])
     return new_state, swa, epoch
 
 
@@ -648,7 +668,7 @@ def fit(
 
                         gen = step_generators(seed, host_step, device)["mel"]
                         b = len(dev_batch["wave"])
-                        rows = (0, b * runtime.world_size) if multi else None
+                        rows = (0, b * runtime.n_data) if multi else None
                         with torch.no_grad():
                             mel_img = log_mel_spectrogram(dev_batch["wave"], mel_cfg, generator=gen, train=True,
                                                           rows=rows)
@@ -749,16 +769,23 @@ def fit(
                     # no eval are not checkpointed
                     print(f"checkpoint skipped at epoch {epoch}: monitored metric {monitor!r} not in this "
                           "epoch's record (no eval ran)")
-                elif main:
-                    ckpt.save(epoch, {
-                        "epoch": epoch,
-                        "step": host_step,
-                        "params": state.params,
-                        "opt_state": pytree.tree_flatten(state.opt_state)[0],
-                        "swa_params": None if swa_state is None else swa_state.avg_params,
-                        "swa_n": 0 if swa_state is None else swa_state.n_averaged,
-                        "metrics": {} if monitor is None else {monitor: float(record[monitor])},
-                    })
+                else:
+                    # the full state: under tensor parallelism every rank
+                    # gathers its shares, and rank 0 writes
+                    full = runtime.gather_state(state) if multi else state
+                    swa_params = None if swa_state is None else swa_state.avg_params
+                    if multi and swa_params is not None:
+                        swa_params = runtime.gather_params(swa_params)
+                    if main:
+                        ckpt.save(epoch, {
+                            "epoch": epoch,
+                            "step": host_step,
+                            "params": full.params,
+                            "opt_state": pytree.tree_flatten(full.opt_state)[0],
+                            "swa_params": swa_params,
+                            "swa_n": 0 if swa_state is None else swa_state.n_averaged,
+                            "metrics": {} if monitor is None else {monitor: float(record[monitor])},
+                        })
                 if multi:
                     dist.barrier()  # the other ranks go on once rank 0's checkpoint is on disk
 

@@ -22,14 +22,17 @@ as host floats (the same bits).
   truncated; unbiased, so the ~1e-3-relative EMA increments of ``nu`` still
   move it). Updates of bf16-stored leaves stay fp32, so
   :func:`apply_updates_sr` adds them in fp32 before its own SR store.
-- :func:`cast_params_storage`: matrices and embeddings (ndim >= 2) stored in
-  bf16, vectors (biases, LayerNorm scales) in fp32.
+- :func:`cast_params_storage`: matrices and embeddings stored in bf16,
+  vectors (biases, LayerNorm scales) in fp32, judged per block under a
+  stacked layout (a ``blocks.block.*`` leaf has one more axis).
 - :func:`multi_steps`: optax ``MultiSteps`` (gradient accumulation).
 
 All arithmetic is fp32; only the storage is bf16. The SR bits come from a
-Philox ``torch.Generator`` seeded from the update count, so
-they differ from the JAX package's ``rng_bit_generator`` bits: SR is held
-to the JAX package statistically, not bit for bit. There is no TPU kernel
+Philox ``torch.Generator`` seeded from the update count. They are drawn in
+the per-block layout's order whatever the layout (a stacked leaf rounds as
+its per-block leaves would) and, under tensor parallelism, for whole
+leaves. They differ from the JAX package's ``rng_bit_generator`` bits, so
+SR is held to the JAX package statistically, not bit for bit. There is no TPU kernel
 here; the moments update as ``torch._foreach_*`` ops over the leaf lists.
 """
 
@@ -90,22 +93,62 @@ def seeded_generator(device, *parts) -> torch.Generator:
     return gen
 
 
-def _stochastic_round_bf16(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """fp32 -> bf16 with unbiased stochastic rounding: add a uniform 16-bit
-    value below the bf16 mantissa, truncate. NaN and inf pass through."""
+def _sr_bits(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """fp32 -> bf16 by adding the uniform 16-bit values ``r`` below the bf16
+    mantissa and truncating. NaN and inf pass through."""
     x = x.contiguous()
-    r = torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device, dtype=torch.int32)
     # the int32 sum carries exactly like the unsigned one: two's complement
     truncated = ((x.view(torch.int32) + r) & -65536).view(torch.float32)
     return torch.where(torch.isfinite(x), truncated, x).to(torch.bfloat16)
 
 
-def _stochastic_round_many(xs: List[torch.Tensor], generator: torch.Generator) -> List[torch.Tensor]:
+def _stochastic_round_bf16(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """fp32 -> bf16 with unbiased stochastic rounding (:func:`_sr_bits` with
+    values drawn from ``generator``)."""
+    return _sr_bits(x, torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device, dtype=torch.int32))
+
+
+#: name -> (the full leaf's shape, full -> this rank's share) for leaves a
+#: tensor-parallel rank holds a share of (``TensorParallel.full_shapes``)
+Shares = Optional[Dict[str, tuple]]
+
+
+def _stochastic_round_many(xs: List[torch.Tensor], generator: torch.Generator,
+                           shares: Optional[List[Optional[tuple]]] = None,
+                           names: Optional[List[str]] = None) -> List[torch.Tensor]:
     """SR of several fp32 tensors in one pass over their concatenation;
-    returns bf16 views of one buffer in the tensors' shapes."""
+    returns bf16 views of one buffer in the tensors' shapes.
+
+    The bits are drawn in the per-block layout's order and put in the
+    tensors' order, so that a leaf rounds alike in every layout and on every
+    rank: ``names`` marks the stacked ``blocks.block.*`` leaves, whose draws
+    are taken block by block as the per-block leaves of ``blocks.{i}.*``
+    would take them; ``shares`` (per tensor: None, or a tensor-parallel
+    share's ``(full shape, full -> share)``) draws for the full leaves, each
+    share keeping its own. Where neither applies the draws are already in
+    order and are used as drawn."""
     if not xs:
         return []
-    flat = _stochastic_round_bf16(torch.cat([x.reshape(-1) for x in xs]), generator)
+    shares = shares or [None] * len(xs)
+    stacked = [bool(names) and names[i].startswith("blocks.block.") for i in range(len(xs))]
+    full = [tuple(sh[0]) if sh else tuple(x.shape) for x, sh in zip(xs, shares)]
+    r = torch.randint(0, 1 << 16, (sum(int(np.prod(f)) for f in full),), generator=generator,
+                      device=xs[0].device, dtype=torch.int32)
+    if any(stacked) or any(sh is not None for sh in shares):
+        bits: List[torch.Tensor] = []
+        at = i = 0
+        while i < len(xs):
+            j = i + 1
+            while stacked[i] and j < len(xs) and stacked[j]:
+                j += 1
+            # a run of stacked leaves draws block-major, as the per-block layout does
+            depth = full[i][0] if stacked[i] else 1
+            per = [int(np.prod(f)) // depth for f in full[i:j]]
+            rows = r[at: at + depth * sum(per)].view(depth, sum(per))
+            bits += [part.reshape(f) for part, f in zip(rows.split(per, dim=1), full[i:j])]
+            at, i = at + depth * sum(per), j
+        r = torch.cat([(sh[1](b) if sh else b).reshape(-1) for b, sh in zip(bits, shares)])
+    flat = _sr_bits(torch.cat([x.reshape(-1) for x in xs]), r)
     return [part.view(x.shape) for part, x in zip(flat.split([x.numel() for x in xs]), xs)]
 
 
@@ -115,31 +158,38 @@ def apply_updates(params: Params, updates: Params) -> Params:
     return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
 
 
-def apply_updates_sr(params: Params, updates: Params, generator: torch.Generator) -> Params:
+def apply_updates_sr(params: Params, updates: Params, generator: torch.Generator, shares: Shares = None) -> Params:
     """:func:`apply_updates` with stochastically rounded stores for bf16
     leaves: the add runs in fp32 and SR puts it back in bf16, so updates far
     below the bf16 ulp at weight scale still move the weight in
     expectation. Other leaves follow :func:`apply_updates` exactly, with the
-    update first cast to the parameter's dtype."""
+    update first cast to the parameter's dtype. ``shares``: the leaves a
+    tensor-parallel rank holds a share of (:data:`Shares`)."""
     low = [k for k, p in params.items() if p.dtype == torch.bfloat16]
     sums = torch._foreach_add([params[k].float() for k in low], [updates[k].float() for k in low])
-    out = dict(zip(low, _stochastic_round_many(sums, generator)))
+    out = dict(zip(low, _stochastic_round_many(sums, generator, [(shares or {}).get(k) for k in low], low)))
     for k, p in params.items():
         if k not in out:
             out[k] = (p + updates[k].to(p.dtype)).to(p.dtype)
     return {k: out[k] for k in params}
 
 
+def leaf_rank(name: str, p: torch.Tensor) -> int:
+    """A leaf's rank as one block sees it: a stacked ``blocks.block.*`` leaf
+    carries a leading depth axis."""
+    return p.ndim - 1 if name.startswith("blocks.block.") else p.ndim
+
+
 def cast_params_storage(params: Params, param_dtype: Optional[str]) -> Params:
-    """``param_dtype="bfloat16_sr"`` stores leaves of ndim >= 2 in bf16 and
-    keeps vectors fp32; None / "float32" is the identity. Pair bf16 storage
-    with :func:`apply_updates_sr` (a nearest-rounded bf16 add loses the
-    update)."""
+    """``param_dtype="bfloat16_sr"`` stores matrices and embeddings (a
+    per-block rank >= 2, :func:`leaf_rank`) in bf16 and keeps vectors fp32;
+    None / "float32" is the identity. Pair bf16 storage with
+    :func:`apply_updates_sr` (a nearest-rounded bf16 add loses the update)."""
     if param_dtype in (None, "float32"):
         return dict(params)
     if param_dtype != "bfloat16_sr":
         raise ValueError(f"unknown param_dtype {param_dtype!r}; known: float32, bfloat16_sr")
-    return {k: p.to(torch.bfloat16) if p.ndim >= 2 else p for k, p in params.items()}
+    return {k: p.to(torch.bfloat16) if leaf_rank(k, p) >= 2 else p for k, p in params.items()}
 
 
 def _schedule(learning_rate) -> Callable[[int], float]:
@@ -243,7 +293,9 @@ def adamw_bf16sr(
 ) -> GradientTransformation:
     """AdamW with bf16 ``mu`` and stochastically rounded bf16 ``nu`` (see the
     module docstring). ``learning_rate`` is a float or a step schedule,
-    evaluated at the pre-update count. Updates are fp32 for every leaf."""
+    evaluated at the pre-update count. Updates are fp32 for every leaf.
+    ``inputs["shares"]`` (:data:`Shares`): a tensor-parallel rank's leaves,
+    rounded as the whole leaves would be."""
     sched = _schedule(learning_rate)
 
     def init(params: Params) -> AdamState:
@@ -268,7 +320,9 @@ def adamw_bf16sr(
             c1=inputs["c1"], c2=inputs["c2"], lr=inputs["lr"], optax_order=False,
         )
         mu = [x.to(torch.bfloat16) for x in m]
-        nu = _stochastic_round_many(v, inputs["nu"]) if sr_nu else [x.to(torch.bfloat16) for x in v]
+        shares = inputs.get("shares") or {}
+        nu = (_stochastic_round_many(v, inputs["nu"], [shares.get(k) for k in keys], keys) if sr_nu
+              else [x.to(torch.bfloat16) for x in v])
         return dict(zip(keys, upd)), AdamState(count=state.count + 1, mu=dict(zip(keys, mu)),
                                                nu=dict(zip(keys, nu)))
 
@@ -334,6 +388,20 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
         return updates, MultiStepsState(state.mini_step + 1, state.gradient_step, state.inner_opt_state, acc)
 
     return GradientTransformation(init, update, plan)
+
+
+def map_param_dicts(tree, names, fn):
+    """``tree`` (an optimizer state: named tuples, tuples, lists, dicts)
+    with ``fn`` applied to each dict keyed by the parameter ``names``."""
+    if isinstance(tree, dict):
+        if set(tree) == set(names):
+            return fn(tree)
+        return {k: map_param_dicts(v, names, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_param_dicts(v, names, fn) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_param_dicts(v, names, fn) for v in tree)
+    return tree
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -189,11 +189,12 @@ LOSS_FNS: Dict[str, Callable] = {
 
 def _param_group(name: str) -> str:
     """The JAX package's top-level parameter group of a port parameter name
-    (``blocks.3.attn.qkv.weight`` -> ``blocks_3``; the inverse of the
-    grouping ``state_dict_from_flax`` reads)."""
+    (``blocks.3.attn.qkv.weight`` -> ``blocks_3``, a stacked
+    ``blocks.block.*`` leaf -> ``blocks``; the inverse of the grouping
+    ``state_dict_from_flax`` reads)."""
     parts = name.split(".")
     if parts[0] == "blocks":
-        return f"blocks_{parts[1]}"
+        return "blocks" if parts[1] == "block" else f"blocks_{parts[1]}"
     if parts[0] == "head":
         return {"0": "head_norm", "1": "head_linear"}[parts[1]]
     return parts[0]
@@ -213,6 +214,7 @@ def make_train_step(
     donate: bool = True,
     jit: bool = True,
     data_parallel=None,
+    tensor_parallel=None,
 ):
     """Build the train step ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -248,8 +250,19 @@ def make_train_step(
     update, unless grad norms are logged, which need the global gradient
     each micro-step). The metrics are the global ones, and every rank's
     new state is the same, bit for bit.
+
+    ``tensor_parallel`` (a :class:`passt_tpu_torch.parallel.mesh.TensorParallel`,
+    the JAX mesh's model axis): ``state.params`` and the optimizer state
+    hold this model rank's share of the block weights; the model runs with
+    one all-reduce per sublayer, AdamW updates the shares, the stochastic
+    rounding of a share keeps the whole leaf's draws, and the grad norm sums
+    the shares' squares over the model group. Every model rank of a data
+    rank takes the same batch and makes the same draws.
     """
     loss_fn = LOSS_FNS[loss_type]
+    tp = tensor_parallel
+    if tp is not None:
+        tp.check_model(model.cfg)
     tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
 
     dp = data_parallel
@@ -283,7 +296,8 @@ def make_train_step(
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         logits, _ = functional_call(
             model, leaves, (x,),
-            dict(train=True, generators={k: gens[k] for k in ("patchout", "dropout", "droppath")}, rows=rows),
+            dict(train=True, generators={k: gens[k] for k in ("patchout", "dropout", "droppath")}, rows=rows,
+                 tp=tp),
         )
         loss = loss_fn(logits, y, perm, lam, rows=loss_rows)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
@@ -291,6 +305,9 @@ def make_train_step(
         loss = loss.detach()
 
         opt_inputs = inputs.optimizer()
+        shares = None if tp is None else tp.full_shapes(params)
+        if shares:
+            opt_inputs["shares"] = shares
         if dp is not None:
             if isinstance(opt_state, optim.MultiStepsState) and not log_norms:
                 # the gradient mean is reduced once an update, inside multi_steps
@@ -303,18 +320,22 @@ def make_train_step(
         if param_sr:
             # bf16 storage: fp32 add, stochastically rounded store, from a
             # stream apart from the augmentation's and the optimizer's
-            params = apply_updates_sr(params, updates, gens["apply_updates_sr"])
+            params = apply_updates_sr(params, updates, gens["apply_updates_sr"], shares)
         else:
             params = apply_updates(params, updates)
         metrics = {"loss": loss}
+
+        def norm(gs: Dict[str, torch.Tensor]) -> torch.Tensor:
+            return optim.global_norm(gs.values()) if tp is None else tp.global_norm(gs)
+
         if log_grad_norm:
-            metrics["grad_norm"] = optim.global_norm(grads.values())
+            metrics["grad_norm"] = norm(grads)
         if log_grad_norm_per_block:
-            groups: Dict[str, list] = {}
+            groups: Dict[str, dict] = {}
             for k, g in grads.items():
-                groups.setdefault(_param_group(k), []).append(g)
+                groups.setdefault(_param_group(k), {})[k] = g
             for group, gs in groups.items():
-                metrics[f"grad_norm/{group}"] = optim.global_norm(gs)
+                metrics[f"grad_norm/{group}"] = norm(gs)
         return params, opt_state, metrics
 
     runners: Dict[torch.device, _TrainRunner] = {}
@@ -333,7 +354,7 @@ def make_train_step(
         (model, tx, mel_cfg),
         dict(loss_type=loss_type, use_mixup=use_mixup, mixup_alpha=mixup_alpha, input_tdim=input_tdim,
              log_grad_norm=log_grad_norm, log_grad_norm_per_block=log_grad_norm_per_block, param_sr=param_sr,
-             donate=donate, jit=jit, data_parallel=data_parallel),
+             donate=donate, jit=jit, data_parallel=data_parallel, tensor_parallel=tensor_parallel),
     )
     return step
 
@@ -398,6 +419,7 @@ def make_eval_step(
     loss_type: str = "multilabel",
     input_tdim: Optional[int] = None,
     jit: bool = True,
+    tensor_parallel=None,
 ):
     """Eval step ``(params, batch) -> dict(out, loss, loss_per_example,
     features)``: ``out`` is sigmoid probabilities for multilabel/masked and
@@ -406,7 +428,8 @@ def make_eval_step(
     step runs as CUDA graphs, one per batch signature and per set of
     ``params`` (read in place, by identity); the outputs are copies the
     next call leaves alone. ``jit=False``, or a CPU batch, runs it
-    eagerly."""
+    eagerly. ``tensor_parallel``: ``params`` are a model rank's share
+    (see :func:`make_train_step`)."""
     if loss_type not in LOSS_FNS:
         raise KeyError(f"unknown loss_type {loss_type!r}; known: {sorted(LOSS_FNS)}")
     tdim = input_tdim if input_tdim is not None else model.cfg.input_tdim
@@ -417,7 +440,7 @@ def make_eval_step(
                 x = batch["mel"]
             else:
                 x = log_mel_spectrogram(batch["wave"], mel_cfg, train=False)[:, None, :, :tdim]
-            logits, features = functional_call(model, params, (x,), dict(train=False))
+            logits, features = functional_call(model, params, (x,), dict(train=False, tp=tensor_parallel))
             y = batch["target"]
             if loss_type == "single_label":
                 loss_pe = L.softmax_ce(logits, y)

@@ -19,6 +19,18 @@ It runs, in one process group (``passt_tpu_torch.parallel``):
   that rank 1 alone gets a SIGTERM in.
 
 Results land in ``<outdir>/rank<r>.npz`` and ``<outdir>/rank<r>.json``.
+
+Usage for tensor parallelism (tests/test_torch_tensor_parallel.py):
+``python _torch_parallel_worker.py <outdir> tp <n_model>``, in a group of
+``n_data * n_model`` processes. It runs:
+- "steps": two train steps of each config of ``TP_CONFIGS`` through a
+  ``DDPRuntime`` with the model axis, then gathers the full parameters;
+  each rank's parameter bytes and names;
+- "eval": ``evaluate`` of the step-0 parameters on rank slices (the model
+  ranks of a data rank read the same rows);
+- "fit" (world 2 only): ``audioset main`` through ``run_command`` at
+  ``trainer.n_model=2`` on the parent's HDF5 containers, and a resume.
+
 Nothing here imports jax.
 """
 
@@ -220,5 +232,87 @@ def main():
     print(f"rank {rank} done", flush=True)
 
 
+#: name -> (config, moments dtype) of the tensor-parallel steps
+TP_CONFIGS = {
+    "loop": (dict(TINY, drop_rate=0.1, drop_path_rate=0.1, attn_impl="fused"), None),
+    "scan": (dict(TINY, attn_impl="fused", blocks_impl="scan"), None),
+    "stacked": (dict(TINY, attn_impl="fused", blocks_impl="stacked"), None),
+    "sr": (dict(TINY, attn_impl="fused"), "bfloat16_sr"),
+    "fuse": (dict(TINY, attn_impl="fused", fuse_ln_qkv=True), None),
+}
+TP_MEL = dict(n_mels=32, freqm=4, timem=8, iid_masks=True)
+
+
+def main_tp(outdir, n_model):
+    from passt_tpu_torch.models.passt import PaSSTConfig
+    from passt_tpu_torch.ops.frontend import MelConfig
+    from passt_tpu_torch.train.loop import evaluate
+    from passt_tpu_torch.train.steps import create_train_state, make_eval_step, make_optimizer, make_train_step
+
+    world, rank, device = init_process_group("cpu", timeout_s=60)
+    runtime = DDPRuntime(world, rank, device, n_model=n_model)
+    out, info = {}, {"world": world, "rank": rank, "data_rank": runtime.data_rank, "model_rank": runtime.model_rank}
+    n_data, d = runtime.n_data, runtime.data_rank
+    for name, (cfg_kw, moments) in TP_CONFIGS.items():
+        if world > 2 and name in ("stacked", "sr", "fuse"):
+            continue
+        tx = make_optimizer(lr=1e-3, steps_per_epoch=2, moments_dtype=moments)
+        model, state = create_train_state(PaSSTConfig(**cfg_kw), tx, torch.Generator().manual_seed(0), device="cpu",
+                                          param_dtype=moments)
+        state = runtime.replicate_state(state)
+        info[f"{name}_bytes"] = {k: p.numel() * p.element_size() for k, p in state.params.items()}
+        info[f"{name}_mu_bytes"] = {k: p.numel() * p.element_size() for k, p in state.opt_state.mu.items()}
+        step = runtime.wrap_train_step(make_train_step(model, tx, MelConfig(**TP_MEL), log_grad_norm=True,
+                                                       param_sr=moments is not None))
+        b = GLOBAL_B // n_data
+        for s in (1, 2):
+            wave, target = (x[d * b:(d + 1) * b] for x in _global_batch())
+            state, metrics = step(state, {"wave": torch.from_numpy(wave), "target": torch.from_numpy(target)}, 42)
+            out[f"{name}_s{s}_loss"] = metrics["loss"].numpy()
+            out[f"{name}_s{s}_norm"] = metrics["grad_norm"].numpy()
+        for k, p in runtime.gather_state(state).params.items():
+            out[f"{name}_{k}"] = p.float().numpy().copy()
+
+    # eval: the model ranks of a data rank read the same rows; the gather
+    # runs over the data group
+    cfg_kw = dict(TINY, attn_impl="fused")
+    model, state = create_train_state(PaSSTConfig(**cfg_kw), make_optimizer(), torch.Generator().manual_seed(0),
+                                      device="cpu")
+    state = runtime.replicate_state(state)
+    eval_step = make_eval_step(model, MelConfig(n_mels=32), tensor_parallel=runtime.tensor_parallel)
+    info["eval"] = evaluate(eval_step, state.params, ShardLoader(2, d, n_data), device_prefetch=0, runtime=runtime)
+
+    if world == 2:
+        import passt_tpu_torch.models.registry as registry
+        import passt_tpu_torch.experiments.common as common
+        from passt_tpu_torch.experiments import EXPERIMENTS
+
+        with open(os.path.join(outdir, "argv.json")) as f:
+            argv = json.load(f)
+        exp = EXPERIMENTS["audioset"]
+        arch = exp.default_config.model.arch
+        registry.ARCHS[arch] = dataclasses.replace(registry.ARCHS[arch], depth=2, embed_dim=64, num_heads=4)
+        first = common.run_command(exp, ["main", "with"] + argv, device="cpu")
+        resumed = common.run_command(exp, ["main", "with"] + argv + ["trainer.resume=true", "trainer.max_epochs=3"],
+                                     device="cpu")
+        info["fit"] = {"history": first["history"], "resumed": resumed["history"]}
+
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+    print(f"rank {rank} done", flush=True)
+
+
+def _global_batch():
+    g = np.random.default_rng(7)
+    wave = g.standard_normal((GLOBAL_B, 16000)).astype(np.float32)
+    target = (g.uniform(size=(GLOBAL_B, 8)) < 0.3).astype(np.float32)
+    return wave, target
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 2 and sys.argv[2] == "tp":
+        main_tp(sys.argv[1], int(sys.argv[3]))
+    else:
+        main()

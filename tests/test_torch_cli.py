@@ -140,9 +140,10 @@ def test_cli_runs_on_the_card_and_one_device_only(capsys):
     """The CLI's model commands run on the card: without one they raise
     (nothing falls back to the CPU); one process drives one device, so
     ``trainer.n_data=2`` without a process group of two raises the
-    runtime's world-size check before any work, and ``trainer.n_model=2``
-    names tensor parallelism's label, ROADMAP queue 1 item 10;
-    blocks_impl scan/stacked name item 8;
+    runtime's world-size check before any work, as ``trainer.n_model=2``
+    does (tensor parallelism needs two processes); ``model.blocks_impl``
+    reaches the model, whose invalid combinations raise the JAX package's
+    errors (these options raised as unported until they were ported);
     ``trainer.compilation_cache_dir`` prints one line and changes nothing."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -151,12 +152,19 @@ def test_cli_runs_on_the_card_and_one_device_only(capsys):
     for command in ("model_speed_test", "main", "evaluate_only"):
         with pytest.raises(RuntimeError, match="trainer.n_data=2 n_model=1 needs 2 devices, have 1 "):
             common.run_command(exp, [command, "trainer.n_data=2"], device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+        with pytest.raises(RuntimeError, match="trainer.n_model=2 exceeds the 1 available devices"):
             common.run_command(exp, [command, "trainer.n_model=2"], device="cpu")
     assert not torch.distributed.is_initialized()
-    for argv in (["model.blocks_impl=scan"], ["model.blocks_impl=stacked"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    from passt_tpu.models.passt import PaSSTConfig as JaxConfig
+
+    for argv, bad in ((["model.blocks_impl=bogus"], dict(blocks_impl="bogus")),
+                      (["model.blocks_impl=stacked", "model.fuse_ln_qkv=true"],
+                       dict(blocks_impl="stacked", fuse_ln_qkv=True))):
+        with pytest.raises((ValueError, NotImplementedError)) as want:
+            JaxConfig(**bad).use_scan_blocks
+        with pytest.raises(type(want.value)) as got:
             common.run_command(exp, ["model_speed_test"] + argv, device="cpu")
+        assert str(got.value) == str(want.value)
     capsys.readouterr()
     common.run_command(exp, ["print_config", "trainer.compilation_cache_dir=/tmp/xla"])
     out = capsys.readouterr().out

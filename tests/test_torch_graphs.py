@@ -486,3 +486,28 @@ def test_cpu_runs_eagerly_without_graphs():
         out, (xr, wr) = cache(x, graphs.InPlace(w))
         assert xr is x and wr is w and torch.equal(out["y"], x + w)
     assert len(cache) == 0 and len(seen) == 3
+
+
+def test_capture_collects_first_and_pauses_the_collector():
+    """``graphs.no_collection`` (around every capture on the card): a
+    reference cycle dropped before the capture is collected before it, the
+    cyclic collector stays off during it (a dropped cache's graph destroyed
+    mid-capture invalidates the capture) and is back on after it."""
+    import gc
+    import weakref
+
+    class Node:
+        pass
+
+    node = Node()
+    node.cycle = node
+    ref = weakref.ref(node)
+    del node
+    enabled = gc.isenabled()
+    with graphs.no_collection():
+        assert ref() is None and not gc.isenabled()
+    assert gc.isenabled() == enabled
+    with pytest.raises(ValueError):
+        with graphs.no_collection():
+            raise ValueError("a failed capture")
+    assert gc.isenabled() == enabled

@@ -277,8 +277,9 @@ def test_maybe_ddp_runtime_validation_matches_jax(monkeypatch):
     """(g) ``maybe_ddp_runtime``'s checks and texts: those of the JAX
     package's ``maybe_mesh_runtime`` where the port keeps its rule
     (``n_data`` < 1; ``n_data`` beyond the devices, here the processes of
-    the group), and ``n_model > 1`` naming the new tensor-parallel label;
-    no config, no runtime; every check raises before a group is formed."""
+    the group; ``n_model`` beyond them); no config, no runtime; every check
+    raises before a group is formed. (``n_model > 1`` raised here until
+    tensor parallelism was ported.)"""
     from passt_tpu.parallel.runtime import maybe_mesh_runtime
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -293,8 +294,13 @@ def test_maybe_ddp_runtime_validation_matches_jax(monkeypatch):
         rt.maybe_ddp_runtime(Trainer(n_data=9), device="cpu")
     with pytest.raises(RuntimeError, match=r"^trainer.n_data=9 n_model=1 needs 9 devices, have 8 "):
         maybe_mesh_runtime(Trainer(n_data=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+    with pytest.raises(RuntimeError, match=r"^trainer.n_model=2 exceeds the 1 available devices$"):
         rt.maybe_ddp_runtime(Trainer(n_model=2), device="cpu")
+    with pytest.raises(RuntimeError, match=r"^trainer.n_model=16 exceeds the 8 available devices$"):
+        maybe_mesh_runtime(Trainer(n_model=16))
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(RuntimeError, match=r"^trainer.n_data=3 n_model=2 needs 6 devices, have 4 "):
+        rt.maybe_ddp_runtime(Trainer(n_data=3, n_model=2), device="cpu")
     assert not torch.distributed.is_initialized()
 
 
