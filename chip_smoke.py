@@ -15,8 +15,10 @@ Phases (each prints one line or more; the first failure exits non-zero):
    jittered bank, a bank with an all-zero row, and at every other n_fft it
    is built for (64, 128, 256, 512 with win 400, 2048) (the wrapper timed by
    CUDA-graph replay, its two kernels by profiled kernel time, beside the
-   cuFFT composition of the same function); the attention forward on each of its four paths (every
-   call checked to take the one ``forward_path`` picks), timed by CUDA-graph
+   cuFFT composition of the same function); the attention forward on each of its five paths (every
+   call checked to take the one ``forward_path`` picks; fp32 at D = 64 on
+   "simt" from N = 1 to 1190, fp32 at another D and on unaligned views on
+   "fma"), timed by CUDA-graph
    replay and by events at the serving (B = 20, N = 1190), timestamp
    (B = 256, N = 14) and training (B = 12, N = 474) shapes beside SDPA as
    PyTorch dispatches it (the kernel it ran named from a profiler trace)
@@ -153,9 +155,10 @@ Phases (each prints one line or more; the first failure exits non-zero):
    at B = 20, N = 1190 against the loop's logits, timed in turns;
    ``tools/ab_batched_dw`` (48 per-block weight-gradient products with
    their AdamW-SR updates against 4 batched products and one stacked
-   update); the fp32 attention forward on its "fma" path at B = 20,
-   N = 1190 and B = 2, N = 474 against plain and each SDPA backend that
-   takes fp32, with its bound.
+   update); the fp32 attention forward on its "simt" path at B = 20,
+   N = 1190 and B = 2, N = 474 beside the old "fma" kernel on the same
+   call, plain and each SDPA backend that takes fp32, with its bound (the
+   new kernel must beat the old one and plain at both).
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -462,8 +465,10 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # path's two tile widths and of the wgmma path's first key tile; other
     # head dims; bf16 and fp16 on views one element off 16-byte alignment.
     # Each pair of calls takes the path forward_path picks ("wgmma" at
-    # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "fma" for
-    # fp32, D = 24 and the unaligned views)
+    # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "simt" for
+    # fp32 at D = 64; "fma" for fp32 at D = 32, D = 24 and the unaligned
+    # views). fp32 also at the ragged edges of the simt kernel's 64-row
+    # tiles (N = 1, 63, 64, 65, 97)
     heads, hd = 12, 64
     errs = {"fused_attention": 0.0, "fused_attention_qkv": 0.0}
     cases = [(dtype, n, plus1, heads, hd, True)
@@ -474,6 +479,9 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     cases += [(torch.bfloat16, 97, True, h_, d_, True) for h_, d_ in ((4, 16), (2, 24), (2, 128))]
     cases += [(dtype, n, plus1, heads, hd, False) for dtype in (torch.bfloat16, torch.float16)
               for n in (97, 1190) for plus1 in (False, True)]
+    cases += [(torch.float32, n, plus1, heads, hd, True) for n in (1, 63, 64, 65, 97) for plus1 in (False, True)]
+    cases += [(torch.float32, 97, plus1, 2, d_, True) for d_ in (32, 24) for plus1 in (False, True)]
+    cases += [(torch.float32, n, plus1, heads, hd, False) for n in (97, 1190) for plus1 in (False, True)]
     taken = dict.fromkeys(A.FWD_PATHS, 0)
     with torch.no_grad():
         for dtype, n, plus1, h_, d_, aligned in cases:
@@ -490,6 +498,8 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
             torch.cuda.synchronize()
             path = A.forward_path(n, d_, dtype, aligned)
             check(aligned or path == "fma", f"{dtype} N={n} D={d_} unaligned: path {path}, want fma")
+            check((path == "simt") == (dtype == torch.float32 and d_ == 64 and aligned),
+                  f"{dtype} N={n} D={d_} aligned={aligned}: path {path}")
             check(A.FWD_PATH_LAUNCHES[path] == 2 == sum(A.FWD_PATH_LAUNCHES.values()),
                   f"{dtype} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want 2 on {path}")
             taken[path] += 2
@@ -556,8 +566,9 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
         say(f"[3] {name} bf16 B={b} H=12 N={n} D=64: {line(t)} ({gpu})")
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
-        f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; D 16/24/128 at N=97; bf16/fp16 unaligned views at "
-        f"N 97/1190; bf16 at the serving, timestamp and training shapes); calls per path {taken}")
+        f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
+        f"D 24/32; bf16/fp16/fp32 unaligned views at N 97/1190; bf16 at the serving, timestamp and training "
+        f"shapes); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
     rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train)
     return rec
@@ -1263,7 +1274,7 @@ def phase_serving(gpu: str, dev: torch.device) -> dict:
     check(launches == want, f"launches {launches} != {want}")
     # the clip-level calls at N = 1190 on "wgmma", the timestamp windows at
     # N = 14 on "short"
-    want_paths = dict(fma=0, mma=0, short=12, wgmma=36)
+    want_paths = dict(fma=0, mma=0, short=12, wgmma=36, simt=0)
     check(paths == want_paths, f"forward paths {paths} != {want_paths}")
     say(f"[4] serving PaSST-S bf16 (random weights, seed 0): B=1, B=20 logits, scene "
         f"[20, 1295], timestamps [1, 40, 1295]; launches {launches}; forward paths {paths}")
@@ -1318,6 +1329,8 @@ def phase_correctness(dev: torch.device) -> None:
         f"logits err {l_err:.3g}, features err {f_err:.3g} (tol 2e-4)")
 
 
+#: the forward paths of one fp32 model call at D = 64: every block on "simt"
+FP32_FWD_PATHS = dict(fma=0, mma=0, short=0, wgmma=0, simt=12)
 #: every kernel wrapper's count; a main path's want lists the ones it launches
 KERNEL_NAMES = ("fused_log_mel", "fused_attention", "fused_attention_qkv", "fused_attention_bwd",
                 "fused_attention_qkv_bwd", "layer_norm_bwd", "ln_qkv_f1", "ln_qkv_b2", "int8_dense",
@@ -1375,7 +1388,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
           f"{variant}: parameter leaves that did not move: {sorted(still)}")
     want = {k: v * n for k, v in STEP_LAUNCHES[variant].items()}
     check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
-    want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n)  # every block's forward at N = 474
+    want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n, simt=0)  # every block's forward at N = 474
     check(paths == want_paths, f"{variant}: forward paths {paths} != {want_paths}")
     want_bwd = dict(fma=0, mma=0, wgmma=12 * n, simt=0)  # every block's backward at N = 474
     check(bwd_paths == want_bwd, f"{variant}: backward paths {bwd_paths} != {want_bwd}")
@@ -1490,6 +1503,7 @@ def phase_train_correctness(dev: torch.device) -> dict:
     check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
     check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
           f"fp32 step backward paths {k['bwd_paths']}, want 12 simt")
+    check(k["fwd_paths"] == FP32_FWD_PATHS, f"fp32 step forward paths {k['fwd_paths']}, want 12 simt")
     say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: {hold_fp32_step(k, p, '[7]')}")
     return k["launches"]
 
@@ -1503,6 +1517,7 @@ def phase_variant_correctness(dev: torch.device) -> list:
     and B2 gate holds in fp32; at N = 474 it does not."""
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
 
     runs = []
     cases = (("fuse_ln_qkv", dict(s_patchout_t=80, s_patchout_f=4), 154,
@@ -1517,6 +1532,7 @@ def phase_variant_correctness(dev: torch.device) -> list:
         check(k["launches"] == want, f"[9] {variant} fp32 step launches {k['launches']} != {want}")
         check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
               f"[9] {variant} fp32 step backward paths {k['bwd_paths']}, want 12 simt")
+        check(k["fwd_paths"] == FP32_FWD_PATHS, f"[9] {variant} fp32 step forward paths {k['fwd_paths']}, want 12 simt")
         say(f"[9] fp32 training step PaSST-S B=2 N={n} under {variant}, kernels vs the default config on "
             f"plain versions: {hold_fp32_step(k, p, f'[9] {variant}')}")
         runs.append(k["launches"])
@@ -1528,12 +1544,14 @@ def phase_variant_correctness(dev: torch.device) -> list:
     plain.model.load_state_dict(kern.model.state_dict())
     wave = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 64000)).astype(np.float32) * 0.1).to(dev)
     _build.reset_launches()
+    A.reset_path_launches()
     ek, tk = kern.timestamp_embeddings(wave)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches, paths = dict(_build.LAUNCHES), dict(A.FWD_PATH_LAUNCHES)
     ep, tp = plain.timestamp_embeddings(wave)
     want = want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12)
     check(launches == want, f"[9] fuse_ln_qkv Predictor launches {launches} != {want}")
+    check(paths == FP32_FWD_PATHS, f"[9] fuse_ln_qkv Predictor forward paths {paths}, want 12 simt")
     err = max_err(ek, ep)
     # fp32 on both sides, as [5]: summation order, carried through 12 blocks
     check(torch.equal(tk, tp) and err < 5e-3, f"[9] fuse_ln_qkv timestamp embeddings: err {err:.3g}")
@@ -1831,7 +1849,7 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         counts[eval_entry] = counts.get(eval_entry, 0) + 12 * evals
         want = want_launches(**counts)
         check(launches == want, f"[13] fit launches {launches} != {want}")
-        want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals))
+        want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals), simt=0)
         check(paths == want_paths and bwd_paths == dict(fma=0, mma=0, wgmma=12 * steps, simt=0),
               f"[13] paths {paths}, {bwd_paths}")
 
@@ -2095,7 +2113,7 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
     check(not diffs, f"[14] graphed serving != eager: {diffs[:8]}")
     launches, paths, _ = replay_launches(lambda: (pred(waves[20][0]), pred.timestamp_embeddings(windows[0])), 2)
     want = want_launches(fused_log_mel=4, fused_attention=24, fused_attention_qkv=24)
-    check(launches == want and paths == dict(fma=0, mma=0, short=24, wgmma=24),
+    check(launches == want and paths == dict(fma=0, mma=0, short=24, wgmma=24, simt=0),
           f"[14] Predictor replay launches {launches} != {want} ({paths})")
     runs.append(launches)
     times = {}
@@ -2253,7 +2271,7 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
             check(launches == want, f"{phase} {what}: launches {launches} != {want}")
             n_fwd = sum(v for k, v in want.items() if k in ("fused_attention", "fused_attention_qkv"))
             n_bwd = sum(v for k, v in want.items() if k.endswith("_bwd") and k.startswith("fused_attention"))
-            check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd), f"{phase} {what}: forward paths {paths}")
+            check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd, simt=0), f"{phase} {what}: forward paths {paths}")
             check(bwd == dict(fma=0, mma=0, wgmma=n_bwd, simt=0), f"{phase} {what}: backward paths {bwd}")
             runs.append(launches)
             out = buf.getvalue()
@@ -2537,7 +2555,7 @@ def phase_export(gpu: str, dev: torch.device) -> list:
     (PaSST-S, random weights from seed 0, symbolic batch) in fp32 and bf16,
     ``load_exported``, calls at B = 20 x 10 s and B = 1 with exact launches
     (the mel kernel and the attention forward kernel run inside the loaded
-    program, as custom ops; the forward's "wgmma" path in bf16, "fma" in
+    program, as custom ops; the forward's "wgmma" path in bf16, "simt" in
     fp32) against the live graphed ``Predictor`` of the
     same weights (fp32 within 1e-4 of max|ref|, bf16 within 1e-2: the
     program runs the same kernels and ATen ops as the live model, eagerly;
@@ -2588,8 +2606,8 @@ def phase_export(gpu: str, dev: torch.device) -> list:
             live = Predictor.create(arch=ARCH, dtype=dtype, device=dev)  # export_inference's weights: seed 0
             (got20, got1), launches, paths = counted(lambda: (fn(w20), fn(w20[:1])))
             want = want_launches(fused_log_mel=2, fused_attention=24)
-            path = "fma" if dtype == "float32" else "wgmma"  # forward_path: fp32 takes "fma"
-            check(launches == want and paths == dict(dict(fma=0, mma=0, short=0, wgmma=0), **{path: 24}),
+            path = "simt" if dtype == "float32" else "wgmma"  # forward_path: fp32 at D = 64 takes "simt"
+            check(launches == want and paths == dict(dict(fma=0, mma=0, short=0, wgmma=0, simt=0), **{path: 24}),
                   f"[17] {dtype}: launches {launches} != {want} (forward paths {paths})")
             errs, equal = {}, True
             for b, got in ((20, got20), (1, got1)):
@@ -2642,7 +2660,7 @@ def phase_export(gpu: str, dev: torch.device) -> list:
 
 # [18] the depth's forms (blocks_impl loop / scan / stacked, remat) at the
 # bench's step, the stacked backward's fp32 step and serving, and the fp32
-# attention forward ("fma") that the fp32 paths take
+# attention forward ("simt", beside the old "fma") that the fp32 paths take
 BLOCK_STEPS = 3  # graphed calls per form in the equality runs: eager, capture + replay, replay
 #: the bench step's launches per step under each form (remat recomputes
 #: each block's forward, its attention forward included, in the backward)
@@ -2693,7 +2711,8 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
     step with the kernels against the loop step on the plain versions (as
     [7]); a stacked Predictor at B = 20, N = 1190 against the loop's
     logits; tools/ab_batched_dw; and the fp32 attention forward on its
-    "fma" path at the serving and the fp32 step's shapes. Returns (the
+    "simt" path beside the old "fma" kernel at the serving and the fp32
+    step's shapes. Returns (the
     main-path runs' launches, the fp32 forward's record)."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.models.pretrained import stack_block_params
@@ -2830,7 +2849,7 @@ def blocks_fp32_step(dev: torch.device) -> dict:
     want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_qkv_bwd=12)
     launches = {name: k["launches"].get(name, 0) for name in KERNEL_NAMES}
     check(launches == want, f"[18] fp32 stacked step launches {launches} != {want}")
-    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12) and k["fwd_paths"]["fma"] == 12,
+    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12) and k["fwd_paths"] == FP32_FWD_PATHS,
           f"[18] fp32 stacked step paths: forward {k['fwd_paths']}, backward {k['bwd_paths']}")
     say(f"[18] fp32 stacked training step PaSST-S B=2 N={TRAIN_N} (the hand-written backward, 4 batched weight-"
         f"gradient products), kernels vs the loop step on plain versions: {hold_fp32_step(k, p, '[18] stacked')}; "
@@ -2887,35 +2906,57 @@ def blocks_batched_dw(gpu: str, dev: torch.device) -> None:
 
 
 def fp32_attention_forward(gpu: str, dev: torch.device) -> dict:
-    """[18] the fp32 attention forward on its "fma" path, at the fp32
+    """[18] the fp32 attention forward on its "simt" path, at the fp32
     Predictor's (B = 20, N = 1190) and the fp32 step's (B = 2, N = 474)
-    shapes, against plain and each SDPA backend that takes fp32."""
+    shapes, on the q, k, v views of one qkv tensor (the model's layout),
+    beside the old "fma" kernel on the same call (the private path
+    override), plain and each SDPA backend that takes fp32, with the bound;
+    the new kernel must be faster than the old one and than plain."""
     from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.ops.attention import attention_plain, fused_attention
 
-    fma = {}
+    def old(q, kk, v, scale):
+        out = torch.empty(q.shape, device=q.device)
+        A._launch(q, kk, v, out, scale, False, path="fma")
+        return out
+
+    simt = {}
     for b, n in ((20, 1190), (2, TRAIN_N)):
         gen = torch.Generator().manual_seed(n)
-        q, kk, v = (torch.randn(b, n, 12, 64, generator=gen).to(dev) for _ in range(3))
+        qkv = torch.randn(b, n, 3 * 12 * 64, generator=gen).to(dev)
+        q, kk, v = qkv.reshape(b, n, 3, 12, 64).unbind(2)
         scale = 64 ** -0.5
+        ref = attention_plain(q, kk, v, scale=scale)
         A.reset_path_launches()
         got = fused_attention(q, kk, v, scale=scale)
-        check(A.FWD_PATH_LAUNCHES["fma"] == 1, f"[18] fp32 forward took {A.FWD_PATH_LAUNCHES}")
-        err = max_err(got, attention_plain(q, kk, v, scale=scale))
-        check(err < 1e-4, f"[18] fp32 forward B={b} N={n}: err {err:.3g}")
-        rec = dict(ms=graph_ms(lambda: fused_attention(q, kk, v, scale=scale)),
-                   ms_events=cuda_ms(lambda: fused_attention(q, kk, v, scale=scale), reps=20),
+        check(A.FWD_PATH_LAUNCHES["simt"] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
+              f"[18] fp32 forward took {A.FWD_PATH_LAUNCHES}")
+        A.reset_path_launches()
+        got_old = old(q, kk, v, scale)
+        check(A.FWD_PATH_LAUNCHES["fma"] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
+              f"[18] fp32 fma override took {A.FWD_PATH_LAUNCHES}")
+        err, err_old = max_err(got, ref), max_err(got_old, ref)
+        check(err < 1e-4 and err_old < 1e-4, f"[18] fp32 forward B={b} N={n}: err {err:.3g}, old fma {err_old:.3g}")
+        new_fn, old_fn = (lambda: fused_attention(q, kk, v, scale=scale)), (lambda: old(q, kk, v, scale))
+        rec = dict(ms=graph_ms(new_fn), ms_events=cuda_ms(new_fn, reps=20), fma_ms=graph_ms(old_fn),
+                   fma_ms_events=cuda_ms(old_fn, reps=20),
                    plain_ms=cuda_ms(lambda: attention_plain(q, kk, v, scale=scale), reps=5), max_abs_err=err,
-                   **bound(4.0 * n * n * 64 * b * 12, 4.0 * 4 * b * n * 12 * 64, PEAK_FP32))
+                   fma_max_abs_err=err_old, **bound(4.0 * n * n * 64 * b * 12, 4.0 * 4 * b * n * 12 * 64, PEAK_FP32))
         rec["library_backend_ms"] = {be.name: cuda_ms(under(be, lambda: sdpa(q, kk, v, scale)), reps=10)
                                      for be in sdpa_backends(q, kk, v, scale)}
-        fma[f"B{b}_N{n}"] = rec
-    say("[18] fp32 attention forward ('fma' path) vs plain and each SDPA backend that takes fp32: " + "; ".join(
-        f"{shape}: {r['ms']:.4f} ms (graph replay; events {r['ms_events']:.4f}), plain {r['plain_ms']:.3f}, bound "
-        f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA { {k: round(v, 4) for k, v in r['library_backend_ms'].items()} }, "
-        f"max err {r['max_abs_err']:.3g}" for shape, r in fma.items()) + f" ({gpu})")
-    say("[18] fp32 attention forward JSON: " + json.dumps(fma))
-    return fma
+        check(rec["ms"] < rec["fma_ms"] and rec["ms"] < rec["plain_ms"],
+              f"[18] fp32 forward B={b} N={n}: simt {rec['ms']:.4f} ms not under the old fma {rec['fma_ms']:.4f} "
+              f"and plain {rec['plain_ms']:.4f}")
+        simt[f"B{b}_N{n}"] = rec
+    say("[18] fp32 attention forward ('simt' path; the old 'fma' kernel on the same call) vs plain and each SDPA "
+        "backend that takes fp32: " + "; ".join(
+            f"{shape}: simt {r['ms']:.4f} ms (graph replay; events {r['ms_events']:.4f}), fma {r['fma_ms']:.4f} "
+            f"(events {r['fma_ms_events']:.4f}), plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), SDPA { {k: round(v, 4) for k, v in r['library_backend_ms'].items()} }, max err "
+            f"{r['max_abs_err']:.3g} (fma {r['fma_max_abs_err']:.3g})" for shape, r in simt.items())
+        + f"; {A.simt_forward_blocks_per_sm()} simt blocks an SM ({gpu})")
+    say("[18] fp32 attention forward JSON: " + json.dumps(simt))
+    return simt
 
 
 def main() -> int:
@@ -2943,6 +2984,13 @@ def main() -> int:
                  "fma": "attention_fwd_kernel"}
         say("[2] attention_fwd registers, spill stores (B) per path: " + "; ".join(
             f"{p} {registers(logs['attention_fwd'], frag)}" for p, frag in paths.items()))
+    if logs["attention_fwd_fp32"] != "(cached)":
+        from passt_tpu_torch.ops.attention import simt_forward_blocks_per_sm
+        from passt_tpu_torch.tools.variants import registers
+
+        simt = registers(logs["attention_fwd_fp32"], "attn32_fwd_kernel")
+        say(f"[2] attention_fwd_fp32 registers, spill stores (B): simt {simt}; {simt_forward_blocks_per_sm()} "
+            "blocks an SM")
     if logs["attention_bwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
@@ -2979,7 +3027,7 @@ def main() -> int:
     runs += phase_graphs(gpu, dev)
     runs.append(phase_cli(gpu, dev))
     runs += phase_export(gpu, dev)
-    blocks_runs, rec["fused_attention"]["fp32_fma"] = phase_blocks(gpu, dev)
+    blocks_runs, rec["fused_attention"]["fp32_simt"] = phase_blocks(gpu, dev)
     runs += blocks_runs
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
@@ -3004,8 +3052,11 @@ def main() -> int:
     check(set(sources) == set(KERNEL_NAMES) == set(rec), "every kernel has a source and a record")
     for name in sources:
         check(launches[name] > 0, f"{name} was launched no time on the main paths")
-    # the paths each backward entry takes, by source: its record times the first
-    paths = {"fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
+    # the paths each attention entry takes, by source: its record times the first
+    fwd_sources = {"simt": "passt_tpu_torch/csrc/attention_fwd_fp32.cu",
+                   "wgmma, short, mma, fma": "passt_tpu_torch/csrc/attention_fwd.cu"}
+    paths = {"fused_attention": fwd_sources, "fused_attention_qkv": fwd_sources,
+             "fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
                                      "wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu"},
              "fused_attention_qkv_bwd": {"wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu",
                                          "simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu"}}

@@ -80,7 +80,7 @@ using namespace passt_attn;
 using namespace passt_hopper;
 
 constexpr int D = 64;
-constexpr int LD = D + 4;        // row pitch in floats (272 bytes)
+constexpr int LD = SIMT_LD;      // row pitch in floats (272 bytes): load_rows' layout
 constexpr int TILE = 64 * LD;    // floats of a padded 64-row tile
 // Register micro-tiles. Kernel S: S_QR queries x S_KC keys a thread.
 // Kernel KV: KV_KR keys x KV_QC queries of S^T and dP^T, and 4 rows x KV_OC
@@ -100,19 +100,6 @@ struct Stats {
     float* base;
     int npad;  // N rounded up to 64
 };
-
-// Start copying rows row0 .. row0 + 63 of a strided fp32 operand into
-// shared rows of pitch LD (16-byte cp.async by `threads` threads from
-// thread `tid`); rows past n are zero-filled.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long row_stride, int row0, int n,
-                                          int tid, int threads) {
-    for (int idx = tid; idx < 64 * 16; idx += threads) {
-        const int r = idx >> 4, c = idx & 15;
-        const bool ok = row0 + r < n;
-        passt::cp_async16(dst + r * LD + 4 * c, ok ? src + (long long)(row0 + r) * row_stride + 4 * c : src,
-                          ok ? 16 : 0);
-    }
-}
 
 // acc[i][j] = A[ra + (64 / RI) i] . B[rb + (64 / CJ) j] over D (shared rows
 // of pitch LD).

@@ -1,8 +1,9 @@
-// Pieces shared by the attention forward (attention_fwd.cu) and backward
-// (attention_bwd.cu) kernels: the layout of a strided [B, N, H, D] operand,
-// element conversions, the mma.sync m16n8k16 tensor-core product, ldmatrix
-// and cp.async for the bf16/fp16 paths, and the fp32 tile helpers of the
-// FMA paths.
+// Pieces shared by the attention forward (attention_fwd.cu,
+// attention_fwd_fp32.cu) and backward (attention_bwd.cu,
+// attention_bwd_fp32.cu) kernels: the layout of a strided [B, N, H, D]
+// operand, element conversions, the mma.sync m16n8k16 tensor-core product,
+// ldmatrix and cp.async for the bf16/fp16 paths, the row copies of the fp32
+// "simt" paths and the fp32 tile helpers of the FMA paths.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -123,6 +124,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // what the tensor-core paths need for their 16-byte and 32-bit accesses.
 inline bool vectors_aligned(const void* p, Strides s) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
+}
+
+// ---- the fp32 "simt" paths (attention_fwd_fp32.cu, attention_bwd_fp32.cu) ----
+
+// D = 64 rows in shared memory as they lie in device memory, at a pitch of
+// 68 floats (272 bytes): the rows a warp reads at once as float4 fall in
+// distinct banks or are broadcast.
+constexpr int SIMT_LD = 64 + 4;
+
+// Start copying rows row0 .. row0 + 63 of a strided fp32 operand (D = 64)
+// into shared rows of pitch SIMT_LD (16-byte cp.async by `threads` threads
+// from thread `tid`); rows past n are zero-filled.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long row_stride, int row0, int n,
+                                          int tid, int threads) {
+    for (int idx = tid; idx < 64 * 16; idx += threads) {
+        const int r = idx >> 4, c = idx & 15;
+        const bool ok = row0 + r < n;
+        const float* from = ok ? src + (long long)(row0 + r) * row_stride + 4 * c : src;
+        const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * SIMT_LD + 4 * c));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(from), "r"(ok ? 16 : 0));
+    }
 }
 
 // ---- the fp32 FMA paths: 256 threads, fp32 tiles in shared memory ----

@@ -17,9 +17,10 @@
 // 2^(s_raw * (scale log2 e) - m log2 e), fp32 throughout; it differs from
 // expf(s - m) by a few fp32 ulps, far below the rounding of P.
 //
-// Four paths. ops/attention.py forward_path() picks one per call in Python
+// Five paths. ops/attention.py forward_path() picks one per call in Python
 // and the C entry launches exactly that one, or returns
-// cudaErrorInvalidValue for a shape the path cannot take:
+// cudaErrorInvalidValue for a shape the path cannot take (the fifth,
+// "simt", has its own source and C entry, attention_fwd_fp32.cu):
 // - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the model's
 //   serving and training shapes): attention_fwd_wgmma_kernel below, one
 //   pass over K with an online softmax, products on wgmma, K/V tiles by TMA.
@@ -31,9 +32,21 @@
 // - "mma" (bf16/fp16 at D != 64, a multiple of 16, aligned strides; no
 //   model path): attention_fwd_mma_kernel, two passes (the row max, then p
 //   and PV), mma.sync m16n8k16 with cp.async K/V tiles.
-// - "fma" (fp32, which the TPU runs at full fp32; bf16/fp16 at a D that is
-//   8 mod 16 or with unaligned strides): attention_fwd_kernel, fp32 FMA from
-//   shared memory, two passes.
+// - "simt" (fp32 at D = 64 with aligned strides; every fp32 call of the
+//   model): attention_fwd_fp32.cu, one pass over K with a running max in
+//   fp32 FMA, 4 x 8 register micro-tiles fed by float4 shared loads, K and V
+//   by staggered cp.async, three blocks an SM. Against this file's "fma"
+//   kernel, which the model's fp32 calls ran before: one pass instead of two
+//   (4 N^2 D of FMA work for 6), 3 float4 loads a 32 FMA instead of 8
+//   scalar loads a 16, one FMA and ex2.approx a score instead of expf, and
+//   copies in flight during the arithmetic. fp32 bound (67 TFLOP/s FMA):
+//   B = 20, H = 12, N = 1190: 87.0 GFLOP -> 1.2986 ms (bytes 292 MB ->
+//   0.0872 ms); B = 2, N = 474: 1.38 GFLOP -> 0.0206 ms.
+// - "fma" (fp32 at D != 64 or with unaligned strides, which the TPU runs at
+//   full fp32; bf16/fp16 at a D that is 8 mod 16 or with unaligned
+//   strides): attention_fwd_kernel, fp32 FMA from shared memory, two
+//   passes. ops/attention.py's private path override reaches it at fp32
+//   D = 64, where chip_smoke [18] times it beside "simt".
 //
 // Bounds on one H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s; the function is
 // 4 N^2 D FLOP a head, q, k, v read once and o written once):

@@ -1,6 +1,7 @@
 """Attention as Hopper kernels (``csrc/attention_fwd.cu``,
-``csrc/attention_bwd.cu`` and ``csrc/attention_bwd_fp32.cu``), with their
-plain PyTorch versions beside them.
+``csrc/attention_fwd_fp32.cu``, ``csrc/attention_bwd.cu`` and
+``csrc/attention_bwd_fp32.cu``), with their plain PyTorch versions beside
+them.
 
 Port of passt_tpu/ops/pallas/attention.py. Two differentiable entry points,
 as in the JAX package, launch the same kernels:
@@ -19,22 +20,25 @@ The math is the reference's: fp32 scores, one max over the whole row
 (clamped at 0 under ``plus1``, which also adds ``exp(-m)`` to the
 denominator), P rounded to the input dtype for PV with an fp32 accumulator,
 division by the denominator after PV, output in the input dtype. The
-forward's "wgmma" path takes the max in one pass over the keys: P is
-rounded against the running max and the fp32 accumulator is rescaled when
-the max rises (see ``csrc/attention_fwd.cu``). The backward recomputes P
+forward's "wgmma" and "simt" paths take the max in one pass over the keys:
+P is rounded against the running max (in fp32 the rounding is the
+identity) and the fp32 accumulator is rescaled when the max rises (see
+``csrc/attention_fwd.cu``, ``csrc/attention_fwd_fp32.cu``). The backward recomputes P
 from q and k (nothing but the inputs is saved) and follows the reference
 backward kernel (see ``csrc/attention_bwd.cu``); its "wgmma" path takes
 the row statistics in one pass with a running max, as the forward does.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. On the card the forward kernel has four paths, and
+kernel or raises. On the card the forward kernel has five paths, and
 :func:`forward_path` alone picks one from the call's shape, dtype and
 alignment: ``"wgmma"`` (bf16/fp16, D = 64, N > 64: one pass over K, wgmma
 fed by TMA), ``"short"`` (the same at N <= 64: one key tile, four heads a
 block at N <= 16), ``"mma"`` (bf16/fp16 at another D that is a multiple of
-16) and ``"fma"`` (fp32, a D that is 8 mod 16, or unaligned strides). The C entry launches exactly that path or returns an
-error, on which the wrapper raises; ``FWD_PATH_LAUNCHES`` counts the
-launches of each. The backward kernel has four paths, which
+16), ``"simt"`` (fp32, D = 64, aligned: one pass over K in fp32 FMA with
+register micro-tiles and cp.async, ``csrc/attention_fwd_fp32.cu``) and
+``"fma"`` (fp32 at another D, a D that is 8 mod 16, or unaligned strides).
+The C entry launches exactly that path or returns an error, on which the
+wrapper raises; ``FWD_PATH_LAUNCHES`` counts the launches of each. The backward kernel has four paths, which
 :func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16, D = 64:
 a statistics kernel, then one pass per 64-key block on wgmma fed by TMA,
 dQ summed across key blocks in a fixed order), ``"simt"`` (fp32, D = 64:
@@ -63,8 +67,9 @@ for _key in (_KEY_BNHD, _KEY_QKV, _KEY_BNHD_BWD, _KEY_QKV_BWD):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: the forward kernel's paths, by the code its C entry takes
-FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3}
+#: the forward kernel's paths, by the code its C entry takes ("simt" is the
+#: fp32 kernel of ``csrc/attention_fwd_fp32.cu``, a C entry of its own)
+FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3, "simt": 4}
 #: forward launches per path since the last :func:`reset_path_launches`
 #: (beside ``_build.LAUNCHES``, which counts per entry point)
 FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
@@ -86,10 +91,13 @@ def reset_path_launches() -> None:
 
 def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The forward kernel path for ``n`` tokens of head dim ``d``:
-    ``"fma"`` for fp32, a ``d`` that is 8 mod 16 or unaligned operands
-    (``aligned``: 16-byte aligned base pointers, strides in multiples of 8
-    elements), ``"mma"`` for bf16 / fp16 at another ``d != 64``, else
-    ``"short"`` at ``n <= 64`` and ``"wgmma"`` above."""
+    ``"simt"`` for fp32 at ``d = 64`` with aligned operands (``aligned``:
+    16-byte aligned base pointers, strides in multiples of 8 elements; any
+    ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that is 8 mod 16
+    or unaligned operands, ``"mma"`` for bf16 / fp16 at another
+    ``d != 64``, else ``"short"`` at ``n <= 64`` and ``"wgmma"`` above."""
+    if dtype == torch.float32 and aligned and d == 64:
+        return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
     if d != 64:
@@ -212,14 +220,50 @@ def _check_operands(named: dict) -> None:
         raise ValueError(f"attention kernel grid limit: batch {b}, heads {h} must be <= 65535")
 
 
-def _launch(q, k, v, out, scale: float, plus1: bool) -> None:
+@functools.cache
+def _fwd32_lib():
+    """The fp32 forward kernel library ("simt"), built and bound on first
+    use."""
+    lib = _build.load("attention_fwd_fp32")
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.passt_attention_fwd_fp32.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
+    lib.passt_attention_fwd_fp32.restype = ctypes.c_int
+    lib.passt_attention_fwd_fp32_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.passt_attention_fwd_fp32_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def simt_forward_blocks_per_sm() -> int:
+    """The blocks of the "simt" forward kernel an SM of the current card
+    holds at once (the occupancy query; builds the kernel)."""
+    lib, blocks = _fwd32_lib(), ctypes.c_int(0)
+    _build.check(lib, lib.passt_attention_fwd_fp32_occupancy(ctypes.byref(blocks)), "simt forward occupancy")
+    return blocks.value
+
+
+def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None) -> None:
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
-    a contiguous last dim), on the path :func:`forward_path` picks."""
+    a contiguous last dim), on the path :func:`forward_path` picks.
+    ``path`` overrides the choice (private: chip_smoke and the variants
+    tool time the old "fma" kernel at fp32 D = 64 beside "simt"); a path
+    that cannot take the call raises."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
-    path = forward_path(n, d, q.dtype, _aligned(q, k, v, out))
-    lib = _lib()
+    if path is None:
+        path = forward_path(n, d, q.dtype, _aligned(q, k, v, out))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    if path == "simt":
+        if q.dtype != torch.float32:
+            raise ValueError(f"the simt forward path takes float32, not {q.dtype}")
+        lib = _fwd32_lib()
+        code = lib.passt_attention_fwd_fp32(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), b, n, h, d, *strides, float(scale),
+            int(bool(plus1)), _build.stream_of(q),
+        )
+        _build.check(lib, code, "attention kernel launch (simt path)")
+        FWD_PATH_LAUNCHES[path] += 1
+        return
+    lib = _lib()
     code = lib.passt_attention_fwd(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),

@@ -5,10 +5,13 @@ the choice of its path.
 with a running row max (starting at 0 under plus1), rounds p = exp(s - m)
 to the input dtype against that running max for the PV product, and
 rescales its fp32 accumulator and row sum by exp(m_old - m_new) whenever
-the max rises. The emulation below does the same in fp32 PyTorch and is
-held, on the same numpy inputs, against the JAX package's Pallas kernel in
-interpret mode and against the port's plain version (exact max), within
-chip_smoke.py's TOL_ATTN, the tolerance the card holds the kernel to.
+the max rises. ``csrc/attention_fwd_fp32.cu``'s "simt" path (fp32, D = 64)
+takes the same order over tiles of 64 keys, where rounding p to fp32 is the
+identity. The emulation below does the same in fp32 PyTorch and is held,
+on the same numpy inputs, against the JAX package's Pallas kernel in
+interpret mode (fp32 at Precision.HIGHEST) and against the port's plain
+version (exact max), within chip_smoke.py's TOL_ATTN for bf16 / fp16, the
+tolerance the card holds the kernel to, and within 1e-5 for fp32.
 """
 
 import jax.numpy as jnp
@@ -21,9 +24,13 @@ from passt_tpu_torch.ops.attention import _aligned, _head_views, attention_plain
 
 HEADS, HEAD_DIM = 2, 64
 KEY_TILE = 128  # WG_BK in csrc/attention_fwd.cu
+KEY_TILE_FP32 = 64  # the "simt" kernel's key tile, csrc/attention_fwd_fp32.cu
 # chip_smoke.py TOL_ATTN: a p may round the other way and the output may
-# round the other way: one output ulp at |o| < 2
-TOL_ATTN = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+# round the other way: one output ulp at |o| < 2. fp32 rounds nothing to the
+# input dtype: the running max's rescale and the summation order move only
+# fp32 ulps of o (|o| < 4 here), held as tests/test_torch_attention.py holds
+# fp32
+TOL_ATTN = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 1e-5}
 
 
 def online_attention(q, k, v, *, scale, plus1, tile=KEY_TILE):
@@ -51,14 +58,15 @@ def online_attention(q, k, v, *, scale, plus1, tile=KEY_TILE):
 
 @pytest.mark.parametrize("n", [97, 474, 1190])
 @pytest.mark.parametrize("plus1", [False, True])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 def test_online_order_matches_pallas_and_plain(dtype, plus1, n):
     rng = np.random.default_rng(n + 7 * plus1)
     qkv = rng.standard_normal((1, n, 3 * HEADS * HEAD_DIM)).astype(np.float32)
     tdt = getattr(torch, dtype)
     q, k, v = torch.from_numpy(qkv).to(tdt).reshape(1, n, 3, HEADS, HEAD_DIM).unbind(2)
     scale = HEAD_DIM ** -0.5
-    got = online_attention(q, k, v, scale=scale, plus1=plus1)
+    tile = KEY_TILE_FP32 if tdt == torch.float32 else KEY_TILE
+    got = online_attention(q, k, v, scale=scale, plus1=plus1, tile=tile)
     assert got.dtype == tdt and bool(torch.isfinite(got).all())
 
     plain = attention_plain(q, k, v, scale=scale, plus1=plus1)
@@ -95,7 +103,11 @@ def test_online_order_rescales_when_the_max_rises():
         (14, 64, torch.bfloat16, True, "short"),  # timestamp windows
         (64, 64, torch.bfloat16, True, "short"),
         (65, 64, torch.bfloat16, True, "wgmma"),
-        (474, 64, torch.float32, True, "fma"),  # the fp32 steps
+        (474, 64, torch.float32, True, "simt"),  # the fp32 steps
+        (1190, 64, torch.float32, True, "simt"),  # fp32 serving and the exported program
+        (1, 64, torch.float32, True, "simt"),
+        (474, 64, torch.float32, False, "fma"),  # unaligned views
+        (97, 32, torch.float32, True, "fma"),  # another head dim
         (97, 16, torch.bfloat16, True, "mma"),
         (97, 128, torch.float16, True, "mma"),
         (97, 24, torch.bfloat16, True, "fma"),  # 8 mod 16: the FMA kernel

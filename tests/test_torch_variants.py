@@ -13,7 +13,8 @@ TOOLS = Path(V.__file__).parent
 CSRC = TOOLS.parent / "csrc"
 
 
-@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_bwd_fp32", "attention_fwd", "fused_mlp", "ln_qkv", "mel_kernel"])
+@pytest.mark.parametrize("kernel", ["attention_bwd", "attention_bwd_fp32", "attention_fwd", "attention_fwd_fp32",
+                                    "fused_mlp", "ln_qkv", "mel_kernel"])
 def test_every_variant_applies(kernel):
     names = {"attention_bwd": "attention_bwd", "attention_fwd": "attention", "mel_kernel": "mel"}
     path = TOOLS / f"{names.get(kernel, kernel)}_variants.json"
