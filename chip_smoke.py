@@ -158,7 +158,27 @@ Phases (each prints one line or more; the first failure exits non-zero):
    update); the fp32 attention forward on its "simt" path at B = 20,
    N = 1190 and B = 2, N = 474 beside the old "fma" kernel on the same
    call, plain and each SDPA backend that takes fp32, with its bound (the
-   new kernel must beat the old one and plain at both).
+   new kernel must beat the old one and plain at both);
+19. offline data preparation and the full-size training demo: the prep
+   package (``passt_tpu_torch.data.prepare``) and every prep tool import,
+   and one line names the optional pieces that load (h5py, libmp3lame,
+   libvorbisfile, the native plane's libmpg123); an ESC-50-shaped tree (5
+   folds x 40 clips of 5 s at 44.1 kHz in PCM16 mono and stereo, PCM24,
+   float32 and an EXTENSIBLE PCM16, and meta/esc50.csv) through
+   ``tools/prepare_esc50``'s functions on the card's host: the fold split,
+   each clip decoded and resampled to 160000 finite samples, the stereo
+   mixdown bit-equal to the mean of the channels, the resampler's 1 kHz
+   passband (RMS within 1%) and 20 kHz stopband (40 dB down), the
+   clips/s of decode + resample and of mp3 encode on 1 thread and the
+   tool's 8 workers, each mp3 decoded back to the wave's length at 20 dB
+   SNR, and ``pack_fold`` read back by ``HDF5AudioDataset`` (each stage
+   where its library loads); then ``tools/fullsize_train_demo`` at full
+   PaSST-S width, bf16, graphed (50 tones, 500 train and 150 test 1-s
+   clips, 12 epochs x 41 steps; where h5py is absent its items are
+   written as wav files and the recipe's ``main`` runs on the tool's
+   config with [15]'s FolderDatasets): the ap of each epoch (the last at
+   least 0.5 and 5x the first), the SWA average, steady ms/step and exact
+   launches.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -189,8 +209,8 @@ clusters resident, waves).
 
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
-15's and 16's CLI commands, 17's loaded-program and serve calls, and 18's
-equality runs, fp32 stacked step and stacked ``Predictor``) starts
+15's and 16's CLI commands, 17's loaded-program and serve calls, 18's
+equality runs, fp32 stacked step and stacked ``Predictor``, and 19's demo) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -2160,6 +2180,33 @@ def add_counts(*parts: dict) -> dict:
     return total
 
 
+def folder_openers(labels_for) -> dict:
+    """Stand-ins for the three functions of ``experiments/common.py`` that
+    open an HDF5 container (the two that make datasets and the target
+    reader), by name: FolderDatasets over the wav folders the config names
+    in their place, labelled by ``labels_for(cfg, path)`` ({file name:
+    target}). The card's machine has no h5py; [15] and [19] set them on
+    ``common`` and put the package's back after."""
+    from passt_tpu_torch.data import FolderDataset
+
+    def folder(cfg, path):
+        return FolderDataset(path, num_classes=cfg.data.num_classes, sample_rate=cfg.data.sample_rate,
+                             clip_length=cfg.data.clip_length, labels=labels_for(cfg, path))
+
+    def eval_folder(cfg, which="eval"):
+        path = cfg.data.eval_hdf5 if which == "eval" else cfg.data.valid_hdf5
+        if path is None:
+            raise FileNotFoundError(f"data.{which}_hdf5 is not set")
+        return folder(cfg, path)
+
+    def target_chunks(cfg, chunk_rows=131072):
+        ds = folder(cfg, cfg.data.train_hdf5)
+        yield np.stack([np.asarray(ds.labels[os.path.basename(f)], np.float32) for f in ds.files])
+
+    return {"build_base_train_dataset": lambda cfg, path, seed: folder(cfg, path),
+            "build_eval_dataset": eval_folder, "train_target_chunks": target_chunks}
+
+
 def phase_cli(gpu: str, dev: torch.device) -> dict:
     """[15] the port's CLI (``passt_tpu_torch.cli.run``) at full PaSST-S
     width, bf16, the recipes' defaults but where listed: print_config and
@@ -2184,7 +2231,6 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
     import tempfile
 
     from passt_tpu_torch import bench, cli
-    from passt_tpu_torch.data import FolderDataset
     from passt_tpu_torch.experiments import common
     from passt_tpu_torch.models import registry
     from passt_tpu_torch.models.pretrained import save_params_npz
@@ -2211,24 +2257,12 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
                 return {k: np.concatenate([v[:20], np.ones(20, np.float32)]) for k, v in labels.items()}
             return labels
 
-        def folder(cfg, path):
+        def labels_for(cfg, path):
             labels = train_labels if os.path.basename(path) == "train" else val_labels
-            return FolderDataset(path, num_classes=cfg.data.num_classes, sample_rate=cfg.data.sample_rate,
-                                 clip_length=cfg.data.clip_length, labels=recipe_labels(cfg.name, labels))
+            return recipe_labels(cfg.name, labels)
 
-        def target_chunks(cfg, chunk_rows=131072):
-            ds = folder(cfg, cfg.data.train_hdf5)
-            yield np.stack([np.asarray(ds.labels[os.path.basename(f)], np.float32) for f in ds.files])
-
-        common.build_base_train_dataset = lambda cfg, path, seed: folder(cfg, path)
-        def eval_folder(cfg, which="eval"):
-            path = cfg.data.eval_hdf5 if which == "eval" else cfg.data.valid_hdf5
-            if path is None:
-                raise FileNotFoundError(f"data.{which}_hdf5 is not set")
-            return folder(cfg, path)
-
-        common.build_eval_dataset = eval_folder
-        common.train_target_chunks = target_chunks
+        for name, fn in folder_openers(labels_for).items():
+            setattr(common, name, fn)
         results = []
         step_t = []  # per train step: (host start, CUDA event at its start)
         step_losses, fit_results = [], []  # each step's loss (a graph output copy) and each fit's result
@@ -2959,6 +2993,395 @@ def fp32_attention_forward(gpu: str, dev: torch.device) -> dict:
     return simt
 
 
+# [19] offline data preparation (passt_tpu_torch.data.prepare and the prep
+# tools) on the card's host at ESC-50's clip length and rate, and the
+# full-size training demo (tools/fullsize_train_demo) at full PaSST-S width
+PREP_FOLDS, PREP_CLIPS_PER_FOLD = 5, 40  # ESC-50 has 400 a fold; the tree is cut in count only
+PREP_SECONDS, PREP_RATE = 5, 44100  # ESC-50's clips: 5 s at 44.1 kHz
+PREP_KINDS = ("pcm16", "pcm16_stereo", "pcm24", "float32", "extensible_pcm16")
+PREP_TOOLS = ("prepare_esc50", "prepare_fsd50k", "prepare_audioset", "prepare_openmic", "transcode_to_mp3",
+              "fullsize_train_demo")
+# the resampler (320/441) keeps a 1 kHz tone's RMS within 1% and takes a
+# 20 kHz tone (above the 16 kHz Nyquist) at least 40 dB down
+TOL_PASSBAND, STOPBAND_DB = 0.01, 40.0
+MP3_MIN_SNR_DB = 20.0  # a 128 kbit/s mono mp3 decoded against its 32 kHz wave
+# the demo learns: the last epoch's ap at least 0.5 and 5x the first's
+# (chance for 50 balanced classes is ~0.02)
+DEMO_MIN_AP, DEMO_MIN_GAIN = 0.5, 5.0
+
+
+def write_riff(path: str, kind: str, x: np.ndarray, rate: int) -> None:
+    """One RIFF/WAVE file of ``x`` ([n] mono or [n, 2] stereo, in [-1, 1])
+    in one of PREP_KINDS: PCM16 mono or stereo, PCM24, IEEE float32, or
+    PCM16 in a WAVE_FORMAT_EXTENSIBLE header."""
+    import struct
+
+    channels = 1 if x.ndim == 1 else x.shape[1]
+    if kind == "pcm24":
+        bits, code = 24, 1
+        data = np.rint(x * 8388607).astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    elif kind == "float32":
+        bits, code, data = 32, 3, x.astype("<f4").tobytes()
+    else:
+        bits, code, data = 16, 1, np.rint(x * 32767).astype("<i2").tobytes()
+    block = channels * bits // 8
+    if kind == "extensible_pcm16":
+        fmt = struct.pack("<HHIIHHHHIH", 0xFFFE, channels, rate, rate * block, block, bits, 22, bits, 0, code)
+        fmt += b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71"
+    else:
+        fmt = struct.pack("<HHIIHH", code, channels, rate, rate * block, block, bits)
+    body = b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(data)) + data
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body)
+
+
+def write_esc50_tree(root: str, seed: int) -> dict:
+    """An ESC-50-shaped tree (audio/*.wav, meta/esc50.csv): PREP_FOLDS folds
+    of PREP_CLIPS_PER_FOLD clips, PREP_SECONDS s at PREP_RATE, a class tone
+    plus noise, cycling through PREP_KINDS (stereo clips get a second,
+    different channel). Returns {file name: int16 channels} of the PCM16
+    stereo clips, for the mixdown check."""
+    import csv
+
+    os.makedirs(os.path.join(root, "audio"))
+    os.makedirs(os.path.join(root, "meta"))
+    rng = np.random.default_rng(seed)
+    n = PREP_SECONDS * PREP_RATE
+    t = np.arange(n) / PREP_RATE
+    rows, stereo = [], {}
+    for i in range(PREP_FOLDS * PREP_CLIPS_PER_FOLD):
+        fold, target, kind = 1 + i % PREP_FOLDS, i % 50, PREP_KINDS[i % len(PREP_KINDS)]
+        name = f"{fold}-{100000 + i}-A-{target}.wav"
+        x = 0.4 * np.sin(2 * np.pi * (110.0 * 1.07 ** target) * t + rng.uniform(0, 2 * np.pi)) \
+            + 0.05 * rng.standard_normal(n)
+        if kind == "pcm16_stereo":
+            x = np.stack([x, 0.3 * np.sin(2 * np.pi * 2500.0 * t) + 0.05 * rng.standard_normal(n)], axis=1)
+            stereo[name] = np.rint(x * 32767).astype(np.int16)
+        write_riff(os.path.join(root, "audio", name), kind, x, PREP_RATE)
+        rows.append([name, fold, target, f"class{target}", "False", 100000 + i, "A"])
+    with open(os.path.join(root, "meta", "esc50.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["filename", "fold", "target", "category", "esc10", "src_file", "take"])
+        w.writerows(rows)
+    return stereo
+
+
+def prep_imports() -> tuple:
+    """[19a] the prep package and every prep tool import; which optional
+    pieces load: h5py, libmp3lame, libvorbisfile, the native plane's
+    libmpg123. A piece found that then fails fails the run."""
+    import importlib
+    import importlib.util
+    import tempfile
+
+    import passt_tpu_torch.data.prepare  # noqa: F401
+    from passt_tpu_torch.data import native as N
+    from passt_tpu_torch.data.prepare import mp3enc, oggdec
+
+    for tool in PREP_TOOLS:
+        importlib.import_module(f"passt_tpu_torch.tools.{tool}")
+    have = {"h5py": importlib.util.find_spec("h5py") is not None, "libmp3lame": mp3enc.available(),
+            "libvorbisfile": oggdec.available(), "libmpg123": N.mp3_available()}
+    parts = []
+    if have["h5py"]:
+        import h5py  # a found h5py that does not import fails the run
+
+        parts.append(f"h5py {h5py.__version__} loads")
+    else:
+        parts.append("h5py absent (the container write and read-back are left to the CPU tests)")
+    parts.append("libmp3lame loads" if have["libmp3lame"] else "libmp3lame absent (mp3 encode left to the CPU tests)")
+    if have["libvorbisfile"]:
+        with tempfile.NamedTemporaryFile(suffix=".ogg") as f:
+            f.write(b"OggS" + bytes(200))
+            f.flush()
+            try:
+                oggdec.decode_ogg(f.name)
+            except ValueError as e:  # the library was reached and refused a broken stream
+                check("ov_fopen failed" in str(e), f"[19] decode_ogg of a broken stream: {e}")
+            else:
+                check(False, "[19] decode_ogg decoded a broken stream")
+        parts.append("libvorbisfile loads (refuses a broken stream through ov_fopen; no ogg on this machine to "
+                     "decode)")
+    else:
+        parts.append("libvorbisfile absent (ogg decode left to the CPU tests)")
+    parts.append("the native plane's libmpg123 loads" if have["libmpg123"]
+                 else "the native plane's libmpg123 absent (mp3 decode left to the CPU tests)")
+    return have, (f"[19] prep imports: passt_tpu_torch.data.prepare and the tools {', '.join(PREP_TOOLS)} import; "
+                  + "; ".join(parts))
+
+
+def prep_chain(gpu: str, have: dict) -> str:
+    """[19b] the ESC-50 prep chain on the card's host, through
+    ``tools/prepare_esc50``'s own functions: metadata, decode + resample of
+    every clip (1 thread and the tool's default workers), the stereo
+    mixdown, the resampler's passband and stopband, mp3 encode and decode
+    back where the libraries load, ``pack_fold`` and the port's
+    HDF5AudioDataset where h5py loads."""
+    import inspect
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from passt_tpu_torch.data.prepare.metadata import parse_esc50_meta
+    from passt_tpu_torch.data.prepare.wavdec import decode_wav, resample
+    from passt_tpu_torch.tools import prepare_esc50
+
+    workers = inspect.signature(prepare_esc50.pack_fold).parameters["workers"].default
+    n_out = math.ceil(PREP_SECONDS * PREP_RATE * prepare_esc50.TARGET_RATE / PREP_RATE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    parts = []
+    try:
+        t0 = time.perf_counter()
+        stereo = write_esc50_tree(tmp, seed=19)
+        write_s = time.perf_counter() - t0
+        meta, audio = os.path.join(tmp, "meta", "esc50.csv"), os.path.join(tmp, "audio")
+        n_clips = PREP_FOLDS * PREP_CLIPS_PER_FOLD
+        for fold in range(1, PREP_FOLDS + 1):
+            train, _ = parse_esc50_meta(meta, fold=fold, train=True)
+            test, _ = parse_esc50_meta(meta, fold=fold, train=False)
+            check((len(train), len(test)) == (n_clips - PREP_CLIPS_PER_FOLD, PREP_CLIPS_PER_FOLD)
+                  and not set(train) & set(test), f"[19] fold {fold}: {len(train)} train, {len(test)} test")
+        files = sorted(os.listdir(audio))
+
+        def rate(fn, pool_size):
+            """clips/s of ``fn`` over every clip with ``pool_size`` threads, and its outputs."""
+            t0 = time.perf_counter()
+            if pool_size == 1:
+                out = [fn(f) for f in files]
+            else:
+                with ThreadPoolExecutor(max_workers=pool_size) as pool:
+                    out = list(pool.map(fn, files))
+            return len(files) / (time.perf_counter() - t0), out
+
+        prepare_esc50._load_clip(audio, files[0])  # scipy.signal's import left out of the times
+        load_1, waves = rate(lambda f: prepare_esc50._load_clip(audio, f), 1)
+        load_n, waves_n = rate(lambda f: prepare_esc50._load_clip(audio, f), workers)
+        for f, w, w2 in zip(files, waves, waves_n):
+            check(w.shape == (n_out,) and w.dtype == np.float32 and bool(np.isfinite(w).all())
+                  and np.array_equal(w, w2), f"[19] {f}: decode + resample gave {w.shape} {w.dtype}")
+        parts.append(f"decode + resample ({'/'.join(PREP_KINDS)} at {PREP_RATE} Hz -> {n_out} samples at "
+                     f"{prepare_esc50.TARGET_RATE} Hz, all finite): {load_1:.1f} clips/s on 1 thread, {load_n:.1f} "
+                     f"clips/s on the tool's {workers} workers")
+        for name, pcm in stereo.items():
+            x, _ = decode_wav(os.path.join(audio, name))
+            ref = ((pcm[:, 0].astype(np.float64) + pcm[:, 1].astype(np.float64)) / 65536.0).astype(np.float32)
+            check(np.array_equal(x, ref), f"[19] {name}: stereo mixdown != the mean of its channels")
+        parts.append(f"the stereo mixdown bit-equal to the mean of the channels ({len(stereo)} clips)")
+
+        t = np.arange(PREP_SECONDS * PREP_RATE) / PREP_RATE
+        edge = prepare_esc50.TARGET_RATE // 10  # the filter's transients at the clip's ends left out
+        gains = {}
+        for f in (1000.0, 20000.0):
+            x = (0.5 * np.sin(2 * np.pi * f * t)).astype(np.float32)
+            y = resample(x, PREP_RATE, prepare_esc50.TARGET_RATE)
+            gains[f] = float(np.sqrt(np.mean(y[edge:-edge].astype(np.float64) ** 2)) / (0.5 / math.sqrt(2)))
+        stop_db = -20 * math.log10(max(gains[20000.0], 1e-30))
+        check(abs(gains[1000.0] - 1) <= TOL_PASSBAND, f"[19] 1 kHz through the resampler: RMS ratio {gains[1000.0]}")
+        check(stop_db >= STOPBAND_DB, f"[19] 20 kHz through the resampler only {stop_db:.1f} dB down")
+        parts.append(f"1 kHz RMS ratio {gains[1000.0]:.6f} (tol {TOL_PASSBAND}), 20 kHz {stop_db:.1f} dB down "
+                     f"(at least {STOPBAND_DB:.0f})")
+
+        if have["libmp3lame"]:
+            from passt_tpu_torch.data.prepare.mp3enc import encode_mp3
+
+            by_name = dict(zip(files, waves))
+            encode_mp3(waves[0], prepare_esc50.TARGET_RATE)  # the library's load left out of the times
+            enc_1, blobs = rate(lambda f: encode_mp3(by_name[f], prepare_esc50.TARGET_RATE), 1)
+            enc_n, blobs_n = rate(lambda f: encode_mp3(by_name[f], prepare_esc50.TARGET_RATE), workers)
+            check(blobs == blobs_n, "[19] mp3 bytes differ between 1 thread and the workers")
+            kbytes = sum(len(b) for b in blobs) / len(blobs) / 1024
+            part = (f"mp3 encode (128 kbit/s mono CBR, {kbytes:.1f} KiB a clip): {enc_1:.1f} clips/s on 1 thread, "
+                    f"{enc_n:.1f} on {workers} workers")
+            if have["libmpg123"]:
+                from passt_tpu_torch.data import native as N
+
+                snrs = []
+                for f, blob in zip(files, blobs):
+                    y, sr = N.decode_mp3(blob)
+                    w = by_name[f].astype(np.float64)
+                    check(sr == prepare_esc50.TARGET_RATE and len(y) == len(w),
+                          f"[19] {f}: mp3 decoded to {len(y)} samples at {sr} Hz, not {len(w)}")
+                    snrs.append(10 * math.log10(np.sum(w ** 2) / max(np.sum((y - w) ** 2), 1e-30)))
+                check(min(snrs) >= MP3_MIN_SNR_DB, f"[19] mp3 round trip SNR {min(snrs):.2f} dB")
+                part += (f"; decoded back (the native plane's libmpg123) to exactly len(wave) samples, SNR "
+                         f"{min(snrs):.2f} to {max(snrs):.2f} dB (at least {MP3_MIN_SNR_DB:.0f})")
+            parts.append(part)
+
+        if have["h5py"]:
+            from passt_tpu_torch.data import HDF5AudioDataset
+
+            out = os.path.join(tmp, "hdf5")
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            paths = prepare_esc50.pack_fold(tmp, out, fold=1, fmt="raw", workers=workers)
+            pack_s = time.perf_counter() - t0
+            by_name = dict(zip(files, waves))
+            for path in paths:
+                ds = HDF5AudioDataset(path, classes_num=50, clip_length=PREP_SECONDS, packed_targets=False)
+                for i in range(len(ds)):
+                    got, name, _ = ds[i]
+                    q = (np.clip(by_name[name], -1.0, 1.0) * 32767.0).astype(np.int16)
+                    want = np.zeros(PREP_SECONDS * prepare_esc50.TARGET_RATE, np.float32)
+                    want[: len(q)] = q.astype(np.float32) / 32768.0
+                    check(np.array_equal(got, want), f"[19] {name}: the container's wave != the chain's int16 wave")
+            parts.append(f"pack_fold (fold 1, raw) in {pack_s:.2f} s, read back by HDF5AudioDataset bit-equal to "
+                         f"the chain's int16 waves")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return (f"[19] prep chain (tools/prepare_esc50's functions) on an ESC-50-shaped tree of {PREP_FOLDS} folds x "
+            f"{PREP_CLIPS_PER_FOLD} clips of {PREP_SECONDS} s at {PREP_RATE} Hz (written in {write_s:.1f} s; "
+            f"parse_esc50_meta {n_clips - PREP_CLIPS_PER_FOLD} train / {PREP_CLIPS_PER_FOLD} test a fold): "
+            + "; ".join(parts) + f" ({gpu})")
+
+
+def write_demo_items(root: str, items: list) -> dict:
+    """The demo's items as 32 kHz PCM16 wav files, quantised as the
+    container's raw_i16 column is (clip to [-1, 1], x 32767, truncate);
+    returns {file name: target}."""
+    import wave as wavemod
+
+    os.makedirs(root)
+    labels = {}
+    for name, w, y in items:
+        q = (np.clip(np.asarray(w, np.float32), -1.0, 1.0) * 32767.0).astype(np.int16)
+        with wavemod.open(os.path.join(root, name), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(32000)
+            f.writeframes(q.tobytes())
+        labels[name] = np.asarray(y, np.float32)
+    return labels
+
+
+def demo_run(gpu: str, dev: torch.device, have: dict) -> tuple:
+    """[19c] the full-size demo: where h5py loads, the tool's ``main``;
+    where it does not, its items as wav files and the AudioSet recipe's
+    ``main`` on the tool's config, with the three HDF5 openers of
+    ``experiments/common.py`` replaced by FolderDatasets (:func:`folder_openers`).
+    ``common.fit`` is wrapped to time each step (the wrapper calls the
+    package's ``fit`` and step). Exact launches; the ap curve held to
+    DEMO_MIN_AP and DEMO_MIN_GAIN."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch.experiments import EXPERIMENTS, common
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.tools import fullsize_train_demo as demo
+    from passt_tpu_torch.train.swa import SWAState, swa_should_update
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    saved = {name: getattr(common, name) for name in ("build_base_train_dataset", "build_eval_dataset",
+                                                      "train_target_chunks", "fit")}
+    starts = []
+
+    def timed_fit(**kw):
+        train_step = kw["train_step"]
+
+        def run(s, batch, seed):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return train_step(s, batch, seed)
+
+        return saved["fit"](**dict(kw, train_step=run))
+
+    buf = io.StringIO()
+    try:
+        train_items, test_items = demo.make_items(10, 1), demo.make_items(3, 2)
+        if have["h5py"]:
+            how = "the tool's main (packed with pack_waveform_hdf5)"
+            cfg = demo.config("train.h5", "test.h5")
+            run = lambda: demo.main([], device="cuda")  # noqa: E731
+        else:
+            t0 = time.perf_counter()
+            labels = {"train": write_demo_items(os.path.join(tmp, "train"), train_items),
+                      "test": write_demo_items(os.path.join(tmp, "test"), test_items)}
+            how = (f"the AudioSet recipe's main on the tool's config, its items as 32 kHz wav files (written in "
+                   f"{time.perf_counter() - t0:.1f} s; no h5py here: the three HDF5 openers replaced by FolderDatasets, "
+                   f"so no gain augment)")
+            for name, fn in folder_openers(lambda cfg, path: labels[os.path.basename(path)]).items():
+                setattr(common, name, fn)
+            cfg = demo.config(os.path.join(tmp, "train"), os.path.join(tmp, "test"))
+            run = lambda: EXPERIMENTS["audioset"].main(cfg, device="cuda")  # noqa: E731
+        common.fit = timed_fit
+        pcfg = cfg.passt_config()
+        check((pcfg.embed_dim, pcfg.depth, pcfg.num_heads, pcfg.num_classes, cfg.model.dtype)
+              == (768, 12, 12, 50, "bfloat16"), f"[19] demo: not PaSST-S width in bf16: {pcfg}")
+        frames = min(cfg.mel.frames(int(cfg.data.clip_length * 32000)), pcfg.input_tdim)
+        t_grid = (frames - pcfg.patch_size[1]) // pcfg.stride[1] + 1
+        n_train, n_eval = pcfg.seq_len(train=True, t_grid=t_grid), pcfg.seq_len(train=False, t_grid=t_grid)
+        per_epoch = cfg.data.epoch_len // cfg.data.batch_size
+        epochs = cfg.trainer.max_epochs
+        steps = epochs * per_epoch
+        probe = SWAState(avg_params=None, swa_epoch_start=cfg.trainer.swa_epoch_start, swa_freq=cfg.trainer.swa_freq)
+        fires = [e for e in range(epochs) if swa_should_update(probe, e, epochs)]
+        # swa_epoch_start counts from 1, as the reference's callback does: its
+        # first average is taken at the start of that epoch, i.e. at the end
+        # of 0-based epoch swa_epoch_start - 2
+        check(fires and fires[0] == cfg.trainer.swa_epoch_start - 2, f"[19] demo: SWA fires at {fires}")
+        batches = -(-len(test_items) // cfg.data.eval_batch_size)
+        evals = sum(1 + (e >= fires[0]) for e in range(epochs)) * batches
+        _build.reset_launches()
+        A.reset_path_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+        paths, bwd = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+    finally:
+        for name, fn in saved.items():
+            setattr(common, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    hist = res["history"]
+    check(res["done"] and not res["interrupted"] and len(hist) == epochs and len(starts) == steps,
+          f"[19] demo: {len(hist)} epochs, {len(starts)} steps (want {epochs}, {steps})")
+    want = want_launches(**add_counts({"fused_log_mel": steps + evals}, attn_counts(n_train, cfg.data.batch_size,
+                                                                                     True, steps),
+                                      attn_counts(n_eval, cfg.data.eval_batch_size, False, evals)))
+    check(launches == want, f"[19] demo launches {launches} != {want}")
+    check(paths == dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals), simt=0)
+          and bwd == dict(fma=0, mma=0, wgmma=12 * steps, simt=0), f"[19] demo paths {paths}, {bwd}")
+    for e, rec in enumerate(hist):
+        check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["ap"]) and rec["n_eval"] == len(test_items),
+              f"[19] demo epoch {e}: {rec}")
+        check(("swa_ap" in rec) == (e >= fires[0]) and rec.get("swa_n") == (fires.index(e) + 1 if e in fires else None),
+              f"[19] demo epoch {e}: swa_ap present: {'swa_ap' in rec}, swa_n {rec.get('swa_n')} (fires at {fires})")
+    aps = [r["ap"] for r in hist]
+    check(aps[-1] >= DEMO_MIN_AP and aps[-1] >= DEMO_MIN_GAIN * aps[0],
+          f"[19] demo did not learn: ap {aps[0]:.4f} -> {aps[-1]:.4f} (limits {DEMO_MIN_AP}, {DEMO_MIN_GAIN}x)")
+    gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(2, steps - 1) if (i + 1) % per_epoch != 0]
+    ms = sum(gaps) / len(gaps)
+    text = buf.getvalue()
+    check("ap by epoch:" in text or not have["h5py"], "[19] demo: the tool's summary line missing")
+    line = (f"[19] full-size demo (tools/fullsize_train_demo: 50 tones, {len(train_items)} train / {len(test_items)} "
+            f"test 1-s clips) through {how}: PaSST-S bf16, B={cfg.data.batch_size} N={n_train} train, "
+            f"B={cfg.data.eval_batch_size} N={n_eval} eval, graphed; {epochs} epochs x {per_epoch} steps in "
+            f"{wall:.1f} s; ap by epoch {', '.join(f'{a:.4f}' for a in aps)}; swa_ap {hist[-1]['swa_ap']:.4f} (SWA "
+            f"averages at the end of 0-based epochs {fires}); losses {hist[0]['train_loss']:.5f} -> {hist[-1]['train_loss']:.5f}; fit "
+            f"{ms:.3f} ms/step steady ({len(gaps)} steps; CUDA events between step starts, each epoch's first step "
+            f"and the run's first two left out); launches { {k: v for k, v in launches.items() if v} } ({steps} "
+            f"steps, {evals} eval batches) ({gpu})")
+    return launches, line
+
+
+def phase_prep(gpu: str, dev: torch.device) -> dict:
+    """[19] offline prep and the full-size demo: the imports, the prep chain
+    on the card's host, the demo on the card. Returns the demo's launches."""
+    t0 = time.perf_counter()
+    have, line = prep_imports()
+    say(line)
+    say(prep_chain(gpu, have))
+    launches, line = demo_run(gpu, dev, have)
+    say(line)
+    say(f"[19] {time.perf_counter() - t0:.1f} s in all")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3029,6 +3452,7 @@ def main() -> int:
     runs += phase_export(gpu, dev)
     blocks_runs, rec["fused_attention"]["fp32_simt"] = phase_blocks(gpu, dev)
     runs += blocks_runs
+    runs.append(phase_prep(gpu, dev))
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

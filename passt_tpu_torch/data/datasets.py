@@ -24,18 +24,19 @@ decode through the native C++ host plane backed by the system libmpg123
 (native/hostplane.cpp; build with ``make -C native``). The decoder table
 stays pluggable via ``register_decoder``. Raw-waveform and WAV-bytes
 columns decode with no external dependency, and the offline prep tools
-(passt_tpu/data/prepare) write raw containers that need no decoder at all.
+(:mod:`passt_tpu_torch.data.prepare`, whose ``wavdec`` holds the one
+resampler, ``resample``) write raw containers that need no decoder at all.
 """
 
 from __future__ import annotations
 
 import io
-import math
 import threading
-import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from passt_tpu_torch.data.prepare.wavdec import resample
 
 Item = Tuple[np.ndarray, str, np.ndarray]  # (waveform [T], name, target)
 
@@ -166,33 +167,6 @@ def load_ir_bank(
     return bank
 
 
-def resample(wave_f32: np.ndarray, src_rate: int, dst_rate: int) -> np.ndarray:
-    """Anti-aliased polyphase resample (44.1 kHz -> 32 kHz: up=320/down=441;
-    a copy of passt_tpu/data/prepare/wavdec.py ``resample``).
-
-    Uses scipy's ``resample_poly`` (windowed-sinc); integer-stride decimation
-    when src is an exact multiple (the container contract stride_resample
-    assumes); falls back to linear interpolation with a warning when scipy is
-    absent.
-    """
-    if src_rate == dst_rate:
-        return np.asarray(wave_f32, np.float32)
-    if src_rate % dst_rate == 0:
-        return np.asarray(wave_f32[:: src_rate // dst_rate], np.float32)
-    try:
-        from scipy.signal import resample_poly
-    except ImportError:  # pragma: no cover - scipy is on both machines
-        warnings.warn(
-            "scipy unavailable: falling back to linear-interp resample "
-            "(no anti-aliasing filter)"
-        )
-        n_out = int(round(len(wave_f32) * dst_rate / src_rate))
-        t = np.arange(n_out) * (src_rate / dst_rate)
-        return np.interp(t, np.arange(len(wave_f32)), wave_f32).astype(np.float32)
-    g = math.gcd(src_rate, dst_rate)
-    return resample_poly(wave_f32, dst_rate // g, src_rate // g).astype(np.float32)
-
-
 # ---------------------------------------------------------------------------
 # decoders
 # ---------------------------------------------------------------------------
@@ -236,7 +210,7 @@ def _decode_wav(buf: np.ndarray, target_rate: Optional[int] = None) -> np.ndarra
             x = stride_resample(x, target_rate, source_rate=rate)
         else:
             # anti-aliased polyphase resample (prepare/wavdec.resample —
-            # THE one resampler): plain np.interp here aliased all energy
+            # the one resampler): plain np.interp here aliased all energy
             # above the new Nyquist back into band for 44.1k->32k inputs
             # (the reference's librosa.load(sr=) is a windowed-sinc
             # resample too)

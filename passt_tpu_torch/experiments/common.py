@@ -86,7 +86,7 @@ def build_train_dataset(cfg: ExperimentConfig):
     if d.train_hdf5 is None:
         raise FileNotFoundError(
             "data.train_hdf5 is not set — point it at a packed HDF5 "
-            "(see passt_tpu.data.prepare)"
+            "(see passt_tpu_torch.data.prepare)"
         )
     sets = [build_base_train_dataset(cfg, d.train_hdf5, d.seed)]
     if d.train_hdf5_extra:
