@@ -178,7 +178,36 @@ Phases (each prints one line or more; the first failure exits non-zero):
    written as wav files and the recipe's ``main`` runs on the tool's
    config with [15]'s FolderDatasets): the ap of each epoch (the last at
    least 0.5 and 5x the first), the SWA average, steady ms/step and exact
-   launches.
+   launches;
+20. the last seven user tools (``passt_tpu_torch.tools``): each imports, and
+   one line names which of h5py, libmp3lame and the native plane's
+   libmpg123 load (``measure_mp3_loader`` and ``loader_worker_sweep`` need
+   all three: where they load, the sweep runs on the host; where not, they
+   are left to the CPU tests); ``tools/convergence_demo``'s ``run`` on the
+   card (its 50 tones as wav folders with [15]'s openers, the ESC-50 recipe
+   on PaSST depth 4, dim 192, 6 heads, so D = 32, bf16, graphed, 45 epochs x
+   40 steps at B = 25, N = 79; eval at B = 50, N = 110): the accuracy of each
+   epoch (the best at least 0.8; the script's 0.9 printed), the SWA
+   accuracy, steady ms/step and the exact launches, every attention call on
+   the "mma" path; ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
+   width (120 / 40 5-s clips as wav folders, 8 epochs, SIGTERM after epoch
+   2; each phase the CLI in a child process through a ``python -c`` shim
+   that sets [15]'s openers, holds after the epoch-2 line until the signal
+   has landed, and prints its launch counts): every assert of the tool, each
+   phase's wall time and exact launches, the transcript;
+   ``tools/run_flagship_parity`` on a full-width PaSST-S ``.pt`` (seed 0)
+   and 20 wav clips, ungated (``pass`` null) and gated at tol 1e-6 on its
+   own value from the ported ``.npz`` (rc 0); ``tools/fit_throughput`` at
+   full width (--steps 40 --epochs 3, wav folders): its JSON line, sustained
+   specs/s beside ``bench.timed_steps`` in the same process, fit's steady
+   ms/step by CUDA events beside both, exact launches;
+   the multi-seed tool's "ref" arm (fp32 moments, erf GELU) at seed 0
+   through [19]'s route, its ap curve and swa_ap beside [19]'s production
+   arm (the last ap at least 0.5; the gap printed, not gated).
+
+Phase 3 also times the "mma" forward (row 4o) at the convergence demo's
+shapes (bf16, B = 25, N = 79 and B = 50, N = 110, 6 heads of D = 32) and
+phase 3b its "mma" backward there, each beside SDPA and the bound.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -210,7 +239,9 @@ clusters resident, waves).
 Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
 15's and 16's CLI commands, 17's loaded-program and serve calls, 18's
-equality runs, fp32 stacked step and stacked ``Predictor``, and 19's demo) starts
+equality runs, fp32 stacked step and stacked ``Predictor``, 19's demo, and
+20's convergence demo, rehearsal phases (counted in their child processes),
+parity runs, fit_throughput run and ref arm) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -247,6 +278,10 @@ from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms, kernel_ms,
 
 ARCH = "passt_s_swa_p16_128_ap476"
 CLIP = 320000  # 10 s at 32 kHz
+#: the convergence demo's attention ([20b]): its reduced PaSST's heads and
+#: head dim, and its (B, N) in training and in eval
+CONV_HEADS, CONV_HEAD_DIM = 6, 32
+CONV_SHAPES = ((25, 79), (50, 110))
 # attention kernel vs plain: fp32 differs in summation order only; in bf16 /
 # fp16 a p may round the other way and the output may round the other way:
 # one output ulp at |o| < 2
@@ -531,43 +566,43 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
                       f"max err {err:.3g} > {TOL_ATTN[dtype]:.3g}")
                 errs[name] = max(errs[name], err)
 
-    def main_shape(b, n, entry, path):
+    def main_shape(b, n, entry, path, h=heads, d=hd):
         """The kernel against its plain version on the bf16 inputs of a main
         path's shape, on the forward path it must take there; returns the
         kernel call and the plain call on them."""
-        qkv = torch.randn((b, n, 3 * heads * hd), device=dev, dtype=torch.bfloat16)
-        q, k, v = qkv.reshape(b, n, 3, heads, hd).unbind(2)
+        qkv = torch.randn((b, n, 3 * h * d), device=dev, dtype=torch.bfloat16)
+        q, k, v = qkv.reshape(b, n, 3, h, d).unbind(2)
         if entry == "fused_attention":
-            kern = lambda: fused_attention(q, k, v, scale=hd ** -0.5)
+            kern = lambda: fused_attention(q, k, v, scale=d ** -0.5)
         else:
-            kern = lambda: fused_attention_qkv(qkv, heads=heads, head_dim=hd, scale=hd ** -0.5)
-        plain = lambda: attention_plain(q, k, v, scale=hd ** -0.5)
+            kern = lambda: fused_attention_qkv(qkv, heads=h, head_dim=d, scale=d ** -0.5)
+        plain = lambda: attention_plain(q, k, v, scale=d ** -0.5)
         with torch.no_grad():
             A.reset_path_launches()
-            err = max_err(kern().reshape(b, n, heads, hd), plain())
+            err = max_err(kern().reshape(b, n, h, d), plain())
         check(A.FWD_PATH_LAUNCHES[path] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
-              f"{entry} bf16 B={b} N={n}: forward paths {A.FWD_PATH_LAUNCHES}, want {path}")
-        check(err <= TOL_ATTN[torch.bfloat16], f"{entry} bf16 B={b} N={n}: max err {err:.3g}")
+              f"{entry} bf16 B={b} N={n} D={d}: forward paths {A.FWD_PATH_LAUNCHES}, want {path}")
+        check(err <= TOL_ATTN[torch.bfloat16], f"{entry} bf16 B={b} N={n} D={d}: max err {err:.3g}")
         errs[entry] = max(errs[entry], err)
         taken[path] += 1
         return kern, plain, (q, k, v)
 
-    def timings(b, n, entry, path):
+    def timings(b, n, entry, path, h=heads, d=hd):
         """The kernel (graph replay and CUDA events), its plain version and
         SDPA as PyTorch dispatches it (graph replay and events; the kernel
         it ran, from a profiler trace), with each backend that accepts the
         inputs timed alone by graph replay (the unfused MATH backend left
         out)."""
-        kern, plain, (q, k, v) = main_shape(b, n, entry, path)
-        lib = lambda: sdpa(q, k, v, hd ** -0.5)
+        kern, plain, (q, k, v) = main_shape(b, n, entry, path, h, d)
+        lib = lambda: sdpa(q, k, v, d ** -0.5)
         with torch.no_grad():
-            backends = sdpa_backends(q, k, v, hd ** -0.5)
+            backends = sdpa_backends(q, k, v, d ** -0.5)
             ran = top_kernel(kernel_times(lib, 3))
             return dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), plain_ms=cuda_ms(plain),
                         library_ms=graph_ms(lib), library_ms_events=cuda_ms(lib),
                         library_kernel=ran, library_backend=backend_of(ran),
                         library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends if be.name != "MATH"},
-                        path=path, **bound(4 * n * n * hd * b * heads, 4 * b * n * heads * hd * 2, PEAK_BF16))
+                        path=path, **bound(4 * n * n * d * b * h, 4 * b * n * h * d * 2, PEAK_BF16))
 
     def line(t):
         return (f"kernel ({t['path']}) {t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events; plain "
@@ -584,13 +619,21 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     for name, t, b, n in (("fused_attention", serve, 20, 1190), ("fused_attention_qkv", stamps, 256, 14),
                           ("fused_attention_qkv", train, TRAIN_B, TRAIN_N)):
         say(f"[3] {name} bf16 B={b} H=12 N={n} D=64: {line(t)} ({gpu})")
+    # row 4o on a user path: the convergence demo's reduced PaSST (6 heads of
+    # D = 32, bf16) takes "mma" at its training and eval shapes ([20b])
+    demo = {f"B={b} N={n}": timings(b, n, "fused_attention_qkv", "mma", CONV_HEADS, CONV_HEAD_DIM)
+            for b, n in CONV_SHAPES}
+    for what, t in demo.items():
+        say(f"[3] fused_attention_qkv bf16 {what} H={CONV_HEADS} D={CONV_HEAD_DIM} (the convergence demo's): "
+            f"{line(t)} ({gpu})")
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
         f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
         f"D 24/32; bf16/fp16/fp32 unaligned views at N 97/1190; bf16 at the serving, timestamp and training "
-        f"shapes); calls per path {taken}")
+        f"shapes, bf16 D=32 at the convergence demo's); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
-    rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train)
+    rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train,
+                                      mma_d32=demo)
     return rec
 
 
@@ -682,6 +725,41 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs), the simt path in every fp32 D=64 case "
         f"(B=1 H=4 N={n_plain} in the plain block order too); calls per path {taken}")
 
+    def bwd_times(kern, q, k, v, do4, scale, peak) -> dict:
+        """The backward kernel call ``kern`` on [B, N, H, D] views q, k, v
+        and dO: its times (graph replay, events, profiled kernel time), its
+        device kernels, the plain version, SDPA's backward and the bound.
+        SDPA's backward alone is the kernel time of its forward and
+        autograd.grad together less that of its forward alone, from profiler
+        traces. A CUDA graph captures an autograd backward only with its
+        forward (each backward op runs on its forward op's stream; the train
+        step is captured so, [14]), and this forward-and-backward capture of
+        SDPA fails here with cudaErrorStreamCaptureImplicit. Beside it the
+        backward alone by CUDA events, and the port's backward by the same
+        profiled kernel time."""
+        b, n, h, d = q.shape
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        fwd = lambda: sdpa(ql, kl, vl, scale)
+        fwd_bwd = lambda: torch.autograd.grad(sdpa(ql, kl, vl, scale), (ql, kl, vl), do4)
+        out = fwd()
+        lib = lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True)
+        backends = sdpa_backends(ql, kl, vl, scale, do4)
+        ran = top_kernel(kernel_times(lib, 3))
+        t = dict(path=A.backward_path(n, d, q.dtype, True), ms=graph_ms(kern), ms_events=cuda_ms(kern),
+                 ms_kernels=kernel_ms(kern),
+                 device_kernels=sorted({m_.group(0) for m_ in map(re.compile(r"(attention_bwd|bwd32)_\w+_kernel").search,
+                                                                   kernel_times(kern, 2)) if m_}),
+                 plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
+                 library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
+                 library_kernel=ran, library_backend=backend_of(ran),
+                 library_backend_ms={be.name: kernel_ms(under(be, fwd_bwd)) - kernel_ms(under(be, fwd))
+                                     for be in backends if be.name != "MATH"},
+                 # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
+                 **bound(10 * n * n * d * b * h, 7 * b * n * h * d * q.element_size(), peak))
+        # the "wgmma" and "simt" paths' own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
+        t.update(design_bound_ms=14 * n * n * d * b * h / peak * 1e3)
+        return t
+
     rec = {}
     # the qkv entry at the bf16 training step's shape; the [B, N, H, D] entry
     # at the fp32 correctness step's (phase 7)
@@ -733,34 +811,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                   f"> {TOL_BWD[dtype]:.3g}")
             worst[name] = max(worst[name], rel)
             worst_abs[name] = max(worst_abs[name], err)
-        # SDPA's backward alone: the kernel time of its forward and
-        # autograd.grad together less that of its forward alone, from
-        # profiler traces. A CUDA graph captures an autograd backward only
-        # with its forward (each backward op runs on its forward op's
-        # stream; the train step is captured so, [14]), and this
-        # forward-and-backward capture of SDPA fails here with
-        # cudaErrorStreamCaptureImplicit. Beside it the backward alone by CUDA
-        # events, and the port's backward by the same profiled kernel time
-        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        fwd = lambda: sdpa(ql, kl, vl, scale)
-        fwd_bwd = lambda: torch.autograd.grad(sdpa(ql, kl, vl, scale), (ql, kl, vl), do4)
-        out = fwd()
-        lib = lambda: torch.autograd.grad(out, (ql, kl, vl), do4, retain_graph=True)
-        backends = sdpa_backends(ql, kl, vl, scale, do4)
-        ran = top_kernel(kernel_times(lib, 3))
-        t = dict(path=A.backward_path(n, hd, dtype, True), ms=graph_ms(kern), ms_events=cuda_ms(kern),
-                 ms_kernels=kernel_ms(kern),
-                 device_kernels=sorted({m_.group(0) for m_ in map(re.compile(r"(attention_bwd|bwd32)_\w+_kernel").search,
-                                                                   kernel_times(kern, 2)) if m_}),
-                 plain_ms=cuda_ms(lambda: attention_bwd_plain(q, k, v, do4, scale=scale)),
-                 library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
-                 library_kernel=ran, library_backend=backend_of(ran),
-                 library_backend_ms={be.name: kernel_ms(under(be, fwd_bwd)) - kernel_ms(under(be, fwd))
-                                     for be in backends if be.name != "MATH"},
-                 # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
-                 **bound(10 * n * n * hd * b * heads, 7 * b * n * heads * hd * qkv.element_size(), peak))
-        # the path's own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
-        t.update(design_bound_ms=14 * n * n * hd * b * heads / peak * 1e3)
+        t = bwd_times(kern, q, k, v, do4, scale, peak)
         old_name, old_fn = ("mma", mma) if mma is not None else ("fma", fma)
         t.update({f"{old_name}_ms": graph_ms(old_fn), f"{old_name}_ms_kernels": kernel_ms(old_fn)})
         old = (f"; the old {old_name} path {t[old_name + '_ms']:.4f} ms graph-replayed, "
@@ -777,6 +828,38 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             f"{t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; alone: " + ", ".join(f"{k} {v:.4f}" for k, v in t["library_backend_ms"].items())
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
         rec[name] = dict(max_abs_err=worst_abs[name], **t)
+
+    # row 4o on a user path: the convergence demo's bf16 backward at 6 heads
+    # of D = 32 takes "mma" through the qkv entry, at its training shape (and
+    # its eval shape, which runs no backward, for the comparison)
+    demo = {}
+    for b, n in CONV_SHAPES:
+        h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, dtype=torch.bfloat16)
+        do = torch.randn((b, n, h_ * d_), device=dev, dtype=torch.bfloat16)
+        q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
+        do4 = do.view(b, n, h_, d_)
+        kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
+        A.reset_path_launches()
+        got = kern().reshape(b, n, 3, h_, d_).unbind(2)
+        check(A.BWD_PATH_LAUNCHES["mma"] == 1 == sum(A.BWD_PATH_LAUNCHES.values()),
+              f"fused_attention_qkv_bwd bf16 B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want mma")
+        errs = []
+        for what, g, r in zip(("dq", "dk", "dv"), got, attention_bwd_plain(q, k, v, do4, scale=scale)):
+            errs.append(rel_err(g, r))
+            check(errs[-1] <= TOL_BWD[torch.bfloat16], f"fused_attention_qkv_bwd mma B={b} N={n} D={d_} {what}: "
+                  f"max err {errs[-1]:.3g} of max|ref|")
+        t = bwd_times(kern, q, k, v, do4, scale, PEAK_BF16)
+        t.pop("design_bound_ms")
+        demo[f"B={b} N={n}"] = dict(max_rel_err=max(errs), **t)
+        say(f"[3b] fused_attention_qkv_bwd bf16 B={b} H={h_} N={n} D={d_} (the convergence demo's): kernel "
+            f"({t['path']}: {', '.join(t['device_kernels'])}) max err {max(errs):.3g} of max|ref|; {t['ms']:.4f} ms "
+            f"graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels (profiled); plain "
+            f"{t['plain_ms']:.4f} ms; SDPA backward {t['library_ms']:.4f} ms of kernels (profiled forward + backward "
+            f"less forward), {t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; "
+            "alone: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["library_backend_ms"].items())
+            + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
+    rec["fused_attention_qkv_bwd"]["mma_d32"] = demo
     return rec
 
 
@@ -2155,20 +2238,22 @@ CLI_EPOCHS, CLI_STEPS, CLI_EVAL_BATCHES = 2, 12, 2
 CLI_ENSEMBLE = "ensemble_s16_14"
 
 
-def attn_counts(n: int, b: int, train: bool, calls: int) -> dict:
+def attn_counts(n: int, b: int, train: bool, calls: int, depth: int = 12, heads: int = 12,
+                head_dim: int = 64) -> dict:
     """The attention launches of ``calls`` forward passes (and their
-    backward when ``train``) of PaSST-S at N tokens, batch b, in bf16: the
-    entry the model picks (``flat_kernel_supports``, the JAX package's rule)."""
+    backward when ``train``) of PaSST (PaSST-S unless told) at N tokens,
+    batch b, in bf16: the entry the model picks (``flat_kernel_supports``,
+    the JAX package's rule)."""
     from passt_tpu_torch.ops import attention as A
 
-    if A.flat_kernel_supports(n, 12, 64, backward=train, itemsize=2, batch=b):
-        out = {"fused_attention_qkv": 12 * calls}
+    if A.flat_kernel_supports(n, heads, head_dim, backward=train, itemsize=2, batch=b):
+        out = {"fused_attention_qkv": depth * calls}
         if train:
-            out["fused_attention_qkv_bwd"] = 12 * calls
+            out["fused_attention_qkv_bwd"] = depth * calls
         return out
-    out = {"fused_attention": 12 * calls}
+    out = {"fused_attention": depth * calls}
     if train:
-        out["fused_attention_bwd"] = 12 * calls
+        out["fused_attention_bwd"] = depth * calls
     return out
 
 
@@ -2436,10 +2521,7 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
 
         for name, key in (("esc50", "accuracy"), ("openmic", "ap")):
             rcfg = EXPERIMENTS[name].default_config
-            pcfg = rcfg.passt_config()
-            frames = min(rcfg.mel.frames(int(rcfg.data.clip_length * 32000)), pcfg.input_tdim)
-            t_grid = (frames - pcfg.patch_size[1]) // pcfg.stride[1] + 1
-            n_train, n_eval = pcfg.seq_len(train=True, t_grid=t_grid), pcfg.seq_len(train=False, t_grid=t_grid)
+            n_train, n_eval = token_counts(rcfg, rcfg.passt_config())
             b = rcfg.data.batch_size
             run_cli(f"{name} main (1 epoch x 2 steps, B={b})",
                     [name, "main"] + data + ["trainer.max_epochs=1", "trainer.limit_train_batches=2",
@@ -3253,48 +3335,116 @@ def write_demo_items(root: str, items: list) -> dict:
     return labels
 
 
-def demo_run(gpu: str, dev: torch.device, have: dict) -> tuple:
+def token_counts(cfg, pcfg) -> tuple:
+    """(N in training, N in eval) of a recipe's config on its clips."""
+    frames = min(cfg.mel.frames(int(cfg.data.clip_length * 32000)), pcfg.input_tdim)
+    t_grid = (frames - pcfg.patch_size[1]) // pcfg.stride[1] + 1
+    return pcfg.seq_len(train=True, t_grid=t_grid), pcfg.seq_len(train=False, t_grid=t_grid)
+
+
+def swa_evals(cfg, epochs: int) -> list:
+    """The 0-based epochs of a run of ``epochs`` epochs (its
+    ``trainer.max_epochs``) that also evaluate an SWA average: every epoch
+    from SWA's first average on."""
+    from passt_tpu_torch.train.swa import SWAState, swa_should_update
+
+    probe = SWAState(avg_params=None, swa_epoch_start=cfg.trainer.swa_epoch_start, swa_freq=cfg.trainer.swa_freq)
+    fires = [e for e in range(epochs) if swa_should_update(probe, e, epochs)]
+    return [e for e in range(epochs) if cfg.trainer.swa and fires and e >= fires[0]]
+
+
+class Openers:
+    """[15]'s folder openers (unless ``labels_for`` is None) set on
+    ``experiments/common.py``, and ``fit`` wrapped to record a CUDA event at
+    each step's start, for a ``with`` block; the package's functions put
+    back after it."""
+
+    NAMES = ("build_base_train_dataset", "build_eval_dataset", "train_target_chunks", "fit")
+
+    def __init__(self, labels_for):
+        from passt_tpu_torch.experiments import common
+
+        self.common, self.labels_for, self.starts = common, labels_for, []
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.common, name) for name in self.NAMES}
+        for name, fn in (folder_openers(self.labels_for) if self.labels_for else {}).items():
+            setattr(self.common, name, fn)
+        fit, starts = self.saved["fit"], self.starts
+
+        def timed_fit(**kw):
+            train_step = kw["train_step"]
+
+            def run(s, batch, seed):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                starts.append(ev)
+                return train_step(s, batch, seed)
+
+            return fit(**dict(kw, train_step=run))
+
+        self.common.fit = timed_fit
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.common, name, fn)
+
+    def steady_ms(self, per_epoch: int) -> tuple:
+        """Mean ms between step starts, each epoch's first step and the
+        run's first two left out; and the count of steps averaged."""
+        gaps = [self.starts[i].elapsed_time(self.starts[i + 1]) for i in range(2, len(self.starts) - 1)
+                if (i + 1) % per_epoch != 0]
+        return sum(gaps) / len(gaps), len(gaps)
+
+
+def counted(fn) -> tuple:
+    """``fn()`` with its stdout captured and the launches it made (every
+    count set to 0 just before): (result, stdout, launches, forward paths,
+    backward paths, seconds)."""
+    import contextlib
+    import io
+
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+
+    buf = io.StringIO()
+    _build.reset_launches()
+    A.reset_path_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    return out, buf.getvalue(), launches, dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES), wall
+
+
+def demo_run(gpu: str, dev: torch.device, have: dict, extra=(), tag: str = "[19]") -> tuple:
     """[19c] the full-size demo: where h5py loads, the tool's ``main``;
     where it does not, its items as wav files and the AudioSet recipe's
     ``main`` on the tool's config, with the three HDF5 openers of
     ``experiments/common.py`` replaced by FolderDatasets (:func:`folder_openers`).
     ``common.fit`` is wrapped to time each step (the wrapper calls the
     package's ``fit`` and step). Exact launches; the ap curve held to
-    DEMO_MIN_AP and DEMO_MIN_GAIN."""
-    import contextlib
-    import io
+    DEMO_MIN_AP and DEMO_MIN_GAIN. ``extra``: the tool's ``key=value``
+    overrides (the multi-seed tool's arm, [20f]). Returns the launches,
+    the line and the epochs' records."""
     import shutil
     import tempfile
 
-    from passt_tpu_torch.experiments import EXPERIMENTS, common
-    from passt_tpu_torch.ops import _build
-    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.experiments import EXPERIMENTS
     from passt_tpu_torch.tools import fullsize_train_demo as demo
     from passt_tpu_torch.train.swa import SWAState, swa_should_update
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
-    saved = {name: getattr(common, name) for name in ("build_base_train_dataset", "build_eval_dataset",
-                                                      "train_target_chunks", "fit")}
-    starts = []
-
-    def timed_fit(**kw):
-        train_step = kw["train_step"]
-
-        def run(s, batch, seed):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            starts.append(ev)
-            return train_step(s, batch, seed)
-
-        return saved["fit"](**dict(kw, train_step=run))
-
-    buf = io.StringIO()
     try:
         train_items, test_items = demo.make_items(10, 1), demo.make_items(3, 2)
+        labels = None
         if have["h5py"]:
             how = "the tool's main (packed with pack_waveform_hdf5)"
-            cfg = demo.config("train.h5", "test.h5")
-            run = lambda: demo.main([], device="cuda")  # noqa: E731
+            cfg = demo.config("train.h5", "test.h5", extra)
+            run = lambda: demo.main(list(extra), device="cuda")  # noqa: E731
         else:
             t0 = time.perf_counter()
             labels = {"train": write_demo_items(os.path.join(tmp, "train"), train_items),
@@ -3302,17 +3452,12 @@ def demo_run(gpu: str, dev: torch.device, have: dict) -> tuple:
             how = (f"the AudioSet recipe's main on the tool's config, its items as 32 kHz wav files (written in "
                    f"{time.perf_counter() - t0:.1f} s; no h5py here: the three HDF5 openers replaced by FolderDatasets, "
                    f"so no gain augment)")
-            for name, fn in folder_openers(lambda cfg, path: labels[os.path.basename(path)]).items():
-                setattr(common, name, fn)
-            cfg = demo.config(os.path.join(tmp, "train"), os.path.join(tmp, "test"))
+            cfg = demo.config(os.path.join(tmp, "train"), os.path.join(tmp, "test"), extra)
             run = lambda: EXPERIMENTS["audioset"].main(cfg, device="cuda")  # noqa: E731
-        common.fit = timed_fit
         pcfg = cfg.passt_config()
         check((pcfg.embed_dim, pcfg.depth, pcfg.num_heads, pcfg.num_classes, cfg.model.dtype)
-              == (768, 12, 12, 50, "bfloat16"), f"[19] demo: not PaSST-S width in bf16: {pcfg}")
-        frames = min(cfg.mel.frames(int(cfg.data.clip_length * 32000)), pcfg.input_tdim)
-        t_grid = (frames - pcfg.patch_size[1]) // pcfg.stride[1] + 1
-        n_train, n_eval = pcfg.seq_len(train=True, t_grid=t_grid), pcfg.seq_len(train=False, t_grid=t_grid)
+              == (768, 12, 12, 50, "bfloat16"), f"{tag} demo: not PaSST-S width in bf16: {pcfg}")
+        n_train, n_eval = token_counts(cfg, pcfg)
         per_epoch = cfg.data.epoch_len // cfg.data.batch_size
         epochs = cfg.trainer.max_epochs
         steps = epochs * per_epoch
@@ -3321,65 +3466,437 @@ def demo_run(gpu: str, dev: torch.device, have: dict) -> tuple:
         # swa_epoch_start counts from 1, as the reference's callback does: its
         # first average is taken at the start of that epoch, i.e. at the end
         # of 0-based epoch swa_epoch_start - 2
-        check(fires and fires[0] == cfg.trainer.swa_epoch_start - 2, f"[19] demo: SWA fires at {fires}")
+        check(fires and fires[0] == cfg.trainer.swa_epoch_start - 2, f"{tag} demo: SWA fires at {fires}")
         batches = -(-len(test_items) // cfg.data.eval_batch_size)
         evals = sum(1 + (e >= fires[0]) for e in range(epochs)) * batches
-        _build.reset_launches()
-        A.reset_path_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
-        paths, bwd = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+        with Openers(labels and (lambda cfg, path: labels[os.path.basename(path)])) as op:
+            res, text, launches, paths, bwd, wall = counted(run)
     finally:
-        for name, fn in saved.items():
-            setattr(common, name, fn)
         shutil.rmtree(tmp, ignore_errors=True)
     hist = res["history"]
-    check(res["done"] and not res["interrupted"] and len(hist) == epochs and len(starts) == steps,
-          f"[19] demo: {len(hist)} epochs, {len(starts)} steps (want {epochs}, {steps})")
+    check(res["done"] and not res["interrupted"] and len(hist) == epochs and len(op.starts) == steps,
+          f"{tag} demo: {len(hist)} epochs, {len(op.starts)} steps (want {epochs}, {steps})")
     want = want_launches(**add_counts({"fused_log_mel": steps + evals}, attn_counts(n_train, cfg.data.batch_size,
                                                                                      True, steps),
                                       attn_counts(n_eval, cfg.data.eval_batch_size, False, evals)))
-    check(launches == want, f"[19] demo launches {launches} != {want}")
+    check(launches == want, f"{tag} demo launches {launches} != {want}")
     check(paths == dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals), simt=0)
-          and bwd == dict(fma=0, mma=0, wgmma=12 * steps, simt=0), f"[19] demo paths {paths}, {bwd}")
+          and bwd == dict(fma=0, mma=0, wgmma=12 * steps, simt=0), f"{tag} demo paths {paths}, {bwd}")
     for e, rec in enumerate(hist):
         check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["ap"]) and rec["n_eval"] == len(test_items),
-              f"[19] demo epoch {e}: {rec}")
+              f"{tag} demo epoch {e}: {rec}")
         check(("swa_ap" in rec) == (e >= fires[0]) and rec.get("swa_n") == (fires.index(e) + 1 if e in fires else None),
-              f"[19] demo epoch {e}: swa_ap present: {'swa_ap' in rec}, swa_n {rec.get('swa_n')} (fires at {fires})")
+              f"{tag} demo epoch {e}: swa_ap present: {'swa_ap' in rec}, swa_n {rec.get('swa_n')} (fires at {fires})")
     aps = [r["ap"] for r in hist]
     check(aps[-1] >= DEMO_MIN_AP and aps[-1] >= DEMO_MIN_GAIN * aps[0],
-          f"[19] demo did not learn: ap {aps[0]:.4f} -> {aps[-1]:.4f} (limits {DEMO_MIN_AP}, {DEMO_MIN_GAIN}x)")
-    gaps = [starts[i].elapsed_time(starts[i + 1]) for i in range(2, steps - 1) if (i + 1) % per_epoch != 0]
-    ms = sum(gaps) / len(gaps)
-    text = buf.getvalue()
-    check("ap by epoch:" in text or not have["h5py"], "[19] demo: the tool's summary line missing")
-    line = (f"[19] full-size demo (tools/fullsize_train_demo: 50 tones, {len(train_items)} train / {len(test_items)} "
+          f"{tag} demo did not learn: ap {aps[0]:.4f} -> {aps[-1]:.4f} (limits {DEMO_MIN_AP}, {DEMO_MIN_GAIN}x)")
+    ms, n_ms = op.steady_ms(per_epoch)
+    check("ap by epoch:" in text or not have["h5py"], f"{tag} demo: the tool's summary line missing")
+    line = (f"{tag} full-size demo (tools/fullsize_train_demo: 50 tones, {len(train_items)} train / {len(test_items)} "
             f"test 1-s clips) through {how}: PaSST-S bf16, B={cfg.data.batch_size} N={n_train} train, "
             f"B={cfg.data.eval_batch_size} N={n_eval} eval, graphed; {epochs} epochs x {per_epoch} steps in "
             f"{wall:.1f} s; ap by epoch {', '.join(f'{a:.4f}' for a in aps)}; swa_ap {hist[-1]['swa_ap']:.4f} (SWA "
             f"averages at the end of 0-based epochs {fires}); losses {hist[0]['train_loss']:.5f} -> {hist[-1]['train_loss']:.5f}; fit "
-            f"{ms:.3f} ms/step steady ({len(gaps)} steps; CUDA events between step starts, each epoch's first step "
+            f"{ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step starts, each epoch's first step "
             f"and the run's first two left out); launches { {k: v for k, v in launches.items() if v} } ({steps} "
             f"steps, {evals} eval batches) ({gpu})")
-    return launches, line
+    return launches, line, hist
 
 
-def phase_prep(gpu: str, dev: torch.device) -> dict:
+def phase_prep(gpu: str, dev: torch.device) -> tuple:
     """[19] offline prep and the full-size demo: the imports, the prep chain
-    on the card's host, the demo on the card. Returns the demo's launches."""
+    on the card's host, the demo on the card. Returns the demo's launches
+    and its epochs' records."""
     t0 = time.perf_counter()
     have, line = prep_imports()
     say(line)
     say(prep_chain(gpu, have))
-    launches, line = demo_run(gpu, dev, have)
+    launches, line, hist = demo_run(gpu, dev, have)
     say(line)
     say(f"[19] {time.perf_counter() - t0:.1f} s in all")
-    return launches
+    return launches, hist
+
+
+TOOLS_20 = ("convergence_demo", "finetune_rehearsal", "run_flagship_parity", "measure_mp3_loader",
+            "loader_worker_sweep", "fit_throughput", "multiseed_quality")
+# [20b] the convergence demo learns: its best raw accuracy at least 0.8
+# (chance 0.02; the script itself asks more than 0.9, printed beside it)
+CONV_MIN_ACC, CONV_SCRIPT_ACC = 0.8, 0.9
+REHEARSAL_K = 2  # [20c] the epoch after which the rehearsal's first phase is preempted (the tool's default)
+PARITY_CLIPS = 20  # [20d] 10-s clips of 527-class targets, one eval batch
+# [20e] fit_throughput's --steps and --epochs: the tool reads each epoch's
+# rate on the host clock, which at 20 steps ended before the card did
+# (1.08x the bench step's rate, measured on one H100); the steady ms/step between
+# step starts by CUDA events is printed beside it
+FIT_TP_STEPS, FIT_TP_EPOCHS = 40, 3
+# [20c] the rehearsal's train and eval clips, cut from the tool's 240 / 100
+# to keep the whole script well inside its time limit; 40 eval clips keep
+# every accuracy a multiple of 0.025, exact in the 5 digits the epoch line
+# prints, which the tool's 1e-6 reproduction check reads
+REHEARSAL_CLIPS = (120, 40)
+REF_ARM = ("trainer.opt_moments_dtype=null", "model.gelu=erf")  # [20f] the multi-seed tool's "ref" arm
+#: [20c] the rehearsal's CLI shim: [15]'s folder openers in place of the
+#: HDF5 openers, the hold after the preempted phase's epoch line, then
+#: ``cli.main``; its launch counts printed at the end
+REHEARSAL_SHIM = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from passt_tpu_torch import cli
+from passt_tpu_torch.experiments import common
+from passt_tpu_torch.ops import _build
+from passt_tpu_torch.tools.finetune_rehearsal import hold_after_epoch
+
+labels = json.load(open({labels!r}))
+for name, fn in chip_smoke.folder_openers(lambda cfg, path: labels[os.path.basename(path)]).items():
+    setattr(common, name, fn)
+argv = sys.argv[1:]
+if argv[1] == "main" and "trainer.resume=true" not in argv:
+    hold_after_epoch({k})
+try:
+    cli.main(argv)
+finally:
+    print("launches " + json.dumps({{n: _build.LAUNCHES.get(n, 0) for n in chip_smoke.KERNEL_NAMES}}), flush=True)
+"""
+
+
+def tools_imports() -> tuple:
+    """[20a] the seven tools import; which of h5py, libmp3lame and the native
+    plane's libmpg123 load. Where all three do, the loader sweep runs on the
+    host; a piece found that then fails fails the run."""
+    import contextlib
+    import importlib
+    import importlib.util
+    import io
+
+    from passt_tpu_torch.data import native as N
+    from passt_tpu_torch.data.prepare import mp3enc
+
+    for tool in TOOLS_20:
+        importlib.import_module(f"passt_tpu_torch.tools.{tool}")
+    have = {"h5py": importlib.util.find_spec("h5py") is not None, "libmp3lame": mp3enc.available(),
+            "libmpg123": N.mp3_available()}
+    if have["h5py"]:
+        import h5py  # noqa: F401  (a found h5py that does not import fails the run)
+    line = (f"[20] tool imports: {', '.join(TOOLS_20)} import; "
+            + ", ".join(f"{k} {'loads' if v else 'absent'}" for k, v in have.items()))
+    if all(have.values()):
+        from passt_tpu_torch.tools import loader_worker_sweep
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = loader_worker_sweep.sweep(16, [1, 8], (True, False))
+        check(all(r > 0 for per in res.values() for r in per.values()), f"[20] loader_worker_sweep: {res}")
+        line += f"; loader_worker_sweep (16 clips a container, workers 1 and 8, the host): {res} clips/s"
+    else:
+        line += ("; measure_mp3_loader and loader_worker_sweep (mp3 containers) need all three: left to the CPU "
+                 "tests here")
+    return have, line
+
+
+def conv_demo(gpu: str, dev: torch.device) -> tuple:
+    """[20b] ``tools/convergence_demo``'s ``run`` on the card: its 50 tones
+    (``make_split(20, 1)``, ``make_split(4, 2)``) as 32 kHz wav folders with
+    [15]'s openers, the reduced PaSST (depth 4, dim 192, 6 heads: D = 32),
+    bf16, graphed, 45 epochs. Exact launches per path (every attention call
+    on "mma"); the accuracy held to CONV_MIN_ACC; fit's steady ms/step
+    beside the same step on a resident batch."""
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.experiments import EXPERIMENTS
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.tools import convergence_demo as cd
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+    try:
+        t0 = time.perf_counter()
+        labels = {}
+        for split, n_per, seed in (("train", 20, 1), ("test", 4, 2)):
+            written = write_demo_items(os.path.join(tmp, split), cd.make_split(n_per, seed))
+            labels[split] = {k: int(v) for k, v in written.items()}
+        write_s = time.perf_counter() - t0
+        data = (os.path.join(tmp, "train"), os.path.join(tmp, "test"))
+        cfg = cd.config(*data)
+        with cd.reduced_arch():
+            pcfg = cfg.passt_config()
+        depth, heads, d = pcfg.depth, pcfg.num_heads, pcfg.embed_dim // pcfg.num_heads
+        check((depth, pcfg.embed_dim, heads, cfg.model.dtype) == (4, 192, CONV_HEADS, "bfloat16")
+              and d == CONV_HEAD_DIM, f"[20] convergence demo: {pcfg}")
+        n_train, n_eval = token_counts(cfg, pcfg)
+        b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
+        check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"[20] convergence demo shapes {b, n_train, eb, n_eval}")
+        check(A.forward_path(n_train, d, torch.bfloat16, True) == A.forward_path(n_eval, d, torch.bfloat16, True)
+              == A.backward_path(n_train, d, torch.bfloat16, True) == "mma", "[20] convergence demo: not on mma")
+        n_clips, n_test = len(labels["train"]), len(labels["test"])
+        per_epoch, epochs = n_clips // b, cfg.trainer.max_epochs
+        steps = per_epoch * epochs
+        swa = swa_evals(cfg, epochs)
+        evals = (epochs + len(swa)) * -(-n_test // eb)
+        with Openers(lambda cfg, path: labels[os.path.basename(path)]) as op:
+            hist, _, launches, paths, bwd, wall = counted(lambda: cd.run([], device="cuda", data=data))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the same graphed step on a resident batch after the run: what the loop and the loader add
+    with cd.reduced_arch():
+        _, state, step, _, _ = EXPERIMENTS["esc50"].build(cfg, steps_per_epoch=n_clips // b, device=dev)
+    rng = np.random.default_rng(0)
+    batch = {"wave": torch.from_numpy(rng.standard_normal((b, int(cfg.data.clip_length * 32000))).astype(np.float32))
+             .to(dev), "target": torch.from_numpy(rng.integers(0, 50, b)).to(dev)}
+    _, step_ms, _ = bench.timed_steps(step, state, batch, 200, 2)
+    del state, step
+    counts = add_counts({"fused_log_mel": steps + evals}, attn_counts(n_train, b, True, steps, depth, heads, d),
+                        attn_counts(n_eval, eb, False, evals, depth, heads, d))
+    check(launches == want_launches(**counts), f"[20] convergence demo launches {launches} != {counts}")
+    check(paths == dict(fma=0, mma=depth * (steps + evals), short=0, wgmma=0, simt=0)
+          and bwd == dict(fma=0, mma=depth * steps, wgmma=0, simt=0), f"[20] convergence demo paths {paths}, {bwd}")
+    check(len(hist) == epochs and len(op.starts) == steps, f"[20] convergence demo: {len(hist)} epochs, "
+          f"{len(op.starts)} steps")
+    for e, rec in enumerate(hist):
+        check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["accuracy"]) and rec["n_eval"] == n_test,
+              f"[20] convergence demo epoch {e}: {rec}")
+    accs = [r["accuracy"] for r in hist]
+    swa_acc = hist[-1].get("swa_accuracy")
+    check(max(accs) >= CONV_MIN_ACC, f"[20] convergence demo did not learn: best accuracy {max(accs)}")
+    check(swa_acc is not None and math.isfinite(swa_acc), "[20] convergence demo: no SWA accuracy")
+    ms, n_ms = op.steady_ms(per_epoch)
+    entries = ", ".join(f"{k} {v}" for k, v in counts.items())
+    line = (f"[20] convergence demo (tools/convergence_demo.run: 50 tones, {n_clips} train / {n_test} test 1-s clips "
+            f"as wav folders written in {write_s:.1f} s, [15]'s openers): the ESC-50 recipe on PaSST depth {depth}, "
+            f"dim {pcfg.embed_dim}, {heads} heads (D = {d}), bf16, graphed, B={b} N={n_train} train, B={eb} "
+            f"N={n_eval} eval; {epochs} epochs x {per_epoch} steps in {wall:.1f} s; accuracy by epoch "
+            f"{', '.join(f'{a:.3f}' for a in accs)}; best {max(accs):.3f} (limit {CONV_MIN_ACC}; the script's "
+            f"> {CONV_SCRIPT_ACC} {'reached' if max(accs) > CONV_SCRIPT_ACC else 'not reached'}); swa_accuracy "
+            f"{swa_acc:.3f} (SWA evaluated at {len(swa)} epochs); losses {hist[0]['train_loss']:.5f} -> "
+            f"{hist[-1]['train_loss']:.5f}; fit {ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step "
+            f"starts) against the same graphed step on a resident batch {step_ms:.3f} (bench.timed_steps, 200 "
+            f"after 2; ratio {ms / step_ms:.2f}); launches {entries} ({steps} steps x (mel, {depth} forward, {depth} backward) + {evals} eval "
+            f"batches x (mel, {depth} forward)), every attention call on mma: forward {paths['mma']}, backward "
+            f"{bwd['mma']} ({gpu})")
+    return launches, line
+
+
+def rehearsal_run(gpu: str) -> tuple:
+    """[20c] ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S width:
+    its phases run the real CLI in child processes (the CLI prefix
+    REHEARSAL_SHIM, since the card's machine has no h5py: its containers
+    are wav folders of the tool's items, passed with --reuse). Every assert
+    of the tool holds; each phase's launches are exact."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch.experiments import EXPERIMENTS
+    from passt_tpu_torch.tools import finetune_rehearsal as fr
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rehearsal_")
+    walls, run_phase = [], fr.run_phase
+
+    def timed_phase(*a, **kw):
+        t0 = time.perf_counter()
+        out = run_phase(*a, **kw)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    (n_train, n_eval), epochs = REHEARSAL_CLIPS, 8
+    try:
+        wd = os.path.join(tmp, "ft")
+        labels = {}
+        t0 = time.perf_counter()
+        for name, n, seed in (("esc_train.h5", n_train, 0), ("esc_eval.h5", n_eval, 1)):
+            written = write_demo_items(os.path.join(wd, name), list(fr.synth_items(n, seed=seed)))
+            labels[name] = {k: int(v) for k, v in written.items()}
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "labels.json"), "w") as f:
+            json.dump(labels, f)
+        shim = REHEARSAL_SHIM.format(root=ROOT, labels=os.path.join(tmp, "labels.json"), k=REHEARSAL_K)
+        fr.run_phase = timed_phase
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = fr.main(["--workdir", wd, "--reuse", "--epochs", str(epochs), "--sigterm-after-epoch",
+                              str(REHEARSAL_K), "--train-clips", str(n_train), "--eval-clips", str(n_eval)],
+                             cli=[sys.executable, "-c", shim, "esc50"])
+        finally:
+            fr.run_phase = run_phase
+        wall = time.perf_counter() - t0
+        check(rc == 0 and "REHEARSAL OK" in buf.getvalue(), f"[20] rehearsal: rc {rc}\n{buf.getvalue()[-2000:]}")
+        transcript = json.load(open(os.path.join(wd, "transcript.json")))
+        logs = [open(os.path.join(wd, f"phase_{p}.log")).read() for p in "abc"]
+        npz_mb = os.path.getsize(os.path.join(wd, "pretrained.npz")) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(transcript["preempted_after_epoch"] == transcript["resumed_from"] == REHEARSAL_K
+          and [e["epoch"] for e in transcript["epochs"]] == list(range(epochs)) and transcript["swa_evaluated"],
+          f"[20] rehearsal transcript {transcript}")
+    cfg = EXPERIMENTS["esc50"].default_config
+    pcfg = cfg.passt_config()
+    check((pcfg.depth, pcfg.embed_dim, pcfg.num_heads) == (12, 768, 12), f"[20] rehearsal: {pcfg}")
+    nt, ne = token_counts(cfg, pcfg)
+    b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
+    per_epoch, batches = n_train // b, -(-n_eval // eb)
+    swa = swa_evals(cfg, epochs)
+
+    def phase_counts(first, last):
+        steps = (last - first + 1) * per_epoch
+        evals = sum(1 + (e in swa) for e in range(first, last + 1)) * batches
+        return add_counts({"fused_log_mel": steps + evals}, attn_counts(nt, b, True, steps),
+                          attn_counts(ne, eb, False, evals))
+
+    best = transcript["best_epoch"]
+    wants = [phase_counts(0, REHEARSAL_K), phase_counts(REHEARSAL_K + 1, epochs - 1),
+             add_counts({"fused_log_mel": batches * (1 + (best in swa))},
+                        attn_counts(ne, eb, False, batches * (1 + (best in swa))))]
+    runs = []
+    for p, log, want in zip("ABC", logs, wants):
+        got = json.loads(re.findall(r"^launches (\{.*\})$", log, re.M)[-1])
+        check(got == want_launches(**want), f"[20] rehearsal phase {p} launches {got} != {want}")
+        runs.append(got)
+    accs = ", ".join(f"{e['accuracy']:.2f}" for e in transcript["epochs"])
+    line = (f"[20] fine-tune rehearsal (tools/finetune_rehearsal.main, the CLI in child processes: [15]'s openers over "
+            f"{n_train} / {n_eval} 5-s clips as wav folders written in {write_s:.1f} s): PaSST-S 12 x 768 bf16, "
+            f"B={b} N={nt} train, B={eb} N={ne} eval; a {npz_mb:.0f} MB pretrained npz loaded; {epochs} epochs, "
+            f"SIGTERM after epoch {REHEARSAL_K} (the child held after that epoch's line until it landed), resumed "
+            f"from epoch {transcript['resumed_from']}, the best (epoch {best}, accuracy "
+            f"{transcript['evaluate_only_accuracy']:.2f}) restored by evaluate_only within 1e-6, SWA evaluated; "
+            f"accuracy by epoch {accs}; phases A / B / C {' / '.join(f'{w:.1f}' for w in walls)} s, "
+            f"{wall:.1f} s in all; launches exact in each phase (A {sum(runs[0].values())}, B "
+            f"{sum(runs[1].values())}, C {sum(runs[2].values())}); transcript {json.dumps(transcript)} ({gpu})")
+    return runs, line
+
+
+def parity_run(gpu: str) -> tuple:
+    """[20d] ``tools/run_flagship_parity``'s wiring on the card: a full-width
+    PaSST-S ``.pt`` in the reference's layout (the port's state dict, random
+    weights from seed 0) and PARITY_CLIPS 10-s wav clips of 527-class
+    targets ([15]'s openers); ungated (``trainer.limit_eval_batches=1``:
+    ``pass`` null, rc 0), then gated on its own value at tol 1e-6 from the
+    ported ``.npz`` (rc 0, the port step skipped). Exact launches."""
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch.models import registry
+    from passt_tpu_torch.tools import run_flagship_parity as rfp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    try:
+        clips = os.path.join(tmp, "eval")
+        labels = write_clips(clips, PARITY_CLIPS, seed=31)
+        model = registry.get_model(ARCH, pretrained=False, generator=torch.Generator().manual_seed(0), device="cpu")
+        pt = os.path.join(tmp, "passt-s-seed0.pt")
+        torch.save(model.state_dict(), pt)
+        del model
+        npz = os.path.join(tmp, "passt-s-seed0.ported.npz")
+        want = want_launches(**add_counts({"fused_log_mel": 1}, attn_counts(1190, 20, False, 1)))
+        with Openers(lambda cfg, path: labels):
+            rc1, out1, l1, _, _, wall1 = counted(lambda: rfp.main([pt, clips, "trainer.limit_eval_batches=1"]))
+            value = float(re.findall(r"(?<!swa_)'ap': ([0-9.e-]+)", out1)[-1])
+            rc2, out2, l2, _, _, wall2 = counted(lambda: rfp.main([npz, clips, "--expect", repr(value), "--tol",
+                                                                   "1e-6"]))
+        npz_ok = os.path.exists(npz)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec1 = json.loads([x for x in out1.splitlines() if x.startswith('{"mode"')][-1])
+    rec2 = json.loads([x for x in out2.splitlines() if x.startswith('{"mode"')][-1])
+    check(rc1 == 0 and rec1["pass"] is None and rec1["gated"] is False and rec1["ported_npz"] == npz and npz_ok
+          and f"ported {pt} -> {npz}" in out1, f"[20] parity ungated: rc {rc1}, {rec1}")
+    check(rc2 == 0 and rec2["pass"] is True and rec2["ported_npz"] == npz and "ported " not in out2,
+          f"[20] parity gated: rc {rc2}, {rec2}")
+    for what, got in (("ungated", l1), ("gated", l2)):
+        check(got == want, f"[20] parity {what} launches {got} != {want}")
+    line = (f"[20] parity oracle (tools/run_flagship_parity.main): a full-width PaSST-S .pt (seed 0) ported to "
+            f"{os.path.basename(npz)} and evaluated on {PARITY_CLIPS} 10-s clips ([15]'s openers): ungated (limit 1 "
+            f"batch) rc {rc1}, pass {rec1['pass']}, ap {value:.6f}, {wall1:.1f} s; gated from the npz at --expect "
+            f"that value, --tol 1e-6: rc {rc2}, pass {rec2['pass']}, delta {rec2['delta']}, {wall2:.1f} s; "
+            f"launches exact in each ({ {k: v for k, v in l1.items() if v} }) ({gpu})")
+    return [l1, l2], line
+
+
+def fit_throughput_run(gpu: str) -> tuple:
+    """[20e] ``tools/fit_throughput``'s ``main`` at full width, --steps
+    FIT_TP_STEPS --epochs FIT_TP_EPOCHS, over wav folders of the tool's
+    items (--reuse, [15]'s openers): its JSON line, sustained specs/s
+    beside ``bench.timed_steps`` in the same process, and fit's steady
+    ms/step between step starts by CUDA events. Exact launches."""
+    import shutil
+    import tempfile
+
+    from passt_tpu_torch.experiments import EXPERIMENTS
+    from passt_tpu_torch.tools import fit_throughput as ft
+
+    cfg = EXPERIMENTS["audioset"].default_config
+    b, eb = 12, cfg.data.eval_batch_size
+    n = FIT_TP_STEPS * b
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_tp_")
+    try:
+        wd = os.path.join(tmp, "fit")
+        t0 = time.perf_counter()
+        labels = {f"train_{n}.h5": write_demo_items(os.path.join(wd, f"train_{n}.h5"), list(ft.make_items(n))),
+                  "eval_120.h5": write_demo_items(os.path.join(wd, "eval_120.h5"), list(ft.make_items(120)))}
+        write_s = time.perf_counter() - t0
+        with Openers(lambda cfg, path: labels[os.path.basename(path)]) as op:
+            out, text, launches, _, _, wall = counted(lambda: ft.main(
+                ["--steps", str(FIT_TP_STEPS), "--epochs", str(FIT_TP_EPOCHS), "--workdir", wd, "--reuse"],
+                device="cuda"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps, evals, bench_steps = FIT_TP_STEPS * FIT_TP_EPOCHS, FIT_TP_EPOCHS * 2, 102
+    check(not swa_evals(cfg, FIT_TP_EPOCHS), "[20] fit_throughput: SWA in the run")
+    want = add_counts({"fused_log_mel": steps + evals + bench_steps}, attn_counts(TRAIN_N, b, True, steps),
+                      attn_counts(1190, eb, False, evals), attn_counts(TRAIN_N, b, True, bench_steps))
+    check(launches == want_launches(**want), f"[20] fit_throughput launches {launches} != {want}")
+    ms, n_ms = op.steady_ms(FIT_TP_STEPS)
+    line_json = text.strip().splitlines()[-1]
+    check(json.loads(line_json) == json.loads(json.dumps(out)) and len(out["epoch_it_per_s"]) == FIT_TP_EPOCHS
+          and out["value"] > 0 and out["bench_ms_per_step"] > 0 and math.isfinite(out["vs_in_graph_bench"]),
+          f"[20] fit_throughput: {line_json}")
+    line = (f"[20] fit_throughput (tools/fit_throughput.main --steps {FIT_TP_STEPS} --epochs {FIT_TP_EPOCHS}: audioset "
+            f"main at full width, bf16, B={b} N={TRAIN_N}, {n} + 120 10-s clips as wav folders written in "
+            f"{write_s:.1f} s, [15]'s openers; checkpoints on): sustained {out['value']:.2f} specs/s "
+            f"({b * 1000.0 / out['value']:.3f} ms/step; epochs' it/s {out['epoch_it_per_s']}) beside bench.timed_steps "
+            f"{out['bench_specs_per_s']:.2f} specs/s ({out['bench_ms_per_step']:.3f} ms/step, 100 after 2, same "
+            f"process, after the run): vs_in_graph_bench {out['vs_in_graph_bench']} (each epoch's rate on the host clock); "
+            f"fit {ms:.3f} ms/step steady by CUDA events between step starts ({n_ms} steps; ratio to the bench step "
+            f"{ms / out['bench_ms_per_step']:.3f}); {wall:.1f} s; launches exact "
+            f"({steps} steps, {evals} eval batches, {bench_steps} bench steps) ({gpu})")
+    return launches, line + "\n[20] fit_throughput JSON: " + line_json
+
+
+def phase_tools(gpu: str, dev: torch.device, prod_hist: list) -> list:
+    """[20] the last seven tools: imports, the convergence demo, the
+    fine-tune rehearsal, the parity oracle, fit_throughput, and the
+    multi-seed tool's "ref" arm at seed 0 beside [19]'s production arm
+    (``prod_hist``). Returns the main-path runs' launches."""
+    t0 = time.perf_counter()
+    have, line = tools_imports()
+    say(line)
+    runs = []
+    launches, line = conv_demo(gpu, dev)
+    runs.append(launches)
+    say(line)
+    more, line = rehearsal_run(gpu)
+    runs += more
+    say(line)
+    more, line = parity_run(gpu)
+    runs += more
+    say(line)
+    launches, line = fit_throughput_run(gpu)
+    runs.append(launches)
+    say(line)
+    launches, line, ref_hist = demo_run(gpu, dev, have, extra=REF_ARM, tag="[20f]")
+    runs.append(launches)
+    say(line)
+    prod, ref = [r["ap"] for r in prod_hist], [r["ap"] for r in ref_hist]
+    check(ref[-1] >= DEMO_MIN_AP, f"[20f] the ref arm's last ap {ref[-1]:.4f} < {DEMO_MIN_AP}")
+    say(f"[20f] multi-seed arms at seed 0 (tools/multiseed_quality's runs through [19]'s route): prod ap "
+        f"{', '.join(f'{a:.4f}' for a in prod)}, swa_ap {prod_hist[-1]['swa_ap']:.4f}; ref ({' '.join(REF_ARM)}) ap "
+        f"{', '.join(f'{a:.4f}' for a in ref)}, swa_ap {ref_hist[-1]['swa_ap']:.4f}; ref - prod: last ap "
+        f"{ref[-1] - prod[-1]:+.4f}, swa_ap {ref_hist[-1]['swa_ap'] - prod_hist[-1]['swa_ap']:+.4f} (not gated) "
+        f"({gpu})")
+    say(f"[20] {time.perf_counter() - t0:.1f} s in all")
+    return runs
 
 
 def main() -> int:
@@ -3452,7 +3969,9 @@ def main() -> int:
     runs += phase_export(gpu, dev)
     blocks_runs, rec["fused_attention"]["fp32_simt"] = phase_blocks(gpu, dev)
     runs += blocks_runs
-    runs.append(phase_prep(gpu, dev))
+    prep_launches, demo_hist = phase_prep(gpu, dev)
+    runs.append(prep_launches)
+    runs += phase_tools(gpu, dev, demo_hist)
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {

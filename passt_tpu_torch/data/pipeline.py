@@ -314,7 +314,8 @@ class DeviceFeed(Prefetcher):
 
     - the feed thread enters ``torch.cuda.device(device)`` and the side
       stream for every batch, so its allocations and copies land on the
-      feed's card whatever the thread's current device is;
+      feed's card whatever the thread's current device is; the side stream
+      is a high-priority one, which no CUDA-graph capture takes;
     - a staging buffer is refilled only after the event of its previous
       copy has completed (:class:`_PinnedSlot`);
     - the device buffer is allocated on the side stream and used on the
@@ -335,7 +336,13 @@ class DeviceFeed(Prefetcher):
                 raise RuntimeError(f"DeviceFeed to {self.device}, but no CUDA device is available")
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
-            self._stream = torch.cuda.Stream(device=self.device)
+            # from the high-priority pool: PyTorch hands out each pool's
+            # streams round robin, and the graphs capture on default-priority
+            # ones (graphs.CudaGraph, tools.timing); a feed stream from that
+            # pool is in time some capture's stream, and this thread's copy
+            # and event then land inside the other thread's capture (the
+            # consumer's wait on the event fails: cudaErrorInvalidValue)
+            self._stream = torch.cuda.Stream(device=self.device, priority=-1)
             self._slots = [_PinnedSlot() for _ in range(depth + 2)]
             self._next_slot = 0
         super().__init__(iterator, depth=depth, convert=lambda b: self._transfer(*convert(b)),

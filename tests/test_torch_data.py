@@ -392,6 +392,31 @@ def test_device_feed_staging_layout():
             P.DeviceFeed(iter([]), lambda b: ({}, None), "cuda")
 
 
+def test_device_feed_stream_is_no_capture_stream(monkeypatch):
+    """The feed copies on a high-priority stream, and the graphs capture on
+    default-priority ones: PyTorch hands out each pool's streams round
+    robin, so a feed stream from the graphs' pool would in time be a
+    capture stream, and the feed thread's copy would land inside the
+    capture (chip_smoke [20b] met it: cudaErrorInvalidValue on the wait)."""
+    import contextlib
+
+    from passt_tpu_torch import graphs
+
+    priorities = []
+
+    class Stream:
+        def __init__(self, device=None, priority=0):
+            priorities.append(priority)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    assert list(P.DeviceFeed(iter([]), lambda b: ({}, None), "cuda:0", depth=1)) == []
+    graphs.CudaGraph._resources(torch.device("cuda", 0), {})
+    assert len(priorities) == 2 and priorities[0] < 0 and priorities[1] == 0
+
+
 # ---- the native host plane ---------------------------------------------------------
 
 
