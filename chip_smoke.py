@@ -189,7 +189,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    40 steps at B = 25, N = 79; eval at B = 50, N = 110): the accuracy of each
    epoch (the best at least 0.8; the script's 0.9 printed), the SWA
    accuracy, steady ms/step and the exact launches, every attention call on
-   the "mma" path; ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
+   the D = 32 kernels (the "wgmma" forward, the "resident" backward);
+   ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
    width (120 / 40 5-s clips as wav folders, 8 epochs, SIGTERM after epoch
    2; each phase the CLI in a child process through a ``python -c`` shim
    that sets [15]'s openers, holds after the epoch-2 line until the signal
@@ -205,9 +206,14 @@ Phases (each prints one line or more; the first failure exits non-zero):
    through [19]'s route, its ap curve and swa_ap beside [19]'s production
    arm (the last ap at least 0.5; the gap printed, not gated).
 
-Phase 3 also times the "mma" forward (row 4o) at the convergence demo's
-shapes (bf16, B = 25, N = 79 and B = 50, N = 110, 6 heads of D = 32) and
-phase 3b its "mma" backward there, each beside SDPA and the bound.
+Phase 3 also holds the D = 32 "wgmma" forward against its plain version
+over a ragged-N sweep (N 1 to 200, bf16 and fp16, plus1 on and off, both
+entries) and times it at the convergence demo's shapes (bf16, B = 25,
+N = 79 and B = 50, N = 110, 6 heads of D = 32) beside the old "mma" kernel
+on the same call, SDPA and the bound; phase 3b holds the "resident"
+backward likewise (N 1 to 128, every call's bits equal on a second run;
+N = 129 on "mma") and times it there beside the old "mma" pair, SDPA's
+backward and the bound.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -282,6 +288,8 @@ CLIP = 320000  # 10 s at 32 kHz
 #: head dim, and its (B, N) in training and in eval
 CONV_HEADS, CONV_HEAD_DIM = 6, 32
 CONV_SHAPES = ((25, 79), (50, 110))
+#: the ragged-N sweep at D = 32 ([3], [3b]): one tile's edges and the demo's N
+D32_NS = (1, 17, 64, 65, 79, 110, 127, 128)
 # attention kernel vs plain: fp32 differs in summation order only; in bf16 /
 # fp16 a p may round the other way and the output may round the other way:
 # one output ulp at |o| < 2
@@ -523,7 +531,8 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "simt" for
     # fp32 at D = 64; "fma" for fp32 at D = 32, D = 24 and the unaligned
     # views). fp32 also at the ragged edges of the simt kernel's 64-row
-    # tiles (N = 1, 63, 64, 65, 97)
+    # tiles (N = 1, 63, 64, 65, 97). The convergence demo's D = 32 ("wgmma"
+    # at any N) over a ragged-N sweep: one and two 128-key tiles
     heads, hd = 12, 64
     errs = {"fused_attention": 0.0, "fused_attention_qkv": 0.0}
     cases = [(dtype, n, plus1, heads, hd, True)
@@ -537,6 +546,8 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     cases += [(torch.float32, n, plus1, heads, hd, True) for n in (1, 63, 64, 65, 97) for plus1 in (False, True)]
     cases += [(torch.float32, 97, plus1, 2, d_, True) for d_ in (32, 24) for plus1 in (False, True)]
     cases += [(torch.float32, n, plus1, heads, hd, False) for n in (97, 1190) for plus1 in (False, True)]
+    cases += [(dtype, n, plus1, CONV_HEADS, CONV_HEAD_DIM, True) for dtype in (torch.bfloat16, torch.float16)
+              for n in D32_NS + (129, 200) for plus1 in (False, True)]
     taken = dict.fromkeys(A.FWD_PATHS, 0)
     with torch.no_grad():
         for dtype, n, plus1, h_, d_, aligned in cases:
@@ -619,21 +630,36 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     for name, t, b, n in (("fused_attention", serve, 20, 1190), ("fused_attention_qkv", stamps, 256, 14),
                           ("fused_attention_qkv", train, TRAIN_B, TRAIN_N)):
         say(f"[3] {name} bf16 B={b} H=12 N={n} D=64: {line(t)} ({gpu})")
-    # row 4o on a user path: the convergence demo's reduced PaSST (6 heads of
-    # D = 32, bf16) takes "mma" at its training and eval shapes ([20b])
-    demo = {f"B={b} N={n}": timings(b, n, "fused_attention_qkv", "mma", CONV_HEADS, CONV_HEAD_DIM)
-            for b, n in CONV_SHAPES}
-    for what, t in demo.items():
-        say(f"[3] fused_attention_qkv bf16 {what} H={CONV_HEADS} D={CONV_HEAD_DIM} (the convergence demo's): "
-            f"{line(t)} ({gpu})")
+    # row 4o's redesign on a user path: the convergence demo's reduced PaSST
+    # (6 heads of D = 32, bf16) takes the D = 32 "wgmma" forward at its
+    # training and eval shapes ([20b]); the old "mma" kernel on the same call
+    # through the private override
+    demo = {}
+    for b, n in CONV_SHAPES:
+        t = timings(b, n, "fused_attention_qkv", "wgmma", CONV_HEADS, CONV_HEAD_DIM)
+        qkv = torch.randn((b, n, 3 * CONV_HEADS * CONV_HEAD_DIM), device=dev, dtype=torch.bfloat16)
+        out = torch.empty((b, n, CONV_HEADS, CONV_HEAD_DIM), device=dev, dtype=torch.bfloat16)
+        views, scale = A._head_views(qkv, CONV_HEADS, CONV_HEAD_DIM), CONV_HEAD_DIM ** -0.5
+        old = lambda: A._launch(*views, out, scale, False, path="mma")
+        with torch.no_grad():
+            old()
+            err = max_err(out, attention_plain(*views, scale=scale))
+            check(err <= TOL_ATTN[torch.bfloat16],
+                  f"the old mma forward B={b} N={n} D={CONV_HEAD_DIM}: max err {err:.3g}")
+            t.update(mma_ms=graph_ms(old), mma_ms_events=cuda_ms(old), mma_max_abs_err=err)
+        demo[f"B={b} N={n}"] = t
+        say(f"[3] fused_attention_qkv bf16 B={b} N={n} H={CONV_HEADS} D={CONV_HEAD_DIM} (the convergence demo's): "
+            f"{line(t)}; the old mma kernel on the same call {t['mma_ms']:.4f} ms graph-replayed, "
+            f"{t['mma_ms_events']:.4f} events ({gpu})")
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
         f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
-        f"D 24/32; bf16/fp16/fp32 unaligned views at N 97/1190; bf16 at the serving, timestamp and training "
+        f"D 24/32; bf16/fp16/fp32 unaligned views at N 97/1190; bf16/fp16 D=32 N "
+        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off; bf16 at the serving, timestamp and training "
         f"shapes, bf16 D=32 at the convergence demo's); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
     rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train,
-                                      mma_d32=demo)
+                                      conv_demo_d32=demo)
     return rec
 
 
@@ -670,6 +696,9 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
               (torch.float32, 1, n_plain, False, 4, hd)]
     cases += [(dtype, 2, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
               for h_, d_ in ((4, 16), (2, 24), (2, 128))]
+    # the convergence demo's D = 32: "resident" up to N = 128, "mma" at 129
+    cases += [(dtype, 2, n, plus1, CONV_HEADS, CONV_HEAD_DIM) for dtype in (torch.bfloat16, torch.float16)
+              for n in D32_NS + (129,) for plus1 in (False, True)]
     taken = dict.fromkeys(A.BWD_PATHS, 0)
     for dtype, b, n, plus1, h_, d_ in cases:
         qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h_ * d_)).astype(np.float32)).to(dev, dtype)
@@ -685,8 +714,10 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         path = A.backward_path(n, d_, dtype, True)
         check(A.BWD_PATH_LAUNCHES[path] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
               f"{dtype} B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want 2 on {path}")
+        check(d_ != CONV_HEAD_DIM or path == ("resident" if n <= 128 else "mma"), f"D=32 N={n}: path {path}")
         taken[path] += 2
-        if path == "simt" or (path == "wgmma" and (n, plus1) in ((1190, True), (129, False), (n_plain, False))):
+        if path in ("simt", "resident") or (path == "wgmma" and (n, plus1) in ((1190, True), (129, False),
+                                                                              (n_plain, False))):
             # the ordered dQ sum: the same bits again, through both entries
             again = fused_attention_qkv_bwd(qkv, do.reshape(b, n, h_ * d_), heads=h_, head_dim=d_, scale=scale,
                                             plus1=plus1)
@@ -723,7 +754,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         f"qkv entry's d(qkv) bit for bit (bf16 and fp32, B=2 N={TRAIN_N}); the wgmma path gives the same bits "
         f"twice through both entries (bf16/fp16 B=2 N=129, B=2 and B=12 N=1190, B=1 H=4 N={n_plain} in the plain "
         f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs), the simt path in every fp32 D=64 case "
-        f"(B=1 H=4 N={n_plain} in the plain block order too); calls per path {taken}")
+        f"(B=1 H=4 N={n_plain} in the plain block order too), the resident path in every D=32 case (bf16/fp16 "
+        f"N {'/'.join(map(str, D32_NS))}, plus1 on/off; N=129 on mma); calls per path {taken}")
 
     def bwd_times(kern, q, k, v, do4, scale, peak) -> dict:
         """The backward kernel call ``kern`` on [B, N, H, D] views q, k, v
@@ -820,7 +852,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         say(f"[3b] {name} vs plain: max err {worst[name]:.3g} of max|ref|, {worst_abs[name]:.3g} absolute "
             f"(bf16/fp16/fp32, plus1 on/off, N 14/474/1190 at D=64; bf16/fp16 N 65/128/129; bf16 B=12 N=1190; "
             f"bf16 B=1 H=4 N={n_plain}; "
-            f"D 16/24/128 at N=97; the timed inputs); {str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
+            f"D 16/24/128 at N=97; bf16/fp16 D=32 N {'/'.join(map(str, D32_NS + (129,)))}; the timed inputs); "
+            f"{str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
             f"({t['path']}: {', '.join(t['device_kernels'])}) "
             f"{t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels "
             f"(profiled){old}; plain {t['plain_ms']:.4f} ms; SDPA "
@@ -829,9 +862,11 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
         rec[name] = dict(max_abs_err=worst_abs[name], **t)
 
-    # row 4o on a user path: the convergence demo's bf16 backward at 6 heads
-    # of D = 32 takes "mma" through the qkv entry, at its training shape (and
-    # its eval shape, which runs no backward, for the comparison)
+    # row 4o's redesign on a user path: the convergence demo's bf16 backward
+    # at 6 heads of D = 32 takes "resident" through the qkv entry, at its
+    # training shape (and its eval shape, which runs no backward, for the
+    # comparison); the old "mma" pair on the same call through the private
+    # override
     demo = {}
     for b, n in CONV_SHAPES:
         h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
@@ -842,24 +877,39 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
         A.reset_path_launches()
         got = kern().reshape(b, n, 3, h_, d_).unbind(2)
-        check(A.BWD_PATH_LAUNCHES["mma"] == 1 == sum(A.BWD_PATH_LAUNCHES.values()),
-              f"fused_attention_qkv_bwd bf16 B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want mma")
-        errs = []
-        for what, g, r in zip(("dq", "dk", "dv"), got, attention_bwd_plain(q, k, v, do4, scale=scale)):
+        again = kern().reshape(b, n, 3, h_, d_).unbind(2)
+        check(A.BWD_PATH_LAUNCHES["resident"] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
+              f"fused_attention_qkv_bwd bf16 B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, "
+              "want resident")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)), f"resident B={b} N={n}: the bits differ")
+        dqkv_old = torch.empty_like(qkv)
+
+        def mma():
+            """The old "mma" pair on the same call (the private override)."""
+            A._launch_bwd(*A._head_views(qkv, h_, d_), do4, *A._head_views(dqkv_old, h_, d_), scale, False,
+                          path="mma")
+        errs, mma_errs = [], []
+        mma()
+        ref = attention_bwd_plain(q, k, v, do4, scale=scale)
+        for what, g, o, r in zip(("dq", "dk", "dv"), got, dqkv_old.reshape(b, n, 3, h_, d_).unbind(2), ref):
             errs.append(rel_err(g, r))
-            check(errs[-1] <= TOL_BWD[torch.bfloat16], f"fused_attention_qkv_bwd mma B={b} N={n} D={d_} {what}: "
-                  f"max err {errs[-1]:.3g} of max|ref|")
+            mma_errs.append(rel_err(o, r))
+            check(max(errs[-1], mma_errs[-1]) <= TOL_BWD[torch.bfloat16], f"fused_attention_qkv_bwd B={b} N={n} "
+                  f"D={d_} {what}: max err {errs[-1]:.3g} (resident), {mma_errs[-1]:.3g} (mma) of max|ref|")
         t = bwd_times(kern, q, k, v, do4, scale, PEAK_BF16)
         t.pop("design_bound_ms")
+        t.update(mma_ms=graph_ms(mma), mma_ms_kernels=kernel_ms(mma), mma_max_rel_err=max(mma_errs))
         demo[f"B={b} N={n}"] = dict(max_rel_err=max(errs), **t)
         say(f"[3b] fused_attention_qkv_bwd bf16 B={b} H={h_} N={n} D={d_} (the convergence demo's): kernel "
-            f"({t['path']}: {', '.join(t['device_kernels'])}) max err {max(errs):.3g} of max|ref|; {t['ms']:.4f} ms "
-            f"graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels (profiled); plain "
+            f"({t['path']}: {', '.join(t['device_kernels'])}) max err {max(errs):.3g} of max|ref|, the same bits "
+            f"twice; {t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels "
+            f"(profiled); the old mma pair on the same call {t['mma_ms']:.4f} ms graph-replayed, "
+            f"{t['mma_ms_kernels']:.4f} of kernels; plain "
             f"{t['plain_ms']:.4f} ms; SDPA backward {t['library_ms']:.4f} ms of kernels (profiled forward + backward "
             f"less forward), {t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; "
             "alone: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["library_backend_ms"].items())
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
-    rec["fused_attention_qkv_bwd"]["mma_d32"] = demo
+    rec["fused_attention_qkv_bwd"]["conv_demo_d32"] = demo
     return rec
 
 
@@ -1493,7 +1543,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     check(launches == want, f"{variant}: training launches {launches} != {want} ({n} steps)")
     want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * n, simt=0)  # every block's forward at N = 474
     check(paths == want_paths, f"{variant}: forward paths {paths} != {want_paths}")
-    want_bwd = dict(fma=0, mma=0, wgmma=12 * n, simt=0)  # every block's backward at N = 474
+    want_bwd = dict(fma=0, mma=0, resident=0, wgmma=12 * n, simt=0)  # every block's backward at N = 474
     check(bwd_paths == want_bwd, f"{variant}: backward paths {bwd_paths} != {want_bwd}")
     phase = "[6]" if variant == "default" else "[8]"
     say(f"{phase} training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} ({variant}; mixup, bf16 SR AdamW and "
@@ -1604,7 +1654,7 @@ def phase_train_correctness(dev: torch.device) -> dict:
     p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
     want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_bwd=12)
     check(k["launches"] == want, f"fp32 step launches {k['launches']} != {want}")
-    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
+    check(k["bwd_paths"] == dict(fma=0, mma=0, resident=0, wgmma=0, simt=12),
           f"fp32 step backward paths {k['bwd_paths']}, want 12 simt")
     check(k["fwd_paths"] == FP32_FWD_PATHS, f"fp32 step forward paths {k['fwd_paths']}, want 12 simt")
     say(f"[7] fp32 training step PaSST-S B=2 N={TRAIN_N}, kernels vs plain versions: {hold_fp32_step(k, p, '[7]')}")
@@ -1633,7 +1683,7 @@ def phase_variant_correctness(dev: torch.device) -> list:
         p = fp32_step(dev, dict(attn_impl="xla", **patchout), "matmul")
         check(k["n"] == n, f"{variant}: sequence {k['n']} != {n}")
         check(k["launches"] == want, f"[9] {variant} fp32 step launches {k['launches']} != {want}")
-        check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12),
+        check(k["bwd_paths"] == dict(fma=0, mma=0, resident=0, wgmma=0, simt=12),
               f"[9] {variant} fp32 step backward paths {k['bwd_paths']}, want 12 simt")
         check(k["fwd_paths"] == FP32_FWD_PATHS, f"[9] {variant} fp32 step forward paths {k['fwd_paths']}, want 12 simt")
         say(f"[9] fp32 training step PaSST-S B=2 N={n} under {variant}, kernels vs the default config on "
@@ -1953,7 +2003,7 @@ def phase_fit(gpu: str, dev: torch.device) -> dict:
         want = want_launches(**counts)
         check(launches == want, f"[13] fit launches {launches} != {want}")
         want_paths = dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals), simt=0)
-        check(paths == want_paths and bwd_paths == dict(fma=0, mma=0, wgmma=12 * steps, simt=0),
+        check(paths == want_paths and bwd_paths == dict(fma=0, mma=0, resident=0, wgmma=12 * steps, simt=0),
               f"[13] paths {paths}, {bwd_paths}")
 
         # checkpoints: the 2 best by ap kept, the best and the latest restored
@@ -2391,7 +2441,7 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
             n_fwd = sum(v for k, v in want.items() if k in ("fused_attention", "fused_attention_qkv"))
             n_bwd = sum(v for k, v in want.items() if k.endswith("_bwd") and k.startswith("fused_attention"))
             check(paths == dict(fma=0, mma=0, short=0, wgmma=n_fwd, simt=0), f"{phase} {what}: forward paths {paths}")
-            check(bwd == dict(fma=0, mma=0, wgmma=n_bwd, simt=0), f"{phase} {what}: backward paths {bwd}")
+            check(bwd == dict(fma=0, mma=0, resident=0, wgmma=n_bwd, simt=0), f"{phase} {what}: backward paths {bwd}")
             runs.append(launches)
             out = buf.getvalue()
             lines.append(f"{phase} {what}: {wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
@@ -2965,7 +3015,7 @@ def blocks_fp32_step(dev: torch.device) -> dict:
     want = want_launches(fused_log_mel=1, fused_attention=12, fused_attention_qkv_bwd=12)
     launches = {name: k["launches"].get(name, 0) for name in KERNEL_NAMES}
     check(launches == want, f"[18] fp32 stacked step launches {launches} != {want}")
-    check(k["bwd_paths"] == dict(fma=0, mma=0, wgmma=0, simt=12) and k["fwd_paths"] == FP32_FWD_PATHS,
+    check(k["bwd_paths"] == dict(fma=0, mma=0, resident=0, wgmma=0, simt=12) and k["fwd_paths"] == FP32_FWD_PATHS,
           f"[18] fp32 stacked step paths: forward {k['fwd_paths']}, backward {k['bwd_paths']}")
     say(f"[18] fp32 stacked training step PaSST-S B=2 N={TRAIN_N} (the hand-written backward, 4 batched weight-"
         f"gradient products), kernels vs the loop step on plain versions: {hold_fp32_step(k, p, '[18] stacked')}; "
@@ -3481,7 +3531,7 @@ def demo_run(gpu: str, dev: torch.device, have: dict, extra=(), tag: str = "[19]
                                       attn_counts(n_eval, cfg.data.eval_batch_size, False, evals)))
     check(launches == want, f"{tag} demo launches {launches} != {want}")
     check(paths == dict(fma=0, mma=0, short=0, wgmma=12 * (steps + evals), simt=0)
-          and bwd == dict(fma=0, mma=0, wgmma=12 * steps, simt=0), f"{tag} demo paths {paths}, {bwd}")
+          and bwd == dict(fma=0, mma=0, resident=0, wgmma=12 * steps, simt=0), f"{tag} demo paths {paths}, {bwd}")
     for e, rec in enumerate(hist):
         check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["ap"]) and rec["n_eval"] == len(test_items),
               f"{tag} demo epoch {e}: {rec}")
@@ -3598,7 +3648,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
     (``make_split(20, 1)``, ``make_split(4, 2)``) as 32 kHz wav folders with
     [15]'s openers, the reduced PaSST (depth 4, dim 192, 6 heads: D = 32),
     bf16, graphed, 45 epochs. Exact launches per path (every attention call
-    on "mma"); the accuracy held to CONV_MIN_ACC; fit's steady ms/step
+    on the D = 32 kernels: the "wgmma" forward, the "resident" backward,
+    none on "mma"); the accuracy held to CONV_MIN_ACC; fit's steady ms/step
     beside the same step on a resident batch."""
     import shutil
     import tempfile
@@ -3627,7 +3678,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
         b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
         check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"[20] convergence demo shapes {b, n_train, eb, n_eval}")
         check(A.forward_path(n_train, d, torch.bfloat16, True) == A.forward_path(n_eval, d, torch.bfloat16, True)
-              == A.backward_path(n_train, d, torch.bfloat16, True) == "mma", "[20] convergence demo: not on mma")
+              == "wgmma" and A.backward_path(n_train, d, torch.bfloat16, True) == "resident",
+              "[20] convergence demo: not on the wgmma forward and the resident backward")
         n_clips, n_test = len(labels["train"]), len(labels["test"])
         per_epoch, epochs = n_clips // b, cfg.trainer.max_epochs
         steps = per_epoch * epochs
@@ -3648,8 +3700,9 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
     counts = add_counts({"fused_log_mel": steps + evals}, attn_counts(n_train, b, True, steps, depth, heads, d),
                         attn_counts(n_eval, eb, False, evals, depth, heads, d))
     check(launches == want_launches(**counts), f"[20] convergence demo launches {launches} != {counts}")
-    check(paths == dict(fma=0, mma=depth * (steps + evals), short=0, wgmma=0, simt=0)
-          and bwd == dict(fma=0, mma=depth * steps, wgmma=0, simt=0), f"[20] convergence demo paths {paths}, {bwd}")
+    check(paths == dict(fma=0, mma=0, short=0, wgmma=depth * (steps + evals), simt=0)
+          and bwd == dict(fma=0, mma=0, resident=depth * steps, wgmma=0, simt=0),
+          f"[20] convergence demo paths {paths}, {bwd}")
     check(len(hist) == epochs and len(op.starts) == steps, f"[20] convergence demo: {len(hist)} epochs, "
           f"{len(op.starts)} steps")
     for e, rec in enumerate(hist):
@@ -3671,8 +3724,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
             f"{hist[-1]['train_loss']:.5f}; fit {ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step "
             f"starts) against the same graphed step on a resident batch {step_ms:.3f} (bench.timed_steps, 200 "
             f"after 2; ratio {ms / step_ms:.2f}); launches {entries} ({steps} steps x (mel, {depth} forward, {depth} backward) + {evals} eval "
-            f"batches x (mel, {depth} forward)), every attention call on mma: forward {paths['mma']}, backward "
-            f"{bwd['mma']} ({gpu})")
+            f"batches x (mel, {depth} forward)), every attention call on the D = 32 kernels: forward wgmma "
+            f"{paths['wgmma']}, backward resident {bwd['resident']}, mma {paths['mma']} / {bwd['mma']} ({gpu})")
     return launches, line
 
 
@@ -3920,10 +3973,14 @@ def main() -> int:
     if logs["attention_fwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
-        paths = {"wgmma": "wgmma_kernel", "short": "short_kernel", "mma": "fwd_mma_kernel",
-                 "fma": "attention_fwd_kernel"}
+        paths = {"wgmma D=64": ("wgmma_kernel", "Li64E"), "wgmma D=32": ("wgmma_kernel", "Li32E"),
+                 "short": ("short_kernel",), "mma": ("fwd_mma_kernel",), "fma": ("attention_fwd_kernel",)}
         say("[2] attention_fwd registers, spill stores (B) per path: " + "; ".join(
-            f"{p} {registers(logs['attention_fwd'], frag)}" for p, frag in paths.items()))
+            f"{p} {registers(logs['attention_fwd'], *frags)}" for p, frags in paths.items())
+            + "; ptxas serializes wgmma (C7512) in: " + (", ".join(
+                p for p, frags in paths.items() if any(
+                    all(f in ln for f in frags) for ln in logs["attention_fwd"].splitlines() if "C7512" in ln))
+                or "none"))
     if logs["attention_fwd_fp32"] != "(cached)":
         from passt_tpu_torch.ops.attention import simt_forward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
@@ -3934,8 +3991,9 @@ def main() -> int:
     if logs["attention_bwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
-        kernels = {"wgmma S": "stats_kernel", "wgmma KV": "kv_kernel", "mma A": "dq_mma_kernel",
-                   "mma B": "dkv_mma_kernel", "fma A": "attention_bwd_dq_kernel", "fma B": "attention_bwd_dkv_kernel"}
+        kernels = {"resident": "resident_kernel", "wgmma S": "stats_kernel", "wgmma KV": "kv_kernel",
+                   "mma A": "dq_mma_kernel", "mma B": "dkv_mma_kernel", "fma A": "attention_bwd_dq_kernel",
+                   "fma B": "attention_bwd_dkv_kernel"}
         say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
             f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
     if logs["attention_bwd_fp32"] != "(cached)":
@@ -4000,8 +4058,8 @@ def main() -> int:
                    "wgmma, short, mma, fma": "passt_tpu_torch/csrc/attention_fwd.cu"}
     paths = {"fused_attention": fwd_sources, "fused_attention_qkv": fwd_sources,
              "fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
-                                     "wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu"},
-             "fused_attention_qkv_bwd": {"wgmma, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu",
+                                     "wgmma, resident, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu"},
+             "fused_attention_qkv_bwd": {"wgmma, resident, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu",
                                          "simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu"}}
     for name, by_path in paths.items():
         rec[name]["sources_by_path"] = by_path

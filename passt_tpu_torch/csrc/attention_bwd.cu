@@ -31,8 +31,9 @@
 // output elements; at the training shape (bf16, B = 12, H = 12, N = 474,
 // D = 64) that is 20.7 GFLOP against ~61 MB, 0.021 ms at 989 TFLOP/s.
 //
-// Three paths. ops/attention.py backward_path() picks one per call in
-// Python and the C entry launches exactly that one, or returns
+// Four paths here (a fifth, "simt", fp32 at D = 64, has its own source and C
+// entry, attention_bwd_fp32.cu). ops/attention.py backward_path() picks one
+// per call in Python and the C entry launches exactly that one, or returns
 // cudaErrorInvalidValue for a call the path cannot take:
 // - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the training
 //   step's path): kernel S then kernel KV below, 14 N^2 D FLOP.
@@ -63,8 +64,37 @@
 //   168 registers, 44 bytes of spills) and the dQ sum (~0.05 ms at the
 //   training shape); per-block partials summed by a third kernel, the plain
 //   block order, and two consumer warpgroups of 64 keys each are slower.
-// - "mma" (bf16/fp16 at another D that is a multiple of 16): kernels A and
-//   B below, mma.sync m16n8k16.
+// - "resident" (bf16/fp16, D = 32, N <= 128, 16-byte aligned strides; the
+//   convergence demo's training step, PaSST 4 x 192 with 6 heads):
+//   attention_bwd_resident_kernel below, one launch, one block per (batch,
+//   head) holding the whole head (q, k, v, dO: 32 KB by TMA) with two
+//   consumer warpgroups of 64 queries. S and dP are computed once over all
+//   keys on wgmma, the row statistics are exact (no running max), dQ = dS K
+//   finishes in the block with dS as register A operand, and dV, dK read
+//   P_norm and dS staged once in shared memory: 10 N^2 D FLOP, no scratch,
+//   no atomics (every run the same bits). Like every path here it ports
+//   passt_tpu/ops/pallas/attention.py:188 and :388; at D = 32 it takes the
+//   place of the "mma" pair, which at the demo's B = 25, N = 79 took
+//   0.0236-0.0239 ms against cuDNN's 0.0175-0.0176 (PERF.md row 4o): two
+//   launches, kernel A walking
+//   the keys three times and writing a [3][B*H][npad] fp32 scratch the
+//   wrapper allocated every call, kernel B reading it back, the scores
+//   computed 4 times and dP 3 times (20 N^2 D), six serial key-tile steps.
+//   What bounds it: neither the work nor the bytes (B = 25, H = 6, N = 79:
+//   0.30 GFLOP -> 0.0003 ms, 5.3 MB -> 0.0016 ms at the card's peaks) but
+//   the latency of one block's chain (the load, four product groups and the
+//   softmax between them), so everything runs in one wave: 98 KB of shared
+//   memory and at most 128 registers a thread keep two blocks an SM (the
+//   demo's 150 heads on 132 SMs). To stay there only S and one 64-key half
+//   of dP are live at once (the first half of dP waits in shared memory, in
+//   the rows dS takes later, until di is known), and P_norm goes from
+//   registers straight to shared memory: ptxas gives it 128 registers and
+//   24 bytes of spill stores. Of its time at the demo's shape about a
+//   quarter is the launch and the loads, an eighth dQ, dV and dK, the rest
+//   the chain between (tools/attention_bwd_variants, PERF.md row 4o).
+// - "mma" (bf16/fp16 at another D that is a multiple of 16, and at D = 32
+//   with N > 128, which no path runs): kernels A and B below, mma.sync
+//   m16n8k16.
 // - "fma" (fp32, which the TPU runs at full fp32; bf16/fp16 at a D that is
 //   8 mod 16 or with unaligned strides): the same pair in fp32 FMA.
 // Kernels A and B ("mma", "fma"), no atomics:
@@ -1299,27 +1329,306 @@ int launch_wgmma(const Args& a, float* dqacc, int* counters, int sms) {
     return passt_launch_status();
 }
 
-enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_WGMMA = 2 };
+// ---- "resident" path (bf16 / fp16, D = 32, N <= 128) -------------------------
+
+constexpr int RS_D = 32;                  // the head dim
+constexpr int RS_N = 128;                 // the most tokens: every key and query of a head at once
+constexpr int RS_TILE = RS_N * RS_D * 2;  // bytes of a [128][32] operand tile (64-byte rows)
+constexpr int RS_STAGED = 2 * RS_N * 128; // bytes of P_norm or dS: [2 key halves][128 queries][64 keys]
+constexpr int RS_THREADS = 256;           // two consumer warpgroups of 64 queries each
+constexpr int RS_SMEM = 4 * RS_TILE + 2 * RS_STAGED + 8;
+
+// The byte of P_norm or dS (staged as [2 key halves][128 queries][64 keys],
+// rows of 128 bytes with the 128-byte swizzle, as TMA would write them) that
+// holds the pair of keys 8 j + 2 t, 8 j + 2 t + 1 (j < 16) of query r.
+__device__ __forceinline__ int rs_staged_at(int r, int j, int t) {
+    return (j >> 3) * (RS_N * 128) + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * t;
+}
+
+// Where thread slot ts (0-127) of warpgroup wg keeps chunk k (0-7) of its
+// 32 dP values of keys 0-63 until di is known: in that warpgroup's own rows
+// of the dS area (16 KB, two 8 KB row ranges), chunks swizzled so that a
+// quarter-warp's float4 stores and loads are free of bank conflicts.
+__device__ __forceinline__ int rs_stash_at(int wg, int ts, int k) {
+    return (ts >> 6) * (RS_N * 128) + (64 * wg + (ts & 63)) * 128 + ((k ^ (ts & 7)) << 4);
+}
+
+// dq, dk, dv of one (batch, head) in one block: the whole head is resident.
+// One mbarrier brings q, k, v and dO in by TMA (4-D maps, 64-byte swizzle:
+// rows past N arrive as zeros and are never another batch's). Warpgroup wg
+// (warps 4 wg .. 4 wg + 3) takes queries 64 wg .. 64 wg + 63:
+//   S = Q K^T over all 128 keys (wgmma m64n128k16, both operands K-major),
+//   and dP = dO V^T in two 64-key halves (m64n64k16), so that S and one half
+//   of dP are live at a time; the first half waits in shared memory until
+//   di is known. The row statistics are exact and taken once: m = the row
+//   max (clamped at 0 under plus1), l = sum p (+ exp(-m) under plus1),
+//   il = 1 / l, di = sum(p dP) il from the unrounded p. P_norm = p il and
+//   dS = P_norm (dP - di) scale are rounded to T in registers; dS's packed
+//   pairs are the A fragments of dQ = dS K (m64n32k16, K MN-major), which
+//   finishes in the block. P_norm and dS are staged once in shared memory;
+//   then the warpgroup takes keys 64 wg .. 64 wg + 63 for dV = P_norm^T dO
+//   and dK = dS^T Q (m64n32k16, A and B both read MN-major). Keys past N
+//   get p = 0 and queries past N p = dS = 0; rows past N are not stored.
+// Accumulator layout as in attention_fwd.cu: element 4 j + e of a thread in
+// warp w of its warpgroup is row 16 w + g + 8 (e / 2), column
+// 8 j + 2 t + e % 2.
+template <typename T>
+__global__ void __launch_bounds__(RS_THREADS, 2) attention_bwd_resident_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, Strides dqs, Strides dks, Strides dvs,
+    int heads, int n, float scale, int plus1) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = align1024(smem_raw);
+    T* Qs = reinterpret_cast<T*>(base);               // [128][32]
+    T* Ks = Qs + RS_N * RS_D;                         // [128][32]
+    T* Vs = Ks + RS_N * RS_D;                         // [128][32]
+    T* Os = Vs + RS_N * RS_D;                         // [128][32] dO
+    unsigned char* pn_at = base + 4 * RS_TILE;        // P_norm, staged
+    unsigned char* ds_at = pn_at + RS_STAGED;         // dS, staged (and the dP stash before it)
+    uint64_t* bar = reinterpret_cast<uint64_t*>(ds_at + RS_STAGED);
+
+    const int b = blockIdx.x / heads, h = blockIdx.x - b * heads;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
+
+    if (threadIdx.x == 0) {
+        mbar_init(bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(bar, 4 * RS_TILE);
+        tma_load_4d(Qs, &qmap, bar, 0, 0, h, b);
+        tma_load_4d(Ks, &kmap, bar, 0, 0, h, b);
+        tma_load_4d(Vs, &vmap, bar, 0, 0, h, b);
+        tma_load_4d(Os, &omap, bar, 0, 0, h, b);
+    }
+
+    const int r = 64 * wg + 16 * w + g;  // this thread's query rows r, r + 8 (and key rows, for dK and dV)
+    const bool qv0 = r < n, qv1 = r + 8 < n;
+    const float sl2 = scale * LOG2E;
+    const uint64_t qd = sw64_desc(Qs + 64 * wg * RS_D), od = sw64_desc(Os + 64 * wg * RS_D);
+    const uint64_t kd = sw64_desc(Ks), vd = sw64_desc(Vs);
+    float s[64], dp[32];
+    mbar_wait(bar, 0);
+
+    // S and dP's first 64 keys as two groups: the softmax statistics of S
+    // run while dP is still in flight
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RS_D / 16; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < RS_D / 16; ++kk) Wgmma<T>::ss64(dp, od + 2 * kk, vd + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    if (n < RS_N) {  // keys past N get p = 0
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (8 * j + 2 * t + e >= n) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+    }
+    // the row max of the raw scores (key 0 is valid, so it is finite),
+    // clamped at 0 under plus1 (scale > 0: the scaled max's clamp); p =
+    // 2^((s - m) scale log2 e), so the max key's p is exactly 1, as the
+    // reference's exp(0) is (at N = 1 dS is then exactly 0)
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    if (plus1) {
+        m0 = fmaxf(m0, 0.f);
+        m1 = fmaxf(m1, 0.f);
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {  // p in place of s, unrounded
+        s[4 * j] = ex2_approx((s[4 * j] - m0) * sl2);
+        s[4 * j + 1] = ex2_approx((s[4 * j + 1] - m0) * sl2);
+        s[4 * j + 2] = ex2_approx((s[4 * j + 2] - m1) * sl2);
+        s[4 * j + 3] = ex2_approx((s[4 * j + 3] - m1) * sl2);
+        l0 += s[4 * j] + s[4 * j + 1];
+        l1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+
+    // sum p dP over keys 0-63; that half of dP waits in shared memory
+    wgmma_wait<0>();
+    fence_regs(dp);
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        d0 = fmaf(s[4 * j + 1], dp[4 * j + 1], fmaf(s[4 * j], dp[4 * j], d0));
+        d1 = fmaf(s[4 * j + 3], dp[4 * j + 3], fmaf(s[4 * j + 2], dp[4 * j + 2], d1));
+    }
+    const int ts = 32 * w + lane;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        *reinterpret_cast<float4*>(ds_at + rs_stash_at(wg, ts, k)) =
+            make_float4(dp[4 * k], dp[4 * k + 1], dp[4 * k + 2], dp[4 * k + 3]);
+
+    // dP's keys 64-127 into the same registers (V's rows 64-127: 4096 bytes on)
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RS_D / 16; ++kk) Wgmma<T>::ss64(dp, od + 2 * kk, vd + (4096 >> 4) + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        d0 = fmaf(s[32 + 4 * j + 1], dp[4 * j + 1], fmaf(s[32 + 4 * j], dp[4 * j], d0));
+        d1 = fmaf(s[32 + 4 * j + 3], dp[4 * j + 3], fmaf(s[32 + 4 * j + 2], dp[4 * j + 2], d1));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+    if (plus1) {
+        l0 += ex2_approx(-m0 * sl2);
+        l1 += ex2_approx(-m1 * sl2);
+    }
+    // queries past N: P_norm = dS = 0
+    const float il0 = qv0 ? 1.f / l0 : 0.f, il1 = qv1 ? 1.f / l1 : 0.f;
+    const float di0 = d0 * il0, di1 = d1 * il1;
+
+    // P_norm = p il straight into its staged rows; dS = P_norm (dP - di)
+    // scale as dQ's A fragments: keys 64-127 from the registers, then keys
+    // 0-63 from the stash
+    uint32_t dsf[8][4];
+#pragma unroll
+    for (int j = 8; j < 16; ++j) {
+        const float* x = dp + 4 * (j - 8);
+        const float p0 = s[4 * j] * il0, p1 = s[4 * j + 1] * il0, p2 = s[4 * j + 2] * il1, p3 = s[4 * j + 3] * il1;
+        *reinterpret_cast<uint32_t*>(pn_at + rs_staged_at(r, j, t)) = Mma<T>::pack(p0, p1);
+        *reinterpret_cast<uint32_t*>(pn_at + rs_staged_at(r + 8, j, t)) = Mma<T>::pack(p2, p3);
+        dsf[j / 2][(j & 1) * 2] = Mma<T>::pack(p0 * (x[0] - di0) * scale, p1 * (x[1] - di0) * scale);
+        dsf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(p2 * (x[2] - di1) * scale, p3 * (x[3] - di1) * scale);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(ds_at + rs_stash_at(wg, ts, j));
+        const float p0 = s[4 * j] * il0, p1 = s[4 * j + 1] * il0, p2 = s[4 * j + 2] * il1, p3 = s[4 * j + 3] * il1;
+        *reinterpret_cast<uint32_t*>(pn_at + rs_staged_at(r, j, t)) = Mma<T>::pack(p0, p1);
+        *reinterpret_cast<uint32_t*>(pn_at + rs_staged_at(r + 8, j, t)) = Mma<T>::pack(p2, p3);
+        dsf[j / 2][(j & 1) * 2] = Mma<T>::pack(p0 * (x.x - di0) * scale, p1 * (x.y - di0) * scale);
+        dsf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(p2 * (x.z - di1) * scale, p3 * (x.w - di1) * scale);
+    }
+    // dS into its staged rows, once the warpgroup has read its stash there
+    named_bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(ds_at + rs_staged_at(r, j, t)) = dsf[j / 2][(j & 1) * 2];
+        *reinterpret_cast<uint32_t*>(ds_at + rs_staged_at(r + 8, j, t)) = dsf[j / 2][(j & 1) * 2 + 1];
+    }
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups' P_norm and dS staged
+
+    // dQ = dS K (16 keys a k step, K's rows 1024 bytes apart); dV = P_norm^T
+    // dO and dK = dS^T Q over the keys of this warpgroup's half (16 queries a
+    // k step, 2048 bytes apart in the staged rows, 1024 in dO's and Q's)
+    float dqa[16], dva[16], dka[16];
+    const uint64_t pnd = sw128_desc(pn_at + wg * (RS_N * 128)), dsd = sw128_desc(ds_at + wg * (RS_N * 128));
+    const uint64_t od_all = sw64_desc(Os), qd_all = sw64_desc(Qs);
+    fence_regs(dsf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RS_N / 16; ++kk) Wgmma32<T>::rs(dqa, dsf[kk], kd + kk * 64, kk);
+#pragma unroll
+    for (int kk = 0; kk < RS_N / 16; ++kk) Wgmma32<T>::ss_mn(dva, pnd + kk * 128, od_all + kk * 64, kk);
+#pragma unroll
+    for (int kk = 0; kk < RS_N / 16; ++kk) Wgmma32<T>::ss_mn(dka, dsd + kk * 128, qd_all + kk * 64, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(dsf);
+
+    T* dqb = dq + b * dqs.b + h * dqs.h;
+    T* dkb = dk + b * dks.b + h * dks.h;
+    T* dvb = dv + b * dvs.b + h * dvs.h;
+#pragma unroll
+    for (int j = 0; j < RS_D / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (qv0) {
+            *reinterpret_cast<uint32_t*>(dqb + (long long)r * dqs.n + c) = Mma<T>::pack(dqa[4 * j], dqa[4 * j + 1]);
+            *reinterpret_cast<uint32_t*>(dkb + (long long)r * dks.n + c) = Mma<T>::pack(dka[4 * j], dka[4 * j + 1]);
+            *reinterpret_cast<uint32_t*>(dvb + (long long)r * dvs.n + c) = Mma<T>::pack(dva[4 * j], dva[4 * j + 1]);
+        }
+        if (qv1) {
+            *reinterpret_cast<uint32_t*>(dqb + (long long)(r + 8) * dqs.n + c) =
+                Mma<T>::pack(dqa[4 * j + 2], dqa[4 * j + 3]);
+            *reinterpret_cast<uint32_t*>(dkb + (long long)(r + 8) * dks.n + c) =
+                Mma<T>::pack(dka[4 * j + 2], dka[4 * j + 3]);
+            *reinterpret_cast<uint32_t*>(dvb + (long long)(r + 8) * dvs.n + c) =
+                Mma<T>::pack(dva[4 * j + 2], dva[4 * j + 3]);
+        }
+    }
+}
+
+template <typename T>
+int launch_resident(const Args& a) {
+    if (a.d != RS_D || a.n > RS_N) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = RS_SMEM + 1024;  // 1 KB to align the swizzled tiles
+    auto kernel = attention_bwd_resident_kernel<T>;
+    // a runtime call first: it makes the device's context current on a thread
+    // that has made none yet (autograd's), which the tensor-map encoder needs
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap qm, km, vm, om;
+    if (!make_map(&qm, a.q, bf16, a.batch, a.n, a.heads, a.qs, RS_N, RS_D) ||
+        !make_map(&km, a.k, bf16, a.batch, a.n, a.heads, a.ks, RS_N, RS_D) ||
+        !make_map(&vm, a.v, bf16, a.batch, a.n, a.heads, a.vs, RS_N, RS_D) ||
+        !make_map(&om, a.dout, bf16, a.batch, a.n, a.heads, a.dos, RS_N, RS_D))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (long long)a.batch * a.heads;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<(unsigned)blocks, RS_THREADS, smem, a.stream>>>(
+        qm, km, vm, om, static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dqs, a.dks, a.dvs,
+        a.heads, a.n, a.scale, a.plus1);
+    return passt_launch_status();
+}
+
+enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_WGMMA = 2, PATH_RESIDENT = 4 };
 
 }  // namespace
 
 // Floats of scratch (float32, 16-byte aligned) that passt_attention_bwd
 // takes on `path`: the row statistics [3][B*H][npad] (npad = n rounded up
-// to 64), and on "wgmma" the dQ sum and the per-tile counters after them.
+// to 64), and on "wgmma" the dQ sum and the per-tile counters after them;
+// none on "resident".
 extern "C" long long passt_attention_bwd_scratch(int path, int batch, int n, int heads) {
+    if (path == PATH_RESIDENT) return 0;
     const long long npad = (n + BQ - 1) / BQ * BQ;
     const long long stats = 3LL * batch * heads * npad;
     return path == PATH_WGMMA ? stats + wgmma_scratch(batch, n, heads) : stats;
 }
 
 // q, k, v, dout, dq, dk, dv: element (b, t, h, c) at ptr[b * sb + t * sn + h * sh + c].
-// scratch: passt_attention_bwd_scratch(path, ...) floats.
+// scratch: passt_attention_bwd_scratch(path, ...) floats (none, and null
+// allowed, on "resident").
 // dtype: 0 float32, 1 bfloat16, 2 float16. d <= 128 and a multiple of 8.
 // sms: the card's multiprocessor count ("wgmma" only).
 // path: 0 "fma" (any input: kernel A then kernel B, FMA), 1 "mma"
 // (bf16/fp16, d a multiple of 16: the same pair on mma.sync), 2 "wgmma"
-// (bf16/fp16, d = 64: kernel S then kernel KV); the two tensor-core paths
-// need 16-byte aligned base pointers and strides that are multiples of 8
+// (bf16/fp16, d = 64: kernel S then kernel KV), 4 "resident" (bf16/fp16,
+// d = 32, n <= 128: one block per head); the three tensor-core paths need
+// 16-byte aligned base pointers and strides that are multiples of 8
 // elements. A path that cannot take the call returns cudaErrorInvalidValue
 // and launches nothing. Otherwise returns cudaGetLastError() after the
 // launches, on `stream`.
@@ -1358,6 +1667,7 @@ extern "C" int passt_attention_bwd(const void* q, const void* k, const void* v, 
                          reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
     if (!aligned || (dtype != 1 && dtype != 2)) return static_cast<int>(cudaErrorInvalidValue);
     if (path == PATH_MMA) return dtype == 1 ? launch_mma_d<__nv_bfloat16>(a) : launch_mma_d<__half>(a);
+    if (path == PATH_RESIDENT) return dtype == 1 ? launch_resident<__nv_bfloat16>(a) : launch_resident<__half>(a);
     if (path != PATH_WGMMA) return static_cast<int>(cudaErrorInvalidValue);
     float* dqacc = stats + 3 * plane;
     int* counters = reinterpret_cast<int*>(dqacc + wgmma_scratch(batch, n, heads) - (long long)batch * heads * (npad / BQ));

@@ -21,17 +21,19 @@
 // and the C entry launches exactly that one, or returns
 // cudaErrorInvalidValue for a shape the path cannot take (the fifth,
 // "simt", has its own source and C entry, attention_fwd_fp32.cu):
-// - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the model's
-//   serving and training shapes): attention_fwd_wgmma_kernel below, one
-//   pass over K with an online softmax, products on wgmma, K/V tiles by TMA.
+// - "wgmma" (bf16/fp16, D = 64 at N > 64 and D = 32 at any N, 16-byte
+//   aligned strides; the model's serving and training shapes, and the
+//   convergence demo's PaSST 4 x 192 with 6 heads): attention_fwd_wgmma_kernel
+//   below, a template on D, one pass over K with an online softmax, products
+//   on wgmma, K/V tiles by TMA.
 // - "short" (the same inputs at N <= 64; the timestamp windows, N = 14):
 //   attention_fwd_short_kernel, mma.sync m16n8k16, one key tile, so the max
 //   is exact after one product and the scores stay in registers; at N <= 16
 //   each warp takes its own (batch, head), four heads a block, so no warp
 //   multiplies rows past N.
-// - "mma" (bf16/fp16 at D != 64, a multiple of 16, aligned strides; no
-//   model path): attention_fwd_mma_kernel, two passes (the row max, then p
-//   and PV), mma.sync m16n8k16 with cp.async K/V tiles.
+// - "mma" (bf16/fp16 at a D other than 64 and 32, a multiple of 16, aligned
+//   strides; no path runs it): attention_fwd_mma_kernel, two passes (the row
+//   max, then p and PV), mma.sync m16n8k16 with cp.async K/V tiles.
 // - "simt" (fp32 at D = 64 with aligned strides; every fp32 call of the
 //   model): attention_fwd_fp32.cu, one pass over K with a running max in
 //   fp32 FMA, 4 x 8 register micro-tiles fed by float4 shared loads, K and V
@@ -87,6 +89,20 @@
 //    one block an SM (registers) and measured slower; they are kept as text
 //    edits in tools/attention_variants.json (PERF.md).
 // 6. Short sequences: the "short" path above.
+// D = 32 (the "wgmma" instance at D = 32, a port of attention.py:171 and
+// :373 like every path here, takes the place of the "mma" kernel there,
+// which the convergence demo ran at B = 25, N = 79 and B = 50, N = 110):
+// the "mma" kernel made two passes over the keys (QK^T twice, K read twice),
+// each 64-key tile a serial cp.async wait and two __syncthreads, four
+// serial steps at those N, on mma.sync. The work is tiny (B = 25, H = 6,
+// N = 79: 0.12 GFLOP -> 0.0001 ms; 3.0 MB -> 0.0009 ms), so the latency of
+// that chain set its time. Here N <= 128 is one key tile: Q K^T once, K and
+// V read once, one barrier wait for them. A row of D = 32 is 64 bytes, so
+// the TMA maps and the wgmma descriptors take the 64-byte swizzle (8-row
+// groups 512 bytes apart; sw64_desc); S = Q K^T is two k steps of
+// m64n128k16 and O += P V eight of m64n32k16 (16 accumulators a thread).
+// With 53 KB of shared memory the launch bounds ask for three blocks an SM,
+// so the demo's 300 and 600 blocks take one and two waves.
 // Loads: one producer warp issues TMA copies (tensor maps over the strided
 // (D, N, H, B) view, built on the host per call with cuTensorMapEncodeTiled
 // from the CUDA driver's entry point, passed as __grid_constant__) of Q once and of
@@ -98,8 +114,12 @@
 // No cap on N.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8; the most over each path's
-// instances, as chip_smoke [2] reports them): wgmma 154 registers, no
-// spills (two 160-thread blocks an SM fit up to 204); short 64 registers,
+// instances, as chip_smoke [2] reports them): wgmma at D = 64 154
+// registers, no spills (two 160-thread blocks an SM fit up to 204); at
+// D = 32 126 registers and 144 bytes of spill stores, its wgmma serialized
+// (C7512) under the three-block bound, which still measured faster than
+// two blocks an SM without spills (tools/attention_variants
+// d32_two_blocks_an_sm, PERF.md row 4o); short 64 registers,
 // 8 bytes of spill stores; mma 164, no spills; fma 122, no spills. ptxas
 // reports no serialized wgmma ("Performance Loss") for the wgmma path; it
 // did for a variant capped at 126 registers, and a single loop with the
@@ -608,40 +628,65 @@ int launch_short(const void* q, const void* k, const void* v, void* o, int batch
 }
 
 
-// ---- "wgmma" path (bf16 / fp16, D = 64) --------------------------------------
+// ---- "wgmma" path (bf16 / fp16, D = 64 and D = 32) -------------------------
 
 constexpr int WG_STAGES = 3;     // K/V ring depth
 constexpr int WG_BQ = 64;        // query rows a block: one consumer warpgroup
 constexpr int WG_BK = 128;       // keys per tile
-constexpr int WG_ROW = 128;      // bytes of one D = 64 row: one 128-byte swizzle span
 constexpr int WG_THREADS = 128 + 32;  // the consumer warpgroup and one producer warp
-constexpr int WG_SMEM = WG_BQ * WG_ROW + 2 * WG_STAGES * WG_BK * WG_ROW + 8 * (1 + 2 * WG_STAGES);
+// Shared memory of the D-wide instance: Q, the K/V ring and the barriers. A
+// row of 2 D bytes is one swizzle span: 128 bytes at D = 64, 64 at D = 32.
+template <int D>
+constexpr int wg_smem() { return WG_BQ * 2 * D + 2 * WG_STAGES * WG_BK * 2 * D + 8 * (1 + 2 * WG_STAGES); }
 
-// S (64 x 128) = Q . K^T: four k steps of 16, 32 bytes apart inside the
+// The wgmma descriptor of a tile of D-wide rows as TMA wrote it: 128-byte
+// swizzle at D = 64, 64-byte swizzle at D = 32 (8-row groups 1024 / 512
+// bytes apart). A k step of 16 along the row is 32 bytes (+ 2), of 16 rows
+// 16 x 2 D bytes.
+template <int D>
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+    if constexpr (D == 64) return sw128_desc(p);
+    else return sw64_desc(p);
+}
+
+// O (64 x D) += P (64 x 16, registers) . V (16 x D, MN-major) for one k step.
+template <typename T, int D> struct WgmmaPv;
+template <typename T> struct WgmmaPv<T, 64> {
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        Wgmma<T>::rs(d, a, b);
+    }
+};
+template <typename T> struct WgmmaPv<T, 32> {
+    static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+        Wgmma32<T>::rs(d, a, b, 1);
+    }
+};
+
+// S (64 x 128) = Q . K^T: D / 16 k steps of 16, 32 bytes apart inside the
 // swizzled rows; issued and committed as one group.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void s_product(float (&s)[64], uint64_t qd, uint64_t kd) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
     wgmma_commit();
 }
 
-// O (64 x 64) += P (64 x 128, registers) . V (128 x 64 at descriptor vd):
-// eight k steps of 16 keys, 2048 bytes apart.
-template <typename T>
-__device__ __forceinline__ void pv_product(float (&acc)[32], const uint32_t (&pf)[WG_BK / 16][4], uint64_t vd) {
+// O (64 x D) += P (64 x 128, registers) . V (128 x D at descriptor vd):
+// eight k steps of 16 keys, 16 rows of 2 D bytes apart.
+template <typename T, int D>
+__device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (&pf)[WG_BK / 16][4], uint64_t vd) {
 #pragma unroll
-    for (int kk = 0; kk < WG_BK / 16; ++kk) Wgmma<T>::rs(acc, pf[kk], vd + kk * 128);
+    for (int kk = 0; kk < WG_BK / 16; ++kk) WgmmaPv<T, D>::rs(acc, pf[kk], vd + kk * (2 * D));
 }
 
 // Rescale O by the last softmax's a0 (row g) and a1 (row g + 8), then issue
 // and commit O += P V.
-template <typename T>
-__device__ __forceinline__ void pv_issue(float (&acc)[32], uint32_t (&pf)[WG_BK / 16][4], float a0, float a1,
+template <typename T, int D>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 2], uint32_t (&pf)[WG_BK / 16][4], float a0, float a1,
                                          uint64_t vd) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
         acc[4 * j] *= a0;
         acc[4 * j + 1] *= a0;
         acc[4 * j + 2] *= a1;
@@ -650,7 +695,7 @@ __device__ __forceinline__ void pv_issue(float (&acc)[32], uint32_t (&pf)[WG_BK 
     fence_regs(acc);
     fence_regs(pf);
     wgmma_fence();
-    pv_product<T>(acc, pf, vd);
+    pv_product<T, D>(acc, pf, vd);
     wgmma_commit();
 }
 
@@ -719,23 +764,25 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[WG_BK / 16][4], const floa
     }
 }
 
-// One block per (64-query tile, head, batch), two blocks an SM: warps 0-3
-// (the consumer warpgroup) take 16 query rows each, warp 4 loads.
+// One block per (64-query tile, head, batch): warps 0-3 (the consumer
+// warpgroup) take 16 query rows each, warp 4 loads. Two blocks an SM at
+// D = 64, three at D = 32 (fewer registers and 53 KB of shared memory).
 // Accumulator layout (wgmma m64nN, fp32): element 4 j + e of a thread in warp
 // w is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 (g = lane / 4,
 // t = lane % 4).
-template <typename T>
-__global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, Strides os, int n, float scale,
     int plus1) {
+    constexpr int ROW = 2 * D;  // bytes of a row: one swizzle span
     extern __shared__ unsigned char smem_raw[];
     // the swizzled tiles want 1024-byte alignment; the launch asks for 1 KB more
     unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    T* Qs = reinterpret_cast<T*>(base);                          // [WG_BQ][64]
-    T* Ks = reinterpret_cast<T*>(base + WG_BQ * WG_ROW);         // [WG_STAGES][WG_BK][64]
-    T* Vs = Ks + WG_STAGES * WG_BK * 64;                         // [WG_STAGES][WG_BK][64]
-    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * WG_BK * 64);
+    T* Qs = reinterpret_cast<T*>(base);                          // [WG_BQ][D]
+    T* Ks = reinterpret_cast<T*>(base + WG_BQ * ROW);            // [WG_STAGES][WG_BK][D]
+    T* Vs = Ks + WG_STAGES * WG_BK * D;                          // [WG_STAGES][WG_BK][D]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * WG_BK * D);
     uint64_t* full = qbar + 1;               // [WG_STAGES]: K and V of the stage arrived
     uint64_t* empty = full + WG_STAGES;      // [WG_STAGES]: every consumer warp is done with it
 
@@ -755,14 +802,14 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
 
     if (warp == WG_BQ / 16) {  // the producer warp: one thread issues every copy
         if (lane == 0) {
-            mbar_expect_tx(qbar, WG_BQ * WG_ROW);
+            mbar_expect_tx(qbar, WG_BQ * ROW);
             tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
             for (int i = 0; i < tiles; ++i) {
                 const int st = i % WG_STAGES;
                 if (i >= WG_STAGES) mbar_wait(empty + st, (i / WG_STAGES - 1) & 1);
-                mbar_expect_tx(full + st, 2 * WG_BK * WG_ROW);
-                tma_load_4d(Ks + st * WG_BK * 64, &kmap, full + st, 0, i * WG_BK, h, b);
-                tma_load_4d(Vs + st * WG_BK * 64, &vmap, full + st, 0, i * WG_BK, h, b);
+                mbar_expect_tx(full + st, 2 * WG_BK * ROW);
+                tma_load_4d(Ks + st * WG_BK * D, &kmap, full + st, 0, i * WG_BK, h, b);
+                tma_load_4d(Vs + st * WG_BK * D, &vmap, full + st, 0, i * WG_BK, h, b);
             }
         }
         return;
@@ -770,9 +817,9 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
 
     const int g = lane >> 2, t = lane & 3;
     const float sl2 = scale * LOG2E;
-    float acc[32];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m0 = plus1 ? 0.f : -INFINITY, m1 = m0;  // running max of rows g and g + 8, scaled
     float l0 = 0.f, l1 = 0.f;                    // this thread's share of the row sums
     float a0 = 1.f, a1 = 1.f;                    // the last softmax's rescale of acc
@@ -780,13 +827,13 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
     uint32_t pf[WG_BK / 16][4];                  // P as the A fragments of PV's k steps
 
     mbar_wait(qbar, 0);
-    const uint64_t qd = sw128_desc(Qs);
-    auto kdesc = [&](int i) { return sw128_desc(Ks + (i % WG_STAGES) * WG_BK * 64); };
-    auto vdesc = [&](int i) { return sw128_desc(Vs + (i % WG_STAGES) * WG_BK * 64); };
+    const uint64_t qd = wg_desc<D>(Qs);
+    auto kdesc = [&](int i) { return wg_desc<D>(Ks + (i % WG_STAGES) * WG_BK * D); };
+    auto vdesc = [&](int i) { return wg_desc<D>(Vs + (i % WG_STAGES) * WG_BK * D); };
 
     // Turn 0: S(0) alone.
     wait_tile(full, 0);
-    s_product<T>(s, qd, kdesc(0));
+    s_product<T, D>(s, qd, kdesc(0));
     wgmma_wait<0>();
     fence_regs(s);
     softmax_tile(s, 0, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
@@ -797,8 +844,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
     // tiles i-1, i and the ones in flight.
     for (int i = 1; i < tiles; ++i) {
         wait_tile(full, i);
-        s_product<T>(s, qd, kdesc(i));
-        pv_issue<T>(acc, pf, a0, a1, vdesc(i - 1));
+        s_product<T, D>(s, qd, kdesc(i));
+        pv_issue<T, D>(acc, pf, a0, a1, vdesc(i - 1));
         wgmma_wait<1>();  // S(i) has landed; PV(i-1) may still run
         fence_regs(s);
         softmax_tile(s, i * WG_BK, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
@@ -810,7 +857,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
         pack_p<T>(pf, s);  // P(i), once PV(i-1) has read P(i-1)
     }
     // Turn `tiles`: the last PV alone.
-    pv_issue<T>(acc, pf, a0, a1, vdesc(tiles - 1));
+    pv_issue<T, D>(acc, pf, a0, a1, vdesc(tiles - 1));
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pf);
@@ -827,7 +874,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
     const int r = q0 + warp * 16 + g;
     T* ob = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
         const int c = 8 * j + 2 * t;
         if (r < n)
             *reinterpret_cast<uint32_t*>(ob + (long long)r * os.n + c) =
@@ -838,17 +885,17 @@ __global__ void __launch_bounds__(WG_THREADS, 2) attention_fwd_wgmma_kernel(
     }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
                  Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1,
                  cudaStream_t stream) {
     const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap qm, km, vm;
-    if (!make_map(&qm, q, bf16, batch, n, heads, qs, WG_BQ) || !make_map(&km, k, bf16, batch, n, heads, ks, WG_BK) ||
-        !make_map(&vm, v, bf16, batch, n, heads, vs, WG_BK))
+    if (!make_map(&qm, q, bf16, batch, n, heads, qs, WG_BQ, D) || !make_map(&km, k, bf16, batch, n, heads, ks, WG_BK, D) ||
+        !make_map(&vm, v, bf16, batch, n, heads, vs, WG_BK, D))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = WG_SMEM + 1024;
-    auto kernel = attention_fwd_wgmma_kernel<T>;
+    const int smem = wg_smem<D>() + 1024;
+    auto kernel = attention_fwd_wgmma_kernel<T, D>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((n + WG_BQ - 1) / WG_BQ, heads, batch);
@@ -870,8 +917,9 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
             if (n <= 16) return launch_short<T, 16>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
             return launch_short<T, 64>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
         case PATH_WGMMA:
-            if (d != 64) break;
-            return launch_wgmma<T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+            if (d == 64) return launch_wgmma<T, 64>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+            if (d == 32) return launch_wgmma<T, 32>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
+            break;
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -882,7 +930,7 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
 // dtype: 0 float32, 1 bfloat16, 2 float16. d <= 128 and a multiple of 8.
 // path: 0 "fma" (any input), 1 "mma" (bf16/fp16, d != 64 and a multiple of
 // 16), 2 "short" (bf16/fp16, d = 64, n <= 64), 3 "wgmma" (bf16/fp16,
-// d = 64); the three
+// d = 64 or 32); the three
 // tensor-core paths need 16-byte aligned base pointers and strides that are
 // multiples of 8 elements. A path that cannot take the call returns
 // cudaErrorInvalidValue and launches nothing. Otherwise returns

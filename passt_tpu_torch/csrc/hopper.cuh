@@ -5,9 +5,10 @@
 // cluster), TMA tensor maps and copies (4-D and 2-D tile loads, 2-D
 // stores, 1-D bulk, shared memory to another CTA's), the wgmma
 // products with their descriptors (K-major and MN-major, one or several
-// 64-wide MN blocks, 128-byte swizzle; bf16/fp16 products at N = 64, 128,
-// 192 and 256 with either B layout, F1's at N = 192 and 256 with A from
-// registers, and the GEMM's s8 ones), fences, waits and named barriers, the
+// 64-wide MN blocks, 128-byte swizzle; 64-byte swizzle for D = 32 rows;
+// bf16/fp16 products at N = 32, 64, 128, 192 and 256 with either B layout,
+// F1's at N = 192 and 256 with A from registers, the D = 32 attention
+// kernels' at N = 32, and the GEMM's s8 ones), fences, waits and named barriers, the
 // acquire / release accesses of the backward's ordered dQ sums, the
 // thread-block cluster's rank, barrier and distributed shared memory loads,
 // and the launch configuration with a cluster or programmatic dependent
@@ -115,6 +116,17 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
            ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// wgmma descriptor of a tile of 64-byte rows (D = 32 in bf16/fp16) in shared
+// memory, 64-byte swizzle (layout type 2), 8-row groups 512 bytes apart (the
+// start must be 512-aligned but for the k step's 32-byte offset inside a
+// row). It serves K-major operands and MN-major ones one 32-wide block wide
+// (the transposed flag set: rows along K, each holding the 32 values of M or
+// N); an MN-major k step of 16 rows is 1024 bytes: + 64.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+           ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
 // An MN-major operand's 64-wide block: 64 rows of K, 128 bytes each.
 constexpr int MN_BLOCK_BYTES = 64 * 128;
 
@@ -162,6 +174,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // ("+f" for fp32, "+r" for s32), and the register lists that name them.
 #define PASST_WG_ACC8(K, i) \
     K(d[i]), K(d[i + 1]), K(d[i + 2]), K(d[i + 3]), K(d[i + 4]), K(d[i + 5]), K(d[i + 6]), K(d[i + 7])
+#define PASST_WG_ACC16(K) PASST_WG_ACC8(K, 0), PASST_WG_ACC8(K, 8)
 #define PASST_WG_ACC32(K) PASST_WG_ACC8(K, 0), PASST_WG_ACC8(K, 8), PASST_WG_ACC8(K, 16), PASST_WG_ACC8(K, 24)
 #define PASST_WG_ACC64(K) PASST_WG_ACC32(K), PASST_WG_ACC8(K, 32), PASST_WG_ACC8(K, 40), PASST_WG_ACC8(K, 48), \
     PASST_WG_ACC8(K, 56)
@@ -172,10 +185,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define PASST_WG_OUT64 PASST_WG_ACC64("+f")
 #define PASST_WG_OUT32 PASST_WG_ACC32("+f")
 
+#define PASST_WG_R0_16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define PASST_WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define PASST_WG_R32 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 #define PASST_WG_R64 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
 #define PASST_WG_R96 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define PASST_WG_REGS16 "{" PASST_WG_R0_16 "}"
 #define PASST_WG_REGS32 "{" PASST_WG_R0 "}"
 #define PASST_WG_REGS64 "{" PASST_WG_R0 ", " PASST_WG_R32 "}"
 #define PASST_WG_REGS96 "{" PASST_WG_R0 ", " PASST_WG_R32 ", " PASST_WG_R64 "}"
@@ -238,6 +253,42 @@ template <> struct Wgmma<__half> {
     }
     static __device__ __forceinline__ void ss64_mn(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
         PASST_WGMMA_SS_N64("f16", "1", "1");
+    }
+};
+
+// D (64 x 32, fp32) [+]= A (64 x 16) . B (16 x 32, shared memory, MN-major:
+// the transposed-B flag), T bf16 or fp16: the D = 32 attention kernels'
+// products whose N is the head dim. ss_mn: A from shared memory, MN-major
+// (the transposed-A flag); rs: A from registers (each warp's mma.sync
+// m16n8k16 A fragment of its 16 rows of the 64).
+#define PASST_WGMMA_N32_SS(TY)                                                                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                       \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " PASST_WG_REGS16        \
+                 ", %16, %17, p, 1, 1, 1, 1;\n}\n"                                                   \
+                 : PASST_WG_ACC16("+f")                                                              \
+                 : "l"(a), "l"(b), "r"(accumulate))
+#define PASST_WGMMA_N32_RS(TY)                                                                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                       \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " PASST_WG_REGS16        \
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                     \
+                 : PASST_WG_ACC16("+f")                                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+
+template <typename T> struct Wgmma32;
+template <> struct Wgmma32<__nv_bfloat16> {
+    static __device__ __forceinline__ void ss_mn(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+        PASST_WGMMA_N32_SS("bf16");
+    }
+    static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+        PASST_WGMMA_N32_RS("bf16");
+    }
+};
+template <> struct Wgmma32<__half> {
+    static __device__ __forceinline__ void ss_mn(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+        PASST_WGMMA_N32_SS("f16");
+    }
+    static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+        PASST_WGMMA_N32_RS("f16");
     }
 };
 
@@ -415,21 +466,22 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A tensor map over the (D, N, H, B) view of a [B, N, H, 64] operand with
-// (batch, token, head) strides; boxes of `rows` tokens of one head, 128-byte
-// swizzle, zero fill past N.
+// A tensor map over the (D, N, H, B) view of a [B, N, H, d] operand (d = 64
+// or 32) with (batch, token, head) strides; boxes of `rows` tokens of one
+// head, a row's bytes as the swizzle span (128-byte at d = 64, 64-byte at
+// d = 32), zero fill past N.
 inline bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int batch, int n, int heads, Strides s,
-                     int rows) {
+                     int rows, int d = 64) {
     const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+    if (encode == nullptr || (d != 64 && d != 32)) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
     const cuuint64_t strides[3] = {(cuuint64_t)s.n * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)rows, 1, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
                   const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                  d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 

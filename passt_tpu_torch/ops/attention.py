@@ -26,26 +26,32 @@ identity) and the fp32 accumulator is rescaled when the max rises (see
 ``csrc/attention_fwd.cu``, ``csrc/attention_fwd_fp32.cu``). The backward recomputes P
 from q and k (nothing but the inputs is saved) and follows the reference
 backward kernel (see ``csrc/attention_bwd.cu``); its "wgmma" path takes
-the row statistics in one pass with a running max, as the forward does.
+the row statistics in one pass with a running max, as the forward does, and
+its "resident" path (the whole head in one block) takes them exactly, as
+the reference does.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. On the card the forward kernel has five paths, and
 :func:`forward_path` alone picks one from the call's shape, dtype and
-alignment: ``"wgmma"`` (bf16/fp16, D = 64, N > 64: one pass over K, wgmma
-fed by TMA), ``"short"`` (the same at N <= 64: one key tile, four heads a
-block at N <= 16), ``"mma"`` (bf16/fp16 at another D that is a multiple of
-16), ``"simt"`` (fp32, D = 64, aligned: one pass over K in fp32 FMA with
-register micro-tiles and cp.async, ``csrc/attention_fwd_fp32.cu``) and
-``"fma"`` (fp32 at another D, a D that is 8 mod 16, or unaligned strides).
+alignment: ``"wgmma"`` (bf16/fp16, D = 64 with N > 64 and D = 32 at any N:
+one pass over K, wgmma fed by TMA), ``"short"`` (D = 64 at N <= 64: one key
+tile, four heads a block at N <= 16), ``"mma"`` (bf16/fp16 at another D that
+is a multiple of 16), ``"simt"`` (fp32, D = 64, aligned: one pass over K in
+fp32 FMA with register micro-tiles and cp.async,
+``csrc/attention_fwd_fp32.cu``) and ``"fma"`` (fp32 at another D, a D that
+is 8 mod 16, or unaligned strides).
 The C entry launches exactly that path or returns an error, on which the
-wrapper raises; ``FWD_PATH_LAUNCHES`` counts the launches of each. The backward kernel has four paths, which
-:func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16, D = 64:
-a statistics kernel, then one pass per 64-key block on wgmma fed by TMA,
-dQ summed across key blocks in a fixed order), ``"simt"`` (fp32, D = 64:
-the same order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``), ``"mma"``
-(bf16/fp16 at another D that is a multiple of 16) and ``"fma"`` (fp32 at
-another D, a D that is 8 mod 16, or unaligned strides);
-``BWD_PATH_LAUNCHES`` counts them.
+wrapper raises; ``FWD_PATH_LAUNCHES`` counts the launches of each. The
+backward kernel has five paths, which :func:`backward_path` picks in the
+same way: ``"wgmma"`` (bf16/fp16, D = 64: a statistics kernel, then one pass
+per 64-key block on wgmma fed by TMA, dQ summed across key blocks in a fixed
+order), ``"resident"`` (bf16/fp16, D = 32, N <= 128: one launch, one block
+per (batch, head) holding the whole head, exact row statistics, no
+scratch), ``"simt"`` (fp32, D = 64: the "wgmma" order in fp32 FMA,
+``csrc/attention_bwd_fp32.cu``), ``"mma"`` (bf16/fp16 at another D that is
+a multiple of 16, and D = 32 above N = 128) and ``"fma"`` (fp32 at another
+D, a D that is 8 mod 16, or unaligned strides); ``BWD_PATH_LAUNCHES`` counts
+them.
 """
 
 from __future__ import annotations
@@ -77,7 +83,10 @@ FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 
 #: the backward kernel's paths, by the code its C entry takes ("simt" is
 #: the fp32 kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own)
-BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3}
+BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3, "resident": 4}
+#: the most tokens the "resident" backward takes: a block holds every key
+#: and query of its head (RS_N in ``csrc/attention_bwd.cu``)
+RESIDENT_MAX_N = 128
 #: backward launches per path since the last :func:`reset_path_launches`
 BWD_PATH_LAUNCHES = dict.fromkeys(BWD_PATHS, 0)
 _build.COUNTERS.update(attention_fwd_paths=FWD_PATH_LAUNCHES, attention_bwd_paths=BWD_PATH_LAUNCHES)
@@ -94,12 +103,15 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     ``"simt"`` for fp32 at ``d = 64`` with aligned operands (``aligned``:
     16-byte aligned base pointers, strides in multiples of 8 elements; any
     ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that is 8 mod 16
-    or unaligned operands, ``"mma"`` for bf16 / fp16 at another
-    ``d != 64``, else ``"short"`` at ``n <= 64`` and ``"wgmma"`` above."""
+    or unaligned operands; for bf16 / fp16 ``"wgmma"`` at ``d = 32`` (any
+    ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``, ``"wgmma"`` at
+    ``d = 64`` above, ``"mma"`` at another ``d``."""
     if dtype == torch.float32 and aligned and d == 64:
         return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
+    if d == 32:
+        return "wgmma"
     if d != 64:
         return "mma"
     return "short" if n <= 64 else "wgmma"
@@ -108,14 +120,17 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
 def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The backward kernel path for ``n`` tokens of head dim ``d``:
     ``"simt"`` for fp32 at ``d = 64`` with aligned operands, ``"fma"`` for
-    fp32 at another ``d``, a ``d`` that is 8 mod 16 or unaligned operands,
-    ``"mma"`` for bf16 / fp16 at another ``d != 64``, else ``"wgmma"``
-    (any ``n``)."""
+    fp32 at another ``d``, a ``d`` that is 8 mod 16 or unaligned operands;
+    for bf16 / fp16 ``"wgmma"`` at ``d = 64`` (any ``n``), ``"resident"``
+    at ``d = 32`` and ``n <= 128``, ``"mma"`` at another ``d`` and at
+    ``d = 32`` above ``n = 128``."""
     if dtype == torch.float32 and aligned and d == 64:
         return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
-    return "wgmma" if d == 64 else "mma"
+    if d == 64:
+        return "wgmma"
+    return "resident" if d == 32 and n <= RESIDENT_MAX_N else "mma"
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -245,8 +260,9 @@ def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None)
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
     a contiguous last dim), on the path :func:`forward_path` picks.
     ``path`` overrides the choice (private: chip_smoke and the variants
-    tool time the old "fma" kernel at fp32 D = 64 beside "simt"); a path
-    that cannot take the call raises."""
+    tools time the old "fma" kernel at fp32 D = 64 beside "simt" and the
+    "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
+    call raises."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
     if path is None:
@@ -335,9 +351,10 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
     """Launch the backward kernels on ``[B, N, H, D]``-shaped views (any
     strides with a contiguous last dim), on the path :func:`backward_path`
     picks; dq, dk, dv are written in place. ``path`` overrides the choice
-    (private: chip_smoke and the variants tool time the "mma" path at
-    D = 64 beside "wgmma", and the "fma" pair at fp32 D = 64 beside
-    "simt"); a path that cannot take the call raises."""
+    (private: chip_smoke and the variants tools time the "mma" path at
+    D = 64 beside "wgmma" and at D = 32 beside "resident", and the "fma"
+    pair at fp32 D = 64 beside "simt"); a path that cannot take the call
+    raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
     if path is None:
@@ -358,9 +375,11 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
         return
     lib = _bwd_lib()
     floats = lib.passt_attention_bwd_scratch(BWD_PATHS[path], b, n, h)
-    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    # "resident" takes none: no allocation on its calls
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     code = lib.passt_attention_bwd(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv)),
+        ctypes.c_void_p(scratch.data_ptr() if scratch is not None else 0),
         _DTYPE_CODE[q.dtype], BWD_PATHS[path], b, n, h, d, *strides, float(scale), int(bool(plus1)),
         _build.sm_count(q.device), _build.stream_of(q),
     )

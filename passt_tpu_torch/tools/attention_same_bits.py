@@ -1,0 +1,91 @@
+"""The attention kernels' outputs on fixed inputs, saved, or held bit for bit
+against a saved set: shows that a change to the kernel sources left a path's
+bits as they were.
+
+    python3 passt_tpu_torch/tools/attention_same_bits.py --root DIR --save OUT.pt
+    python3 passt_tpu_torch/tools/attention_same_bits.py --root . --compare OUT.pt
+
+``--root`` names the checkout whose ``passt_tpu_torch`` runs (e.g. a
+``git archive`` of the parent commit unpacked under ``build/``); the script
+is run by its path, so that package is the only one imported. The inputs
+are made from seed 0 on the card: the bf16 and fp16 forward at D = 64 on its
+"wgmma" path (the serving shape B = 20, N = 1190 on the [B, N, H, D] entry;
+the training shape B = 12, N = 474 and N = 65, 129 on the qkv entry, plus1
+on and off) and its "short" path (B = 256, N = 14), the fp32 "simt" forward,
+the bf16 "wgmma" backward (B = 12, N = 474, plus1 on and off) and the fp32
+"simt" backward (B = 2, N = 474), 12 heads. ``--compare`` prints each
+output's name, path and whether its bits are equal, and exits non-zero
+unless all are. Runs on the card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def outputs(dev) -> dict:
+    """Every case's output, by name, from the imported package's kernels."""
+    import torch
+
+    from passt_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, d, out = 12, 64, {}
+
+    def qkv(b, n, dtype):
+        return torch.randn((b, n, 3 * h * d), device=dev, generator=gen).to(dtype)
+
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            tag = str(dtype)[6:]
+            x = qkv(20, 1190, dtype)
+            q, k, v = x.reshape(20, 1190, 3, h, d).unbind(2)
+            out[f"fwd {tag} bnhd B=20 N=1190"] = A.fused_attention(q, k, v, scale=d ** -0.5)
+            for b, n in ((12, 474), (2, 65), (2, 129), (256, 14)):
+                x = qkv(b, n, dtype)
+                for plus1 in (False, True):
+                    out[f"fwd {tag} qkv B={b} N={n} plus1={plus1}"] = A.fused_attention_qkv(
+                        x, heads=h, head_dim=d, scale=d ** -0.5, plus1=plus1)
+    for dtype, b in ((torch.bfloat16, 12), (torch.float32, 2)):
+        x = qkv(b, 474, dtype)
+        do = torch.randn((b, 474, h * d), device=dev, generator=gen).to(dtype)
+        for plus1 in (False, True):
+            out[f"bwd {str(dtype)[6:]} qkv B={b} N=474 plus1={plus1}"] = A.fused_attention_qkv_bwd(
+                x, do, heads=h, head_dim=d, scale=d ** -0.5, plus1=plus1)
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True, help="the checkout whose passt_tpu_torch runs")
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--save", help="write the outputs here")
+    what.add_argument("--compare", help="hold the outputs against this saved set")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_same_bits: no CUDA device; the kernels run on the card only")
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.tools.timing import gpu_line
+
+    print(gpu_line(), f"(package {os.path.dirname(A.__file__)})", flush=True)
+    got = outputs(torch.device("cuda", 0))
+    if args.save:
+        torch.save(got, args.save)
+        print(f"saved {len(got)} outputs to {args.save}", flush=True)
+        return 0
+    saved = torch.load(args.compare)
+    same = {k: k in saved and torch.equal(v, saved[k]) for k, v in got.items()}
+    for k, ok in same.items():
+        print(f"{k}: {'same bits' if ok else 'BITS DIFFER'}", flush=True)
+    print(f"{sum(same.values())} of {len(same)} outputs bit-equal to {args.compare}", flush=True)
+    return 0 if all(same.values()) and set(saved) == set(got) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,20 +1,24 @@
 """Time text variants of ``csrc/attention_fwd.cu`` (the attention forward
-kernel's "wgmma" path) on the card, all in one process, to find what sets
-its time.
+kernel's "wgmma" path, both its D = 64 and its D = 32 instance) on the card,
+all in one process, to find what sets its time.
 
-    python3 -m passt_tpu_torch.tools.attention_variants [VARIANTS.json]
+    python3 -m passt_tpu_torch.tools.attention_variants [VARIANTS.json] [NAME ...]
 
 VARIANTS.json (default: ``attention_variants.json`` beside this file) maps a
 variant name to a list of ``[old, new]`` text edits of ``attention_fwd.cu``;
-an empty list is the source as it is. Each variant is written with the other
-kernel sources to ``build/attention_fwd_variants/<name>/`` and built (one
-``nvcc`` per variant, all started together; the library name hashes the
-source, so each gets its own). Each is then held against the plain version
-at the serving shape (max abs error; a variant that removes work is wrong on
-purpose) and timed by CUDA-graph replay at the serving shape ([B, N, H, D]
-entry, bf16 B = 20, H = 12, N = 1190, D = 64) and the training shape (qkv
-entry, bf16 B = 12, N = 474), beside SDPA at the serving shape. Prints the
-card (nvidia-smi name and power limit), then one line per variant.
+an empty list is the source as it is; NAMEs keep only those variants. Each
+variant is written with the other kernel sources to
+``build/attention_fwd_variants/<name>/`` and built (one ``nvcc`` per
+variant, all started together; the library name hashes the source, so each
+gets its own). Each is then held against the plain version at the serving
+shape and at the convergence demo's training shape (max abs error; a
+variant that removes work is wrong on purpose) and timed by CUDA-graph
+replay at the serving shape ([B, N, H, D] entry, bf16 B = 20, H = 12,
+N = 1190, D = 64), the training shape (qkv entry, bf16 B = 12, N = 474) and
+the convergence demo's two (qkv entry, bf16, 6 heads of D = 32: B = 25,
+N = 79 and B = 50, N = 110), beside SDPA at each shape and, at the demo's,
+the old "mma" kernel. Prints the card (nvidia-smi name and power limit),
+then one line per variant with each instance's registers and spill stores.
 """
 
 from __future__ import annotations
@@ -29,6 +33,14 @@ from passt_tpu_torch.tools import variants as V
 from passt_tpu_torch.tools.timing import gpu_line, graph_ms
 
 HEADS, HEAD_DIM = 12, 64
+#: the convergence demo's attention: its heads, head dim and (B, N) in
+#: training and in eval
+DEMO_HEADS, DEMO_HEAD_DIM, DEMO_SHAPES = 6, 32, ((25, 79), (50, 110))
+
+
+def _sdpa(q, k, v, scale):
+    return torch.nn.functional.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                            scale=scale)
 
 
 def main(argv=None) -> int:
@@ -39,29 +51,46 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = HEAD_DIM ** -0.5
 
-    def qkv(b, n):
-        return torch.randn((b, n, 3 * HEADS * HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
+    def qkv(b, n, h=HEADS, d=HEAD_DIM):
+        return torch.randn((b, n, 3 * h * d), device=dev, generator=gen).to(torch.bfloat16)
 
     serve, train = qkv(20, 1190), qkv(12, 474)
+    demo = [(b, n, qkv(b, n, DEMO_HEADS, DEMO_HEAD_DIM)) for b, n in DEMO_SHAPES]
+    demo_scale = DEMO_HEAD_DIM ** -0.5
     q, k, v = serve.reshape(20, 1190, 3, HEADS, HEAD_DIM).unbind(2)
+    b0, n0, x0 = demo[0]
+    demo_views = x0.reshape(b0, n0, 3, DEMO_HEADS, DEMO_HEAD_DIM).unbind(2)
     with torch.no_grad():
         ref = A.attention_plain(q, k, v, scale=scale)
-        sdpa_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale))
+        demo_ref = A.attention_plain(*demo_views, scale=demo_scale)
+        sdpa_ms = graph_ms(lambda: _sdpa(q, k, v, scale))
     print(gpu_line(), flush=True)
     print(f"SDPA, serving shape: {sdpa_ms:.4f} ms", flush=True)
+    for b, n, x in demo:
+        views = x.reshape(b, n, 3, DEMO_HEADS, DEMO_HEAD_DIM).unbind(2)
+        out = torch.empty((b, n, DEMO_HEADS, DEMO_HEAD_DIM), device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            t_sdpa = graph_ms(lambda: _sdpa(*views, demo_scale))
+            t_mma = graph_ms(lambda: A._launch(*A._head_views(x, DEMO_HEADS, DEMO_HEAD_DIM), out, demo_scale, False,
+                                               path="mma"))
+        print(f"the convergence demo's B={b} N={n} H={DEMO_HEADS} D={DEMO_HEAD_DIM}: SDPA {t_sdpa:.4f} ms, the old mma "
+              f"kernel {t_mma:.4f} ms", flush=True)
 
     for name, log in V.builds("attention_fwd", variants, A._lib):
-        regs, spills = V.registers(log, "wgmma_kernel")
+        regs = {d: V.registers(log, "wgmma_kernel", f"Li{d}E") for d in (64, 32)}
         with torch.no_grad():
             A.reset_path_launches()
             err = float((A.fused_attention(q, k, v, scale=scale).float() - ref.float()).abs().max())
+            demo_err = float((A.fused_attention(*demo_views, scale=demo_scale).float() - demo_ref.float()).abs().max())
             torch.cuda.synchronize()
             path = [p for p, c in A.FWD_PATH_LAUNCHES.items() if c]
             t_serve = graph_ms(lambda: A.fused_attention(q, k, v, scale=scale))
             t_train = graph_ms(lambda: A.fused_attention_qkv(train, heads=HEADS, head_dim=HEAD_DIM, scale=scale))
-        print(f"{name}: serving {t_serve:.4f} ms, training {t_train:.4f} ms (path {path}, err {err:.3g}); "
-              f"wgmma kernel {regs} registers, {spills} B spill stores", flush=True)
+            t_demo = [graph_ms(lambda: A.fused_attention_qkv(x, heads=DEMO_HEADS, head_dim=DEMO_HEAD_DIM,
+                                                             scale=demo_scale)) for _, _, x in demo]
+        print(f"{name}: serving {t_serve:.4f} ms, training {t_train:.4f} ms (path {path}, err {err:.3g}); the demo's "
+              + ", ".join(f"B={b} N={n} {t:.4f} ms" for (b, n, _), t in zip(demo, t_demo))
+              + f" (err {demo_err:.3g}); registers, spill stores (B): D=64 {regs[64]}, D=32 {regs[32]}", flush=True)
         for note in sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines() if "Performance Loss" in ln}):
             print(f"  ptxas: {note}", flush=True)
     return 0

@@ -5,7 +5,7 @@ the library's.
 
 Port of scripts/int8_matmul_micro.py. At the model's matmul shapes
 ([5688, 768] x [768, 2304] qkv, the two MLP shapes) and at 8192^3 it runs
-``int8_matmul`` (the kernel of ``csrc/int8_dense.cu``, RAW epilogue) in
+``int8_matmul`` (``csrc/int8_gemm.cu``'s ``wgmma`` loop, RAW epilogue) in
 int8 (-> int32) and in bf16 (-> bf16), checks first that the int8 product is
 bit-equal to its exact plain version, and times both with CUDA-graph
 replays beside two library yardsticks of the same shapes: ``torch._int_mm``

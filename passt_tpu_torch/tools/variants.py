@@ -13,18 +13,27 @@ from passt_tpu_torch.ops import _build
 
 
 def load(argv, default: Path) -> dict:
-    """The variants file named by ``argv`` (or ``default``): a map from a
-    variant name to a list of ``[old, new]`` text edits; an empty list is
-    the source as it is."""
-    return json.loads((Path(argv[0]) if argv else default).read_text())
+    """The variants file named by an argument ending in ``.json`` (or
+    ``default``): a map from a variant name to a list of ``[old, new]`` text
+    edits; an empty list is the source as it is. The other arguments name
+    the variants to keep (all of them when there are none)."""
+    files = [a for a in argv if a.endswith(".json")]
+    variants = json.loads((Path(files[0]) if files else default).read_text())
+    names = [a for a in argv if not a.endswith(".json")]
+    missing = [n for n in names if n not in variants]
+    if missing:
+        raise SystemExit(f"no such variants: {missing}")
+    return {k: v for k, v in variants.items() if not names or k in names}
 
 
-def registers(log: str, fragment: str) -> Tuple[int, int]:
+def registers(log: str, *fragments: str) -> Tuple[int, int]:
     """The most registers and spill-store bytes that ``ptxas -v`` reports
-    for the entry functions whose mangled name contains ``fragment``."""
+    for the entry functions whose mangled name contains every one of
+    ``fragments`` (e.g. a kernel's name and ``Li32E``, one template
+    instance's argument)."""
     regs, spills = [0], [0]
     for chunk in log.split("Compiling entry function")[1:]:
-        if fragment in chunk.split("\n", 1)[0]:
+        if all(f in chunk.split("\n", 1)[0] for f in fragments):
             regs += [int(r) for r in re.findall(r"Used (\d+) registers", chunk)]
             spills += [int(x) for x in re.findall(r"(\d+) bytes spill stores", chunk)]
     return max(regs), max(spills)

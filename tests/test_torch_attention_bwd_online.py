@@ -14,6 +14,11 @@ PyTorch and is held, on the same numpy inputs, against the JAX package's
 Pallas kernels (``_bwd_kernel`` and ``_flat_bwd_kernel``, interpret mode)
 and the port's plain version, within chip_smoke.py's TOL_BWD, the tolerance
 the card holds the kernel to.
+
+The "resident" path (D = 32, N <= 128: the convergence demo's backward)
+holds a whole head in one block and takes the plain version's order with
+exact statistics; it rounds P_norm to the input dtype for dV (the plain
+version keeps dO / l in fp32 there) and dS for dQ and dK.
 """
 
 import jax
@@ -100,23 +105,51 @@ def wgmma_backward(q, k, v, do, *, scale, plus1, rotate=True):
     return tuple(x.transpose(1, 2).to(dtype) for x in (dq, dk, dv))
 
 
-def _jax_grads(qkv, do, dtype, scale, plus1):
+def resident_backward(q, k, v, do, *, scale, plus1):
+    """The "resident" path's order on ``[B, N, H, D]``: the exact row
+    statistics over all keys (m clamped at 0 under plus1, l, il, and di from
+    the unrounded p), P_norm = p il and dS = P_norm (dP - di) scale each
+    rounded to the input dtype in one step; dV = P_norm^T dO, dQ = dS K,
+    dK = dS^T Q, each one fp32 sum over all tokens, rounded once."""
+    dtype = q.dtype
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    if plus1:
+        m = torch.clamp(m, min=0.0)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if plus1:
+        l = l + torch.exp(-m)
+    il = 1.0 / l
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    di = (p * dp).sum(dim=-1, keepdim=True) * il
+    pn = p * il
+    ds = (pn * (dp - di) * scale).to(dtype).float()
+    pn = pn.to(dtype).float()
+    dv = torch.einsum("bhnm,bnhd->bmhd", pn, dof)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _jax_grads(qkv, do, dtype, scale, plus1, heads=HEADS, head_dim=HEAD_DIM):
     """The JAX package's two backward kernels (interpret mode) on the same
     inputs: dq, dk, dv of the [B, N, H, D] entry and of the qkv entry."""
     b, n, _ = qkv.shape
     jdt = jnp.dtype(dtype)
     jqkv, jdo = jnp.asarray(qkv, jdt), jnp.asarray(do, jdt)
-    j5 = jqkv.reshape(b, n, 3, HEADS, HEAD_DIM)
+    j5 = jqkv.reshape(b, n, 3, heads, head_dim)
     _, vjp = jax.vjp(
         lambda q, k, v: jax_attention.fused_attention(q, k, v, scale=scale, plus1=plus1, interpret=True),
         j5[:, :, 0], j5[:, :, 1], j5[:, :, 2])
-    bnhd = vjp(jdo.reshape(b, n, HEADS, HEAD_DIM))
+    bnhd = vjp(jdo.reshape(b, n, heads, head_dim))
     _, vjp = jax.vjp(
         lambda x: jax_attention.fused_attention_qkv(
-            x, heads=HEADS, head_dim=HEAD_DIM, scale=scale, plus1=plus1, interpret=True),
+            x, heads=heads, head_dim=head_dim, scale=scale, plus1=plus1, interpret=True),
         jqkv)
     (flat,) = vjp(jdo)
-    flat = flat.reshape(b, n, 3, HEADS, HEAD_DIM)
+    flat = flat.reshape(b, n, 3, heads, head_dim)
     as_torch = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32)))
     return [as_torch(x) for x in bnhd], [as_torch(flat[:, :, j]) for j in range(3)]
 
@@ -126,6 +159,33 @@ def _hold(got, refs, dtype):
         r = r.float()
         err = float((g.float() - r).abs().max())
         assert err <= TOL_BWD[dtype] * float(r.abs().max()), f"{name}: {err:.3g} of max|ref| {float(r.abs().max()):.3g}"
+
+
+@pytest.mark.parametrize(
+    "n, plus1, dtype",
+    [(n, plus1, "bfloat16") for n in (1, 16, 65, 79, 110, 128) for plus1 in (False, True)]
+    + [(n, plus1, "float16") for n in (79, 128) for plus1 in (False, True)],
+)
+def test_resident_order_matches_pallas_and_plain(n, plus1, dtype):
+    heads, d = 6, 32
+    rng = np.random.default_rng(11 * n + plus1)
+    qkv = rng.standard_normal((2, n, 3 * heads * d)).astype(np.float32)
+    do = rng.standard_normal((2, n, heads * d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    scale = d ** -0.5
+    q, k, v = torch.from_numpy(qkv).to(tdt).reshape(2, n, 3, heads, d).unbind(2)
+    do4 = torch.from_numpy(do).to(tdt).reshape(2, n, heads, d)
+    got = resident_backward(q, k, v, do4, scale=scale, plus1=plus1)
+    assert all(g.dtype == tdt and bool(torch.isfinite(g).all()) for g in got)
+    assert backward_path(n, d, tdt, True) == "resident"
+
+    plain = attention_bwd_plain(q, k, v, do4, scale=scale, plus1=plus1)
+    # dQ and dK: the same order as the plain version's, term for term
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    _hold(got, plain, tdt)
+    bnhd, flat = _jax_grads(qkv, do, dtype, scale, plus1, heads, d)
+    _hold(got, bnhd, tdt)
+    _hold(got, flat, tdt)
 
 
 @pytest.mark.parametrize(
@@ -228,6 +288,12 @@ def test_rotated_and_plain_orders_agree():
         (97, 128, torch.float16, True, "mma"),
         (97, 24, torch.bfloat16, True, "fma"),  # 8 mod 16
         (97, 56, torch.float16, True, "fma"),
+        (79, 32, torch.bfloat16, True, "resident"),  # the convergence demo's training step
+        (128, 32, torch.float16, True, "resident"),
+        (1, 32, torch.bfloat16, True, "resident"),
+        (129, 32, torch.bfloat16, True, "mma"),  # past one block's 128 tokens
+        (79, 32, torch.float32, True, "fma"),
+        (79, 32, torch.bfloat16, False, "fma"),  # unaligned strides
     ],
 )
 def test_backward_path(n, d, dtype, aligned, path):

@@ -1,8 +1,8 @@
 """The attention forward kernel's one-pass order, emulated on the CPU, and
 the choice of its path.
 
-``csrc/attention_fwd.cu``'s "wgmma" path walks the keys in tiles of 128
-with a running row max (starting at 0 under plus1), rounds p = exp(s - m)
+``csrc/attention_fwd.cu``'s "wgmma" path (D = 64, and D = 32 at any N)
+walks the keys in tiles of 128 with a running row max (starting at 0 under plus1), rounds p = exp(s - m)
 to the input dtype against that running max for the PV product, and
 rescales its fp32 accumulator and row sum by exp(m_old - m_new) whenever
 the max rises. ``csrc/attention_fwd_fp32.cu``'s "simt" path (fp32, D = 64)
@@ -79,6 +79,31 @@ def test_online_order_matches_pallas_and_plain(dtype, plus1, n):
         assert float((got.float() - other).abs().max()) <= TOL_ATTN[tdt]
 
 
+@pytest.mark.parametrize("n", [79, 110, 200])
+@pytest.mark.parametrize("plus1", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_online_order_at_d32_matches_pallas_and_plain(dtype, plus1, n):
+    """The D = 32 instance of the "wgmma" path (the convergence demo's 6
+    heads of D = 32): one key tile at N = 79 and 110, where the running max
+    is the exact max, two at N = 200."""
+    heads, d = 6, 32
+    rng = np.random.default_rng(3 * n + plus1)
+    qkv = rng.standard_normal((2, n, 3 * heads * d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    q, k, v = torch.from_numpy(qkv).to(tdt).reshape(2, n, 3, heads, d).unbind(2)
+    scale = d ** -0.5
+    got = online_attention(q, k, v, scale=scale, plus1=plus1)
+    assert got.dtype == tdt and bool(torch.isfinite(got).all())
+    if n <= KEY_TILE:
+        # one tile: the same order as the plain version's exact max
+        assert torch.equal(got, attention_plain(q, k, v, scale=scale, plus1=plus1))
+    ref = jax_attention.fused_attention_qkv(jnp.asarray(qkv, dtype=jnp.dtype(dtype)), heads=heads, head_dim=d,
+                                            scale=scale, plus1=plus1, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).reshape(2, n, heads, d)
+    for other in (attention_plain(q, k, v, scale=scale, plus1=plus1).float(), ref):
+        assert float((got.float() - other).abs().max()) <= TOL_ATTN[tdt]
+
+
 def test_online_order_rescales_when_the_max_rises():
     """A key tile after the first with far larger scores: the first tile's
     contribution is rescaled to (almost) nothing, as with the exact max."""
@@ -112,6 +137,12 @@ def test_online_order_rescales_when_the_max_rises():
         (97, 128, torch.float16, True, "mma"),
         (97, 24, torch.bfloat16, True, "fma"),  # 8 mod 16: the FMA kernel
         (1190, 64, torch.bfloat16, False, "fma"),  # unaligned strides
+        (79, 32, torch.bfloat16, True, "wgmma"),  # the convergence demo's training step
+        (110, 32, torch.float16, True, "wgmma"),  # and its eval
+        (129, 32, torch.bfloat16, True, "wgmma"),  # D = 32 at any N
+        (1, 32, torch.bfloat16, True, "wgmma"),
+        (79, 32, torch.float32, True, "fma"),
+        (79, 32, torch.bfloat16, False, "fma"),
     ],
 )
 def test_forward_path(n, d, dtype, aligned, path):
