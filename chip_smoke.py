@@ -17,8 +17,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    CUDA-graph replay, its two kernels by profiled kernel time, beside the
    cuFFT composition of the same function); the attention forward on each of its five paths (every
    call checked to take the one ``forward_path`` picks; fp32 at D = 64 on
-   "simt" from N = 1 to 1190, fp32 at another D and on unaligned views on
-   "fma"), timed by CUDA-graph
+   "simt" from N = 1 to 1190 and at D = 32 from N = 1 to 200, fp32 at
+   another D and on unaligned views on "fma"), timed by CUDA-graph
    replay and by events at the serving (B = 20, N = 1190), timestamp
    (B = 256, N = 14) and training (B = 12, N = 474) shapes beside SDPA as
    PyTorch dispatches it (the kernel it ran named from a profiler trace)
@@ -189,7 +189,10 @@ Phases (each prints one line or more; the first failure exits non-zero):
    40 steps at B = 25, N = 79; eval at B = 50, N = 110): the accuracy of each
    epoch (the best at least 0.8; the script's 0.9 printed), the SWA
    accuracy, steady ms/step and the exact launches, every attention call on
-   the D = 32 kernels (the "wgmma" forward, the "resident" backward);
+   the D = 32 kernels (the "wgmma" forward, the "resident" backward); then
+   [20g] the same run on the same folders at ``model.dtype=float32``
+   (``run(["model.dtype=float32"], ...)``), with the same checks and every
+   attention call on the fp32 "simt" kernels' D = 32 instances, "fma" 0;
    ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
    width (120 / 40 5-s clips as wav folders, 8 epochs, SIGTERM after epoch
    2; each phase the CLI in a child process through a ``python -c`` shim
@@ -213,7 +216,11 @@ N = 79 and B = 50, N = 110, 6 heads of D = 32) beside the old "mma" kernel
 on the same call, SDPA and the bound; phase 3b holds the "resident"
 backward likewise (N 1 to 128, every call's bits equal on a second run;
 N = 129 on "mma") and times it there beside the old "mma" pair, SDPA's
-backward and the bound.
+backward and the bound. In fp32 at D = 32 both phases hold the "simt"
+kernels' D = 32 instances likewise (N 1 to 200, both entries, plus1 on and
+off; the backward's bits equal on a second run) and time them at the
+demo's two shapes beside the old "fma" kernels on the same call, SDPA's
+EFFICIENT and MATH backends each alone, the plain version and the bound.
 
 Phase 3c holds the LayerNorm-backward, F1 and B2 kernels against their
 plain versions (F1 and B2 in bf16, fp16 and fp32 also at ragged M and C 64
@@ -246,8 +253,8 @@ Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
 15's and 16's CLI commands, 17's loaded-program and serve calls, 18's
 equality runs, fp32 stacked step and stacked ``Predictor``, 19's demo, and
-20's convergence demo, rehearsal phases (counted in their child processes),
-parity runs, fit_throughput run and ref arm) starts
+20's convergence demos (bf16 and fp32), rehearsal phases (counted in their
+child processes), parity runs, fit_throughput run and ref arm) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
 of phases 3, 3b, 3c, 3d and 3e are outside them. A count is of kernels
@@ -529,10 +536,11 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # head dims; bf16 and fp16 on views one element off 16-byte alignment.
     # Each pair of calls takes the path forward_path picks ("wgmma" at
     # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "simt" for
-    # fp32 at D = 64; "fma" for fp32 at D = 32, D = 24 and the unaligned
+    # fp32 at D = 64 and 32; "fma" for fp32 at D = 24 and the unaligned
     # views). fp32 also at the ragged edges of the simt kernel's 64-row
     # tiles (N = 1, 63, 64, 65, 97). The convergence demo's D = 32 ("wgmma"
-    # at any N) over a ragged-N sweep: one and two 128-key tiles
+    # in bf16 / fp16, "simt" in fp32, at any N) over a ragged-N sweep: one
+    # and two 128-key tiles, one to four 64-key tiles
     heads, hd = 12, 64
     errs = {"fused_attention": 0.0, "fused_attention_qkv": 0.0}
     cases = [(dtype, n, plus1, heads, hd, True)
@@ -546,7 +554,8 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     cases += [(torch.float32, n, plus1, heads, hd, True) for n in (1, 63, 64, 65, 97) for plus1 in (False, True)]
     cases += [(torch.float32, 97, plus1, 2, d_, True) for d_ in (32, 24) for plus1 in (False, True)]
     cases += [(torch.float32, n, plus1, heads, hd, False) for n in (97, 1190) for plus1 in (False, True)]
-    cases += [(dtype, n, plus1, CONV_HEADS, CONV_HEAD_DIM, True) for dtype in (torch.bfloat16, torch.float16)
+    cases += [(dtype, n, plus1, CONV_HEADS, CONV_HEAD_DIM, True)
+              for dtype in (torch.bfloat16, torch.float16, torch.float32)
               for n in D32_NS + (129, 200) for plus1 in (False, True)]
     taken = dict.fromkeys(A.FWD_PATHS, 0)
     with torch.no_grad():
@@ -564,7 +573,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
             torch.cuda.synchronize()
             path = A.forward_path(n, d_, dtype, aligned)
             check(aligned or path == "fma", f"{dtype} N={n} D={d_} unaligned: path {path}, want fma")
-            check((path == "simt") == (dtype == torch.float32 and d_ == 64 and aligned),
+            check((path == "simt") == (dtype == torch.float32 and d_ in A.SIMT_HEAD_DIMS and aligned),
                   f"{dtype} N={n} D={d_} aligned={aligned}: path {path}")
             check(A.FWD_PATH_LAUNCHES[path] == 2 == sum(A.FWD_PATH_LAUNCHES.values()),
                   f"{dtype} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want 2 on {path}")
@@ -651,15 +660,60 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
         say(f"[3] fused_attention_qkv bf16 B={b} N={n} H={CONV_HEADS} D={CONV_HEAD_DIM} (the convergence demo's): "
             f"{line(t)}; the old mma kernel on the same call {t['mma_ms']:.4f} ms graph-replayed, "
             f"{t['mma_ms_events']:.4f} events ({gpu})")
+    # row 4f on a user path: the convergence demo at model.dtype=float32
+    # ([20g]) takes the D = 32 instance of the fp32 "simt" forward at its
+    # training and eval shapes; the old "fma" kernel on the same call
+    # through the private override, SDPA's EFFICIENT and MATH backends each
+    # alone (flash and cuDNN take no fp32), the plain version and the bound
+    from torch.nn.attention import SDPBackend
+
+    demo32 = {}
+    for b, n in CONV_SHAPES:
+        h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev)
+        views = A._head_views(qkv, h_, d_)
+        out = torch.empty((b, n, h_, d_), device=dev)
+        kern = lambda: fused_attention_qkv(qkv, heads=h_, head_dim=d_, scale=scale)
+        old = lambda: A._launch(*views, out, scale, False, path="fma")
+        lib = lambda: sdpa(*views, scale)
+        backends = (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH)
+        with torch.no_grad():
+            ref = attention_plain(*views, scale=scale)
+            A.reset_path_launches()
+            got = kern().view(ref.shape)
+            check(A.FWD_PATH_LAUNCHES["simt"] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
+                  f"fused_attention_qkv fp32 B={b} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want simt")
+            old()
+            err, old_err = max_err(got, ref), max_err(out, ref)
+            check(max(err, old_err) <= TOL_ATTN[torch.float32],
+                  f"fused_attention_qkv fp32 B={b} N={n} D={d_}: max err {err:.3g} (simt), {old_err:.3g} (fma)")
+            errs["fused_attention_qkv"] = max(errs["fused_attention_qkv"], err)
+            taken["simt"] += 1
+            t = dict(path="simt", ms=graph_ms(kern), ms_events=cuda_ms(kern), max_abs_err=err,
+                     fma_ms=graph_ms(old), fma_ms_events=cuda_ms(old), fma_max_abs_err=old_err,
+                     plain_ms=cuda_ms(lambda: attention_plain(*views, scale=scale)),
+                     library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends},
+                     library_backend_ms_events={be.name: cuda_ms(under(be, lib)) for be in backends},
+                     **bound(4 * n * n * d_ * b * h_, 4 * b * n * h_ * d_ * 4, PEAK_FP32))
+            t["library_ms"] = t["library_backend_ms"]["EFFICIENT_ATTENTION"]
+        demo32[f"B={b} N={n}"] = t
+        say(f"[3] fused_attention_qkv fp32 B={b} N={n} H={h_} D={d_} (the convergence demo's at "
+            f"model.dtype=float32): kernel (simt) {t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, "
+            f"max err {err:.3g}; the old fma kernel on the same call {t['fma_ms']:.4f} ms graph-replayed, "
+            f"{t['fma_ms_events']:.4f} events (max err {old_err:.3g}); SDPA alone: "
+            + ", ".join(f"{k} {v:.4f} ms graph-replayed, {t['library_backend_ms_events'][k]:.4f} events"
+                        for k, v in t["library_backend_ms"].items())
+            + f"; plain {t['plain_ms']:.4f} ms events; bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"{A.simt_forward_blocks_per_sm(d_)} simt blocks an SM ({gpu})")
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
         f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
-        f"D 24/32; bf16/fp16/fp32 unaligned views at N 97/1190; bf16/fp16 D=32 N "
-        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off; bf16 at the serving, timestamp and training "
-        f"shapes, bf16 D=32 at the convergence demo's); calls per path {taken}")
+        f"D 24 (fma) and 32 (simt); bf16/fp16/fp32 unaligned views at N 97/1190; bf16/fp16/fp32 D=32 N "
+        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off (fp32 on simt); bf16 at the serving, timestamp "
+        f"and training shapes, bf16 and fp32 D=32 at the convergence demo's); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
     rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train,
-                                      conv_demo_d32=demo)
+                                      conv_demo_d32=demo, conv_demo_d32_fp32=demo32)
     return rec
 
 
@@ -696,9 +750,12 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
               (torch.float32, 1, n_plain, False, 4, hd)]
     cases += [(dtype, 2, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
               for h_, d_ in ((4, 16), (2, 24), (2, 128))]
-    # the convergence demo's D = 32: "resident" up to N = 128, "mma" at 129
+    # the convergence demo's D = 32: in bf16 / fp16 "resident" up to N = 128,
+    # "mma" at 129; in fp32 "simt" at any N (one to four 64-key tiles)
     cases += [(dtype, 2, n, plus1, CONV_HEADS, CONV_HEAD_DIM) for dtype in (torch.bfloat16, torch.float16)
               for n in D32_NS + (129,) for plus1 in (False, True)]
+    cases += [(torch.float32, 2, n, plus1, CONV_HEADS, CONV_HEAD_DIM) for n in D32_NS + (129, 200)
+              for plus1 in (False, True)]
     taken = dict.fromkeys(A.BWD_PATHS, 0)
     for dtype, b, n, plus1, h_, d_ in cases:
         qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h_ * d_)).astype(np.float32)).to(dev, dtype)
@@ -714,7 +771,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         path = A.backward_path(n, d_, dtype, True)
         check(A.BWD_PATH_LAUNCHES[path] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
               f"{dtype} B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want 2 on {path}")
-        check(d_ != CONV_HEAD_DIM or path == ("resident" if n <= 128 else "mma"), f"D=32 N={n}: path {path}")
+        check(d_ != CONV_HEAD_DIM or path == ("simt" if dtype == torch.float32 else "resident" if n <= 128 else "mma"),
+              f"{dtype} D=32 N={n}: path {path}")
         taken[path] += 2
         if path in ("simt", "resident") or (path == "wgmma" and (n, plus1) in ((1190, True), (129, False),
                                                                               (n_plain, False))):
@@ -754,10 +812,11 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         f"qkv entry's d(qkv) bit for bit (bf16 and fp32, B=2 N={TRAIN_N}); the wgmma path gives the same bits "
         f"twice through both entries (bf16/fp16 B=2 N=129, B=2 and B=12 N=1190, B=1 H=4 N={n_plain} in the plain "
         f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs), the simt path in every fp32 D=64 case "
-        f"(B=1 H=4 N={n_plain} in the plain block order too), the resident path in every D=32 case (bf16/fp16 "
-        f"N {'/'.join(map(str, D32_NS))}, plus1 on/off; N=129 on mma); calls per path {taken}")
+        f"(B=1 H=4 N={n_plain} in the plain block order too) and every fp32 D=32 case (N "
+        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off), the resident path in every bf16/fp16 D=32 "
+        f"case (N {'/'.join(map(str, D32_NS))}, plus1 on/off; N=129 on mma); calls per path {taken}")
 
-    def bwd_times(kern, q, k, v, do4, scale, peak) -> dict:
+    def bwd_times(kern, q, k, v, do4, scale, peak, math=False) -> dict:
         """The backward kernel call ``kern`` on [B, N, H, D] views q, k, v
         and dO: its times (graph replay, events, profiled kernel time), its
         device kernels, the plain version, SDPA's backward and the bound.
@@ -768,7 +827,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         step is captured so, [14]), and this forward-and-backward capture of
         SDPA fails here with cudaErrorStreamCaptureImplicit. Beside it the
         backward alone by CUDA events, and the port's backward by the same
-        profiled kernel time."""
+        profiled kernel time. With ``math`` the unfused MATH backend is timed
+        alone too."""
         b, n, h, d = q.shape
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         fwd = lambda: sdpa(ql, kl, vl, scale)
@@ -785,7 +845,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
                  library_ms=kernel_ms(fwd_bwd) - kernel_ms(fwd), library_ms_events=cuda_ms(lib),
                  library_kernel=ran, library_backend=backend_of(ran),
                  library_backend_ms={be.name: kernel_ms(under(be, fwd_bwd)) - kernel_ms(under(be, fwd))
-                                     for be in backends if be.name != "MATH"},
+                                     for be in backends if be.name != "MATH" or math},
                  # five N x N x D products per head; q, k, v, dO read, dq, dk, dv written
                  **bound(10 * n * n * d * b * h, 7 * b * n * h * d * q.element_size(), peak))
         # the "wgmma" and "simt" paths' own work: 14 N^2 D (4 in kernel S, 10 in kernel KV)
@@ -852,7 +912,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         say(f"[3b] {name} vs plain: max err {worst[name]:.3g} of max|ref|, {worst_abs[name]:.3g} absolute "
             f"(bf16/fp16/fp32, plus1 on/off, N 14/474/1190 at D=64; bf16/fp16 N 65/128/129; bf16 B=12 N=1190; "
             f"bf16 B=1 H=4 N={n_plain}; "
-            f"D 16/24/128 at N=97; bf16/fp16 D=32 N {'/'.join(map(str, D32_NS + (129,)))}; the timed inputs); "
+            f"D 16/24/128 at N=97; bf16/fp16 D=32 N {'/'.join(map(str, D32_NS + (129,)))}; fp32 D=32 N "
+            f"{'/'.join(map(str, D32_NS + (129, 200)))}; the timed inputs); "
             f"{str(dtype)[6:]} B={b} H=12 N={n} D=64: kernel "
             f"({t['path']}: {', '.join(t['device_kernels'])}) "
             f"{t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels "
@@ -910,6 +971,56 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             "alone: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["library_backend_ms"].items())
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({gpu})")
     rec["fused_attention_qkv_bwd"]["conv_demo_d32"] = demo
+
+    # row 4f on a user path: the convergence demo's backward at
+    # model.dtype=float32 ([20g]) takes the D = 32 instance of the "simt"
+    # pair through the qkv entry at its training shape (and at its eval
+    # shape, which runs no backward, for the comparison); the old "fma" pair
+    # on the same call through the private override; SDPA's EFFICIENT and
+    # MATH backends each alone
+    demo32 = {}
+    for b, n in CONV_SHAPES:
+        h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev)
+        do = torch.randn((b, n, h_ * d_), device=dev)
+        q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
+        do4 = do.view(b, n, h_, d_)
+        kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
+        A.reset_path_launches()
+        got = kern().reshape(b, n, 3, h_, d_).unbind(2)
+        again = kern().reshape(b, n, 3, h_, d_).unbind(2)
+        check(A.BWD_PATH_LAUNCHES["simt"] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
+              f"fused_attention_qkv_bwd fp32 B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want simt")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)), f"simt fp32 B={b} N={n} D={d_}: the bits differ")
+        dqkv_old = torch.empty_like(qkv)
+
+        def fma():
+            """The old "fma" pair on the same call (the private override)."""
+            A._launch_bwd(*A._head_views(qkv, h_, d_), do4, *A._head_views(dqkv_old, h_, d_), scale, False,
+                          path="fma")
+        errs, fma_errs = [], []
+        fma()
+        ref = attention_bwd_plain(q, k, v, do4, scale=scale)
+        for what, g, o, r in zip(("dq", "dk", "dv"), got, dqkv_old.reshape(b, n, 3, h_, d_).unbind(2), ref):
+            errs.append(rel_err(g, r))
+            fma_errs.append(rel_err(o, r))
+            check(max(errs[-1], fma_errs[-1]) <= TOL_BWD[torch.float32], f"fused_attention_qkv_bwd fp32 B={b} "
+                  f"N={n} D={d_} {what}: max err {errs[-1]:.3g} (simt), {fma_errs[-1]:.3g} (fma) of max|ref|")
+        t = bwd_times(kern, q, k, v, do4, scale, PEAK_FP32, math=True)
+        t.update(fma_ms=graph_ms(fma), fma_ms_kernels=kernel_ms(fma), fma_max_rel_err=max(fma_errs))
+        demo32[f"B={b} N={n}"] = dict(max_rel_err=max(errs), **t)
+        stats_blocks, kv_blocks = A.simt_backward_blocks_per_sm(d_)
+        say(f"[3b] fused_attention_qkv_bwd fp32 B={b} H={h_} N={n} D={d_} (the convergence demo's at "
+            f"model.dtype=float32): kernel ({t['path']}: {', '.join(t['device_kernels'])}; {stats_blocks} and "
+            f"{kv_blocks} blocks an SM) max err {max(errs):.3g} of max|ref|, the same bits twice; {t['ms']:.4f} ms "
+            f"graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels (profiled); the old fma "
+            f"pair on the same call {t['fma_ms']:.4f} ms graph-replayed, {t['fma_ms_kernels']:.4f} of kernels; "
+            f"plain {t['plain_ms']:.4f} ms; SDPA backward {t['library_ms']:.4f} ms of kernels (profiled forward + "
+            f"backward less forward; ran {t['library_backend']}: {t['library_kernel']}; alone: "
+            + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["library_backend_ms"].items())
+            + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}); the design's 14N^2D at peak "
+            f"{t['design_bound_ms']:.4f} ms ({gpu})")
+    rec["fused_attention_qkv_bwd"]["conv_demo_d32_fp32"] = demo32
     return rec
 
 
@@ -2289,14 +2400,14 @@ CLI_ENSEMBLE = "ensemble_s16_14"
 
 
 def attn_counts(n: int, b: int, train: bool, calls: int, depth: int = 12, heads: int = 12,
-                head_dim: int = 64) -> dict:
+                head_dim: int = 64, itemsize: int = 2) -> dict:
     """The attention launches of ``calls`` forward passes (and their
     backward when ``train``) of PaSST (PaSST-S unless told) at N tokens,
-    batch b, in bf16: the entry the model picks (``flat_kernel_supports``,
-    the JAX package's rule)."""
+    batch b, in bf16 (fp32 at ``itemsize`` 4): the entry the model picks
+    (``flat_kernel_supports``, the JAX package's rule)."""
     from passt_tpu_torch.ops import attention as A
 
-    if A.flat_kernel_supports(n, heads, head_dim, backward=train, itemsize=2, batch=b):
+    if A.flat_kernel_supports(n, heads, head_dim, backward=train, itemsize=itemsize, batch=b):
         out = {"fused_attention_qkv": depth * calls}
         if train:
             out["fused_attention_qkv_bwd"] = depth * calls
@@ -3569,8 +3680,9 @@ def phase_prep(gpu: str, dev: torch.device) -> tuple:
 
 TOOLS_20 = ("convergence_demo", "finetune_rehearsal", "run_flagship_parity", "measure_mp3_loader",
             "loader_worker_sweep", "fit_throughput", "multiseed_quality")
-# [20b] the convergence demo learns: its best raw accuracy at least 0.8
-# (chance 0.02; the script itself asks more than 0.9, printed beside it)
+# [20b], [20g] the convergence demo learns, in bf16 and at
+# model.dtype=float32: its best raw accuracy at least 0.8 (chance 0.02; the
+# script itself asks more than 0.9, printed beside it)
 CONV_MIN_ACC, CONV_SCRIPT_ACC = 0.8, 0.9
 REHEARSAL_K = 2  # [20c] the epoch after which the rehearsal's first phase is preempted (the tool's default)
 PARITY_CLIPS = 20  # [20d] 10-s clips of 527-class targets, one eval batch
@@ -3647,16 +3759,11 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
     """[20b] ``tools/convergence_demo``'s ``run`` on the card: its 50 tones
     (``make_split(20, 1)``, ``make_split(4, 2)``) as 32 kHz wav folders with
     [15]'s openers, the reduced PaSST (depth 4, dim 192, 6 heads: D = 32),
-    bf16, graphed, 45 epochs. Exact launches per path (every attention call
-    on the D = 32 kernels: the "wgmma" forward, the "resident" backward,
-    none on "mma"); the accuracy held to CONV_MIN_ACC; fit's steady ms/step
-    beside the same step on a resident batch."""
+    bf16, graphed, 45 epochs; then [20g] the same run on the same folders at
+    ``model.dtype=float32``. Returns each run's launches and line."""
     import shutil
     import tempfile
 
-    from passt_tpu_torch import bench
-    from passt_tpu_torch.experiments import EXPERIMENTS
-    from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.tools import convergence_demo as cd
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_conv_")
@@ -3668,27 +3775,48 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
             labels[split] = {k: int(v) for k, v in written.items()}
         write_s = time.perf_counter() - t0
         data = (os.path.join(tmp, "train"), os.path.join(tmp, "test"))
-        cfg = cd.config(*data)
-        with cd.reduced_arch():
-            pcfg = cfg.passt_config()
-        depth, heads, d = pcfg.depth, pcfg.num_heads, pcfg.embed_dim // pcfg.num_heads
-        check((depth, pcfg.embed_dim, heads, cfg.model.dtype) == (4, 192, CONV_HEADS, "bfloat16")
-              and d == CONV_HEAD_DIM, f"[20] convergence demo: {pcfg}")
-        n_train, n_eval = token_counts(cfg, pcfg)
-        b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
-        check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"[20] convergence demo shapes {b, n_train, eb, n_eval}")
-        check(A.forward_path(n_train, d, torch.bfloat16, True) == A.forward_path(n_eval, d, torch.bfloat16, True)
-              == "wgmma" and A.backward_path(n_train, d, torch.bfloat16, True) == "resident",
-              "[20] convergence demo: not on the wgmma forward and the resident backward")
-        n_clips, n_test = len(labels["train"]), len(labels["test"])
-        per_epoch, epochs = n_clips // b, cfg.trainer.max_epochs
-        steps = per_epoch * epochs
-        swa = swa_evals(cfg, epochs)
-        evals = (epochs + len(swa)) * -(-n_test // eb)
-        with Openers(lambda cfg, path: labels[os.path.basename(path)]) as op:
-            hist, _, launches, paths, bwd, wall = counted(lambda: cd.run([], device="cuda", data=data))
+        return tuple(zip(*(conv_demo_arm(gpu, dev, data, labels, write_s, dtype)
+                           for dtype in ("bfloat16", "float32"))))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_s: float, dtype: str) -> tuple:
+    """One run of the convergence demo on the wav folders ``data`` (file
+    name -> class by split in ``labels``): bf16 ([20b]: every attention call
+    on the D = 32 kernels of row 4o, the "wgmma" forward and the "resident"
+    backward) or, with ``model.dtype=float32`` ([20g]), every call on the
+    D = 32 instances of the fp32 "simt" kernels (row 4f). Exact launches
+    per path, none on "fma" or "mma"; the best accuracy held to
+    CONV_MIN_ACC; fit's steady ms/step beside the same step on a resident
+    batch."""
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.experiments import EXPERIMENTS
+    from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.tools import convergence_demo as cd
+
+    tag, extra = ("[20b]", []) if dtype == "bfloat16" else ("[20g]", ["model.dtype=float32"])
+    tdt = getattr(torch, dtype)
+    cfg = cd.config(*data, extra)
+    with cd.reduced_arch():
+        pcfg = cfg.passt_config()
+    depth, heads, d = pcfg.depth, pcfg.num_heads, pcfg.embed_dim // pcfg.num_heads
+    check((depth, pcfg.embed_dim, heads, cfg.model.dtype) == (4, 192, CONV_HEADS, dtype)
+          and d == CONV_HEAD_DIM, f"{tag} convergence demo: {pcfg}")
+    n_train, n_eval = token_counts(cfg, pcfg)
+    b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
+    check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"{tag} convergence demo shapes {b, n_train, eb, n_eval}")
+    fwd_path, bwd_path = ("wgmma", "resident") if dtype == "bfloat16" else ("simt", "simt")
+    check(A.forward_path(n_train, d, tdt, True) == A.forward_path(n_eval, d, tdt, True) == fwd_path
+          and A.backward_path(n_train, d, tdt, True) == bwd_path,
+          f"{tag} convergence demo: not on the {fwd_path} forward and the {bwd_path} backward")
+    n_clips, n_test = len(labels["train"]), len(labels["test"])
+    per_epoch, epochs = n_clips // b, cfg.trainer.max_epochs
+    steps = per_epoch * epochs
+    swa = swa_evals(cfg, epochs)
+    evals = (epochs + len(swa)) * -(-n_test // eb)
+    with Openers(lambda cfg, path: labels[os.path.basename(path)]) as op:
+        hist, _, launches, paths, bwd, wall = counted(lambda: cd.run(extra, device="cuda", data=data))
     # the same graphed step on a resident batch after the run: what the loop and the loader add
     with cd.reduced_arch():
         _, state, step, _, _ = EXPERIMENTS["esc50"].build(cfg, steps_per_epoch=n_clips // b, device=dev)
@@ -3697,35 +3825,43 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
              .to(dev), "target": torch.from_numpy(rng.integers(0, 50, b)).to(dev)}
     _, step_ms, _ = bench.timed_steps(step, state, batch, 200, 2)
     del state, step
-    counts = add_counts({"fused_log_mel": steps + evals}, attn_counts(n_train, b, True, steps, depth, heads, d),
-                        attn_counts(n_eval, eb, False, evals, depth, heads, d))
-    check(launches == want_launches(**counts), f"[20] convergence demo launches {launches} != {counts}")
-    check(paths == dict(fma=0, mma=0, short=0, wgmma=depth * (steps + evals), simt=0)
-          and bwd == dict(fma=0, mma=0, resident=depth * steps, wgmma=0, simt=0),
-          f"[20] convergence demo paths {paths}, {bwd}")
-    check(len(hist) == epochs and len(op.starts) == steps, f"[20] convergence demo: {len(hist)} epochs, "
+    itemsize = tdt.itemsize
+    counts = add_counts({"fused_log_mel": steps + evals},
+                        attn_counts(n_train, b, True, steps, depth, heads, d, itemsize),
+                        attn_counts(n_eval, eb, False, evals, depth, heads, d, itemsize))
+    check(launches == want_launches(**counts), f"{tag} convergence demo launches {launches} != {counts}")
+    want_fwd = dict.fromkeys(A.FWD_PATHS, 0)
+    want_fwd[fwd_path] = depth * (steps + evals)
+    want_bwd = dict.fromkeys(A.BWD_PATHS, 0)
+    want_bwd[bwd_path] = depth * steps
+    check(paths == want_fwd and bwd == want_bwd, f"{tag} convergence demo paths {paths}, {bwd}; want {want_fwd}, "
+          f"{want_bwd}")
+    check(len(hist) == epochs and len(op.starts) == steps, f"{tag} convergence demo: {len(hist)} epochs, "
           f"{len(op.starts)} steps")
     for e, rec in enumerate(hist):
         check(math.isfinite(rec["train_loss"]) and math.isfinite(rec["accuracy"]) and rec["n_eval"] == n_test,
-              f"[20] convergence demo epoch {e}: {rec}")
+              f"{tag} convergence demo epoch {e}: {rec}")
     accs = [r["accuracy"] for r in hist]
     swa_acc = hist[-1].get("swa_accuracy")
-    check(max(accs) >= CONV_MIN_ACC, f"[20] convergence demo did not learn: best accuracy {max(accs)}")
-    check(swa_acc is not None and math.isfinite(swa_acc), "[20] convergence demo: no SWA accuracy")
+    check(max(accs) >= CONV_MIN_ACC, f"{tag} convergence demo did not learn: best accuracy {max(accs)}")
+    check(swa_acc is not None and math.isfinite(swa_acc), f"{tag} convergence demo: no SWA accuracy")
     ms, n_ms = op.steady_ms(per_epoch)
     entries = ", ".join(f"{k} {v}" for k, v in counts.items())
-    line = (f"[20] convergence demo (tools/convergence_demo.run: 50 tones, {n_clips} train / {n_test} test 1-s clips "
-            f"as wav folders written in {write_s:.1f} s, [15]'s openers): the ESC-50 recipe on PaSST depth {depth}, "
-            f"dim {pcfg.embed_dim}, {heads} heads (D = {d}), bf16, graphed, B={b} N={n_train} train, B={eb} "
-            f"N={n_eval} eval; {epochs} epochs x {per_epoch} steps in {wall:.1f} s; accuracy by epoch "
-            f"{', '.join(f'{a:.3f}' for a in accs)}; best {max(accs):.3f} (limit {CONV_MIN_ACC}; the script's "
-            f"> {CONV_SCRIPT_ACC} {'reached' if max(accs) > CONV_SCRIPT_ACC else 'not reached'}); swa_accuracy "
-            f"{swa_acc:.3f} (SWA evaluated at {len(swa)} epochs); losses {hist[0]['train_loss']:.5f} -> "
-            f"{hist[-1]['train_loss']:.5f}; fit {ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step "
-            f"starts) against the same graphed step on a resident batch {step_ms:.3f} (bench.timed_steps, 200 "
-            f"after 2; ratio {ms / step_ms:.2f}); launches {entries} ({steps} steps x (mel, {depth} forward, {depth} backward) + {evals} eval "
-            f"batches x (mel, {depth} forward)), every attention call on the D = 32 kernels: forward wgmma "
-            f"{paths['wgmma']}, backward resident {bwd['resident']}, mma {paths['mma']} / {bwd['mma']} ({gpu})")
+    line = (f"{'[20]' if dtype == 'bfloat16' else tag} convergence demo (tools/convergence_demo.run"
+            + (f", extra {' '.join(extra)}" if extra else "")
+            + f": 50 tones, {n_clips} train / {n_test} test 1-s clips as wav folders written in {write_s:.1f} s, "
+            f"[15]'s openers): the ESC-50 recipe on PaSST depth {depth}, dim {pcfg.embed_dim}, {heads} heads "
+            f"(D = {d}), {dtype}, graphed, B={b} N={n_train} train, B={eb} N={n_eval} eval; {epochs} epochs x "
+            f"{per_epoch} steps in {wall:.1f} s; accuracy by epoch {', '.join(f'{a:.3f}' for a in accs)}; best "
+            f"{max(accs):.3f} (limit {CONV_MIN_ACC}; the script's > {CONV_SCRIPT_ACC} "
+            f"{'reached' if max(accs) > CONV_SCRIPT_ACC else 'not reached'}); swa_accuracy {swa_acc:.3f} (SWA "
+            f"evaluated at {len(swa)} epochs); losses {hist[0]['train_loss']:.5f} -> {hist[-1]['train_loss']:.5f}; "
+            f"fit {ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step starts) against the same graphed "
+            f"step on a resident batch {step_ms:.3f} (bench.timed_steps, 200 after 2; ratio {ms / step_ms:.2f}); "
+            f"launches {entries} ({steps} steps x (mel, {depth} forward, {depth} backward) + {evals} eval batches x "
+            f"(mel, {depth} forward)), every attention call on the D = 32 kernels: forward {fwd_path} "
+            f"{paths[fwd_path]}, backward {bwd_path} {bwd[bwd_path]}, fma {paths['fma']} / {bwd['fma']}, mma "
+            f"{paths['mma']} / {bwd['mma']} ({gpu})")
     return launches, line
 
 
@@ -3926,9 +4062,10 @@ def phase_tools(gpu: str, dev: torch.device, prod_hist: list) -> list:
     have, line = tools_imports()
     say(line)
     runs = []
-    launches, line = conv_demo(gpu, dev)
-    runs.append(launches)
-    say(line)
+    launches, lines = conv_demo(gpu, dev)
+    runs += launches
+    for line in lines:
+        say(line)
     more, line = rehearsal_run(gpu)
     runs += more
     say(line)
@@ -3985,9 +4122,9 @@ def main() -> int:
         from passt_tpu_torch.ops.attention import simt_forward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
 
-        simt = registers(logs["attention_fwd_fp32"], "attn32_fwd_kernel")
-        say(f"[2] attention_fwd_fp32 registers, spill stores (B): simt {simt}; {simt_forward_blocks_per_sm()} "
-            "blocks an SM")
+        say("[2] attention_fwd_fp32 registers, spill stores (B) per instance: " + "; ".join(
+            f"simt D={d} {registers(logs['attention_fwd_fp32'], 'attn32_fwd_kernel', f'Li{d}E')}, "
+            f"{simt_forward_blocks_per_sm(d)} blocks an SM" for d in (64, 32)))
     if logs["attention_bwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
@@ -3997,11 +4134,13 @@ def main() -> int:
         say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
             f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
     if logs["attention_bwd_fp32"] != "(cached)":
+        from passt_tpu_torch.ops.attention import simt_backward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
 
-        say("[2] attention_bwd_fp32 registers, spill stores (B): simt S "
-            f"{registers(logs['attention_bwd_fp32'], 'bwd32_stats_kernel')}, simt KV "
-            f"{registers(logs['attention_bwd_fp32'], 'bwd32_kv_kernel')}")
+        say("[2] attention_bwd_fp32 registers, spill stores (B) per instance: " + "; ".join(
+            f"D={d}: simt S {registers(logs['attention_bwd_fp32'], 'bwd32_stats_kernel', f'Li{d}E')}, simt KV "
+            f"{registers(logs['attention_bwd_fp32'], 'bwd32_kv_kernel', f'Li{d}E')}, blocks an SM (S, KV) "
+            f"{simt_backward_blocks_per_sm(d)}" for d in (64, 32)))
     if logs["int8_gemm"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 

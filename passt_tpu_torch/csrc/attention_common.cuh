@@ -128,21 +128,27 @@ inline bool vectors_aligned(const void* p, Strides s) {
 
 // ---- the fp32 "simt" paths (attention_fwd_fp32.cu, attention_bwd_fp32.cu) ----
 
-// D = 64 rows in shared memory as they lie in device memory, at a pitch of
-// 68 floats (272 bytes): the rows a warp reads at once as float4 fall in
-// distinct banks or are broadcast.
-constexpr int SIMT_LD = 64 + 4;
+// Rows of D floats (D = 32 or 64) in shared memory as they lie in device
+// memory, at a pitch of D + 4 floats (36 or 68; 144 or 272 bytes): 4 mod 32
+// banks from one row to the next, so the rows a warp reads at once as
+// float4 fall in distinct banks or are broadcast. SIMT_LD is the pitch of
+// 64-float rows (D = 64, and the 64-wide score tiles at either D).
+template <int D>
+constexpr int simt_ld = D + 4;
+constexpr int SIMT_LD = simt_ld<64>;
 
-// Start copying rows row0 .. row0 + 63 of a strided fp32 operand (D = 64)
-// into shared rows of pitch SIMT_LD (16-byte cp.async by `threads` threads
-// from thread `tid`); rows past n are zero-filled.
+// Start copying rows row0 .. row0 + 63 of a strided fp32 operand of head
+// dim D into shared rows of pitch simt_ld<D> (16-byte cp.async by `threads`
+// threads from thread `tid`); rows past n are zero-filled.
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, long long row_stride, int row0, int n,
                                           int tid, int threads) {
-    for (int idx = tid; idx < 64 * 16; idx += threads) {
-        const int r = idx >> 4, c = idx & 15;
+    static_assert(D == 32 || D == 64, "rows of 8 or 16 chunks of 16 bytes");
+    for (int idx = tid; idx < 64 * (D / 4); idx += threads) {
+        const int r = idx >> (D == 64 ? 4 : 3), c = idx & (D / 4 - 1);
         const bool ok = row0 + r < n;
         const float* from = ok ? src + (long long)(row0 + r) * row_stride + 4 * c : src;
-        const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * SIMT_LD + 4 * c));
+        const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * simt_ld<D> + 4 * c));
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(from), "r"(ok ? 16 : 0));
     }
 }

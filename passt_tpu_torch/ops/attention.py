@@ -36,10 +36,10 @@ kernel or raises. On the card the forward kernel has five paths, and
 alignment: ``"wgmma"`` (bf16/fp16, D = 64 with N > 64 and D = 32 at any N:
 one pass over K, wgmma fed by TMA), ``"short"`` (D = 64 at N <= 64: one key
 tile, four heads a block at N <= 16), ``"mma"`` (bf16/fp16 at another D that
-is a multiple of 16), ``"simt"`` (fp32, D = 64, aligned: one pass over K in
-fp32 FMA with register micro-tiles and cp.async,
-``csrc/attention_fwd_fp32.cu``) and ``"fma"`` (fp32 at another D, a D that
-is 8 mod 16, or unaligned strides).
+is a multiple of 16), ``"simt"`` (fp32, D = 64 or 32, aligned, any N: one
+pass over K in fp32 FMA with register micro-tiles and cp.async,
+``csrc/attention_fwd_fp32.cu``, a template on D) and ``"fma"`` (fp32 at
+another D, a D that is 8 mod 16, or unaligned strides).
 The C entry launches exactly that path or returns an error, on which the
 wrapper raises; ``FWD_PATH_LAUNCHES`` counts the launches of each. The
 backward kernel has five paths, which :func:`backward_path` picks in the
@@ -47,11 +47,13 @@ same way: ``"wgmma"`` (bf16/fp16, D = 64: a statistics kernel, then one pass
 per 64-key block on wgmma fed by TMA, dQ summed across key blocks in a fixed
 order), ``"resident"`` (bf16/fp16, D = 32, N <= 128: one launch, one block
 per (batch, head) holding the whole head, exact row statistics, no
-scratch), ``"simt"`` (fp32, D = 64: the "wgmma" order in fp32 FMA,
-``csrc/attention_bwd_fp32.cu``), ``"mma"`` (bf16/fp16 at another D that is
-a multiple of 16, and D = 32 above N = 128) and ``"fma"`` (fp32 at another
-D, a D that is 8 mod 16, or unaligned strides); ``BWD_PATH_LAUNCHES`` counts
-them.
+scratch), ``"simt"`` (fp32, D = 64 or 32, aligned, any N: the "wgmma"
+order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``, a template on D),
+``"mma"`` (bf16/fp16 at another D that is a multiple of 16, and D = 32
+above N = 128) and ``"fma"`` (fp32 at another D, a D that is 8 mod 16, or
+unaligned strides); ``BWD_PATH_LAUNCHES`` counts them. A D that no kernel
+template takes goes to "fma" by these rules alone: a failed build or launch
+raises, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -81,6 +83,10 @@ FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3, "simt": 4}
 FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 
 
+#: the head dims the fp32 "simt" kernels are built for (templates on D in
+#: ``csrc/attention_fwd_fp32.cu`` and ``csrc/attention_bwd_fp32.cu``)
+SIMT_HEAD_DIMS = (32, 64)
+
 #: the backward kernel's paths, by the code its C entry takes ("simt" is
 #: the fp32 kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own)
 BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3, "resident": 4}
@@ -100,13 +106,13 @@ def reset_path_launches() -> None:
 
 def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The forward kernel path for ``n`` tokens of head dim ``d``:
-    ``"simt"`` for fp32 at ``d = 64`` with aligned operands (``aligned``:
-    16-byte aligned base pointers, strides in multiples of 8 elements; any
-    ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that is 8 mod 16
-    or unaligned operands; for bf16 / fp16 ``"wgmma"`` at ``d = 32`` (any
-    ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``, ``"wgmma"`` at
-    ``d = 64`` above, ``"mma"`` at another ``d``."""
-    if dtype == torch.float32 and aligned and d == 64:
+    ``"simt"`` for fp32 at ``d = 64`` or ``32`` with aligned operands
+    (``aligned``: 16-byte aligned base pointers, strides in multiples of 8
+    elements; any ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that
+    is 8 mod 16 or unaligned operands; for bf16 / fp16 ``"wgmma"`` at
+    ``d = 32`` (any ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``,
+    ``"wgmma"`` at ``d = 64`` above, ``"mma"`` at another ``d``."""
+    if dtype == torch.float32 and aligned and d in SIMT_HEAD_DIMS:
         return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
@@ -119,12 +125,13 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
 
 def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The backward kernel path for ``n`` tokens of head dim ``d``:
-    ``"simt"`` for fp32 at ``d = 64`` with aligned operands, ``"fma"`` for
-    fp32 at another ``d``, a ``d`` that is 8 mod 16 or unaligned operands;
+    ``"simt"`` for fp32 at ``d = 64`` or ``32`` with aligned operands (any
+    ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that is 8 mod 16
+    or unaligned operands;
     for bf16 / fp16 ``"wgmma"`` at ``d = 64`` (any ``n``), ``"resident"``
     at ``d = 32`` and ``n <= 128``, ``"mma"`` at another ``d`` and at
     ``d = 32`` above ``n = 128``."""
-    if dtype == torch.float32 and aligned and d == 64:
+    if dtype == torch.float32 and aligned and d in SIMT_HEAD_DIMS:
         return "simt"
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "fma"
@@ -243,16 +250,17 @@ def _fwd32_lib():
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.passt_attention_fwd_fp32.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
     lib.passt_attention_fwd_fp32.restype = ctypes.c_int
-    lib.passt_attention_fwd_fp32_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.passt_attention_fwd_fp32_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.passt_attention_fwd_fp32_occupancy.restype = ctypes.c_int
     return lib
 
 
-def simt_forward_blocks_per_sm() -> int:
-    """The blocks of the "simt" forward kernel an SM of the current card
-    holds at once (the occupancy query; builds the kernel)."""
+def simt_forward_blocks_per_sm(d: int = 64) -> int:
+    """The blocks of the "simt" forward kernel's head-dim-``d`` instance an
+    SM of the current card holds at once (the occupancy query; builds the
+    kernel)."""
     lib, blocks = _fwd32_lib(), ctypes.c_int(0)
-    _build.check(lib, lib.passt_attention_fwd_fp32_occupancy(ctypes.byref(blocks)), "simt forward occupancy")
+    _build.check(lib, lib.passt_attention_fwd_fp32_occupancy(d, ctypes.byref(blocks)), "simt forward occupancy")
     return blocks.value
 
 
@@ -260,8 +268,8 @@ def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None)
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
     a contiguous last dim), on the path :func:`forward_path` picks.
     ``path`` overrides the choice (private: chip_smoke and the variants
-    tools time the old "fma" kernel at fp32 D = 64 beside "simt" and the
-    "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
+    tools time the old "fma" kernel at fp32 D = 64 and 32 beside "simt" and
+    the "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
     call raises."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
@@ -341,10 +349,21 @@ def _bwd32_lib():
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.passt_attention_bwd_fp32.argtypes = [vp] * 8 + [i32] * 4 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
     lib.passt_attention_bwd_fp32.restype = ctypes.c_int
-    lib.passt_attention_bwd_fp32_scratch.argtypes = [i32] * 4
+    lib.passt_attention_bwd_fp32_scratch.argtypes = [i32] * 5
     lib.passt_attention_bwd_fp32_scratch.restype = ctypes.c_longlong
+    lib.passt_attention_bwd_fp32_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.passt_attention_bwd_fp32_occupancy.restype = ctypes.c_int
     return lib
 
+
+def simt_backward_blocks_per_sm(d: int = 64) -> tuple:
+    """The blocks of the "simt" backward's kernel S and kernel KV (their
+    head-dim-``d`` instances) an SM of the current card holds at once (the
+    occupancy query; builds the kernels)."""
+    lib, stats, kv = _bwd32_lib(), ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.passt_attention_bwd_fp32_occupancy(d, ctypes.byref(stats), ctypes.byref(kv)),
+                 "simt backward occupancy")
+    return stats.value, kv.value
 
 
 def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Optional[str] = None) -> None:
@@ -353,7 +372,7 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
     picks; dq, dk, dv are written in place. ``path`` overrides the choice
     (private: chip_smoke and the variants tools time the "mma" path at
     D = 64 beside "wgmma" and at D = 32 beside "resident", and the "fma"
-    pair at fp32 D = 64 beside "simt"); a path that cannot take the call
+    pair at fp32 D = 64 and 32 beside "simt"); a path that cannot take the call
     raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
@@ -364,7 +383,10 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
         if q.dtype != torch.float32:
             raise ValueError(f"the simt backward path takes float32, not {q.dtype}")
         lib = _bwd32_lib()
-        floats = lib.passt_attention_bwd_fp32_scratch(b, n, h, _build.sm_count(q.device))
+        floats = lib.passt_attention_bwd_fp32_scratch(b, n, h, d, _build.sm_count(q.device))
+        if floats < 0:
+            raise RuntimeError(f"the simt backward takes head_dim {SIMT_HEAD_DIMS}, not {d}, or its occupancy "
+                               "query failed")
         scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
         code = lib.passt_attention_bwd_fp32(
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),

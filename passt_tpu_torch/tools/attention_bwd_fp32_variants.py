@@ -2,23 +2,28 @@
 backward's fp32 "simt" path) on the card, all in one process, to find what
 sets its time.
 
-    python3 -m passt_tpu_torch.tools.attention_bwd_fp32_variants [VARIANTS.json]
+    python3 -m passt_tpu_torch.tools.attention_bwd_fp32_variants [VARIANTS.json] [NAME ...]
 
 VARIANTS.json (default: ``attention_bwd_fp32_variants.json`` beside this
 file) maps a variant name to a list of ``[old, new]`` text edits of
-``attention_bwd_fp32.cu``; an empty list is the source as it is. Each
-variant is written with the other kernel sources to
-``build/attention_bwd_fp32_variants/<name>/`` and built (one ``nvcc`` per
+``attention_bwd_fp32.cu``; an empty list is the source as it is; NAMEs keep
+only those variants. Each variant is written with the other kernel sources
+to ``build/attention_bwd_fp32_variants/<name>/`` and built (one ``nvcc`` per
 variant, all started together). Each is then held against the plain version
 (the largest error over dq, dk and dv relative to that gradient's max|ref|;
 a variant that removes work is wrong on purpose), checked to give the same
-bits twice, and timed through the ``[B, N, H, D]`` entry at fp32 B = 2,
-N = 474 (the fp32 training step's call) and B = 2, N = 1190 (H = 12,
-D = 64): by CUDA-graph replay, and each kernel's profiled time. Beside them,
-from the source as it is: the old "fma" pair at the same shapes (graph
-replay) and SDPA's backward (the profiled kernel time of its forward and
-backward less its forward's). Prints the card (nvidia-smi name and power
-limit), then one line per variant with its registers.
+bits twice, and timed at three fp32 calls: through the ``[B, N, H, D]``
+entry at B = 2, N = 474 (the fp32 training step's call) and B = 2, N = 1190
+(H = 12, D = 64), and through the qkv entry at the convergence demo's
+training call B = 25, N = 79 (H = 6, D = 32): by CUDA-graph replay, and
+each kernel's profiled time, with the blocks an SM holds of each kernel at
+each D (the occupancy query). Before them, from the source as it is
+(:func:`baselines`): the old "fma" pair on the same call (the private path
+override; graph replay and profiled), SDPA's backward with the EFFICIENT
+and the MATH backend (the profiled kernel time of its forward and backward
+less its forward's) and the plain version (events), with the bound. Prints
+the card (nvidia-smi name and power limit), then one line per call and one
+per variant with each instance's registers.
 """
 
 from __future__ import annotations
@@ -31,18 +36,45 @@ import torch
 
 from passt_tpu_torch.ops import attention as A
 from passt_tpu_torch.tools import variants as V
-from passt_tpu_torch.tools.timing import gpu_line, graph_ms, kernel_ms, kernel_times
+from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms, kernel_ms, kernel_times
 
-HEADS, HEAD_DIM = 12, 64
-SHAPES = ((2, 474), (2, 1190))  # (B, N): the fp32 training step's, and a long sequence
+#: (B, N, H, D, entry): the fp32 training step's call, a long sequence, and
+#: the convergence demo's training call at model.dtype=float32
+SHAPES = ((2, 474, 12, 64, "bnhd"), (2, 1190, 12, 64, "bnhd"), (25, 79, 6, 32, "qkv"))
+PEAK_FP32, HBM_BYTES_PER_S = 67e12, 3.35e12  # one H100 SXM at 700 W: FMA FLOP/s, memory bytes/s
 
 
-def _fma(q, k, v, do, scale):
-    """The old "fma" kernel pair on the same call, through the private path
-    override."""
-    grads = [torch.empty(q.shape, device=q.device) for _ in range(3)]
-    A._launch_bwd(q, k, v, do, *grads, scale, False, path="fma")
-    return grads
+def cases(dev, shapes=SHAPES) -> list:
+    """Each call's inputs (seed 0 on the card), its public entry ``run``
+    (the path :func:`backward_path` picks; dq, dk, dv back), the old "fma"
+    pair on the same views ``fma`` (the private path override) and the
+    plain version's gradients."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for b, n, h, d, entry in shapes:
+        qkv = torch.randn((b, n, 3 * h * d), device=dev, generator=gen)
+        do = torch.randn((b, n, h, d), device=dev, generator=gen)
+        views, scale = A._head_views(qkv, h, d), d ** -0.5
+        if entry == "qkv":
+            def run(qkv=qkv, do=do, h=h, d=d, scale=scale):
+                dqkv = A.fused_attention_qkv_bwd(qkv, do.reshape(do.shape[0], do.shape[1], h * d), heads=h,
+                                                 head_dim=d, scale=scale)
+                return A._head_views(dqkv, h, d)
+        else:
+            run = lambda views=views, do=do, scale=scale: A.fused_attention_bwd(*views, do, scale=scale)
+        dqkv_old = torch.empty_like(qkv)
+
+        def fma(views=views, do=do, dqkv_old=dqkv_old, h=h, d=d, scale=scale):
+            grads = A._head_views(dqkv_old, h, d)
+            A._launch_bwd(*views, do, *grads, scale, False, path="fma")
+            return grads
+        out.append(dict(b=b, n=n, h=h, d=d, entry=entry, run=run, fma=fma, scale=scale, views=views, do=do,
+                        ref=A.attention_bwd_plain(*views, do, scale=scale)))
+    return out
+
+
+def _err(got, ref) -> float:
+    return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
 
 
 def _sdpa_bwd_ms(q, k, v, do, scale) -> float:
@@ -52,8 +84,30 @@ def _sdpa_bwd_ms(q, k, v, do, scale) -> float:
     return kernel_ms(fwd_bwd) - kernel_ms(fwd)
 
 
-def _err(got, ref) -> float:
-    return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+def bound_ms(b, n, h, d) -> float:
+    """10 N^2 D FLOP a head over the fp32 FMA rate, or q, k, v, dO read and
+    dq, dk, dv written once over the memory rate, whichever is longer."""
+    return max(10.0 * n * n * d * b * h / PEAK_FP32, 4.0 * 7 * b * n * h * d / HBM_BYTES_PER_S) * 1e3
+
+
+def baselines(calls) -> None:
+    """One line per call: the old "fma" pair (graph replay and profiled;
+    error against plain), SDPA's backward with EFFICIENT and with MATH
+    (profiled), the plain version (events) and the bound."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for c in calls:
+        err = _err(c["fma"](), c["ref"])
+        lib = {}
+        for be in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            with sdpa_kernel([be]):
+                lib[be.name] = _sdpa_bwd_ms(*c["views"], c["do"], c["scale"])
+        plain = cuda_ms(lambda: A.attention_bwd_plain(*c["views"], c["do"], scale=c["scale"]), reps=5)
+        print(f"B={c['b']} N={c['n']} H={c['h']} D={c['d']} ({c['entry']} entry): old fma pair "
+              f"{graph_ms(c['fma']):.4f} ms graph-replayed, {kernel_ms(c['fma']):.4f} profiled (err {err:.3g}); "
+              + "; ".join(f"SDPA backward {k} {v:.4f} ms profiled" for k, v in lib.items())
+              + f"; plain {plain:.4f} ms events; bound {bound_ms(c['b'], c['n'], c['h'], c['d']):.4f} ms",
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -62,38 +116,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("attention_bwd_fp32_variants: no CUDA device; the variants run on the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    scale = HEAD_DIM ** -0.5
-    cases = []
-    for b, n in SHAPES:
-        qkv = torch.randn((b, n, 3 * HEADS * HEAD_DIM), device=dev, generator=gen)
-        q, k, v = qkv.reshape(b, n, 3, HEADS, HEAD_DIM).unbind(2)
-        do = torch.randn((b, n, HEADS, HEAD_DIM), device=dev, generator=gen)
-        cases.append((b, n, q, k, v, do, A.attention_bwd_plain(q, k, v, do, scale=scale)))
     print(gpu_line(), flush=True)
-    for b, n, q, k, v, do, ref in cases:
-        print(f"B={b} N={n}: old fma path {graph_ms(lambda: _fma(q, k, v, do, scale)):.4f} ms "
-              f"(err {_err(_fma(q, k, v, do, scale), ref):.3g}); SDPA backward "
-              f"{_sdpa_bwd_ms(q, k, v, do, scale):.4f} ms of kernels", flush=True)
-
+    calls = cases(torch.device("cuda", 0))
+    baselines(calls)
     for name, log in V.builds("attention_bwd_fp32", variants, A._bwd32_lib):
         times = []
-        for b, n, q, k, v, do, ref in cases:
-            run = lambda: A.fused_attention_bwd(q, k, v, do, scale=scale)
+        for c in calls:
             A.reset_path_launches()
-            got = run()
-            again = run()
+            got = [g.clone() for g in c["run"]()]
+            again = c["run"]()
             torch.cuda.synchronize()
-            paths = [p for p, c in A.BWD_PATH_LAUNCHES.items() if c]
+            paths = [p for p, k in A.BWD_PATH_LAUNCHES.items() if k]
             same = all(torch.equal(x, y) for x, y in zip(got, again))
             split = ", ".join(f"{re.search(r'bwd32_[a-z]+_kernel', kn).group(0)} {ms:.4f}"
-                              for kn, ms in kernel_times(run).items() if "bwd32" in kn)
-            times.append(f"B={b} N={n} {graph_ms(run):.4f} ms ({split}; err {_err(got, ref):.3g}, "
-                         f"{'same bits' if same else 'BITS DIFFER'}, path {paths})")
-        regs = {k_: V.registers(log, k_) for k_ in ("bwd32_stats_kernel", "bwd32_kv_kernel")}
-        print(f"{name}: " + "; ".join(times) + "; registers, spill stores (B): "
-              + ", ".join(f"{k_} {v_}" for k_, v_ in regs.items()), flush=True)
+                              for kn, ms in kernel_times(c["run"]).items() if "bwd32" in kn)
+            times.append(f"B={c['b']} N={c['n']} D={c['d']} {graph_ms(c['run']):.4f} ms ({split}; err "
+                         f"{_err(got, c['ref']):.3g}, {'same bits' if same else 'BITS DIFFER'}, path {paths})")
+        inst = "; ".join(
+            f"D={d}: blocks an SM (S, KV) {A.simt_backward_blocks_per_sm(d)}, registers, spill stores (B) "
+            + ", ".join(f"{k_} {V.registers(log, k_, f'Li{d}E')}" for k_ in ("bwd32_stats_kernel", "bwd32_kv_kernel"))
+            for d in (64, 32))
+        print(f"{name}: " + "; ".join(times) + f"; {inst}", flush=True)
     return 0
 
 

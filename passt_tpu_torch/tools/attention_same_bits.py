@@ -13,9 +13,14 @@ are made from seed 0 on the card: the bf16 and fp16 forward at D = 64 on its
 the training shape B = 12, N = 474 and N = 65, 129 on the qkv entry, plus1
 on and off) and its "short" path (B = 256, N = 14), the fp32 "simt" forward,
 the bf16 "wgmma" backward (B = 12, N = 474, plus1 on and off) and the fp32
-"simt" backward (B = 2, N = 474), 12 heads. ``--compare`` prints each
-output's name, path and whether its bits are equal, and exits non-zero
-unless all are. Runs on the card only.
+"simt" backward (B = 2, N = 474), 12 heads; and the fp32 "simt" forward and
+backward at D = 32 on the qkv entry at the convergence demo's shapes (6
+heads; the forward at B = 25, N = 79 and B = 50, N = 110, the backward at
+B = 25, N = 79; plus1 on and off). ``--compare`` prints each output's name
+and whether its bits are equal to the saved one's, names the outputs the
+saved set lacks (new cases: an older checkout's set), and exits non-zero
+unless every saved output is made again with the same bits. Runs on the
+card only.
 """
 
 from __future__ import annotations
@@ -54,6 +59,20 @@ def outputs(dev) -> dict:
         for plus1 in (False, True):
             out[f"bwd {str(dtype)[6:]} qkv B={b} N=474 plus1={plus1}"] = A.fused_attention_qkv_bwd(
                 x, do, heads=h, head_dim=d, scale=d ** -0.5, plus1=plus1)
+    # the fp32 "simt" instances at D = 32 (its own generator: the cases
+    # above draw the same numbers as before)
+    gen32 = torch.Generator(device=dev).manual_seed(32)
+    h32, d32 = 6, 32
+    for b, n in ((25, 79), (50, 110)):
+        x = torch.randn((b, n, 3 * h32 * d32), device=dev, generator=gen32)
+        for plus1 in (False, True):
+            with torch.no_grad():
+                out[f"fwd float32 D=32 qkv B={b} N={n} plus1={plus1}"] = A.fused_attention_qkv(
+                    x, heads=h32, head_dim=d32, scale=d32 ** -0.5, plus1=plus1)
+            if b == 25:
+                do = torch.randn((b, n, h32 * d32), device=dev, generator=gen32)
+                out[f"bwd float32 D=32 qkv B={b} N={n} plus1={plus1}"] = A.fused_attention_qkv_bwd(
+                    x, do, heads=h32, head_dim=d32, scale=d32 ** -0.5, plus1=plus1)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
@@ -80,11 +99,13 @@ def main(argv=None) -> int:
         print(f"saved {len(got)} outputs to {args.save}", flush=True)
         return 0
     saved = torch.load(args.compare)
-    same = {k: k in saved and torch.equal(v, saved[k]) for k, v in got.items()}
+    same = {k: torch.equal(got[k], v) for k, v in saved.items() if k in got}
     for k, ok in same.items():
         print(f"{k}: {'same bits' if ok else 'BITS DIFFER'}", flush=True)
-    print(f"{sum(same.values())} of {len(same)} outputs bit-equal to {args.compare}", flush=True)
-    return 0 if all(same.values()) and set(saved) == set(got) else 1
+    new, missing = sorted(set(got) - set(saved)), sorted(set(saved) - set(got))
+    print(f"{sum(same.values())} of {len(saved)} saved outputs bit-equal to {args.compare}; not made: "
+          f"{missing or 'none'}; new (not in the saved set): {new or 'none'}", flush=True)
+    return 0 if all(same.values()) and not missing else 1
 
 
 if __name__ == "__main__":

@@ -1,7 +1,10 @@
 """The attention backward's fp32 "simt" order, emulated on the CPU, and the
 choice of its path.
 
-``csrc/attention_bwd_fp32.cu`` runs two kernels in fp32 FMA at D = 64.
+``csrc/attention_bwd_fp32.cu`` runs two kernels in fp32 FMA, templates on
+D: D = 64 (the fp32 training step's 12 heads) and D = 32 (the convergence
+demo's 6 heads at ``model.dtype=float32``); the tiles are 64 keys and 64
+queries at either D.
 Kernel S walks the keys once in tiles of 64 with a running row max
 (starting at 0 under plus1), rescaling l = sum p and r = sum p dP by
 exp(m_old - m_new) when the max rises, and saves m, il = 1 / l and di = r il.
@@ -28,7 +31,9 @@ from passt_tpu.ops.pallas import attention as jax_attention
 from passt_tpu_torch.ops.attention import attention_bwd_plain, backward_path
 
 HEADS, HEAD_DIM = 2, 64
-TILE = 64  # keys a stats tile and a block of kernel KV; queries a tile
+#: the D = 32 instance's case: the convergence demo's 6 heads of D = 32
+DEMO_HEADS, DEMO_HEAD_DIM = 6, 32
+TILE = 64  # keys a stats tile and a block of kernel KV; queries a tile, at either D
 # chip_smoke.py TOL_BWD[fp32], of max|ref| of each gradient: fp32 in another
 # summation order (and exp2 of a fused product for exp)
 TOL = 5e-5
@@ -54,6 +59,19 @@ def place(blk, step, tiles, rotate, halves):
     h0 = (tiles + 1) // 2
     half = int(step >= h0)
     return 2 * (step - half * h0) + half
+
+
+def kv_halves(batch, n, heads, slots):
+    """kv_halves: 2 where splitting each key block's query walk in two
+    halves takes fewer rounds of blocks over the card's ``slots`` (its SMs
+    times the blocks of kernel KV an SM holds: one at D = 64, two at
+    D = 32), and both halves of a head's key blocks fit at once."""
+    tiles = -(-n // TILE)
+    blocks = batch * heads * tiles
+    if tiles < 2 or 2 * tiles > slots:
+        return 1
+    rounds, half_rounds = -(-blocks // slots), -(-2 * blocks // slots)
+    return 2 if half_rounds < 2 * rounds else 1
 
 
 def stats_pass(qf, kf, vf, dof, *, scale, plus1):
@@ -119,22 +137,22 @@ def simt_backward(q, k, v, do, *, scale, plus1, rotate=True, halves=1):
     return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 
 
-def _jax_grads(qkv, do, scale, plus1):
+def _jax_grads(qkv, do, scale, plus1, heads=HEADS, head_dim=HEAD_DIM):
     """The JAX package's two backward kernels (interpret mode, fp32) on the
     same inputs: dq, dk, dv of the [B, N, H, D] entry and of the qkv entry."""
     b, n, _ = qkv.shape
     jqkv, jdo = jnp.asarray(qkv), jnp.asarray(do)
-    j5 = jqkv.reshape(b, n, 3, HEADS, HEAD_DIM)
+    j5 = jqkv.reshape(b, n, 3, heads, head_dim)
     _, vjp = jax.vjp(
         lambda q, k, v: jax_attention.fused_attention(q, k, v, scale=scale, plus1=plus1, interpret=True),
         j5[:, :, 0], j5[:, :, 1], j5[:, :, 2])
-    bnhd = vjp(jdo.reshape(b, n, HEADS, HEAD_DIM))
+    bnhd = vjp(jdo.reshape(b, n, heads, head_dim))
     _, vjp = jax.vjp(
         lambda x: jax_attention.fused_attention_qkv(
-            x, heads=HEADS, head_dim=HEAD_DIM, scale=scale, plus1=plus1, interpret=True),
+            x, heads=heads, head_dim=head_dim, scale=scale, plus1=plus1, interpret=True),
         jqkv)
     (flat,) = vjp(jdo)
-    flat = flat.reshape(b, n, 3, HEADS, HEAD_DIM)
+    flat = flat.reshape(b, n, 3, heads, head_dim)
     as_torch = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
     return [as_torch(x) for x in bnhd], [as_torch(flat[:, :, j]) for j in range(3)]
 
@@ -145,16 +163,25 @@ def _hold(got, refs):
         assert err <= TOL * float(r.abs().max()), f"{name}: {err:.3g} of max|ref| {float(r.abs().max()):.3g}"
 
 
-@pytest.mark.parametrize("n, plus1", [(n, plus1) for n in (14, 65, 129, 200) for plus1 in (False, True)])
-def test_simt_order_matches_pallas_and_plain(n, plus1):
-    rng = np.random.default_rng(3 * n + plus1)
-    qkv = rng.standard_normal((1, n, 3 * HEADS * HEAD_DIM)).astype(np.float32)
-    do = rng.standard_normal((1, n, HEADS * HEAD_DIM)).astype(np.float32)
-    scale = HEAD_DIM ** -0.5
-    q, k, v = torch.from_numpy(qkv).reshape(1, n, 3, HEADS, HEAD_DIM).unbind(2)
-    do4 = torch.from_numpy(do).reshape(1, n, HEADS, HEAD_DIM)
+# (n, plus1, D): D = 64 at 2 heads, D = 32 at the demo's 6 (also at its
+# training N = 79: two query tiles, the walk split in halves there); the
+# D = 64 cases keep their ids
+SIMT_CASES = [(n, plus1, 64) for n in (14, 65, 129, 200) for plus1 in (False, True)]
+SIMT_CASES += [(n, plus1, 32) for n in (14, 65, 79, 129, 200) for plus1 in (False, True)]
+
+
+@pytest.mark.parametrize("n, plus1, d", SIMT_CASES,
+                         ids=[f"{n}-{plus1}" + ("" if d == 64 else f"-d{d}") for n, plus1, d in SIMT_CASES])
+def test_simt_order_matches_pallas_and_plain(n, plus1, d):
+    heads = HEADS if d == HEAD_DIM else DEMO_HEADS
+    rng = np.random.default_rng(3 * n + plus1 + (d != HEAD_DIM))
+    qkv = rng.standard_normal((1, n, 3 * heads * d)).astype(np.float32)
+    do = rng.standard_normal((1, n, heads * d)).astype(np.float32)
+    scale = d ** -0.5
+    q, k, v = torch.from_numpy(qkv).reshape(1, n, 3, heads, d).unbind(2)
+    do4 = torch.from_numpy(do).reshape(1, n, heads, d)
     plain = attention_bwd_plain(q, k, v, do4, scale=scale, plus1=plus1)
-    bnhd, flat = _jax_grads(qkv, do, scale, plus1)
+    bnhd, flat = _jax_grads(qkv, do, scale, plus1, heads, d)
     for halves in (1, 2):  # the walks whole, and split where that saves a round of blocks
         got = simt_backward(q, k, v, do4, scale=scale, plus1=plus1, halves=halves)
         assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got)
@@ -163,24 +190,49 @@ def test_simt_order_matches_pallas_and_plain(n, plus1):
         _hold(got, flat)
 
 
-def test_simt_order_when_a_later_tile_raises_the_max():
-    """Scores in the third 64-key tile far above the first two's: kernel S's
-    l and sum p dP are rescaled to (almost) nothing from the earlier tiles,
-    and the gradients match the exact-max plain version."""
+def _later_tile_raises_the_max(d):
+    """Scores in the third 64-key tile far above the first two's (head dim
+    ``d``): kernel S's l and sum p dP are rescaled to (almost) nothing from
+    the earlier tiles, and the gradients match the exact-max plain version."""
     n = 4 * TILE
     rng = np.random.default_rng(29)
-    q = torch.from_numpy(rng.standard_normal((1, n, 1, HEAD_DIM)).astype(np.float32) * 0.2) + 1.0
-    k = torch.from_numpy(rng.standard_normal((1, n, 1, HEAD_DIM)).astype(np.float32) * 0.2)
+    q = torch.from_numpy(rng.standard_normal((1, n, 1, d)).astype(np.float32) * 0.2) + 1.0
+    k = torch.from_numpy(rng.standard_normal((1, n, 1, d)).astype(np.float32) * 0.2)
     k[:, 2 * TILE:3 * TILE] += 1.0  # every query's max lies in the third tile
-    v = torch.from_numpy(rng.standard_normal((1, n, 1, HEAD_DIM)).astype(np.float32))
-    do = torch.from_numpy(rng.standard_normal((1, n, 1, HEAD_DIM)).astype(np.float32))
-    scale = HEAD_DIM ** -0.5
+    v = torch.from_numpy(rng.standard_normal((1, n, 1, d)).astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((1, n, 1, d)).astype(np.float32))
+    scale = d ** -0.5
     s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
     assert bool((s.argmax(dim=-1) // TILE == 2).all())
     m, il, _ = stats_pass(q, k, v, do, scale=scale, plus1=False)
     torch.testing.assert_close(m, s.amax(dim=-1, keepdim=True), rtol=0, atol=0)
     torch.testing.assert_close(il, 1.0 / torch.exp(s - m).sum(-1, keepdim=True), rtol=1e-6, atol=0)
     _hold(simt_backward(q, k, v, do, scale=scale, plus1=False), attention_bwd_plain(q, k, v, do, scale=scale))
+
+
+def test_simt_order_when_a_later_tile_raises_the_max():
+    _later_tile_raises_the_max(HEAD_DIM)
+
+
+def test_simt_order_at_d32_when_a_later_tile_raises_the_max():
+    """The same at the D = 32 instance's head dim."""
+    _later_tile_raises_the_max(DEMO_HEAD_DIM)
+
+
+@pytest.mark.parametrize(
+    "batch, n, heads, slots, halves",
+    [
+        (2, 474, 12, 132, 2),  # the fp32 step at D = 64: 192 blocks, one an SM: 2 rounds; 384 halves 3
+        (25, 79, 6, 264, 2),  # the fp32 demo at D = 32: 300 blocks, two an SM: 2 rounds; 600 halves 3
+        (25, 79, 6, 132, 2),  # the same at one block an SM: 3 rounds; halves 5
+        (50, 110, 6, 264, 2),  # 600 blocks: 3 rounds; 1200 halves 5
+        (1, 474, 12, 132, 1),  # 96 blocks, one round; 192 halves two of half the work: no round saved
+        (2, 40, 12, 132, 1),  # one query tile: no walk to split
+        (1, 64 * 70, 1, 132, 1),  # 70 key blocks: both halves of a head do not fit on 132 slots
+    ],
+)
+def test_split_walk_only_where_it_saves_a_round(batch, n, heads, slots, halves):
+    assert kv_halves(batch, n, heads, slots) == halves
 
 
 def test_rotated_and_plain_orders_agree():
@@ -226,6 +278,11 @@ def test_split_dq_order_waits_only_on_the_same_or_the_last_step():
         (97, 128, True, "fma"),
         (97, 16, True, "fma"),
         (474, 64, False, "fma"),  # unaligned views
+        (79, 32, True, "simt"),  # the convergence demo's training step at model.dtype=float32
+        (110, 32, True, "simt"),
+        (129, 32, True, "simt"),  # D = 32 at any N
+        (474, 32, True, "simt"),
+        (79, 32, False, "fma"),  # unaligned views
     ],
 )
 def test_fp32_backward_path(n, d, aligned, path):

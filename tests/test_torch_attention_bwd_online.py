@@ -292,7 +292,7 @@ def test_rotated_and_plain_orders_agree():
         (128, 32, torch.float16, True, "resident"),
         (1, 32, torch.bfloat16, True, "resident"),
         (129, 32, torch.bfloat16, True, "mma"),  # past one block's 128 tokens
-        (79, 32, torch.float32, True, "fma"),
+        (79, 32, torch.float32, True, "simt"),  # fp32 D = 32: the simt template (was "fma")
         (79, 32, torch.bfloat16, False, "fma"),  # unaligned strides
     ],
 )

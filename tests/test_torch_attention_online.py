@@ -5,9 +5,9 @@ the choice of its path.
 walks the keys in tiles of 128 with a running row max (starting at 0 under plus1), rounds p = exp(s - m)
 to the input dtype against that running max for the PV product, and
 rescales its fp32 accumulator and row sum by exp(m_old - m_new) whenever
-the max rises. ``csrc/attention_fwd_fp32.cu``'s "simt" path (fp32, D = 64)
-takes the same order over tiles of 64 keys, where rounding p to fp32 is the
-identity. The emulation below does the same in fp32 PyTorch and is held,
+the max rises. ``csrc/attention_fwd_fp32.cu``'s "simt" path (fp32, D = 64
+and D = 32) takes the same order over tiles of 64 keys, where rounding p to
+fp32 is the identity. The emulation below does the same in fp32 PyTorch and is held,
 on the same numpy inputs, against the JAX package's Pallas kernel in
 interpret mode (fp32 at Precision.HIGHEST) and against the port's plain
 version (exact max), within chip_smoke.py's TOL_ATTN for bf16 / fp16, the
@@ -81,20 +81,23 @@ def test_online_order_matches_pallas_and_plain(dtype, plus1, n):
 
 @pytest.mark.parametrize("n", [79, 110, 200])
 @pytest.mark.parametrize("plus1", [False, True])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 def test_online_order_at_d32_matches_pallas_and_plain(dtype, plus1, n):
-    """The D = 32 instance of the "wgmma" path (the convergence demo's 6
-    heads of D = 32): one key tile at N = 79 and 110, where the running max
-    is the exact max, two at N = 200."""
+    """The D = 32 instances of the "wgmma" path (bf16 / fp16) and of the
+    "simt" path (fp32) at the convergence demo's 6 heads of D = 32: in
+    bf16 / fp16 one 128-key tile at N = 79 and 110, where the running max is
+    the exact max, two at N = 200; in fp32 two 64-key tiles at N = 79 and
+    110, four at N = 200."""
     heads, d = 6, 32
     rng = np.random.default_rng(3 * n + plus1)
     qkv = rng.standard_normal((2, n, 3 * heads * d)).astype(np.float32)
     tdt = getattr(torch, dtype)
     q, k, v = torch.from_numpy(qkv).to(tdt).reshape(2, n, 3, heads, d).unbind(2)
     scale = d ** -0.5
-    got = online_attention(q, k, v, scale=scale, plus1=plus1)
+    tile = KEY_TILE_FP32 if tdt == torch.float32 else KEY_TILE
+    got = online_attention(q, k, v, scale=scale, plus1=plus1, tile=tile)
     assert got.dtype == tdt and bool(torch.isfinite(got).all())
-    if n <= KEY_TILE:
+    if n <= tile:
         # one tile: the same order as the plain version's exact max
         assert torch.equal(got, attention_plain(q, k, v, scale=scale, plus1=plus1))
     ref = jax_attention.fused_attention_qkv(jnp.asarray(qkv, dtype=jnp.dtype(dtype)), heads=heads, head_dim=d,
@@ -132,7 +135,7 @@ def test_online_order_rescales_when_the_max_rises():
         (1190, 64, torch.float32, True, "simt"),  # fp32 serving and the exported program
         (1, 64, torch.float32, True, "simt"),
         (474, 64, torch.float32, False, "fma"),  # unaligned views
-        (97, 32, torch.float32, True, "fma"),  # another head dim
+        (97, 32, torch.float32, True, "simt"),  # fp32 D = 32: the simt template (was "fma")
         (97, 16, torch.bfloat16, True, "mma"),
         (97, 128, torch.float16, True, "mma"),
         (97, 24, torch.bfloat16, True, "fma"),  # 8 mod 16: the FMA kernel
@@ -141,8 +144,16 @@ def test_online_order_rescales_when_the_max_rises():
         (110, 32, torch.float16, True, "wgmma"),  # and its eval
         (129, 32, torch.bfloat16, True, "wgmma"),  # D = 32 at any N
         (1, 32, torch.bfloat16, True, "wgmma"),
-        (79, 32, torch.float32, True, "fma"),
+        (79, 32, torch.float32, True, "simt"),  # the demo at model.dtype=float32: fp32 D = 32 (was "fma")
         (79, 32, torch.bfloat16, False, "fma"),
+        (110, 32, torch.float32, True, "simt"),  # the fp32 demo's eval
+        (129, 32, torch.float32, True, "simt"),  # fp32 D = 32 at any N
+        (1, 32, torch.float32, True, "simt"),
+        (1190, 32, torch.float32, True, "simt"),
+        (79, 32, torch.float32, False, "fma"),  # unaligned views
+        (97, 24, torch.float32, True, "fma"),  # fp32 at another D
+        (97, 16, torch.float32, True, "fma"),
+        (97, 128, torch.float32, True, "fma"),
     ],
 )
 def test_forward_path(n, d, dtype, aligned, path):
