@@ -15,10 +15,10 @@ Phases (each prints one line or more; the first failure exits non-zero):
    jittered bank, a bank with an all-zero row, and at every other n_fft it
    is built for (64, 128, 256, 512 with win 400, 2048) (the wrapper timed by
    CUDA-graph replay, its two kernels by profiled kernel time, beside the
-   cuFFT composition of the same function); the attention forward on each of its five paths (every
-   call checked to take the one ``forward_path`` picks; fp32 at D = 64 on
-   "simt" from N = 1 to 1190 and at D = 32 from N = 1 to 200, fp32 at
-   another D and on unaligned views on "fma"), timed by CUDA-graph
+   cuFFT composition of the same function); the attention forward on each of its four paths (every
+   call checked to take the one ``forward_path`` picks, never "fma"; fp32
+   at D = 64 on "simt" from N = 1 to 1190 and at D = 32 from N = 1 to 200,
+   fp32 at another D and every unaligned view on "simt"), timed by CUDA-graph
    replay and by events at the serving (B = 20, N = 1190), timestamp
    (B = 256, N = 14) and training (B = 12, N = 474) shapes beside SDPA as
    PyTorch dispatches it (the kernel it ran named from a profiler trace)
@@ -30,7 +30,19 @@ Phases (each prints one line or more; the first failure exits non-zero):
    training step's shapes (graph replay, events and profiled kernel time)
    beside the old pair on the same call ("mma" for bf16, "fma" for fp32)
    and SDPA's backward (the profiled kernel time of its forward and
-   backward less its forward's, and events);
+   backward less its forward's, and events); then the "simt" kernels'
+   instances (templates on the dtype and the head dim padded to DP = 32,
+   64, 96, 128) over a sweep, forward and backward through both entries
+   against the plain versions: fp32 at every D from 8 to 128 by 8, bf16
+   and fp16 at D = 24, 40 and 120, each aligned and one element off, N 1,
+   63, 64, 65, 97, 129 and 474, plus1 on and off, every call on "simt",
+   the backward's bits equal on a second call; and timed through the qkv
+   entry (forward by graph replay, backward also by profiled kernel time)
+   at fp32 B = 2, N = 474 with 6 heads of D = 128 and 16 of D = 48, the
+   convergence demo's two shapes at 2 heads of D = 96 and in bf16 at 8
+   heads of D = 24, and one unaligned fp32 call, each beside the old
+   "fma" kernels on the same call (which it must beat), SDPA's EFFICIENT
+   and MATH backends alone, the plain version and the bound;
 4. the serving path at full PaSST-S width (12 x 768, 12 heads, 527 classes,
    N = 1190, random weights from a seeded generator): Predictor calls at
    B = 1 and B = 20 (10-s clips), scene embeddings and timestamp embeddings
@@ -96,7 +108,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    warm-up, capture and replay, the ``Predictor``'s replays' launches
    exact; [13]'s ``fit`` rerun with the eager steps bit-equal to the
    graphed run (printed after [13]); the times, graphed and eager in
-   turns: the step's best of 3 runs of 200 (the eager step's: runs of 50)
+   turns: the step's best of 3 runs of 50 (the eager step's: runs of 25)
    with the spread, its first
    calls and peak memory, a 5-step profile of each (kernel time, kernels
    and host launch calls a step, idle share), the eager fit's steady
@@ -146,7 +158,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    bit-equal to loop (losses, parameters, both moments), stacked within the
    bf16 bound and its first moment within its bound, the launches exact;
    the four timed in turns (``tools/ab_scan_blocks``: best of 3 runs of
-   200, first calls, peak memory, one eager step's own peak and what its
+   50, first calls, peak memory, one eager step's own peak and what its
    forward holds, remat's under half the loop's, device time per kernel
    group, kernels a step, idle share, launches a step); the batched
    weight-gradient product against float64; one fp32 B = 2 stacked step (the hand-written
@@ -193,6 +205,9 @@ Phases (each prints one line or more; the first failure exits non-zero):
    [20g] the same run on the same folders at ``model.dtype=float32``
    (``run(["model.dtype=float32"], ...)``), with the same checks and every
    attention call on the fp32 "simt" kernels' D = 32 instances, "fma" 0;
+   [20h] that fp32 run with the reduced arch at 2 heads (D = 96; the
+   registry overridden for the phase through the tool's ``REDUCED``), every
+   attention call on the "simt" kernels' DP = 96 instances, "fma" 0;
    ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
    width (120 / 40 5-s clips as wav folders, 8 epochs, SIGTERM after epoch
    2; each phase the CLI in a child process through a ``python -c`` shim
@@ -253,7 +268,7 @@ Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
 15's and 16's CLI commands, 17's loaded-program and serve calls, 18's
 equality runs, fp32 stacked step and stacked ``Predictor``, 19's demo, and
-20's convergence demos (bf16 and fp32), rehearsal phases (counted in their
+20's convergence demos (bf16, fp32, fp32 at 2 heads), rehearsal phases (counted in their
 child processes), parity runs, fit_throughput run and ref arm) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
@@ -273,6 +288,7 @@ the kernels' JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -294,6 +310,9 @@ CLIP = 320000  # 10 s at 32 kHz
 #: the convergence demo's attention ([20b]): its reduced PaSST's heads and
 #: head dim, and its (B, N) in training and in eval
 CONV_HEADS, CONV_HEAD_DIM = 6, 32
+#: [20h] the same demo over 2 heads: D = 96, the "simt" kernels' DP = 96
+#: instances in fp32
+CONV_WIDE_HEADS = 2
 CONV_SHAPES = ((25, 79), (50, 110))
 #: the ragged-N sweep at D = 32 ([3], [3b]): one tile's edges and the demo's N
 D32_NS = (1, 17, 64, 65, 79, 110, 127, 128)
@@ -353,6 +372,13 @@ TRAIN_B, TRAIN_N = 12, 474  # the bench step: (12 - 4) x (99 - 40) + 2 tokens
 # and they differ by less than 2 lr. An updated parameter differs by at most
 # the updates' difference plus one ulp of the parameter (each add rounds).
 TOL_STEP_LOSS, TOL_STEP_GRAD, TOL_STEP_UPDATE = 1e-4, 1e-3, 0.05
+
+
+#: the "simt" kernels' instances by input type (as ptxas's mangled template
+#: arguments name it) and full rows (fp32 at D = DP, every operand aligned)
+#: or not, for [2]'s register lines
+SIMT_INSTANCES = ((torch.float32, "If", True), (torch.float32, "If", False), (torch.bfloat16, "I13__nv_bfloat16", False),
+                  (torch.float16, "I6__half", False))
 
 
 def say(line: str) -> None:
@@ -536,8 +562,8 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # head dims; bf16 and fp16 on views one element off 16-byte alignment.
     # Each pair of calls takes the path forward_path picks ("wgmma" at
     # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "simt" for
-    # fp32 at D = 64 and 32; "fma" for fp32 at D = 24 and the unaligned
-    # views). fp32 also at the ragged edges of the simt kernel's 64-row
+    # every fp32 call, bf16 at D = 24 and the unaligned views; never
+    # "fma"). fp32 also at the ragged edges of the simt kernel's 64-row
     # tiles (N = 1, 63, 64, 65, 97). The convergence demo's D = 32 ("wgmma"
     # in bf16 / fp16, "simt" in fp32, at any N) over a ragged-N sweep: one
     # and two 128-key tiles, one to four 64-key tiles
@@ -572,8 +598,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
             got_f = fused_attention_qkv(qkv, heads=h_, head_dim=d_, scale=d_ ** -0.5, plus1=plus1)
             torch.cuda.synchronize()
             path = A.forward_path(n, d_, dtype, aligned)
-            check(aligned or path == "fma", f"{dtype} N={n} D={d_} unaligned: path {path}, want fma")
-            check((path == "simt") == (dtype == torch.float32 and d_ in A.SIMT_HEAD_DIMS and aligned),
+            check(path != "fma" and (path == "simt") == (dtype == torch.float32 or not aligned or d_ % 16 != 0),
                   f"{dtype} N={n} D={d_} aligned={aligned}: path {path}")
             check(A.FWD_PATH_LAUNCHES[path] == 2 == sum(A.FWD_PATH_LAUNCHES.values()),
                   f"{dtype} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want 2 on {path}")
@@ -708,7 +733,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
         f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
-        f"D 24 (fma) and 32 (simt); bf16/fp16/fp32 unaligned views at N 97/1190; bf16/fp16/fp32 D=32 N "
+        f"D 24 and 32 (simt); bf16/fp16/fp32 unaligned views at N 97/1190 (simt); bf16/fp16/fp32 D=32 N "
         f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off (fp32 on simt); bf16 at the serving, timestamp "
         f"and training shapes, bf16 and fp32 D=32 at the convergence demo's); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
@@ -1022,6 +1047,176 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             f"{t['design_bound_ms']:.4f} ms ({gpu})")
     rec["fused_attention_qkv_bwd"]["conv_demo_d32_fp32"] = demo32
     return rec
+
+
+#: [3] / [3b] the "simt" sweep: the ragged N of the 64-row tiles (one, the
+#: edges of the first, two and three tiles, the fp32 step's N)
+SIMT_NS = (1, 63, 64, 65, 97, 129, 474)
+#: [3] / [3b] the "simt" instances timed, (dtype, B, N, H, D, aligned): the
+#: fp32 step's shape (C = 768) at 6 heads of D = 128 and 16 of D = 48 (row
+#: 2f's and row 4's FLOPs), the convergence demo's training and eval shapes
+#: at 2 heads of D = 96 ([20h]) and in bf16 at 8 heads of D = 24, and one
+#: fp32 call on views one element off 16-byte alignment
+SIMT_TIMED = ((torch.float32, 2, 474, 6, 128, True), (torch.float32, 2, 474, 16, 48, True),
+              (torch.float32, 25, 79, 2, 96, True), (torch.float32, 50, 110, 2, 96, True),
+              (torch.bfloat16, 25, 79, 8, 24, True), (torch.bfloat16, 50, 110, 8, 24, True),
+              (torch.float32, 2, 474, 6, 128, False))
+
+
+def off_alignment(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in a view one element off 16-byte alignment."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def simt_sweep(gpu: str, dev: torch.device) -> dict:
+    """[3] / [3b] the "simt" kernels' instances against their plain versions:
+    fp32 at every D from 8 to 128 by 8, bf16 and fp16 at D = 24, 40 and 120,
+    each aligned and on views one element off 16-byte alignment, at every N
+    of SIMT_NS with plus1 on and off; both entries forward and backward,
+    every call checked to take "simt", the backward's bits equal on a second
+    call. Returns the worst errors by entry."""
+    from passt_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(23)
+    cases = [(torch.float32, d, al) for d in range(8, 129, 8) for al in (True, False)]
+    cases += [(dt, d, al) for dt in (torch.bfloat16, torch.float16) for d in (24, 40, 120) for al in (True, False)]
+    worst = dict.fromkeys(("fused_attention", "fused_attention_qkv", "fused_attention_bwd", "fused_attention_qkv_bwd"),
+                          0.0)
+    by_dp, t0, calls = {}, time.perf_counter(), 0
+    for dtype, d, aligned in cases:
+        for n in SIMT_NS:
+            for plus1 in (False, True):
+                b, h, scale = 2, 2, d ** -0.5
+                qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32)).to(dev, dtype)
+                do = torch.from_numpy(rng.standard_normal((b, n, h * d)).astype(np.float32)).to(dev, dtype)
+                if not aligned:
+                    qkv, do = off_alignment(qkv), off_alignment(do)
+                q, k, v = qkv.reshape(b, n, 3, h, d).unbind(2)
+                do4 = do.view(b, n, h, d)
+                check(A._aligned(q, k, v, do4) == aligned, f"simt sweep {dtype} D={d} N={n}: alignment")
+                A.reset_path_launches()
+                with torch.no_grad():
+                    fb = A.fused_attention(q, k, v, scale=scale, plus1=plus1)
+                    ff = A.fused_attention_qkv(qkv, heads=h, head_dim=d, scale=scale, plus1=plus1)
+                gb = A.fused_attention_bwd(q, k, v, do4, scale=scale, plus1=plus1)
+                gf = A.fused_attention_qkv_bwd(qkv, do, heads=h, head_dim=d, scale=scale, plus1=plus1)
+                gb2 = A.fused_attention_bwd(q, k, v, do4, scale=scale, plus1=plus1)
+                gf2 = A.fused_attention_qkv_bwd(qkv, do, heads=h, head_dim=d, scale=scale, plus1=plus1)
+                torch.cuda.synchronize()
+                what = f"simt sweep {dtype} D={d} N={n} plus1={plus1} aligned={aligned}"
+                check(A.FWD_PATH_LAUNCHES["simt"] == 2 == sum(A.FWD_PATH_LAUNCHES.values())
+                      and A.BWD_PATH_LAUNCHES["simt"] == 4 == sum(A.BWD_PATH_LAUNCHES.values()),
+                      f"{what}: paths {A.FWD_PATH_LAUNCHES}, {A.BWD_PATH_LAUNCHES}")
+                check(all(torch.equal(x, y) for x, y in zip(gb, gb2)) and torch.equal(gf, gf2),
+                      f"{what}: the backward's bits differ between two calls")
+                ref = A.attention_plain(q, k, v, scale=scale, plus1=plus1)
+                refs = A.attention_bwd_plain(q, k, v, do4, scale=scale, plus1=plus1)
+                errs = {"fused_attention": max_err(fb, ref), "fused_attention_qkv": max_err(ff.view(ref.shape), ref),
+                        "fused_attention_bwd": max(rel_err(g, r) for g, r in zip(gb, refs)),
+                        "fused_attention_qkv_bwd": max(rel_err(g, r) for g, r in
+                                                       zip(gf.reshape(b, n, 3, h, d).unbind(2), refs))}
+                for name, err in errs.items():
+                    tol = (TOL_ATTN if name in ("fused_attention", "fused_attention_qkv") else TOL_BWD)[dtype]
+                    check(err <= tol, f"{what} {name}: max err {err:.3g} > {tol:.3g}")
+                    worst[name] = max(worst[name], err)
+                key = f"{str(dtype)[6:]} DP={A.simt_head_dim(d)}"
+                by_dp[key] = max(by_dp.get(key, 0.0), errs["fused_attention_qkv"], errs["fused_attention"])
+                calls += 6
+    say(f"[3] / [3b] simt sweep: {len(cases) * len(SIMT_NS) * 2} cases, {calls} kernel calls in "
+        f"{time.perf_counter() - t0:.1f} s (fp32 D 8 to 128 by 8, bf16 / fp16 D 24/40/120, each aligned and one "
+        f"element off, N {'/'.join(map(str, SIMT_NS))}, plus1 on/off, both entries, forward and backward, every call "
+        f"on simt, the backward's bits equal on a second call): forward max err {worst['fused_attention']:.3g} "
+        f"([B, N, H, D]), {worst['fused_attention_qkv']:.3g} (qkv); backward {worst['fused_attention_bwd']:.3g}, "
+        f"{worst['fused_attention_qkv_bwd']:.3g} of max|ref|; forward by instance "
+        + ", ".join(f"{k} {v:.3g}" for k, v in by_dp.items()) + f" ({gpu})")
+    return worst
+
+
+def simt_timings(gpu: str, dev: torch.device) -> tuple:
+    """[3] / [3b] the "simt" instances at SIMT_TIMED's calls through the qkv
+    entry: the forward by CUDA-graph replay, the backward by graph replay
+    and profiled kernel time, each beside the old "fma" kernels on the same
+    call (the private path override), SDPA's EFFICIENT and MATH backends
+    alone, the plain version (events) and the bound; each checked against
+    the plain version and to beat "fma". On the unaligned call SDPA's MATH
+    backend alone: its EFFICIENT kernel faulted there with a misaligned
+    address on the card (CUDA error 716), which ends the process's CUDA
+    context. Returns the forward's and the backward's records by call."""
+    from torch.nn.attention import SDPBackend
+
+    from passt_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    fwd_rec, bwd_rec = {}, {}
+    for dtype, b, n, h, d, aligned in SIMT_TIMED:
+        backends = (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH) if aligned else (SDPBackend.MATH,)
+        scale, peak = d ** -0.5, PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        qkv = torch.randn((b, n, 3 * h * d), device=dev, generator=gen).to(dtype)
+        do = torch.randn((b, n, h * d), device=dev, generator=gen).to(dtype)
+        if not aligned:
+            qkv, do = off_alignment(qkv), off_alignment(do)
+        views, do4 = A._head_views(qkv, h, d), do.view(b, n, h, d)
+        key = f"{str(dtype)[6:]} B={b} N={n} H={h} D={d}" + ("" if aligned else " unaligned")
+        check(A._aligned(*views, do4) == aligned, f"simt timing {key}: alignment")
+        out, dqkv_old = torch.empty((b, n, h, d), dtype=dtype, device=dev), torch.empty_like(qkv)
+        kern = lambda: A.fused_attention_qkv(qkv, heads=h, head_dim=d, scale=scale)
+        old = lambda: A._launch(*views, out, scale, False, path="fma")
+        kern_b = lambda: A.fused_attention_qkv_bwd(qkv, do, heads=h, head_dim=d, scale=scale)
+        old_b = lambda: A._launch_bwd(*views, do4, *A._head_views(dqkv_old, h, d), scale, False, path="fma")
+        with torch.no_grad():
+            ref = A.attention_plain(*views, scale=scale)
+            A.reset_path_launches()
+            got = kern().view(ref.shape)
+            got_b = kern_b()
+            again_b = kern_b()
+            check(A.FWD_PATH_LAUNCHES["simt"] == 1 == sum(A.FWD_PATH_LAUNCHES.values())
+                  and A.BWD_PATH_LAUNCHES["simt"] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
+                  f"simt timing {key}: paths {A.FWD_PATH_LAUNCHES}, {A.BWD_PATH_LAUNCHES}")
+            check(torch.equal(got_b, again_b), f"simt timing {key}: the backward's bits differ")
+            old()
+            old_b()
+            refs = A.attention_bwd_plain(*views, do4, scale=scale)
+            err, old_err = max_err(got, ref), max_err(out, ref)
+            errs_b = [rel_err(g, r) for g, r in zip(got_b.reshape(b, n, 3, h, d).unbind(2), refs)]
+            old_errs_b = [rel_err(g, r) for g, r in zip(A._head_views(dqkv_old, h, d), refs)]
+            check(max(err, old_err) <= TOL_ATTN[dtype] and max(errs_b + old_errs_b) <= TOL_BWD[dtype],
+                  f"simt timing {key}: max err {err:.3g} / {max(errs_b):.3g} (simt), {old_err:.3g} / "
+                  f"{max(old_errs_b):.3g} (fma)")
+            lib = lambda: sdpa(*views, scale)
+            f = dict(path="simt", dp=A.simt_head_dim(d), max_abs_err=err, ms=graph_ms(kern), fma_ms=graph_ms(old),
+                     fma_max_abs_err=old_err, plain_ms=cuda_ms(lambda: A.attention_plain(*views, scale=scale)),
+                     library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends},
+                     blocks_per_sm=A.simt_forward_blocks_per_sm(d, dtype, aligned),
+                     **bound(4 * n * n * d * b * h, 4 * b * n * h * d * qkv.element_size(), peak))
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in views)
+        fwd = lambda: sdpa(ql, kl, vl, scale)
+        fwd_bwd = lambda: torch.autograd.grad(sdpa(ql, kl, vl, scale), (ql, kl, vl), do4)
+        g = dict(path="simt", dp=A.simt_head_dim(d), max_rel_err=max(errs_b), ms=graph_ms(kern_b),
+                 ms_kernels=kernel_ms(kern_b), fma_ms=graph_ms(old_b), fma_ms_kernels=kernel_ms(old_b),
+                 fma_max_rel_err=max(old_errs_b),
+                 plain_ms=cuda_ms(lambda: A.attention_bwd_plain(*views, do4, scale=scale)),
+                 library_backend_ms={be.name: kernel_ms(under(be, fwd_bwd)) - kernel_ms(under(be, fwd))
+                                     for be in backends},
+                 blocks_per_sm=A.simt_backward_blocks_per_sm(d, dtype, aligned),
+                 **bound(10 * n * n * d * b * h, 7 * b * n * h * d * qkv.element_size(), peak))
+        del ql, kl, vl
+        check(f["ms"] < f["fma_ms"] and g["ms_kernels"] < g["fma_ms_kernels"],
+              f"simt timing {key}: simt {f['ms']:.4f} / {g['ms_kernels']:.4f} ms not under the old fma "
+              f"{f['fma_ms']:.4f} / {g['fma_ms_kernels']:.4f}")
+        lib_f = ", ".join(f"{k} {v:.4f}" for k, v in f["library_backend_ms"].items())
+        lib_b = ", ".join(f"{k} {v:.4f}" for k, v in g["library_backend_ms"].items())
+        say(f"[3] fused_attention_qkv simt {key} (DP = {f['dp']}, {f['blocks_per_sm']} blocks an SM): kernel "
+            f"{f['ms']:.4f} ms graph-replayed, max err {err:.3g}; the old fma kernel on the same call "
+            f"{f['fma_ms']:.4f} ({f['fma_ms'] / f['ms']:.2f}x); SDPA alone {lib_f} ms graph-replayed; plain "
+            f"{f['plain_ms']:.4f} ms events; bound {f['bound_ms']:.4f} ms ({f['bound_by']}) ({gpu})")
+        say(f"[3b] fused_attention_qkv_bwd simt {key} (DP = {g['dp']}, blocks an SM (S, KV) {g['blocks_per_sm']}): "
+            f"kernels {g['ms_kernels']:.4f} ms profiled, {g['ms']:.4f} graph-replayed, max err {max(errs_b):.3g} of "
+            f"max|ref|, the same bits twice; the old fma pair on the same call {g['fma_ms_kernels']:.4f} profiled "
+            f"({g['fma_ms_kernels'] / g['ms_kernels']:.2f}x), {g['fma_ms']:.4f} graph-replayed; SDPA backward alone "
+            f"{lib_b} ms profiled (forward + backward less forward); plain {g['plain_ms']:.4f} ms events; bound "
+            f"{g['bound_ms']:.4f} ms ({g['bound_by']}) ({gpu})")
+        fwd_rec[key], bwd_rec[key] = f, g
+    return fwd_rec, bwd_rec
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -2279,7 +2474,7 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
     state restored at step 3 (params, both moments, counts, loss, grad
     norms), its launches over replays exact; the eval step and the
     Predictor (B = 1, B = 20, timestamp windows) bit-equal; the times, in
-    turns: the step's best of 3 runs of 200 with the spread, its warm-up
+    turns: the step's best of 3 runs of 50 with the spread, its warm-up
     (eager call, capture) and peak memory, a profile of each (kernel time,
     kernels and host launch calls a step, idle share), and the Predictor's
     ms/call and clips/s."""
@@ -2324,9 +2519,10 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
         for name, jit in (("graph", True), ("eager", False)):
             st, stp, b, warm_s, peak = bench.warmed(dev, jit, 2, **overrides)
             steps[name] = dict(state=st, step=stp, batch=b, warm_s=warm_s, peak=peak, runs=[])
-        # the eager runs are 50 steps long (host-bound; the run's time
-        # limit), the graphed ones 200
-        lengths = {"graph": 200, "eager": 50}
+        # the eager runs are 25 steps long (host-bound), the graphed ones 50:
+        # the script's time limit (they were 50 and 200 until its phases
+        # outgrew it)
+        lengths = {"graph": 50, "eager": 25}
         for _ in range(3):
             for name, rec in steps.items():
                 rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], lengths[name], 0)
@@ -2982,7 +3178,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
     3 calls each, scan and remat bit-equal to loop (loss, parameters, both
     moments; scan restacked), stacked within the bf16 bound and its first
     moment within TOL_STACKED_MU, the launches exact; the four timed in
-    turns (tools/ab_scan_blocks: best of 3 x 200, peak memory, one eager
+    turns (tools/ab_scan_blocks: best of 3 x 50, peak memory, one eager
     step's memory, kernel groups, launches a step); the batched dW product
     against float64; one fp32 B = 2 stacked
     step with the kernels against the loop step on the plain versions (as
@@ -3062,7 +3258,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
         f"one state under each form: " + "; ".join(notes) + "; launches a step "
         + "; ".join(f"{n} { {k: v for k, v in w.items() if v} }" for n, w in BLOCK_LAUNCHES.items()))
 
-    ab = ab_scan_blocks.run(dev, steps=200, runs=3, profile=5)
+    ab = ab_scan_blocks.run(dev, steps=50, runs=3, profile=5)  # runs of 50 keep the script in its time limit
     for name, r in ab.items():
         groups = ", ".join(f"{g} {t:.3f}" for g, t in r["groups_ms_per_step"].items())
         say(f"[18] {name}: {', '.join(f'{t:.3f}' for t in r['ms_per_step_runs'])} ms/step in turns (best "
@@ -3760,7 +3956,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
     (``make_split(20, 1)``, ``make_split(4, 2)``) as 32 kHz wav folders with
     [15]'s openers, the reduced PaSST (depth 4, dim 192, 6 heads: D = 32),
     bf16, graphed, 45 epochs; then [20g] the same run on the same folders at
-    ``model.dtype=float32``. Returns each run's launches and line."""
+    ``model.dtype=float32``, and [20h] that at 2 heads (D = 96). Returns each
+    run's launches and line."""
     import shutil
     import tempfile
 
@@ -3775,34 +3972,57 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
             labels[split] = {k: int(v) for k, v in written.items()}
         write_s = time.perf_counter() - t0
         data = (os.path.join(tmp, "train"), os.path.join(tmp, "test"))
-        return tuple(zip(*(conv_demo_arm(gpu, dev, data, labels, write_s, dtype)
-                           for dtype in ("bfloat16", "float32"))))
+        arms = []
+        for dtype, heads in (("bfloat16", CONV_HEADS), ("float32", CONV_HEADS), ("float32", CONV_WIDE_HEADS)):
+            with demo_heads(heads):
+                arms.append(conv_demo_arm(gpu, dev, data, labels, write_s, dtype, heads))
+        return tuple(zip(*arms))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_s: float, dtype: str) -> tuple:
+@contextlib.contextmanager
+def demo_heads(heads: int):
+    """``tools/convergence_demo``'s reduced arch at ``heads`` heads for the
+    block's length: its ``reduced_arch`` sets the registry from
+    ``REDUCED``, which is put back after."""
+    from passt_tpu_torch.tools import convergence_demo as cd
+
+    reduced = cd.REDUCED
+    cd.REDUCED = dict(reduced, num_heads=heads)
+    try:
+        yield
+    finally:
+        cd.REDUCED = reduced
+
+
+def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_s: float, dtype: str,
+                  want_heads: int) -> tuple:
     """One run of the convergence demo on the wav folders ``data`` (file
-    name -> class by split in ``labels``): bf16 ([20b]: every attention call
-    on the D = 32 kernels of row 4o, the "wgmma" forward and the "resident"
-    backward) or, with ``model.dtype=float32`` ([20g]), every call on the
-    D = 32 instances of the fp32 "simt" kernels (row 4f). Exact launches
-    per path, none on "fma" or "mma"; the best accuracy held to
-    CONV_MIN_ACC; fit's steady ms/step beside the same step on a resident
-    batch."""
+    name -> class by split in ``labels``) with the reduced arch at
+    ``want_heads`` heads (set by :func:`demo_heads` around the call): bf16
+    ([20b]: every attention call on the D = 32 kernels of row 4o, the
+    "wgmma" forward and the "resident" backward) or, with
+    ``model.dtype=float32`` ([20g]), every call on the D = 32 instances of
+    the "simt" kernels (row 4f), or that at 2 heads ([20h]: D = 96, the
+    DP = 96 instances, row 4p). Exact launches per path, none on "fma" or
+    "mma"; the best accuracy held to CONV_MIN_ACC; fit's steady ms/step
+    beside the same step on a resident batch."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.experiments import EXPERIMENTS
     from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.tools import convergence_demo as cd
 
     tag, extra = ("[20b]", []) if dtype == "bfloat16" else ("[20g]", ["model.dtype=float32"])
+    if want_heads != CONV_HEADS:
+        tag = "[20h]"
     tdt = getattr(torch, dtype)
     cfg = cd.config(*data, extra)
     with cd.reduced_arch():
         pcfg = cfg.passt_config()
     depth, heads, d = pcfg.depth, pcfg.num_heads, pcfg.embed_dim // pcfg.num_heads
-    check((depth, pcfg.embed_dim, heads, cfg.model.dtype) == (4, 192, CONV_HEADS, dtype)
-          and d == CONV_HEAD_DIM, f"{tag} convergence demo: {pcfg}")
+    check((depth, pcfg.embed_dim, heads, cfg.model.dtype) == (4, 192, want_heads, dtype)
+          and d * want_heads == 192, f"{tag} convergence demo: {pcfg}")
     n_train, n_eval = token_counts(cfg, pcfg)
     b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
     check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"{tag} convergence demo shapes {b, n_train, eb, n_eval}")
@@ -3859,7 +4079,7 @@ def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_
             f"fit {ms:.3f} ms/step steady ({n_ms} steps; CUDA events between step starts) against the same graphed "
             f"step on a resident batch {step_ms:.3f} (bench.timed_steps, 200 after 2; ratio {ms / step_ms:.2f}); "
             f"launches {entries} ({steps} steps x (mel, {depth} forward, {depth} backward) + {evals} eval batches x "
-            f"(mel, {depth} forward)), every attention call on the D = 32 kernels: forward {fwd_path} "
+            f"(mel, {depth} forward)), every attention call on the D = {d} kernels: forward {fwd_path} "
             f"{paths[fwd_path]}, backward {bwd_path} {bwd[bwd_path]}, fma {paths['fma']} / {bwd['fma']}, mma "
             f"{paths['mma']} / {bwd['mma']} ({gpu})")
     return launches, line
@@ -4119,12 +4339,15 @@ def main() -> int:
                     all(f in ln for f in frags) for ln in logs["attention_fwd"].splitlines() if "C7512" in ln))
                 or "none"))
     if logs["attention_fwd_fp32"] != "(cached)":
-        from passt_tpu_torch.ops.attention import simt_forward_blocks_per_sm
+        from passt_tpu_torch.ops.attention import SIMT_HEAD_DIMS, simt_forward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
 
-        say("[2] attention_fwd_fp32 registers, spill stores (B) per instance: " + "; ".join(
-            f"simt D={d} {registers(logs['attention_fwd_fp32'], 'attn32_fwd_kernel', f'Li{d}E')}, "
-            f"{simt_forward_blocks_per_sm(d)} blocks an SM" for d in (64, 32)))
+        say("[2] attention_fwd_fp32 registers, spill stores (B) per instance (the simt forward, by dtype, padded "
+            "head dim DP and full rows, i.e. fp32 at D = DP with aligned operands, or not): " + "; ".join(
+                f"{str(dt)[6:]} DP={d}{' full' if full else ''} "
+                f"{registers(logs['attention_fwd_fp32'], f'attn32_fwd_kernel{m}Li{d}ELb{int(full)}E')}, "
+                f"{simt_forward_blocks_per_sm(d, dt, full)} blocks an SM" for dt, m, full in SIMT_INSTANCES
+                for d in SIMT_HEAD_DIMS))
     if logs["attention_bwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
@@ -4134,13 +4357,17 @@ def main() -> int:
         say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
             f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
     if logs["attention_bwd_fp32"] != "(cached)":
-        from passt_tpu_torch.ops.attention import simt_backward_blocks_per_sm
+        from passt_tpu_torch.ops.attention import SIMT_HEAD_DIMS, simt_backward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
 
-        say("[2] attention_bwd_fp32 registers, spill stores (B) per instance: " + "; ".join(
-            f"D={d}: simt S {registers(logs['attention_bwd_fp32'], 'bwd32_stats_kernel', f'Li{d}E')}, simt KV "
-            f"{registers(logs['attention_bwd_fp32'], 'bwd32_kv_kernel', f'Li{d}E')}, blocks an SM (S, KV) "
-            f"{simt_backward_blocks_per_sm(d)}" for d in (64, 32)))
+        log = logs["attention_bwd_fp32"]
+        say("[2] attention_bwd_fp32 registers, spill stores (B) per instance (the simt backward, by dtype, padded "
+            "head dim DP and full rows or not): " + "; ".join(
+                f"{str(dt)[6:]} DP={d}{' full' if full else ''}: S "
+                f"{registers(log, f'bwd32_stats_kernel{m}Li{d}ELb{int(full)}E')}, KV "
+                f"{registers(log, f'bwd32_kv_kernel{m}Li{d}ELb{int(full)}E')}, blocks an SM (S, KV) "
+                f"{simt_backward_blocks_per_sm(d, dt, full)}" for dt, m, full in SIMT_INSTANCES
+                for d in SIMT_HEAD_DIMS))
     if logs["int8_gemm"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
@@ -4150,6 +4377,9 @@ def main() -> int:
 
     rec = phase_kernels(gpu, dev)
     rec.update(phase_backward(gpu, dev))
+    for name, err in simt_sweep(gpu, dev).items():
+        rec[name]["simt_sweep_max_err"] = err
+    rec["fused_attention_qkv"]["simt_timed"], rec["fused_attention_qkv_bwd"]["simt_timed"] = simt_timings(gpu, dev)
     rec.update(phase_layernorm(gpu, dev))
     rec.update(phase_int8(gpu, dev))
     rec.update(phase_fused_mlp(gpu, dev))
@@ -4194,11 +4424,11 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was launched no time on the main paths")
     # the paths each attention entry takes, by source: its record times the first
     fwd_sources = {"simt": "passt_tpu_torch/csrc/attention_fwd_fp32.cu",
-                   "wgmma, short, mma, fma": "passt_tpu_torch/csrc/attention_fwd.cu"}
+                   "wgmma, short, mma": "passt_tpu_torch/csrc/attention_fwd.cu"}
     paths = {"fused_attention": fwd_sources, "fused_attention_qkv": fwd_sources,
              "fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
-                                     "wgmma, resident, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu"},
-             "fused_attention_qkv_bwd": {"wgmma, resident, mma, fma": "passt_tpu_torch/csrc/attention_bwd.cu",
+                                     "wgmma, resident, mma": "passt_tpu_torch/csrc/attention_bwd.cu"},
+             "fused_attention_qkv_bwd": {"wgmma, resident, mma": "passt_tpu_torch/csrc/attention_bwd.cu",
                                          "simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu"}}
     for name, by_path in paths.items():
         rec[name]["sources_by_path"] = by_path

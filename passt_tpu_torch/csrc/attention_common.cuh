@@ -2,8 +2,8 @@
 // attention_fwd_fp32.cu) and backward (attention_bwd.cu,
 // attention_bwd_fp32.cu) kernels: the layout of a strided [B, N, H, D]
 // operand, element conversions, the mma.sync m16n8k16 tensor-core product,
-// ldmatrix and cp.async for the bf16/fp16 paths, the row copies of the fp32
-// "simt" paths and the fp32 tile helpers of the FMA paths.
+// ldmatrix and cp.async for the bf16/fp16 paths, the padded rows, copies
+// and stores of the "simt" paths and the fp32 tile helpers of the FMA paths.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -126,32 +126,151 @@ inline bool vectors_aligned(const void* p, Strides s) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
 }
 
-// ---- the fp32 "simt" paths (attention_fwd_fp32.cu, attention_bwd_fp32.cu) ----
+// ---- the "simt" paths (attention_fwd_fp32.cu, attention_bwd_fp32.cu) ----
 
-// Rows of D floats (D = 32 or 64) in shared memory as they lie in device
-// memory, at a pitch of D + 4 floats (36 or 68; 144 or 272 bytes): 4 mod 32
+// The padded head dims the "simt" kernels are built for: a call at head dim
+// d (a multiple of 8 up to 128) runs on the instance of the smallest DP >= d.
+// Columns d .. DP - 1 are zero in shared memory (simt_zero_pad) and never
+// stored, so they add exact zeros to every product over D.
+__host__ __device__ constexpr int simt_dp(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128; }
+
+// Rows of DP floats (DP = 32, 64, 96 or 128) in shared memory as they lie in
+// device memory, converted to fp32, at a pitch of DP + 4 floats: 4 mod 32
 // banks from one row to the next, so the rows a warp reads at once as
 // float4 fall in distinct banks or are broadcast. SIMT_LD is the pitch of
-// 64-float rows (D = 64, and the 64-wide score tiles at either D).
-template <int D>
-constexpr int simt_ld = D + 4;
+// 64-float rows (DP = 64, and the 64-wide score tiles at any DP).
+template <int DP>
+constexpr int simt_ld = DP + 4;
 constexpr int SIMT_LD = simt_ld<64>;
 
-// Start copying rows row0 .. row0 + 63 of a strided fp32 operand of head
-// dim D into shared rows of pitch simt_ld<D> (16-byte cp.async by `threads`
-// threads from thread `tid`); rows past n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long row_stride, int row0, int n,
-                                          int tid, int threads) {
-    static_assert(D == 32 || D == 64, "rows of 8 or 16 chunks of 16 bytes");
-    for (int idx = tid; idx < 64 * (D / 4); idx += threads) {
-        const int r = idx >> (D == 64 ? 4 : 3), c = idx & (D / 4 - 1);
-        const bool ok = row0 + r < n;
-        const float* from = ok ? src + (long long)(row0 + r) * row_stride + 4 * c : src;
-        const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * simt_ld<D> + 4 * c));
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(from), "r"(ok ? 16 : 0));
+// Zero columns d .. DP - 1 of `rows` shared rows of pitch simt_ld<DP> (the
+// loads write only columns < d): once per buffer, before its first load.
+template <int DP>
+__device__ __forceinline__ void simt_zero_pad(float* dst, int rows, int d, int tid, int threads) {
+    const int pad = DP - d;
+    for (int idx = tid; idx < rows * pad; idx += threads) {
+        const int r = idx / pad;
+        dst[r * simt_ld<DP> + d + idx - r * pad] = 0.f;
     }
 }
+
+// Start copying columns 0 .. d - 1 of rows row0 .. row0 + 63 of a strided
+// operand of type T into shared fp32 rows of pitch simt_ld<DP>, by `threads`
+// threads from thread `tid`; rows past n are zero-filled. `vec` (chosen once
+// per launch: every operand 16-byte aligned, strides in multiples of 8
+// elements) takes 16-byte copies: cp.async for fp32, 16-byte loads
+// converted to fp32 for bf16 / fp16; otherwise 4-byte cp.async (fp32) or
+// element loads (bf16 / fp16). The 2-byte types' copies are synchronous;
+// the fp32 ones land at the caller's cp.async wait. FULL (fp32, d = DP,
+// every operand aligned) is the first design's copy, with no check at run
+// time.
+template <typename T, int DP, bool FULL>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, long long row_stride, int row0, int n, int d,
+                                          bool vec, int tid, int threads) {
+    static_assert(DP % 32 == 0 && DP <= 128, "rows of whole float4 column groups");
+    static_assert(!FULL || sizeof(T) == 4, "full rows are fp32's");
+    if constexpr (sizeof(T) == 4) {
+        if (FULL || vec) {
+            constexpr unsigned C = DP / 4;  // 16-byte chunks a row
+            for (int idx = tid; idx < 64 * (DP / 4); idx += threads) {
+                const int r = static_cast<unsigned>(idx) / C, c = static_cast<unsigned>(idx) % C;
+                if (!FULL && 4 * c >= d) continue;  // padding columns: zero since the start
+                const bool ok = row0 + r < n;
+                const T* from = ok ? src + (long long)(row0 + r) * row_stride + 4 * c : src;
+                const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * simt_ld<DP> + 4 * c));
+                asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(to), "l"(from), "r"(ok ? 16 : 0));
+            }
+        } else {
+            for (int idx = tid; idx < 64 * DP; idx += threads) {
+                const int r = static_cast<unsigned>(idx) / DP, c = static_cast<unsigned>(idx) % DP;
+                if (c >= d) continue;
+                const bool ok = row0 + r < n;
+                const T* from = ok ? src + (long long)(row0 + r) * row_stride + c : src;
+                const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * simt_ld<DP> + c));
+                asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(to), "l"(from), "r"(ok ? 4 : 0));
+            }
+        }
+    } else {
+        if (vec) {
+            constexpr unsigned C = DP / 8;  // 16-byte chunks a row
+            for (int idx = tid; idx < 64 * (DP / 8); idx += threads) {
+                const int r = static_cast<unsigned>(idx) / C, c = static_cast<unsigned>(idx) % C;
+                if (8 * c >= d) continue;
+                uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+                if (row0 + r < n) raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + 8 * c);
+                const T* e = reinterpret_cast<const T*>(&raw);
+                float* to = dst + r * simt_ld<DP> + 8 * c;
+                *reinterpret_cast<float4*>(to) = make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
+                *reinterpret_cast<float4*>(to + 4) = make_float4(to_f(e[4]), to_f(e[5]), to_f(e[6]), to_f(e[7]));
+            }
+        } else {
+            for (int idx = tid; idx < 64 * DP; idx += threads) {
+                const int r = static_cast<unsigned>(idx) / DP, c = static_cast<unsigned>(idx) % DP;
+                if (c >= d) continue;
+                dst[r * simt_ld<DP> + c] = row0 + r < n ? to_f(src[(long long)(row0 + r) * row_stride + c]) : 0.f;
+            }
+        }
+    }
+}
+
+// Store columns c .. c + 3 of an output row (c < d: d is a multiple of 8,
+// so all four are) in T: one 16-byte (fp32) or 8-byte (bf16 / fp16) store
+// with `vec`, else element stores.
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 x, bool vec) {
+    if constexpr (sizeof(T) == 4) {
+        if (vec) {
+            *reinterpret_cast<float4*>(p) = x;
+        } else {
+            p[0] = x.x;
+            p[1] = x.y;
+            p[2] = x.z;
+            p[3] = x.w;
+        }
+    } else {
+        if (vec) {
+            T e[4] = {from_f<T>(x.x), from_f<T>(x.y), from_f<T>(x.z), from_f<T>(x.w)};
+            *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(e);
+        } else {
+            p[0] = from_f<T>(x.x);
+            p[1] = from_f<T>(x.y);
+            p[2] = from_f<T>(x.z);
+            p[3] = from_f<T>(x.w);
+        }
+    }
+}
+
+// fn<T, DP, FULL>(args...) for the "simt" instance that takes dtype code
+// `dtype` (0 fp32, 1 bf16, 2 fp16; ops/attention.py _DTYPE_CODE) at head
+// dim d: the padded head dim DP = simt_dp(d), FULL for fp32 at d = DP with
+// every operand aligned (`aligned`). cudaErrorInvalidValue for another code
+// or a d no instance takes (a multiple of 8 up to 128).
+#define PASST_SIMT_DISPATCH(fn, dtype, d, aligned, ...)                                           \
+    [&]() -> cudaError_t {                                                                        \
+        if ((dtype) < 0 || (dtype) > 2 || (d) <= 0 || (d) > 128 || (d) % 8)                       \
+            return cudaErrorInvalidValue;                                                         \
+        const int dp_ = passt_attn::simt_dp(d);                                                   \
+        if ((dtype) == 0 && (aligned) && (d) == dp_) switch (dp_) {                               \
+                case 32: return fn<float, 32, true>(__VA_ARGS__);                                 \
+                case 64: return fn<float, 64, true>(__VA_ARGS__);                                 \
+                case 96: return fn<float, 96, true>(__VA_ARGS__);                                 \
+                default: return fn<float, 128, true>(__VA_ARGS__);                                \
+            }                                                                                     \
+        switch ((dtype) * 4 + dp_ / 32 - 1) {                                                     \
+            case 0: return fn<float, 32, false>(__VA_ARGS__);                                     \
+            case 1: return fn<float, 64, false>(__VA_ARGS__);                                     \
+            case 2: return fn<float, 96, false>(__VA_ARGS__);                                     \
+            case 3: return fn<float, 128, false>(__VA_ARGS__);                                    \
+            case 4: return fn<__nv_bfloat16, 32, false>(__VA_ARGS__);                             \
+            case 5: return fn<__nv_bfloat16, 64, false>(__VA_ARGS__);                             \
+            case 6: return fn<__nv_bfloat16, 96, false>(__VA_ARGS__);                             \
+            case 7: return fn<__nv_bfloat16, 128, false>(__VA_ARGS__);                            \
+            case 8: return fn<__half, 32, false>(__VA_ARGS__);                                    \
+            case 9: return fn<__half, 64, false>(__VA_ARGS__);                                    \
+            case 10: return fn<__half, 96, false>(__VA_ARGS__);                                   \
+            default: return fn<__half, 128, false>(__VA_ARGS__);                                  \
+        }                                                                                         \
+    }()
 
 // ---- the fp32 FMA paths: 256 threads, fp32 tiles in shared memory ----
 

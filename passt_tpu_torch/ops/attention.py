@@ -31,28 +31,30 @@ its "resident" path (the whole head in one block) takes them exactly, as
 the reference does.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. On the card the forward kernel has five paths, and
-:func:`forward_path` alone picks one from the call's shape, dtype and
-alignment: ``"wgmma"`` (bf16/fp16, D = 64 with N > 64 and D = 32 at any N:
-one pass over K, wgmma fed by TMA), ``"short"`` (D = 64 at N <= 64: one key
-tile, four heads a block at N <= 16), ``"mma"`` (bf16/fp16 at another D that
-is a multiple of 16), ``"simt"`` (fp32, D = 64 or 32, aligned, any N: one
-pass over K in fp32 FMA with register micro-tiles and cp.async,
-``csrc/attention_fwd_fp32.cu``, a template on D) and ``"fma"`` (fp32 at
-another D, a D that is 8 mod 16, or unaligned strides).
-The C entry launches exactly that path or returns an error, on which the
-wrapper raises; ``FWD_PATH_LAUNCHES`` counts the launches of each. The
-backward kernel has five paths, which :func:`backward_path` picks in the
-same way: ``"wgmma"`` (bf16/fp16, D = 64: a statistics kernel, then one pass
-per 64-key block on wgmma fed by TMA, dQ summed across key blocks in a fixed
-order), ``"resident"`` (bf16/fp16, D = 32, N <= 128: one launch, one block
+kernel or raises. On the card :func:`forward_path` alone picks the forward
+kernel's path from the call's shape, dtype and alignment: ``"wgmma"``
+(bf16/fp16, aligned, D = 64 with N > 64 and D = 32 at any N: one pass over
+K, wgmma fed by TMA), ``"short"`` (the same at D = 64, N <= 64: one key
+tile, four heads a block at N <= 16), ``"mma"`` (bf16/fp16, aligned, at
+another D that is a multiple of 16) and ``"simt"`` (every other call: every
+fp32 call, and bf16/fp16 at a D that is 8 mod 16 or on unaligned views; one
+pass over K in fp32 FMA with register micro-tiles,
+``csrc/attention_fwd_fp32.cu``, a template on the input dtype and on the
+head dim padded to 32, 64, 96 or 128). The C entry launches exactly that
+path or returns an error, on which the wrapper raises;
+``FWD_PATH_LAUNCHES`` counts the launches of each. The backward's path,
+which :func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16,
+aligned, D = 64: a statistics kernel, then one pass per 64-key block on
+wgmma fed by TMA, dQ summed across key blocks in a fixed order),
+``"resident"`` (bf16/fp16, aligned, D = 32, N <= 128: one launch, one block
 per (batch, head) holding the whole head, exact row statistics, no
-scratch), ``"simt"`` (fp32, D = 64 or 32, aligned, any N: the "wgmma"
-order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``, a template on D),
-``"mma"`` (bf16/fp16 at another D that is a multiple of 16, and D = 32
-above N = 128) and ``"fma"`` (fp32 at another D, a D that is 8 mod 16, or
-unaligned strides); ``BWD_PATH_LAUNCHES`` counts them. A D that no kernel
-template takes goes to "fma" by these rules alone: a failed build or launch
+scratch), ``"mma"`` (bf16/fp16, aligned, at another D that is a multiple of
+16, and D = 32 above N = 128) and ``"simt"`` (every other call: the "wgmma"
+order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``, templates on the dtype
+and the padded head dim); ``BWD_PATH_LAUNCHES`` counts them. No call
+dispatches to the old ``"fma"`` kernels (``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu``); the private ``path=`` override still reaches
+them, so that they can be timed on the same call. A failed build or launch
 raises, and nothing falls back.
 """
 
@@ -76,19 +78,30 @@ for _key in (_KEY_BNHD, _KEY_QKV, _KEY_BNHD_BWD, _KEY_QKV_BWD):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: the forward kernel's paths, by the code its C entry takes ("simt" is the
-#: fp32 kernel of ``csrc/attention_fwd_fp32.cu``, a C entry of its own)
+#: kernel of ``csrc/attention_fwd_fp32.cu``, a C entry of its own; "fma" is
+#: reached only by the private override)
 FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3, "simt": 4}
 #: forward launches per path since the last :func:`reset_path_launches`
 #: (beside ``_build.LAUNCHES``, which counts per entry point)
 FWD_PATH_LAUNCHES = dict.fromkeys(FWD_PATHS, 0)
 
 
-#: the head dims the fp32 "simt" kernels are built for (templates on D in
-#: ``csrc/attention_fwd_fp32.cu`` and ``csrc/attention_bwd_fp32.cu``)
-SIMT_HEAD_DIMS = (32, 64)
+#: the padded head dims the "simt" kernels are built for (templates on DP in
+#: ``csrc/attention_fwd_fp32.cu`` and ``csrc/attention_bwd_fp32.cu``; a call
+#: at head dim d runs on the smallest DP >= d, ``simt_dp`` in
+#: ``csrc/attention_common.cuh``)
+SIMT_HEAD_DIMS = (32, 64, 96, 128)
+
+
+def simt_head_dim(d: int) -> int:
+    """The padded head dim of the "simt" instance that takes head dim ``d``
+    (a multiple of 8 up to 128)."""
+    return next(dp for dp in SIMT_HEAD_DIMS if d <= dp)
+
 
 #: the backward kernel's paths, by the code its C entry takes ("simt" is
-#: the fp32 kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own)
+#: the kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own;
+#: "fma" is reached only by the private override)
 BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3, "resident": 4}
 #: the most tokens the "resident" backward takes: a block holds every key
 #: and query of its head (RS_N in ``csrc/attention_bwd.cu``)
@@ -105,17 +118,15 @@ def reset_path_launches() -> None:
 
 
 def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
-    """The forward kernel path for ``n`` tokens of head dim ``d``:
-    ``"simt"`` for fp32 at ``d = 64`` or ``32`` with aligned operands
+    """The forward kernel path for ``n`` tokens of head dim ``d`` (a
+    multiple of 8 up to 128): for bf16 / fp16 with aligned operands
     (``aligned``: 16-byte aligned base pointers, strides in multiples of 8
-    elements; any ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that
-    is 8 mod 16 or unaligned operands; for bf16 / fp16 ``"wgmma"`` at
-    ``d = 32`` (any ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``,
-    ``"wgmma"`` at ``d = 64`` above, ``"mma"`` at another ``d``."""
-    if dtype == torch.float32 and aligned and d in SIMT_HEAD_DIMS:
-        return "simt"
+    elements) at a ``d`` that is a multiple of 16, ``"wgmma"`` at ``d = 32``
+    (any ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``, ``"wgmma"`` at
+    ``d = 64`` above, ``"mma"`` at another ``d``; ``"simt"`` for every other
+    call (every fp32 call, any ``n``)."""
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
-        return "fma"
+        return "simt"
     if d == 32:
         return "wgmma"
     if d != 64:
@@ -124,17 +135,14 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
 
 
 def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
-    """The backward kernel path for ``n`` tokens of head dim ``d``:
-    ``"simt"`` for fp32 at ``d = 64`` or ``32`` with aligned operands (any
-    ``n``), ``"fma"`` for fp32 at another ``d``, a ``d`` that is 8 mod 16
-    or unaligned operands;
-    for bf16 / fp16 ``"wgmma"`` at ``d = 64`` (any ``n``), ``"resident"``
-    at ``d = 32`` and ``n <= 128``, ``"mma"`` at another ``d`` and at
-    ``d = 32`` above ``n = 128``."""
-    if dtype == torch.float32 and aligned and d in SIMT_HEAD_DIMS:
-        return "simt"
+    """The backward kernel path for ``n`` tokens of head dim ``d`` (a
+    multiple of 8 up to 128): for bf16 / fp16 with aligned operands at a
+    ``d`` that is a multiple of 16, ``"wgmma"`` at ``d = 64`` (any ``n``),
+    ``"resident"`` at ``d = 32`` and ``n <= 128``, ``"mma"`` at another
+    ``d`` and at ``d = 32`` above ``n = 128``; ``"simt"`` for every other
+    call (every fp32 call, any ``n``)."""
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
-        return "fma"
+        return "simt"
     if d == 64:
         return "wgmma"
     return "resident" if d == 32 and n <= RESIDENT_MAX_N else "mma"
@@ -244,23 +252,23 @@ def _check_operands(named: dict) -> None:
 
 @functools.cache
 def _fwd32_lib():
-    """The fp32 forward kernel library ("simt"), built and bound on first
-    use."""
+    """The "simt" forward kernel library, built and bound on first use."""
     lib = _build.load("attention_fwd_fp32")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.passt_attention_fwd_fp32.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
+    lib.passt_attention_fwd_fp32.argtypes = [vp] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, vp]
     lib.passt_attention_fwd_fp32.restype = ctypes.c_int
-    lib.passt_attention_fwd_fp32_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.passt_attention_fwd_fp32_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.passt_attention_fwd_fp32_occupancy.restype = ctypes.c_int
     return lib
 
 
-def simt_forward_blocks_per_sm(d: int = 64) -> int:
-    """The blocks of the "simt" forward kernel's head-dim-``d`` instance an
-    SM of the current card holds at once (the occupancy query; builds the
-    kernel)."""
+def simt_forward_blocks_per_sm(d: int = 64, dtype: torch.dtype = torch.float32, aligned: bool = True) -> int:
+    """The blocks of the "simt" forward kernel's instance for head dim ``d``,
+    ``dtype`` and aligned or unaligned operands an SM of the current card
+    holds at once (the occupancy query; builds the kernel)."""
     lib, blocks = _fwd32_lib(), ctypes.c_int(0)
-    _build.check(lib, lib.passt_attention_fwd_fp32_occupancy(d, ctypes.byref(blocks)), "simt forward occupancy")
+    _build.check(lib, lib.passt_attention_fwd_fp32_occupancy(_DTYPE_CODE[dtype], d, int(aligned), ctypes.byref(blocks)),
+                 "simt forward occupancy")
     return blocks.value
 
 
@@ -268,8 +276,8 @@ def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None)
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
     a contiguous last dim), on the path :func:`forward_path` picks.
     ``path`` overrides the choice (private: chip_smoke and the variants
-    tools time the old "fma" kernel at fp32 D = 64 and 32 beside "simt" and
-    the "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
+    tools time the old "fma" kernel beside "simt" on the same call and the
+    "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
     call raises."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
@@ -277,12 +285,10 @@ def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None)
         path = forward_path(n, d, q.dtype, _aligned(q, k, v, out))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     if path == "simt":
-        if q.dtype != torch.float32:
-            raise ValueError(f"the simt forward path takes float32, not {q.dtype}")
         lib = _fwd32_lib()
         code = lib.passt_attention_fwd_fp32(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), b, n, h, d, *strides, float(scale),
-            int(bool(plus1)), _build.stream_of(q),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), _DTYPE_CODE[q.dtype], b, n, h, d, *strides,
+            float(scale), int(bool(plus1)), _build.stream_of(q),
         )
         _build.check(lib, code, "attention kernel launch (simt path)")
         FWD_PATH_LAUNCHES[path] += 1
@@ -343,25 +349,27 @@ def _bwd_lib():
 
 @functools.cache
 def _bwd32_lib():
-    """The fp32 backward kernel library ("simt"), built and bound on first
-    use."""
+    """The "simt" backward kernel library, built and bound on first use."""
     lib = _build.load("attention_bwd_fp32")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.passt_attention_bwd_fp32.argtypes = [vp] * 8 + [i32] * 4 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
+    lib.passt_attention_bwd_fp32.argtypes = [vp] * 8 + [i64] + [i32] * 5 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
     lib.passt_attention_bwd_fp32.restype = ctypes.c_int
-    lib.passt_attention_bwd_fp32_scratch.argtypes = [i32] * 5
+    lib.passt_attention_bwd_fp32_scratch.argtypes = [i32] * 7
     lib.passt_attention_bwd_fp32_scratch.restype = ctypes.c_longlong
-    lib.passt_attention_bwd_fp32_occupancy.argtypes = [i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.passt_attention_bwd_fp32_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int),
+                                                       ctypes.POINTER(ctypes.c_int)]
     lib.passt_attention_bwd_fp32_occupancy.restype = ctypes.c_int
     return lib
 
 
-def simt_backward_blocks_per_sm(d: int = 64) -> tuple:
+def simt_backward_blocks_per_sm(d: int = 64, dtype: torch.dtype = torch.float32, aligned: bool = True) -> tuple:
     """The blocks of the "simt" backward's kernel S and kernel KV (their
-    head-dim-``d`` instances) an SM of the current card holds at once (the
-    occupancy query; builds the kernels)."""
+    instances for head dim ``d``, ``dtype`` and aligned or unaligned
+    operands) an SM of the current card holds at once (the occupancy query;
+    builds the kernels)."""
     lib, stats, kv = _bwd32_lib(), ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib, lib.passt_attention_bwd_fp32_occupancy(d, ctypes.byref(stats), ctypes.byref(kv)),
+    _build.check(lib, lib.passt_attention_bwd_fp32_occupancy(_DTYPE_CODE[dtype], d, int(aligned), ctypes.byref(stats),
+                                                             ctypes.byref(kv)),
                  "simt backward occupancy")
     return stats.value, kv.value
 
@@ -371,26 +379,25 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
     strides with a contiguous last dim), on the path :func:`backward_path`
     picks; dq, dk, dv are written in place. ``path`` overrides the choice
     (private: chip_smoke and the variants tools time the "mma" path at
-    D = 64 beside "wgmma" and at D = 32 beside "resident", and the "fma"
-    pair at fp32 D = 64 and 32 beside "simt"); a path that cannot take the call
-    raises."""
+    D = 64 beside "wgmma" and at D = 32 beside "resident", and the old
+    "fma" pair beside "simt" on the same call); a path that cannot take the
+    call raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
     if path is None:
         path = backward_path(n, d, q.dtype, _aligned(q, k, v, do, dq, dk, dv))
     strides = [s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]]
     if path == "simt":
-        if q.dtype != torch.float32:
-            raise ValueError(f"the simt backward path takes float32, not {q.dtype}")
         lib = _bwd32_lib()
-        floats = lib.passt_attention_bwd_fp32_scratch(b, n, h, d, _build.sm_count(q.device))
+        floats = lib.passt_attention_bwd_fp32_scratch(_DTYPE_CODE[q.dtype], b, n, h, d,
+                                                      int(_aligned(q, k, v, do, dq, dk, dv)), _build.sm_count(q.device))
         if floats < 0:
-            raise RuntimeError(f"the simt backward takes head_dim {SIMT_HEAD_DIMS}, not {d}, or its occupancy "
-                               "query failed")
+            raise RuntimeError(f"the simt backward's occupancy query failed ({q.dtype}, head_dim {d})")
         scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
         code = lib.passt_attention_bwd_fp32(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)),
-            b, n, h, d, *strides, float(scale), int(bool(plus1)), _build.sm_count(q.device), _build.stream_of(q),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, dq, dk, dv, scratch)), floats,
+            _DTYPE_CODE[q.dtype], b, n, h, d, *strides, float(scale), int(bool(plus1)), _build.sm_count(q.device),
+            _build.stream_of(q),
         )
         _build.check(lib, code, "attention backward kernel launch (simt path)")
         BWD_PATH_LAUNCHES[path] += 1

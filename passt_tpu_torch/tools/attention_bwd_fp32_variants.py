@@ -1,6 +1,6 @@
 """Time text variants of ``csrc/attention_bwd_fp32.cu`` (the attention
-backward's fp32 "simt" path) on the card, all in one process, to find what
-sets its time.
+backward's "simt" path) on the card, all in one process, to find what sets
+its time.
 
     python3 -m passt_tpu_torch.tools.attention_bwd_fp32_variants [VARIANTS.json] [NAME ...]
 
@@ -12,12 +12,14 @@ to ``build/attention_bwd_fp32_variants/<name>/`` and built (one ``nvcc`` per
 variant, all started together). Each is then held against the plain version
 (the largest error over dq, dk and dv relative to that gradient's max|ref|;
 a variant that removes work is wrong on purpose), checked to give the same
-bits twice, and timed at three fp32 calls: through the ``[B, N, H, D]``
+bits twice, and timed at six fp32 calls: through the ``[B, N, H, D]``
 entry at B = 2, N = 474 (the fp32 training step's call) and B = 2, N = 1190
-(H = 12, D = 64), and through the qkv entry at the convergence demo's
-training call B = 25, N = 79 (H = 6, D = 32): by CUDA-graph replay, and
-each kernel's profiled time, with the blocks an SM holds of each kernel at
-each D (the occupancy query). Before them, from the source as it is
+(H = 12, D = 64), and at B = 2, N = 474 with 6 heads of D = 128 and 16 of
+D = 48 (the same FLOPs: the DP = 128 instance and the DP = 64 one padded),
+and through the qkv entry at the convergence demo's training call B = 25,
+N = 79 at H = 6, D = 32 and at H = 2, D = 96 (the DP = 96 instances): by
+CUDA-graph replay, and each kernel's profiled time, with the blocks an SM
+holds of each kernel at each DP (the occupancy query). Before them, from the source as it is
 (:func:`baselines`): the old "fma" pair on the same call (the private path
 override; graph replay and profiled), SDPA's backward with the EFFICIENT
 and the MATH backend (the profiled kernel time of its forward and backward
@@ -38,9 +40,11 @@ from passt_tpu_torch.ops import attention as A
 from passt_tpu_torch.tools import variants as V
 from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms, kernel_ms, kernel_times
 
-#: (B, N, H, D, entry): the fp32 training step's call, a long sequence, and
-#: the convergence demo's training call at model.dtype=float32
-SHAPES = ((2, 474, 12, 64, "bnhd"), (2, 1190, 12, 64, "bnhd"), (25, 79, 6, 32, "qkv"))
+#: (B, N, H, D, entry): the fp32 training step's call, a long sequence, the
+#: step's shape at D = 128 and 48, and the convergence demo's training call
+#: at model.dtype=float32 at 6 heads and at 2
+SHAPES = ((2, 474, 12, 64, "bnhd"), (2, 1190, 12, 64, "bnhd"), (2, 474, 6, 128, "bnhd"), (2, 474, 16, 48, "bnhd"),
+          (25, 79, 6, 32, "qkv"), (25, 79, 2, 96, "qkv"))
 PEAK_FP32, HBM_BYTES_PER_S = 67e12, 3.35e12  # one H100 SXM at 700 W: FMA FLOP/s, memory bytes/s
 
 
@@ -133,9 +137,9 @@ def main(argv=None) -> int:
             times.append(f"B={c['b']} N={c['n']} D={c['d']} {graph_ms(c['run']):.4f} ms ({split}; err "
                          f"{_err(got, c['ref']):.3g}, {'same bits' if same else 'BITS DIFFER'}, path {paths})")
         inst = "; ".join(
-            f"D={d}: blocks an SM (S, KV) {A.simt_backward_blocks_per_sm(d)}, registers, spill stores (B) "
-            + ", ".join(f"{k_} {V.registers(log, k_, f'Li{d}E')}" for k_ in ("bwd32_stats_kernel", "bwd32_kv_kernel"))
-            for d in (64, 32))
+            f"DP={d}: blocks an SM (S, KV) {A.simt_backward_blocks_per_sm(d)}, registers, spill stores (B) "
+            + ", ".join(f"{k_} {V.registers(log, f'{k_}IfLi{d}ELb1E')}" for k_ in ("bwd32_stats_kernel", "bwd32_kv_kernel"))
+            for d in A.SIMT_HEAD_DIMS)
         print(f"{name}: " + "; ".join(times) + f"; {inst}", flush=True)
     return 0
 

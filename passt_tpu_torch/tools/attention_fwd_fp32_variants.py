@@ -1,6 +1,6 @@
 """Time text variants of ``csrc/attention_fwd_fp32.cu`` (the attention
-forward's fp32 "simt" path) on the card, all in one process, to find what
-sets its time.
+forward's "simt" path) on the card, all in one process, to find what sets
+its time.
 
     python3 -m passt_tpu_torch.tools.attention_fwd_fp32_variants [VARIANTS.json] [NAME ...]
 
@@ -11,14 +11,16 @@ only those variants. Each variant is written with the other kernel sources
 to ``build/attention_fwd_fp32_variants/<name>/`` and built (one ``nvcc`` per
 variant, all started together). Each is then held against the plain version
 (max abs error; a variant that removes work is wrong on purpose) and timed
-at four fp32 calls: through the ``[B, N, H, D]`` entry on the q, k, v views
-of one qkv tensor at B = 20, N = 1190 (the fp32 ``Predictor``'s and
+at eight fp32 calls: through the ``[B, N, H, D]`` entry on the q, k, v
+views of one qkv tensor at B = 20, N = 1190 (the fp32 ``Predictor``'s and
 exported program's call) and B = 2, N = 474 (the fp32 training step's;
-H = 12, D = 64), and through the qkv entry at the convergence demo's
-B = 25, N = 79 (training) and B = 50, N = 110 (eval; H = 6, D = 32): by
-CUDA-graph replay and by the kernel's profiled time, with the blocks an SM
-holds at each D (the occupancy query), and each D instance's registers and
-spill stores. Before them, from the source as it is (:func:`baselines`):
+H = 12, D = 64), and at B = 2, N = 474 with 6 heads of D = 128 and 16 of
+D = 48 (the same FLOPs: the DP = 128 instance and the DP = 64 one padded);
+through the qkv entry at the convergence demo's B = 25, N = 79 (training)
+and B = 50, N = 110 (eval) at H = 6, D = 32 and at H = 2, D = 96 (the
+DP = 96 instance): by CUDA-graph replay and by the kernel's profiled time,
+with the blocks an SM holds at each DP (the occupancy query), and each
+fp32 DP instance's registers and spill stores. Before them, from the source as it is (:func:`baselines`):
 the old "fma" kernel on the same call (the private path override), SDPA's
 EFFICIENT and MATH backends, each alone, and the plain version, with the
 bound. Prints the card (nvidia-smi name and power limit), then one line per
@@ -37,8 +39,10 @@ from passt_tpu_torch.tools import variants as V
 from passt_tpu_torch.tools.timing import cuda_ms, gpu_line, graph_ms, kernel_times
 
 #: (B, N, H, D, entry): the fp32 Predictor's and the fp32 training step's
-#: calls, then the convergence demo's at model.dtype=float32 (training, eval)
-SHAPES = ((20, 1190, 12, 64, "bnhd"), (2, 474, 12, 64, "bnhd"), (25, 79, 6, 32, "qkv"), (50, 110, 6, 32, "qkv"))
+#: calls, the training step's shape at D = 128 and 48, then the convergence
+#: demo's at model.dtype=float32 (training, eval) at 6 heads and at 2
+SHAPES = ((20, 1190, 12, 64, "bnhd"), (2, 474, 12, 64, "bnhd"), (2, 474, 6, 128, "bnhd"), (2, 474, 16, 48, "bnhd"),
+          (25, 79, 6, 32, "qkv"), (50, 110, 6, 32, "qkv"), (25, 79, 2, 96, "qkv"), (50, 110, 2, 96, "qkv"))
 PEAK_FP32, HBM_BYTES_PER_S = 67e12, 3.35e12  # one H100 SXM at 700 W: FMA FLOP/s, memory bytes/s
 
 
@@ -120,8 +124,8 @@ def main(argv=None) -> int:
                 kern = sum(ms for kn, ms in kernel_times(c["run"]).items() if "attn32_fwd_kernel" in kn)
                 times.append(f"B={c['b']} N={c['n']} D={c['d']} {graph_ms(c['run']):.4f} ms (kernel {kern:.4f} "
                              f"profiled; err {err:.3g}, path {paths})")
-            inst = "; ".join(f"D={d}: {A.simt_forward_blocks_per_sm(d)} blocks an SM, registers, spill stores (B) "
-                             f"{V.registers(log, 'attn32_fwd_kernel', f'Li{d}E')}" for d in (64, 32))
+            inst = "; ".join(f"DP={d}: {A.simt_forward_blocks_per_sm(d)} blocks an SM, registers, spill stores (B) "
+                             f"{V.registers(log, f'attn32_fwd_kernelIfLi{d}ELb1E')}" for d in A.SIMT_HEAD_DIMS)
             print(f"{name}: " + "; ".join(times) + f"; {inst}", flush=True)
     return 0
 

@@ -16,11 +16,17 @@ the bf16 "wgmma" backward (B = 12, N = 474, plus1 on and off) and the fp32
 "simt" backward (B = 2, N = 474), 12 heads; and the fp32 "simt" forward and
 backward at D = 32 on the qkv entry at the convergence demo's shapes (6
 heads; the forward at B = 25, N = 79 and B = 50, N = 110, the backward at
-B = 25, N = 79; plus1 on and off). ``--compare`` prints each output's name
-and whether its bits are equal to the saved one's, names the outputs the
-saved set lacks (new cases: an older checkout's set), and exits non-zero
-unless every saved output is made again with the same bits. Runs on the
-card only.
+B = 25, N = 79; plus1 on and off); and the "simt" kernels' padded and
+half-precision instances (their own generator, seed 23): fp32 at 2 heads
+of D = 96 (the demo's shapes), 6 of D = 128 and 16 of D = 48 (B = 2,
+N = 474), 8 of D = 24 in fp32, bf16 and fp16 (B = 25, N = 79), and fp32
+and bf16 on views one element off 16-byte alignment (B = 2, N = 474,
+12 heads of D = 64), forward and backward. Every output is made twice and
+must have the same bits both times. ``--compare`` prints each output's
+name and whether its bits are equal to the saved one's, names the outputs
+the saved set lacks (new cases: an older checkout's set), and exits
+non-zero unless every saved output is made again with the same bits.
+Runs on the card only.
 """
 
 from __future__ import annotations
@@ -73,6 +79,27 @@ def outputs(dev) -> dict:
                 do = torch.randn((b, n, h32 * d32), device=dev, generator=gen32)
                 out[f"bwd float32 D=32 qkv B={b} N={n} plus1={plus1}"] = A.fused_attention_qkv_bwd(
                     x, do, heads=h32, head_dim=d32, scale=d32 ** -0.5, plus1=plus1)
+    # the "simt" instances at padded head dims, in bf16 / fp16 at D = 24 and
+    # on unaligned views (a generator of their own: the cases above draw
+    # the same numbers as before)
+    gen23 = torch.Generator(device=dev).manual_seed(23)
+    cases = [(torch.float32, 25, 79, 2, 96, True), (torch.float32, 50, 110, 2, 96, True),
+             (torch.float32, 2, 474, 6, 128, True), (torch.float32, 2, 474, 16, 48, True)]
+    cases += [(dt, 25, 79, 8, 24, True) for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    cases += [(dt, 2, 474, 12, 64, False) for dt in (torch.float32, torch.bfloat16)]
+    for dtype, b, n, hh, dd, aligned in cases:
+        x = torch.randn((b, n, 3 * hh * dd), device=dev, generator=gen23).to(dtype)
+        do = torch.randn((b, n, hh * dd), device=dev, generator=gen23).to(dtype)
+        if not aligned:
+            x = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(x.shape).copy_(x)
+        tag = f"{str(dtype)[6:]} D={dd} qkv B={b} N={n}" + ("" if aligned else " unaligned")
+        for plus1 in (False, True):
+            with torch.no_grad():
+                out[f"fwd simt {tag} plus1={plus1}"] = A.fused_attention_qkv(
+                    x, heads=hh, head_dim=dd, scale=dd ** -0.5, plus1=plus1)
+            if b != 50:
+                out[f"bwd simt {tag} plus1={plus1}"] = A.fused_attention_qkv_bwd(
+                    x, do, heads=hh, head_dim=dd, scale=dd ** -0.5, plus1=plus1)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
@@ -94,6 +121,12 @@ def main(argv=None) -> int:
 
     print(gpu_line(), f"(package {os.path.dirname(A.__file__)})", flush=True)
     got = outputs(torch.device("cuda", 0))
+    again = outputs(torch.device("cuda", 0))
+    differ = sorted(k for k in got if not torch.equal(got[k], again[k]))
+    print(f"{len(got) - len(differ)} of {len(got)} outputs the same bits on a second run; differ: "
+          f"{differ or 'none'}", flush=True)
+    if differ:
+        return 1
     if args.save:
         torch.save(got, args.save)
         print(f"saved {len(got)} outputs to {args.save}", flush=True)

@@ -12,12 +12,16 @@ Here the depth is cut to 2 (the width, heads and input length are the
 demo's: 192, 6 heads of D = 32, 98 frames, so N = 110 tokens in eval), the
 weights go from the JAX init to the port with ``state_dict_from_flax``, the
 spectrogram and the loss weights come from a numpy seed, and the logits and
-every parameter's gradient of ``sum(logits * w)`` are compared.
+every parameter's gradient of ``sum(logits * w)`` are compared. The same
+holds at 2 heads (D = 96) and 8 heads (D = 24), the head counts an
+``ArchSpec`` override gives that reach the padded "simt" instances (DP = 96
+and 32) on the card, as chip_smoke [20h] runs the demo at 2 heads.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from passt_tpu.models.passt import PaSSTConfig as JaxConfig
@@ -48,12 +52,14 @@ def test_demo_width_is_d32_on_simt():
         assert forward_path(n, d, torch.float32, True) == backward_path(n, d, torch.float32, True) == "simt"
 
 
-def test_reduced_passt_fp32_logits_and_gradients_match_jax():
-    jmodel, params = init_passt(JaxConfig(**DEMO), jax.random.PRNGKey(3))
+def _logits_and_gradients_match_jax(cfg: dict) -> None:
+    """The port's reduced PaSST at ``cfg`` against the JAX model: logits
+    and every parameter's gradient, within TOL_LOGITS and TOL_GRAD."""
+    jmodel, params = init_passt(JaxConfig(**cfg), jax.random.PRNGKey(3))
     params = jax.tree.map(np.asarray, params)
     rng = np.random.default_rng(22)
-    x = rng.standard_normal((2, 1, 128, DEMO["input_tdim"])).astype(np.float32)
-    w = rng.standard_normal((2, DEMO["num_classes"])).astype(np.float32)
+    x = rng.standard_normal((2, 1, 128, cfg["input_tdim"])).astype(np.float32)
+    w = rng.standard_normal((2, cfg["num_classes"])).astype(np.float32)
 
     def loss(p):
         logits, _ = jmodel.apply({"params": p}, jnp.asarray(x), train=False)
@@ -62,7 +68,7 @@ def test_reduced_passt_fp32_logits_and_gradients_match_jax():
     (_, jlogits), jgrads = jax.value_and_grad(loss, has_aux=True)(params)
     want = state_dict_from_flax(jax.tree.map(np.asarray, jgrads))
 
-    model = PaSST(PaSSTConfig(**DEMO))
+    model = PaSST(PaSSTConfig(**cfg))
     model.load_state_dict(state_dict_from_flax(params))
     model.eval()
     logits, _ = model(torch.from_numpy(x))
@@ -84,3 +90,20 @@ def test_reduced_passt_fp32_logits_and_gradients_match_jax():
         held += 1
     # every leaf of the two blocks (their attention's qkv and proj among them) is held
     assert held >= 2 * 12
+
+
+def test_reduced_passt_fp32_logits_and_gradients_match_jax():
+    _logits_and_gradients_match_jax(DEMO)
+
+
+@pytest.mark.parametrize("heads, head_dim", [(2, 96), (8, 24)])
+def test_reduced_passt_fp32_other_heads_match_jax(heads, head_dim):
+    """The demo's width over 2 heads (D = 96: the DP = 96 instances) and 8
+    heads (D = 24: DP = 32 with 8 zero columns), each taking "simt" both
+    ways on the card at the demo's token counts."""
+    cfg = dict(DEMO, num_heads=heads)
+    assert cfg["embed_dim"] // heads == head_dim
+    for n in (79, 110):
+        assert forward_path(n, head_dim, torch.float32, True) == backward_path(n, head_dim, torch.float32,
+                                                                               True) == "simt"
+    _logits_and_gradients_match_jax(cfg)
