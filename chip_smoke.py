@@ -15,8 +15,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    jittered bank, a bank with an all-zero row, and at every other n_fft it
    is built for (64, 128, 256, 512 with win 400, 2048) (the wrapper timed by
    CUDA-graph replay, its two kernels by profiled kernel time, beside the
-   cuFFT composition of the same function); the attention forward on each of its four paths (every
-   call checked to take the one ``forward_path`` picks, never "fma"; fp32
+   cuFFT composition of the same function); the attention forward on each of its three paths (every
+   call checked to take the one ``forward_path`` picks, never "fma" or "mma"; fp32
    at D = 64 on "simt" from N = 1 to 1190 and at D = 32 from N = 1 to 200,
    fp32 at another D and every unaligned view on "simt"), timed by CUDA-graph
    replay and by events at the serving (B = 20, N = 1190), timestamp
@@ -28,7 +28,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    every call checked to take the path ``backward_path`` picks, the
    "wgmma" and "simt" paths' bits checked equal run to run), timed at the
    training step's shapes (graph replay, events and profiled kernel time)
-   beside the old pair on the same call ("mma" for bf16, "fma" for fp32)
+   beside the old pair on the same call ("mma" for bf16, "fma" for fp32; never dispatched)
    and SDPA's backward (the profiled kernel time of its forward and
    backward less its forward's, and events); then the "simt" kernels'
    instances (templates on the dtype and the head dim padded to DP = 32,
@@ -108,7 +108,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    warm-up, capture and replay, the ``Predictor``'s replays' launches
    exact; [13]'s ``fit`` rerun with the eager steps bit-equal to the
    graphed run (printed after [13]); the times, graphed and eager in
-   turns: the step's best of 3 runs of 50 (the eager step's: runs of 25)
+   turns: the step's best of 2 runs of 30 (the eager step's: runs of 12)
    with the spread, its first
    calls and peak memory, a 5-step profile of each (kernel time, kernels
    and host launch calls a step, idle share), the eager fit's steady
@@ -157,8 +157,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    ``remat``, 3 calls each from one state: scan (restacked) and remat
    bit-equal to loop (losses, parameters, both moments), stacked within the
    bf16 bound and its first moment within its bound, the launches exact;
-   the four timed in turns (``tools/ab_scan_blocks``: best of 3 runs of
-   50, first calls, peak memory, one eager step's own peak and what its
+   the four timed in turns (``tools/ab_scan_blocks``: best of 2 runs of
+   30, first calls, peak memory, one eager step's own peak and what its
    forward holds, remat's under half the loop's, device time per kernel
    group, kernels a step, idle share, launches a step); the batched
    weight-gradient product against float64; one fp32 B = 2 stacked step (the hand-written
@@ -209,7 +209,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    registry overridden for the phase through the tool's ``REDUCED``), every
    attention call on the "simt" kernels' DP = 96 instances, "fma" 0;
    ``tools/finetune_rehearsal``'s ``main`` at full PaSST-S
-   width (120 / 40 5-s clips as wav folders, 8 epochs, SIGTERM after epoch
+   width (60 / 40 5-s clips as wav folders, 4 epochs, SIGTERM after epoch
    2; each phase the CLI in a child process through a ``python -c`` shim
    that sets [15]'s openers, holds after the epoch-2 line until the signal
    has landed, and prints its launch counts): every assert of the tool, each
@@ -224,13 +224,37 @@ Phases (each prints one line or more; the first failure exits non-zero):
    through [19]'s route, its ap curve and swa_ap beside [19]'s production
    arm (the last ap at least 0.5; the gap printed, not gated).
 
+Phase 3 and 3b hold the "wgmma" kernels' padded instances (templates on
+the head dim padded to DP = 32, 64, 128; PERF.md row 4m) against their
+plain versions: bf16 and fp16 at D = 16, 48, 80, 96, 112, 128 over N 1,
+63, 64, 65, 128, 129, 200, 474 and at D = 32 above N = 128, plus1 on and
+off, both entries, the backward's bits equal twice above N = 128; check
+that a padded call writes nothing past D ([B, N, H, D] views into
+[B, N, H, 128] buffers whose other columns hold a sentinel, forward and
+backward); and time them beside the old "mma" kernels on the same call
+(the private override), SDPA as dispatched and each backend alone, the
+plain version and the bound, at 6 heads of D = 128 (B = 12, N = 474 and,
+forward only, B = 20, N = 1190), 8 heads of D = 96 (B = 12, N = 474), the
+convergence demo's two shapes at 2 heads of D = 96, and (backward only)
+24 heads of D = 32 at B = 12, N = 474. Every draw of [3] and [3b] comes
+from a seeded generator on the card, and each bf16 / fp16 forward is held
+to one output ulp at the element's magnitude. Phase [6w] runs the bench's
+bf16 step at PaSST-S width over 6 heads of D = 128
+(``bench.setup(num_heads=6)``: 2 warm-up and 10 timed steps, graphed,
+every attention call on the "wgmma" DP = 128 instances, exact launches),
+holds its mean loss against the same steps under ``attn_impl="xla"``, and
+times it in turns with the 12-head step; [20i] runs the convergence demo
+in bf16 at 2 heads (D = 96, the DP = 128 instances) as [20h] runs it in
+fp32. The line before the card's is the script's seconds, in all and by
+phase.
+
 Phase 3 also holds the D = 32 "wgmma" forward against its plain version
 over a ragged-N sweep (N 1 to 200, bf16 and fp16, plus1 on and off, both
 entries) and times it at the convergence demo's shapes (bf16, B = 25,
 N = 79 and B = 50, N = 110, 6 heads of D = 32) beside the old "mma" kernel
 on the same call, SDPA and the bound; phase 3b holds the "resident"
 backward likewise (N 1 to 128, every call's bits equal on a second run;
-N = 129 on "mma") and times it there beside the old "mma" pair, SDPA's
+N = 129 on "wgmma") and times it there beside the old "mma" pair, SDPA's
 backward and the bound. In fp32 at D = 32 both phases hold the "simt"
 kernels' D = 32 instances likewise (N 1 to 200, both entries, plus1 on and
 off; the backward's bits equal on a second run) and time them at the
@@ -264,11 +288,11 @@ once (``cudaOccupancyMaxActiveClusters``), and times them beside the bare
 cuBLAS pair of the same products with the plan (rows, CTAs a cluster, CTAs,
 clusters resident, waves).
 
-Launch counts: each main-path run (phases 4, 6, 8, 10, 11, 12, 13's
+Launch counts: each main-path run (phases 4, 6, 6w, 8, 10, 11, 12, 13's
 uninterrupted fit, the kernel sides of 7 and 9, 14's replays, each of
 15's and 16's CLI commands, 17's loaded-program and serve calls, 18's
 equality runs, fp32 stacked step and stacked ``Predictor``, 19's demo, and
-20's convergence demos (bf16, fp32, fp32 at 2 heads), rehearsal phases (counted in their
+20's convergence demos (bf16, fp32, fp32 and bf16 at 2 heads), rehearsal phases (counted in their
 child processes), parity runs, fit_throughput run and ref arm) starts
 with every count at 0 and reads the counts right after; the ``launches``
 of the kernels' record (thirteen entries) sum those runs. The comparisons
@@ -300,6 +324,7 @@ import time
 import numpy as np
 import torch
 
+T0 = time.perf_counter()  # the script's start, for [seconds]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -311,14 +336,30 @@ CLIP = 320000  # 10 s at 32 kHz
 #: head dim, and its (B, N) in training and in eval
 CONV_HEADS, CONV_HEAD_DIM = 6, 32
 #: [20h] the same demo over 2 heads: D = 96, the "simt" kernels' DP = 96
-#: instances in fp32
+#: instances in fp32; [20i] in bf16, the "wgmma" kernels' DP = 128 ones
 CONV_WIDE_HEADS = 2
 CONV_SHAPES = ((25, 79), (50, 110))
 #: the ragged-N sweep at D = 32 ([3], [3b]): one tile's edges and the demo's N
 D32_NS = (1, 17, 64, 65, 79, 110, 127, 128)
+#: [3] / [3b] the "wgmma" instances at a padded head dim (templates on
+#: DP = 32, 64, 128): the head dims that are no DP, and the N they are held
+#: at (one and two 64-query tiles, the edges of the 64- and 128-key tiles,
+#: the training step's N)
+WIDE_DS = (16, 48, 80, 96, 112, 128)
+WIDE_NS = (1, 63, 64, 65, 128, 129, 200, 474)
+#: [3] the "wgmma" instances timed, (B, N, H, D, entry): 6 heads of D = 128
+#: at the training and serving shapes (rows 3t's and 2's FLOPs), 8 heads of
+#: D = 96, and the convergence demo's two shapes at 2 heads of D = 96
+#: ([20i]); [3b] the backward at the same shapes but serving's, and at
+#: 24 heads of D = 32 above the "resident" path's N
+WIDE_TIMED = ((12, 474, 6, 128, "fused_attention_qkv"), (20, 1190, 6, 128, "fused_attention"),
+              (12, 474, 8, 96, "fused_attention_qkv"), (25, 79, 2, 96, "fused_attention_qkv"),
+              (50, 110, 2, 96, "fused_attention_qkv"))
+WIDE_TIMED_BWD = ((12, 474, 6, 128), (12, 474, 8, 96), (25, 79, 2, 96), (50, 110, 2, 96), (12, 474, 24, 32))
 # attention kernel vs plain: fp32 differs in summation order only; in bf16 /
 # fp16 a p may round the other way and the output may round the other way:
-# one output ulp at |o| < 2
+# one output ulp at each element's magnitude, TOL_ATTN below |o| = 2 and
+# doubled with each binade above (attn_err)
 TOL_ATTN = {torch.float32: 5e-5, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
 # backward kernel vs plain, max error relative to max|ref| of each gradient:
 # fp32 differs in summation order only; in bf16 / fp16 the kernel rounds
@@ -392,6 +433,18 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def attn_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """The attention forward's largest error against its plain version
+    ``ref``, absolute and in units of its tolerance: TOL_ATTN in fp32; in
+    bf16 / fp16 one output ulp at each element's magnitude, TOL_ATTN times
+    2^floor(log2 max(|ref|, 1)) (2^-7 / 2^-10 below |o| = 2)."""
+    err = (got.float() - ref.float()).abs()
+    tol = TOL_ATTN[ref.dtype]
+    if ref.dtype != torch.float32:
+        tol = tol * torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1.0))))
+    return float(err.max()), float((err / tol).max())
 
 
 def mel_strong_check(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -487,6 +540,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     from passt_tpu_torch.ops.stft import preemphasis, stft_power
 
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)  # every draw on the card
     rec = {}
 
     # mel: hop 320 at the slice's batch, hop 100 and 160 at a small one; a
@@ -561,9 +615,9 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # path's two tile widths and of the wgmma path's first key tile; other
     # head dims; bf16 and fp16 on views one element off 16-byte alignment.
     # Each pair of calls takes the path forward_path picks ("wgmma" at
-    # D = 64, N > 64; "short" at N <= 64; "mma" at D = 16, 128; "simt" for
+    # D = 64, N > 64 and at D = 16, 128; "short" at N <= 64; "simt" for
     # every fp32 call, bf16 at D = 24 and the unaligned views; never
-    # "fma"). fp32 also at the ragged edges of the simt kernel's 64-row
+    # "fma" or "mma"). fp32 also at the ragged edges of the simt kernel's 64-row
     # tiles (N = 1, 63, 64, 65, 97). The convergence demo's D = 32 ("wgmma"
     # in bf16 / fp16, "simt" in fp32, at any N) over a ragged-N sweep: one
     # and two 128-key tiles, one to four 64-key tiles
@@ -583,6 +637,12 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     cases += [(dtype, n, plus1, CONV_HEADS, CONV_HEAD_DIM, True)
               for dtype in (torch.bfloat16, torch.float16, torch.float32)
               for n in D32_NS + (129, 200) for plus1 in (False, True)]
+    # the "wgmma" instances at padded head dims (D = 16 on DP = 32, 48 on
+    # 64, 80 to 128 on 128) and D = 32 at the step's N, bf16 and fp16
+    cases += [(dtype, n, plus1, 2, d_, True) for dtype in (torch.bfloat16, torch.float16) for d_ in WIDE_DS
+              for n in WIDE_NS for plus1 in (False, True)]
+    cases += [(dtype, TRAIN_N, plus1, CONV_HEADS, CONV_HEAD_DIM, True) for dtype in (torch.bfloat16, torch.float16)
+              for plus1 in (False, True)]
     taken = dict.fromkeys(A.FWD_PATHS, 0)
     with torch.no_grad():
         for dtype, n, plus1, h_, d_, aligned in cases:
@@ -598,24 +658,24 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
             got_f = fused_attention_qkv(qkv, heads=h_, head_dim=d_, scale=d_ ** -0.5, plus1=plus1)
             torch.cuda.synchronize()
             path = A.forward_path(n, d_, dtype, aligned)
-            check(path != "fma" and (path == "simt") == (dtype == torch.float32 or not aligned or d_ % 16 != 0),
+            check(path not in ("fma", "mma")
+                  and (path == "simt") == (dtype == torch.float32 or not aligned or d_ % 16 != 0),
                   f"{dtype} N={n} D={d_} aligned={aligned}: path {path}")
             check(A.FWD_PATH_LAUNCHES[path] == 2 == sum(A.FWD_PATH_LAUNCHES.values()),
                   f"{dtype} N={n} D={d_}: forward paths {A.FWD_PATH_LAUNCHES}, want 2 on {path}")
             taken[path] += 2
             for name, got in (("fused_attention", got_b), ("fused_attention_qkv", got_f.view(ref.shape))):
-                err = max_err(got, ref)
+                err, units = attn_err(got, ref)
                 check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"{name}: dtype/finite")
-                check(err <= TOL_ATTN[dtype], f"{name} {dtype} N={n} H={h_} D={d_} plus1={plus1} "
-                      f"aligned={aligned}: "
-                      f"max err {err:.3g} > {TOL_ATTN[dtype]:.3g}")
+                check(units <= 1.0, f"{name} {dtype} N={n} H={h_} D={d_} plus1={plus1} aligned={aligned}: "
+                      f"max err {err:.3g}, {units:.3g} of its tolerance (TOL_ATTN {TOL_ATTN[dtype]:.3g} at |o| < 2)")
                 errs[name] = max(errs[name], err)
 
     def main_shape(b, n, entry, path, h=heads, d=hd):
         """The kernel against its plain version on the bf16 inputs of a main
         path's shape, on the forward path it must take there; returns the
         kernel call and the plain call on them."""
-        qkv = torch.randn((b, n, 3 * h * d), device=dev, dtype=torch.bfloat16)
+        qkv = torch.randn((b, n, 3 * h * d), device=dev, generator=gen).to(torch.bfloat16)
         q, k, v = qkv.reshape(b, n, 3, h, d).unbind(2)
         if entry == "fused_attention":
             kern = lambda: fused_attention(q, k, v, scale=d ** -0.5)
@@ -624,30 +684,40 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
         plain = lambda: attention_plain(q, k, v, scale=d ** -0.5)
         with torch.no_grad():
             A.reset_path_launches()
-            err = max_err(kern().reshape(b, n, h, d), plain())
+            err, units = attn_err(kern().reshape(b, n, h, d), plain())
         check(A.FWD_PATH_LAUNCHES[path] == 1 == sum(A.FWD_PATH_LAUNCHES.values()),
               f"{entry} bf16 B={b} N={n} D={d}: forward paths {A.FWD_PATH_LAUNCHES}, want {path}")
-        check(err <= TOL_ATTN[torch.bfloat16], f"{entry} bf16 B={b} N={n} D={d}: max err {err:.3g}")
+        check(units <= 1.0, f"{entry} bf16 B={b} N={n} D={d}: max err {err:.3g}, {units:.3g} of its tolerance")
         errs[entry] = max(errs[entry], err)
         taken[path] += 1
         return kern, plain, (q, k, v)
 
-    def timings(b, n, entry, path, h=heads, d=hd):
+    def timings(b, n, entry, path, h=heads, d=hd, old=None):
         """The kernel (graph replay and CUDA events), its plain version and
         SDPA as PyTorch dispatches it (graph replay and events; the kernel
         it ran, from a profiler trace), with each backend that accepts the
         inputs timed alone by graph replay (the unfused MATH backend left
-        out)."""
+        out); with ``old``, that old path's kernel on the same views
+        through the private override, held against plain and timed."""
         kern, plain, (q, k, v) = main_shape(b, n, entry, path, h, d)
         lib = lambda: sdpa(q, k, v, d ** -0.5)
         with torch.no_grad():
             backends = sdpa_backends(q, k, v, d ** -0.5)
-            ran = top_kernel(kernel_times(lib, 3))
-            return dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                        library_ms=graph_ms(lib), library_ms_events=cuda_ms(lib),
-                        library_kernel=ran, library_backend=backend_of(ran),
-                        library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends if be.name != "MATH"},
-                        path=path, **bound(4 * n * n * d * b * h, 4 * b * n * h * d * 2, PEAK_BF16))
+            ran = top_kernel(kernel_times(lib))
+            t = dict(ms=graph_ms(kern), ms_events=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                     library_ms=graph_ms(lib), library_ms_events=cuda_ms(lib),
+                     library_kernel=ran, library_backend=backend_of(ran),
+                     library_backend_ms={be.name: graph_ms(under(be, lib)) for be in backends if be.name != "MATH"},
+                     path=path, **bound(4 * n * n * d * b * h, 4 * b * n * h * d * 2, PEAK_BF16))
+            if old:
+                out = torch.empty((b, n, h, d), device=dev, dtype=torch.bfloat16)
+                old_fn = lambda: A._launch(q, k, v, out, d ** -0.5, False, path=old)
+                old_fn()
+                err, units = attn_err(out, plain())
+                check(units <= 1.0, f"the old {old} forward B={b} N={n} H={h} D={d}: max err {err:.3g}")
+                t.update({f"{old}_ms": graph_ms(old_fn), f"{old}_ms_events": cuda_ms(old_fn),
+                          f"{old}_max_abs_err": err})
+            return t
 
     def line(t):
         return (f"kernel ({t['path']}) {t['ms']:.4f} ms graph-replayed, {t['ms_events']:.4f} events; plain "
@@ -670,17 +740,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     # through the private override
     demo = {}
     for b, n in CONV_SHAPES:
-        t = timings(b, n, "fused_attention_qkv", "wgmma", CONV_HEADS, CONV_HEAD_DIM)
-        qkv = torch.randn((b, n, 3 * CONV_HEADS * CONV_HEAD_DIM), device=dev, dtype=torch.bfloat16)
-        out = torch.empty((b, n, CONV_HEADS, CONV_HEAD_DIM), device=dev, dtype=torch.bfloat16)
-        views, scale = A._head_views(qkv, CONV_HEADS, CONV_HEAD_DIM), CONV_HEAD_DIM ** -0.5
-        old = lambda: A._launch(*views, out, scale, False, path="mma")
-        with torch.no_grad():
-            old()
-            err = max_err(out, attention_plain(*views, scale=scale))
-            check(err <= TOL_ATTN[torch.bfloat16],
-                  f"the old mma forward B={b} N={n} D={CONV_HEAD_DIM}: max err {err:.3g}")
-            t.update(mma_ms=graph_ms(old), mma_ms_events=cuda_ms(old), mma_max_abs_err=err)
+        t = timings(b, n, "fused_attention_qkv", "wgmma", CONV_HEADS, CONV_HEAD_DIM, old="mma")
         demo[f"B={b} N={n}"] = t
         say(f"[3] fused_attention_qkv bf16 B={b} N={n} H={CONV_HEADS} D={CONV_HEAD_DIM} (the convergence demo's): "
             f"{line(t)}; the old mma kernel on the same call {t['mma_ms']:.4f} ms graph-replayed, "
@@ -695,7 +755,7 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
     demo32 = {}
     for b, n in CONV_SHAPES:
         h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
-        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev)
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, generator=gen)
         views = A._head_views(qkv, h_, d_)
         out = torch.empty((b, n, h_, d_), device=dev)
         kern = lambda: fused_attention_qkv(qkv, heads=h_, head_dim=d_, scale=scale)
@@ -730,16 +790,71 @@ def phase_kernels(gpu: str, dev: torch.device) -> dict:
                         for k, v in t["library_backend_ms"].items())
             + f"; plain {t['plain_ms']:.4f} ms events; bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{A.simt_forward_blocks_per_sm(d_)} simt blocks an SM ({gpu})")
+    # row 4m: the "wgmma" instances at padded head dims on the calls the
+    # old "mma" kernel took, beside it on the same call (the private
+    # override), SDPA, plain and the bound; then a padded call's writes
+    wide = {}
+    for b, n, h_, d_, entry in WIDE_TIMED:
+        t = timings(b, n, entry, "wgmma", h_, d_, old="mma")
+        wide[f"{entry} B={b} N={n} H={h_} D={d_}"] = t
+        say(f"[3] {entry} bf16 B={b} N={n} H={h_} D={d_} (DP = {A.wgmma_head_dim(d_)}): {line(t)}; the old mma "
+            f"kernel on the same call {t['mma_ms']:.4f} ms graph-replayed, {t['mma_ms_events']:.4f} events ({gpu})")
+    say("[3] " + padded_writes(dev, gen, backward=False))
     say(f"[3] attention forward vs plain: max err {errs['fused_attention']:.3g} ([B, N, H, D] entry), "
         f"{errs['fused_attention_qkv']:.3g} (qkv entry) (bf16/fp32/fp16, plus1 on/off, N 14/474/1190 at D=64; "
         f"bf16/fp16 N 16/17/33/64/65/128/129 at D=64; fp32 N 1/63/64/65/97 at D=64; D 16/24/128 at N=97, fp32 "
         f"D 24 and 32 (simt); bf16/fp16/fp32 unaligned views at N 97/1190 (simt); bf16/fp16/fp32 D=32 N "
-        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off (fp32 on simt); bf16 at the serving, timestamp "
-        f"and training shapes, bf16 and fp32 D=32 at the convergence demo's); calls per path {taken}")
+        f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off (fp32 on simt); bf16/fp16 D "
+        f"{'/'.join(map(str, WIDE_DS))} (2 heads) N {'/'.join(map(str, WIDE_NS))} and D=32 N={TRAIN_N}, plus1 on/off "
+        f"(wgmma); bf16 at the serving, timestamp and training shapes, bf16 and fp32 D=32 at the convergence "
+        f"demo's, bf16 at row 4m's timed shapes; each within one output ulp at its magnitude, TOL_ATTN below "
+        f"|o| = 2); calls per path {taken}")
     rec["fused_attention"] = dict(max_abs_err=errs["fused_attention"], **serve)
     rec["fused_attention_qkv"] = dict(max_abs_err=errs["fused_attention_qkv"], **stamps, training=train,
-                                      conv_demo_d32=demo, conv_demo_d32_fp32=demo32)
+                                      conv_demo_d32=demo, conv_demo_d32_fp32=demo32, wgmma_padded=wide)
     return rec
+
+
+def padded_writes(dev: torch.device, gen: torch.Generator, backward: bool) -> str:
+    """A padded "wgmma" call writes nothing past D: q, k, v (and dO) as
+    [B, N, H, D] views into [B, N, H, 128] buffers, the output (dq, dk, dv)
+    as such views into buffers whose other columns hold a sentinel, bf16 and
+    fp16, each D of WIDE_DS but 128, plus1 on and off: the sentinel's bits
+    unchanged, the views within tolerance of the plain version, every call
+    on "wgmma"."""
+    from passt_tpu_torch.ops import attention as A
+
+    b, n, h, width, worst = 2, 97, 3, 128, 0.0
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in WIDE_DS[:-1]:
+            for plus1 in (False, True):
+                x = torch.randn((4, b, n, h, width), device=dev, generator=gen).to(dtype)
+                q, k, v, do = (x[i, ..., :d] for i in range(4))
+                sentinel = torch.full((b, n, h, width), -7.0, device=dev, dtype=dtype)
+                bufs = [sentinel.clone() for _ in range(3 if backward else 1)]
+                outs = [t[..., :d] for t in bufs]
+                A.reset_path_launches()
+                with torch.no_grad():
+                    if backward:
+                        A._launch_bwd(q, k, v, do, *outs, d ** -0.5, plus1)
+                        refs = A.attention_bwd_plain(q, k, v, do, scale=d ** -0.5, plus1=plus1)
+                        err = max(rel_err(o, r) for o, r in zip(outs, refs))
+                        ok, counts = err <= TOL_BWD[dtype], A.BWD_PATH_LAUNCHES
+                    else:
+                        A._launch(q, k, v, outs[0], d ** -0.5, plus1)
+                        err, units = attn_err(outs[0], A.attention_plain(q, k, v, scale=d ** -0.5, plus1=plus1))
+                        ok, counts = units <= 1.0, A.FWD_PATH_LAUNCHES
+                torch.cuda.synchronize()
+                what = f"{'backward' if backward else 'forward'} {dtype} D={d} plus1={plus1}"
+                check(counts["wgmma"] == 1 == sum(counts.values()), f"padded {what}: paths {counts}")
+                check(all(torch.equal(t[..., d:], sentinel[..., d:]) for t in bufs),
+                      f"padded {what}: columns past D were written")
+                check(ok, f"padded {what}: max err {err:.3g}")
+                worst = max(worst, err)
+    return (f"padded {'backward' if backward else 'forward'} calls write nothing past D: [B, N, H, D] views into "
+            f"[B, N, H, {width}] buffers (B={b} N={n} H={h}, bf16/fp16, D {'/'.join(map(str, WIDE_DS[:-1]))}, "
+            f"plus1 on/off, all on wgmma), the sentinel columns' bits unchanged; max err {worst:.3g}"
+            + (" of max|ref|" if backward else ""))
 
 
 def phase_backward(gpu: str, dev: torch.device) -> dict:
@@ -755,6 +870,7 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     )
 
     rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)  # every draw on the card
     heads, hd = 12, 64
     worst = {"fused_attention_bwd": 0.0, "fused_attention_qkv_bwd": 0.0}  # of max|ref|
     worst_abs = dict(worst)
@@ -776,9 +892,13 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     cases += [(dtype, 2, 97, True, h_, d_) for dtype in (torch.bfloat16, torch.float32)
               for h_, d_ in ((4, 16), (2, 24), (2, 128))]
     # the convergence demo's D = 32: in bf16 / fp16 "resident" up to N = 128,
-    # "mma" at 129; in fp32 "simt" at any N (one to four 64-key tiles)
+    # "wgmma" above (DP = 32); in fp32 "simt" at any N (one to four 64-key
+    # tiles)
     cases += [(dtype, 2, n, plus1, CONV_HEADS, CONV_HEAD_DIM) for dtype in (torch.bfloat16, torch.float16)
-              for n in D32_NS + (129,) for plus1 in (False, True)]
+              for n in D32_NS + (129, 200, TRAIN_N) for plus1 in (False, True)]
+    # the "wgmma" instances at padded head dims, bf16 and fp16
+    cases += [(dtype, 2, n, plus1, 2, d_) for dtype in (torch.bfloat16, torch.float16) for d_ in WIDE_DS
+              for n in WIDE_NS for plus1 in (False, True)]
     cases += [(torch.float32, 2, n, plus1, CONV_HEADS, CONV_HEAD_DIM) for n in D32_NS + (129, 200)
               for plus1 in (False, True)]
     taken = dict.fromkeys(A.BWD_PATHS, 0)
@@ -796,11 +916,13 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         path = A.backward_path(n, d_, dtype, True)
         check(A.BWD_PATH_LAUNCHES[path] == 2 == sum(A.BWD_PATH_LAUNCHES.values()),
               f"{dtype} B={b} N={n} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}, want 2 on {path}")
-        check(d_ != CONV_HEAD_DIM or path == ("simt" if dtype == torch.float32 else "resident" if n <= 128 else "mma"),
+        check(d_ != CONV_HEAD_DIM or path == ("simt" if dtype == torch.float32 else "resident" if n <= 128 else "wgmma"),
               f"{dtype} D=32 N={n}: path {path}")
+        check(path not in ("fma", "mma"), f"{dtype} N={n} D={d_}: path {path}")
         taken[path] += 2
-        if path in ("simt", "resident") or (path == "wgmma" and (n, plus1) in ((1190, True), (129, False),
-                                                                              (n_plain, False))):
+        if path in ("simt", "resident") or (path == "wgmma" and ((n, plus1) in ((1190, True), (129, False),
+                                                                               (n_plain, False))
+                                                                 or (d_ != hd and n > 128))):
             # the ordered dQ sum: the same bits again, through both entries
             again = fused_attention_qkv_bwd(qkv, do.reshape(b, n, h_ * d_), heads=h_, head_dim=d_, scale=scale,
                                             plus1=plus1)
@@ -839,7 +961,9 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
         f"block order: {-(-n_plain // 64)} key blocks a head > {sms} SMs), the simt path in every fp32 D=64 case "
         f"(B=1 H=4 N={n_plain} in the plain block order too) and every fp32 D=32 case (N "
         f"{'/'.join(map(str, D32_NS + (129, 200)))}, plus1 on/off), the resident path in every bf16/fp16 D=32 "
-        f"case (N {'/'.join(map(str, D32_NS))}, plus1 on/off; N=129 on mma); calls per path {taken}")
+        f"case (N {'/'.join(map(str, D32_NS))}, plus1 on/off; N 129/200/{TRAIN_N} on wgmma, DP = 32, the same bits "
+        f"twice, as every padded wgmma case above N = 128: D {'/'.join(map(str, WIDE_DS))}); calls per path "
+        f"{taken}")
 
     def bwd_times(kern, q, k, v, do4, scale, peak, math=False) -> dict:
         """The backward kernel call ``kern`` on [B, N, H, D] views q, k, v
@@ -883,8 +1007,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     for name, dtype, b, peak in (("fused_attention_qkv_bwd", torch.bfloat16, TRAIN_B, PEAK_BF16),
                                  ("fused_attention_bwd", torch.float32, 2, PEAK_FP32)):
         n, scale = TRAIN_N, hd ** -0.5
-        qkv = torch.randn((b, n, 3 * heads * hd), device=dev, dtype=dtype)
-        do = torch.randn((b, n, heads * hd), device=dev, dtype=dtype)
+        qkv = torch.randn((b, n, 3 * heads * hd), device=dev, generator=gen).to(dtype)
+        do = torch.randn((b, n, heads * hd), device=dev, generator=gen).to(dtype)
         q, k, v = qkv.reshape(b, n, 3, heads, hd).unbind(2)
         do4 = do.view(b, n, heads, hd)
         mma = fma = None
@@ -956,8 +1080,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     demo = {}
     for b, n in CONV_SHAPES:
         h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
-        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, dtype=torch.bfloat16)
-        do = torch.randn((b, n, h_ * d_), device=dev, dtype=torch.bfloat16)
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, generator=gen).to(torch.bfloat16)
+        do = torch.randn((b, n, h_ * d_), device=dev, generator=gen).to(torch.bfloat16)
         q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
         do4 = do.view(b, n, h_, d_)
         kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
@@ -1006,8 +1130,8 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
     demo32 = {}
     for b, n in CONV_SHAPES:
         h_, d_, scale = CONV_HEADS, CONV_HEAD_DIM, CONV_HEAD_DIM ** -0.5
-        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev)
-        do = torch.randn((b, n, h_ * d_), device=dev)
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, generator=gen)
+        do = torch.randn((b, n, h_ * d_), device=dev, generator=gen)
         q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
         do4 = do.view(b, n, h_, d_)
         kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
@@ -1046,6 +1170,48 @@ def phase_backward(gpu: str, dev: torch.device) -> dict:
             + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}); the design's 14N^2D at peak "
             f"{t['design_bound_ms']:.4f} ms ({gpu})")
     rec["fused_attention_qkv_bwd"]["conv_demo_d32_fp32"] = demo32
+
+    # row 4m: the "wgmma" backward at padded head dims and at D = 32 above
+    # "resident"'s N, on the calls the old "mma" pair took, beside it on the
+    # same call (the private override), SDPA's backward, plain and the bound
+    wide = {}
+    for b, n, h_, d_ in WIDE_TIMED_BWD:
+        scale = d_ ** -0.5
+        qkv = torch.randn((b, n, 3 * h_ * d_), device=dev, generator=gen).to(torch.bfloat16)
+        do = torch.randn((b, n, h_ * d_), device=dev, generator=gen).to(torch.bfloat16)
+        q, k, v = qkv.reshape(b, n, 3, h_, d_).unbind(2)
+        do4 = do.view(b, n, h_, d_)
+        kern = lambda: fused_attention_qkv_bwd(qkv, do, heads=h_, head_dim=d_, scale=scale)
+        A.reset_path_launches()
+        got = kern().reshape(b, n, 3, h_, d_).unbind(2)
+        check(A.BWD_PATH_LAUNCHES["wgmma"] == 1 == sum(A.BWD_PATH_LAUNCHES.values()),
+              f"fused_attention_qkv_bwd bf16 B={b} N={n} H={h_} D={d_}: backward paths {A.BWD_PATH_LAUNCHES}")
+        dqkv_old = torch.empty_like(qkv)
+
+        def mma():
+            """The old "mma" pair on the same call (the private override)."""
+            A._launch_bwd(*A._head_views(qkv, h_, d_), do4, *A._head_views(dqkv_old, h_, d_), scale, False,
+                          path="mma")
+        mma()
+        ref = attention_bwd_plain(q, k, v, do4, scale=scale)
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        mma_errs = [rel_err(o, r) for o, r in zip(dqkv_old.reshape(b, n, 3, h_, d_).unbind(2), ref)]
+        check(max(errs + mma_errs) <= TOL_BWD[torch.bfloat16], f"fused_attention_qkv_bwd B={b} N={n} H={h_} "
+              f"D={d_}: max err {max(errs):.3g} (wgmma), {max(mma_errs):.3g} (mma) of max|ref|")
+        t = bwd_times(kern, q, k, v, do4, scale, PEAK_BF16)
+        t.update(mma_ms=graph_ms(mma), mma_ms_kernels=kernel_ms(mma), mma_max_rel_err=max(mma_errs))
+        wide[f"B={b} N={n} H={h_} D={d_}"] = dict(max_rel_err=max(errs), **t)
+        say(f"[3b] fused_attention_qkv_bwd bf16 B={b} N={n} H={h_} D={d_} (DP = {A.wgmma_head_dim(d_)}): kernel "
+            f"({t['path']}: {', '.join(t['device_kernels'])}) max err {max(errs):.3g} of max|ref|; {t['ms']:.4f} ms "
+            f"graph-replayed, {t['ms_events']:.4f} events, {t['ms_kernels']:.4f} of kernels (profiled); the old mma "
+            f"pair on the same call {t['mma_ms']:.4f} ms graph-replayed, {t['mma_ms_kernels']:.4f} of kernels; plain "
+            f"{t['plain_ms']:.4f} ms; SDPA backward {t['library_ms']:.4f} ms of kernels (profiled forward + backward "
+            f"less forward), {t['library_ms_events']:.4f} events (ran {t['library_backend']}: {t['library_kernel']}; "
+            "alone: " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in t["library_backend_ms"].items())
+            + f" ms); bound {t['bound_ms']:.4f} ms ({t['bound_by']}); the design's 14N^2D at peak "
+            f"{t['design_bound_ms']:.4f} ms ({gpu})")
+    rec["fused_attention_qkv_bwd"]["wgmma_padded"] = wide
+    say("[3b] " + padded_writes(dev, gen, backward=True))
     return rec
 
 
@@ -1862,6 +2028,75 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     return launches
 
 
+#: [6w] the bench's step at PaSST-S width over 6 heads (D = 128) against
+#: the same step under attn_impl="xla": the mean loss of the timed steps
+#: within the port's bf16 bound (TOL_STACKED_BF16's 2e-2 of max(1, |ref|))
+WIDE_STEP_HEADS = 6
+
+
+def wide_heads_step(gpu: str, dev: torch.device) -> dict:
+    """[6w] the bench's bf16 training step at full PaSST-S width over 6
+    heads of D = 128 (``bench.setup(dev, num_heads=6)``): 2 warm-up and 10
+    timed steps, graphed, every attention call on the "wgmma" kernels'
+    DP = 128 instances ("mma" 0), exact launches; its mean loss against the
+    same steps under ``attn_impl="xla"``; then its ms/step and the 12-head
+    step's in turns (12, 6, 6, 12 heads, 10 steps each)."""
+    from passt_tpu_torch import bench
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.ops import attention as A
+
+    model, state, step, batch = bench.setup(dev, num_heads=WIDE_STEP_HEADS)
+    cfg = model.cfg
+    d = cfg.embed_dim // cfg.num_heads
+    check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.num_classes, d) == (768, 12, WIDE_STEP_HEADS, 527, 128),
+          f"[6w] not PaSST-S width at 6 heads: {cfg}")
+    check(A.forward_path(TRAIN_N, d, torch.bfloat16, True) == A.backward_path(TRAIN_N, d, torch.bfloat16, True)
+          == "wgmma", "[6w] D = 128 is not on the wgmma kernels")
+    warmup, steps = 2, 10
+    _build.reset_launches()
+    A.reset_path_launches()
+    state, ms, loss = bench.timed_steps(step, state, batch, steps, warmup)
+    torch.cuda.synchronize()
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    paths, bwd_paths = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
+    n = warmup + steps
+    want = {k: v * n for k, v in STEP_LAUNCHES["default"].items()}
+    check(launches == want, f"[6w] training launches {launches} != {want} ({n} steps)")
+    want_paths = dict.fromkeys(A.FWD_PATHS, 0)
+    want_paths["wgmma"] = 12 * n
+    check(paths == want_paths, f"[6w] forward paths {paths} != {want_paths}")
+    want_bwd = dict.fromkeys(A.BWD_PATHS, 0)
+    want_bwd["wgmma"] = 12 * n
+    check(bwd_paths == want_bwd, f"[6w] backward paths {bwd_paths} != {want_bwd}")
+    check(bool(torch.isfinite(loss)) and state.step == n, f"[6w] loss {float(loss)}, step {state.step}")
+    # the same steps with the attention in plain PyTorch, from the same weights and draws
+    _, xstate, xstep, xbatch = bench.setup(dev, num_heads=WIDE_STEP_HEADS, attn_impl="xla")
+    xstate, xms, xloss = bench.timed_steps(xstep, xstate, xbatch, steps, warmup)
+    gap = abs(float(loss) - float(xloss))
+    check(gap <= TOL_STACKED_BF16 * max(1.0, abs(float(xloss))),
+          f"[6w] mean loss {float(loss):.5f} against attn_impl=xla's {float(xloss):.5f}")
+    del xstate, xstep
+    # in turns with the 12-head step
+    _, state12, step12, batch12 = bench.setup(dev)
+    state12, _, _ = bench.timed_steps(step12, state12, batch12, 1, warmup)
+    runs = {12: [], WIDE_STEP_HEADS: []}
+    for heads in (12, WIDE_STEP_HEADS, WIDE_STEP_HEADS, 12):
+        if heads == 12:
+            state12, t, _ = bench.timed_steps(step12, state12, batch12, steps, 0)
+        else:
+            state, t, _ = bench.timed_steps(step, state, batch, steps, 0)
+        runs[heads].append(t)
+    say(f"[6w] training step PaSST-S bf16 B={TRAIN_B} N={TRAIN_N} at {WIDE_STEP_HEADS} heads of D = {d} (bench.setup("
+        f"num_heads={WIDE_STEP_HEADS}); graphed): {ms:.3f} ms/step over {steps} steps after {warmup}; mean loss "
+        f"{float(loss):.5f} against attn_impl=xla's {float(xloss):.5f} ({xms:.3f} ms/step; |gap| {gap:.2e}, limit "
+        f"{TOL_STACKED_BF16} of max(1, |ref|)); launches per step { {k: v // n for k, v in launches.items() if v} }; "
+        f"forward wgmma {paths['wgmma'] // n}, backward wgmma {bwd_paths['wgmma'] // n} a step, mma {paths['mma']} / "
+        f"{bwd_paths['mma']}; in turns (12, 6, 6, 12 heads, {steps} steps each): 12 heads "
+        f"{', '.join(f'{t:.3f}' for t in runs[12])} ms/step, {WIDE_STEP_HEADS} heads "
+        f"{', '.join(f'{t:.3f}' for t in runs[WIDE_STEP_HEADS])} ({gpu})")
+    return launches
+
+
 def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str, init_params=None) -> dict:
     """One fp32 training step at full width (B = 2) from seed-0 weights (or
     ``init_params``) and the bench's seed, recording the gradients and the
@@ -2474,7 +2709,7 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
     state restored at step 3 (params, both moments, counts, loss, grad
     norms), its launches over replays exact; the eval step and the
     Predictor (B = 1, B = 20, timestamp windows) bit-equal; the times, in
-    turns: the step's best of 3 runs of 50 with the spread, its warm-up
+    turns: the step's best of 2 runs of 30 with the spread, its warm-up
     (eager call, capture) and peak memory, a profile of each (kernel time,
     kernels and host launch calls a step, idle share), and the Predictor's
     ms/call and clips/s."""
@@ -2519,11 +2754,11 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
         for name, jit in (("graph", True), ("eager", False)):
             st, stp, b, warm_s, peak = bench.warmed(dev, jit, 2, **overrides)
             steps[name] = dict(state=st, step=stp, batch=b, warm_s=warm_s, peak=peak, runs=[])
-        # the eager runs are 25 steps long (host-bound), the graphed ones 50:
-        # the script's time limit (they were 50 and 200 until its phases
-        # outgrew it)
-        lengths = {"graph": 50, "eager": 25}
-        for _ in range(3):
+        # the eager runs are 12 steps long (host-bound), the graphed ones 30,
+        # two of each: the script's time limit (they were 50 and 200, three
+        # of each, until its phases outgrew it)
+        lengths = {"graph": 30, "eager": 12}
+        for _ in range(2):
             for name, rec in steps.items():
                 rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], lengths[name], 0)
                 rec["runs"].append(ms)
@@ -2764,19 +2999,19 @@ def phase_cli(gpu: str, dev: torch.device) -> dict:
 
         # 2. model_speed_test between two runs of the bench's graphed step
         _, state, step, batch = bench.setup(dev)
-        state, bench_before, _ = bench.timed_steps(step, state, batch, 100, 2)
+        state, bench_before, _ = bench.timed_steps(step, state, batch, 50, 2)
         steps = 2 * 100  # the warm-up run and the timed run
         out, _, speed_launches = run_cli("audioset model_speed_test (B=12, resident mel)",
                                          ["audioset", "model_speed_test"], attn_counts(TRAIN_N, TRAIN_B, True, steps))
         specs = results[-1]["specs_per_second"]
         check("average speed: " in out and math.isfinite(specs) and specs > 0, f"[15] model_speed_test: {out[-300:]}")
         speed_ms = TRAIN_B * 1000.0 / specs
-        _, bench_after, _ = bench.timed_steps(step, state, batch, 100, 0)
+        _, bench_after, _ = bench.timed_steps(step, state, batch, 50, 0)
         del state, step, batch
         bench_ms = (bench_before + bench_after) / 2
         lines.append(f"[15] model_speed_test: {specs:.2f} specs/s = {speed_ms:.3f} ms/step (graphed step on a resident "
                      f"mel batch, 100 steps after 100) between bench.timed_steps runs of {bench_before:.3f} and "
-                     f"{bench_after:.3f} ms/step (100 steps each; the graphed step with the frontend on a resident "
+                     f"{bench_after:.3f} ms/step (50 steps each; the graphed step with the frontend on a resident "
                      f"wave batch) in the same call (ratio to their mean {speed_ms / bench_ms:.3f}); launches a step: "
                      f"{ {k: v // steps for k, v in speed_launches.items() if v} }, no mel ({gpu})")
 
@@ -3178,7 +3413,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
     3 calls each, scan and remat bit-equal to loop (loss, parameters, both
     moments; scan restacked), stacked within the bf16 bound and its first
     moment within TOL_STACKED_MU, the launches exact; the four timed in
-    turns (tools/ab_scan_blocks: best of 3 x 50, peak memory, one eager
+    turns (tools/ab_scan_blocks: best of 2 x 30, peak memory, one eager
     step's memory, kernel groups, launches a step); the batched dW product
     against float64; one fp32 B = 2 stacked
     step with the kernels against the loop step on the plain versions (as
@@ -3258,7 +3493,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
         f"one state under each form: " + "; ".join(notes) + "; launches a step "
         + "; ".join(f"{n} { {k: v for k, v in w.items() if v} }" for n, w in BLOCK_LAUNCHES.items()))
 
-    ab = ab_scan_blocks.run(dev, steps=50, runs=3, profile=5)  # runs of 50 keep the script in its time limit
+    ab = ab_scan_blocks.run(dev, steps=30, runs=2, profile=5)  # two runs of 30 keep the script in its time limit
     for name, r in ab.items():
         groups = ", ".join(f"{g} {t:.3f}" for g, t in r["groups_ms_per_step"].items())
         say(f"[18] {name}: {', '.join(f'{t:.3f}' for t in r['ms_per_step_runs'])} ms/step in turns (best "
@@ -3887,11 +4122,13 @@ PARITY_CLIPS = 20  # [20d] 10-s clips of 527-class targets, one eval batch
 # (1.08x the bench step's rate, measured on one H100); the steady ms/step between
 # step starts by CUDA events is printed beside it
 FIT_TP_STEPS, FIT_TP_EPOCHS = 40, 3
-# [20c] the rehearsal's train and eval clips, cut from the tool's 240 / 100
-# to keep the whole script well inside its time limit; 40 eval clips keep
+# [20c] the rehearsal's train and eval clips and epochs, cut from the tool's
+# 240 / 100 and 8 to keep the whole script inside its time limit (4 epochs
+# still preempt after epoch 2, resume and run SWA, which the ESC-50 recipe
+# starts at epoch 2); 40 eval clips keep
 # every accuracy a multiple of 0.025, exact in the 5 digits the epoch line
 # prints, which the tool's 1e-6 reproduction check reads
-REHEARSAL_CLIPS = (120, 40)
+REHEARSAL_CLIPS, REHEARSAL_EPOCHS = (60, 40), 4
 REF_ARM = ("trainer.opt_moments_dtype=null", "model.gelu=erf")  # [20f] the multi-seed tool's "ref" arm
 #: [20c] the rehearsal's CLI shim: [15]'s folder openers in place of the
 #: HDF5 openers, the hold after the preempted phase's epoch line, then
@@ -3956,8 +4193,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
     (``make_split(20, 1)``, ``make_split(4, 2)``) as 32 kHz wav folders with
     [15]'s openers, the reduced PaSST (depth 4, dim 192, 6 heads: D = 32),
     bf16, graphed, 45 epochs; then [20g] the same run on the same folders at
-    ``model.dtype=float32``, and [20h] that at 2 heads (D = 96). Returns each
-    run's launches and line."""
+    ``model.dtype=float32``, [20h] that at 2 heads (D = 96), and [20i] the
+    bf16 run at 2 heads. Returns each run's launches and line."""
     import shutil
     import tempfile
 
@@ -3973,7 +4210,8 @@ def conv_demo(gpu: str, dev: torch.device) -> tuple:
         write_s = time.perf_counter() - t0
         data = (os.path.join(tmp, "train"), os.path.join(tmp, "test"))
         arms = []
-        for dtype, heads in (("bfloat16", CONV_HEADS), ("float32", CONV_HEADS), ("float32", CONV_WIDE_HEADS)):
+        for dtype, heads in (("bfloat16", CONV_HEADS), ("float32", CONV_HEADS), ("float32", CONV_WIDE_HEADS),
+                             ("bfloat16", CONV_WIDE_HEADS)):
             with demo_heads(heads):
                 arms.append(conv_demo_arm(gpu, dev, data, labels, write_s, dtype, heads))
         return tuple(zip(*arms))
@@ -4005,17 +4243,18 @@ def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_
     "wgmma" forward and the "resident" backward) or, with
     ``model.dtype=float32`` ([20g]), every call on the D = 32 instances of
     the "simt" kernels (row 4f), or that at 2 heads ([20h]: D = 96, the
-    DP = 96 instances, row 4p). Exact launches per path, none on "fma" or
-    "mma"; the best accuracy held to CONV_MIN_ACC; fit's steady ms/step
-    beside the same step on a resident batch."""
+    DP = 96 instances, row 4p), or the bf16 run at 2 heads ([20i]: D = 96,
+    the "wgmma" kernels' DP = 128 instances, row 4m). Exact launches per
+    path, none on "fma" or "mma"; the best accuracy held to CONV_MIN_ACC;
+    fit's steady ms/step beside the same step on a resident batch."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.experiments import EXPERIMENTS
     from passt_tpu_torch.ops import attention as A
     from passt_tpu_torch.tools import convergence_demo as cd
 
-    tag, extra = ("[20b]", []) if dtype == "bfloat16" else ("[20g]", ["model.dtype=float32"])
-    if want_heads != CONV_HEADS:
-        tag = "[20h]"
+    tag = {("bfloat16", CONV_HEADS): "[20b]", ("float32", CONV_HEADS): "[20g]",
+           ("float32", CONV_WIDE_HEADS): "[20h]", ("bfloat16", CONV_WIDE_HEADS): "[20i]"}[dtype, want_heads]
+    extra = [] if dtype == "bfloat16" else ["model.dtype=float32"]
     tdt = getattr(torch, dtype)
     cfg = cd.config(*data, extra)
     with cd.reduced_arch():
@@ -4026,7 +4265,10 @@ def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_
     n_train, n_eval = token_counts(cfg, pcfg)
     b, eb = cfg.data.batch_size, cfg.data.eval_batch_size
     check(((b, n_train), (eb, n_eval)) == CONV_SHAPES, f"{tag} convergence demo shapes {b, n_train, eb, n_eval}")
-    fwd_path, bwd_path = ("wgmma", "resident") if dtype == "bfloat16" else ("simt", "simt")
+    if dtype == "bfloat16":
+        fwd_path, bwd_path = "wgmma", "resident" if d == CONV_HEAD_DIM else "wgmma"
+    else:
+        fwd_path, bwd_path = "simt", "simt"
     check(A.forward_path(n_train, d, tdt, True) == A.forward_path(n_eval, d, tdt, True) == fwd_path
           and A.backward_path(n_train, d, tdt, True) == bwd_path,
           f"{tag} convergence demo: not on the {fwd_path} forward and the {bwd_path} backward")
@@ -4067,7 +4309,7 @@ def conv_demo_arm(gpu: str, dev: torch.device, data: tuple, labels: dict, write_
     check(swa_acc is not None and math.isfinite(swa_acc), f"{tag} convergence demo: no SWA accuracy")
     ms, n_ms = op.steady_ms(per_epoch)
     entries = ", ".join(f"{k} {v}" for k, v in counts.items())
-    line = (f"{'[20]' if dtype == 'bfloat16' else tag} convergence demo (tools/convergence_demo.run"
+    line = (f"{'[20]' if tag == '[20b]' else tag} convergence demo (tools/convergence_demo.run"
             + (f", extra {' '.join(extra)}" if extra else "")
             + f": 50 tones, {n_clips} train / {n_test} test 1-s clips as wav folders written in {write_s:.1f} s, "
             f"[15]'s openers): the ESC-50 recipe on PaSST depth {depth}, dim {pcfg.embed_dim}, {heads} heads "
@@ -4108,7 +4350,7 @@ def rehearsal_run(gpu: str) -> tuple:
         walls.append(time.perf_counter() - t0)
         return out
 
-    (n_train, n_eval), epochs = REHEARSAL_CLIPS, 8
+    (n_train, n_eval), epochs = REHEARSAL_CLIPS, REHEARSAL_EPOCHS
     try:
         wd = os.path.join(tmp, "ft")
         labels = {}
@@ -4330,8 +4572,9 @@ def main() -> int:
     if logs["attention_fwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
-        paths = {"wgmma D=64": ("wgmma_kernel", "Li64E"), "wgmma D=32": ("wgmma_kernel", "Li32E"),
-                 "short": ("short_kernel",), "mma": ("fwd_mma_kernel",), "fma": ("attention_fwd_kernel",)}
+        paths = {"wgmma DP=64": ("wgmma_kernel", "Li64E"), "wgmma DP=32": ("wgmma_kernel", "Li32E"),
+                 "wgmma DP=128": ("wgmma_kernel", "Li128E"), "short": ("short_kernel",), "mma": ("fwd_mma_kernel",),
+                 "fma": ("attention_fwd_kernel",)}
         say("[2] attention_fwd registers, spill stores (B) per path: " + "; ".join(
             f"{p} {registers(logs['attention_fwd'], *frags)}" for p, frags in paths.items())
             + "; ptxas serializes wgmma (C7512) in: " + (", ".join(
@@ -4351,11 +4594,12 @@ def main() -> int:
     if logs["attention_bwd"] != "(cached)":
         from passt_tpu_torch.tools.variants import registers
 
-        kernels = {"resident": "resident_kernel", "wgmma S": "stats_kernel", "wgmma KV": "kv_kernel",
-                   "mma A": "dq_mma_kernel", "mma B": "dkv_mma_kernel", "fma A": "attention_bwd_dq_kernel",
-                   "fma B": "attention_bwd_dkv_kernel"}
+        kernels = {"resident": ("resident_kernel",), "mma A": ("dq_mma_kernel",), "mma B": ("dkv_mma_kernel",),
+                   "fma A": ("attention_bwd_dq_kernel",), "fma B": ("attention_bwd_dkv_kernel",)}
+        kernels.update({f"wgmma {k} DP={dp}": (frag, f"Li{dp}E") for dp in (32, 64, 128)
+                        for k, frag in (("S", "stats_kernel"), ("KV", "kv_kernel"))})
         say("[2] attention_bwd registers, spill stores (B) per kernel: " + "; ".join(
-            f"{p} {registers(logs['attention_bwd'], frag)}" for p, frag in kernels.items()))
+            f"{p} {registers(logs['attention_bwd'], *frags)}" for p, frags in kernels.items()))
     if logs["attention_bwd_fp32"] != "(cached)":
         from passt_tpu_torch.ops.attention import SIMT_HEAD_DIMS, simt_backward_blocks_per_sm
         from passt_tpu_torch.tools.variants import registers
@@ -4375,30 +4619,55 @@ def main() -> int:
             "launch, setmaxnreg gives the consumers 232): " + "; ".join(
                 f"{bn} {registers(logs['int8_gemm'], f'Li{bn}ELi')}" for bn in (128, 192, 256)))
 
+    marks, last = [("[2]", seconds)], [time.perf_counter()]
+
+    def mark(label: str) -> None:
+        """Record the seconds since the last mark under ``label``."""
+        now = time.perf_counter()
+        marks.append((label, now - last[0]))
+        last[0] = now
+
     rec = phase_kernels(gpu, dev)
+    mark("[3]")
     rec.update(phase_backward(gpu, dev))
+    mark("[3b]")
     for name, err in simt_sweep(gpu, dev).items():
         rec[name]["simt_sweep_max_err"] = err
     rec["fused_attention_qkv"]["simt_timed"], rec["fused_attention_qkv_bwd"]["simt_timed"] = simt_timings(gpu, dev)
+    mark("simt")
     rec.update(phase_layernorm(gpu, dev))
     rec.update(phase_int8(gpu, dev))
     rec.update(phase_fused_mlp(gpu, dev))
+    mark("[3c]-[3e]")
     runs = [phase_serving(gpu, dev)]
     phase_correctness(dev)
+    mark("[4]-[5]")
     runs.append(train_steps(gpu, dev, "default"))
+    mark("[6]")
+    runs.append(wide_heads_step(gpu, dev))
+    mark("[6w]")
     runs.append(phase_train_correctness(dev))
     runs += [train_steps(gpu, dev, variant) for variant in ("fuse_ln_qkv", "ln_impl=fused")]
     runs += phase_variant_correctness(dev)
+    mark("[7]-[9]")
     runs += [phase_int8_mlp(gpu, dev), phase_int8_micro(gpu, dev), phase_proto_mlp(gpu, dev)]
+    mark("[10]-[12]")
     runs.append(phase_fit(gpu, dev))
+    mark("[13]")
     runs += phase_graphs(gpu, dev)
+    mark("[14]")
     runs.append(phase_cli(gpu, dev))
+    mark("[15]-[16]")
     runs += phase_export(gpu, dev)
+    mark("[17]")
     blocks_runs, rec["fused_attention"]["fp32_simt"] = phase_blocks(gpu, dev)
     runs += blocks_runs
+    mark("[18]")
     prep_launches, demo_hist = phase_prep(gpu, dev)
     runs.append(prep_launches)
+    mark("[19]")
     runs += phase_tools(gpu, dev, demo_hist)
+    mark("[20]")
     launches = {name: sum(run.get(name, 0) for run in runs) for name in rec}
 
     sources = {
@@ -4424,11 +4693,11 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was launched no time on the main paths")
     # the paths each attention entry takes, by source: its record times the first
     fwd_sources = {"simt": "passt_tpu_torch/csrc/attention_fwd_fp32.cu",
-                   "wgmma, short, mma": "passt_tpu_torch/csrc/attention_fwd.cu"}
+                   "wgmma, short": "passt_tpu_torch/csrc/attention_fwd.cu"}
     paths = {"fused_attention": fwd_sources, "fused_attention_qkv": fwd_sources,
              "fused_attention_bwd": {"simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu",
-                                     "wgmma, resident, mma": "passt_tpu_torch/csrc/attention_bwd.cu"},
-             "fused_attention_qkv_bwd": {"wgmma, resident, mma": "passt_tpu_torch/csrc/attention_bwd.cu",
+                                     "wgmma, resident": "passt_tpu_torch/csrc/attention_bwd.cu"},
+             "fused_attention_qkv_bwd": {"wgmma, resident": "passt_tpu_torch/csrc/attention_bwd.cu",
                                          "simt": "passt_tpu_torch/csrc/attention_bwd_fp32.cu"}}
     for name, by_path in paths.items():
         rec[name]["sources_by_path"] = by_path
@@ -4436,6 +4705,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])
         for name, (src, rep) in sources.items()
     ]
+    say(f"[seconds] the whole script {time.perf_counter() - T0:.1f} s; by phase: "
+        + ", ".join(f"{label} {t:.1f}" for label, t in marks))
     say(gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -31,12 +31,14 @@
 // output elements; at the training shape (bf16, B = 12, H = 12, N = 474,
 // D = 64) that is 20.7 GFLOP against ~61 MB, 0.021 ms at 989 TFLOP/s.
 //
-// Four paths here (a fifth, "simt", fp32 at D = 64, has its own source and C
-// entry, attention_bwd_fp32.cu). ops/attention.py backward_path() picks one
+// Four paths here (a fifth, "simt", every other call, has its own source and
+// C entry, attention_bwd_fp32.cu). ops/attention.py backward_path() picks one
 // per call in Python and the C entry launches exactly that one, or returns
 // cudaErrorInvalidValue for a call the path cannot take:
-// - "wgmma" (bf16/fp16, D = 64, 16-byte aligned strides; the training
-//   step's path): kernel S then kernel KV below, 14 N^2 D FLOP.
+// - "wgmma" (bf16/fp16 at every D that is a multiple of 16 but D = 32 at
+//   N <= 128, 16-byte aligned strides; the training step's path): kernel S
+//   then kernel KV below, 14 N^2 D FLOP, templates on the head dim padded to
+//   DP = 32, 64 or 128 (below).
 //   Kernel S, one block per (batch, head, 64-query tile), one pass over
 //   128-key K/V tiles: S and dP on wgmma, the running max m (from 0 under
 //   plus1) with l = sum p and sum(p * dP) rescaled by exp(m_old - m_new)
@@ -63,7 +65,9 @@
 //   latency of each step's chain within a warpgroup (two warpgroups an SM,
 //   168 registers, 44 bytes of spills) and the dQ sum (~0.05 ms at the
 //   training shape); per-block partials summed by a third kernel, the plain
-//   block order, and two consumer warpgroups of 64 keys each are slower.
+//   block order, and two consumer warpgroups of 64 keys each are slower
+//   (the last measured as a text variant of the one-warpgroup D = 64
+//   kernel, not carried over to the templated kernel KV).
 // - "resident" (bf16/fp16, D = 32, N <= 128, 16-byte aligned strides; the
 //   convergence demo's training step, PaSST 4 x 192 with 6 heads):
 //   attention_bwd_resident_kernel below, one launch, one block per (batch,
@@ -92,9 +96,24 @@
 //   24 bytes of spill stores. Of its time at the demo's shape about a
 //   quarter is the launch and the loads, an eighth dQ, dV and dK, the rest
 //   the chain between (tools/attention_bwd_variants, PERF.md row 4o).
-// - "mma" (bf16/fp16 at another D that is a multiple of 16, and at D = 32
-//   with N > 128, which no path runs): kernels A and B below, mma.sync
-//   m16n8k16.
+// - "mma" (bf16/fp16 at a D that is a multiple of 16; no call dispatches to
+//   it: ops/attention.py's private path override times it beside "wgmma"
+//   and "resident"): kernels A and B below, mma.sync m16n8k16.
+// The "wgmma" kernels at a padded head dim (the calls "mma" took): the TMA
+// maps take the true D as the row's extent and boxes of one swizzle atom
+// (32 columns at DP = 32, 64 otherwise, two at DP = 128), so columns
+// D .. DP - 1 of every tile arrive as zeros and add exact zeros to S and
+// dP; dQ, dK and dV are stored over D columns only. At DP = 128 kernel S
+// takes 64-key tiles (two blocks an SM) and kernel KV two consumer
+// warpgroups (one block an SM, see kernel KV); the dQ sum holds 64 x DP
+// floats a query tile. What set the DP = 128 time (tools/
+// attention_bwd_variants, PERF.md row 4m): the last block's pass over a
+// tile's 32 KB sum, whose loop waited out each load's latency in turn
+// (without the pass the backward took 0.64x at B = 12, N = 474 and half
+// at the convergence demo's shapes); in the DP != 64 instances it issues
+// a round of loads before their stores. The DP = 64 instances compile
+// the D = 64 kernels as they were (their outputs bit-equal,
+// tools/attention_same_bits).
 // - "fma" (fp32, which the TPU runs at full fp32; bf16/fp16 at a D that is
 //   8 mod 16 or with unaligned strides): the same pair in fp32 FMA.
 // Kernels A and B ("mma", "fma"), no atomics:
@@ -819,57 +838,107 @@ int launch_mma_d(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---- "wgmma" path (bf16 / fp16, D = 64) --------------------------------------
+// ---- "wgmma" path (bf16 / fp16, D a multiple of 16; padded to DP = 32, 64, 128) ----
 
-constexpr int BW_ROW = 128;       // bytes of one D = 64 row: one 128-byte swizzle span
-constexpr int BW_TILE = 64 * 64;  // elements of a 64-row tile
-// Kernel S: one block per (64-query tile, head, batch); 128-key K/V tiles.
-constexpr int ST_BK = 128;
+// A DP-wide operand tile lies in shared memory as DP / atom column blocks,
+// each as one TMA box writes it, of rows of 2 atom bytes: 64 columns with
+// the 128-byte swizzle at DP = 64 and 128, 32 with the 64-byte swizzle at 32.
+template <int DP>
+__host__ __device__ constexpr int bw_atom() { return DP == 32 ? 32 : 64; }
+// Kernel S: one block per (64-query tile, head, batch); 128-key K/V tiles
+// (64 at DP = 128, so that two blocks fit an SM).
+template <int DP>
+__host__ __device__ constexpr int st_bk() { return DP == 128 ? 64 : 128; }
 constexpr int ST_STAGES = 2;
 constexpr int ST_THREADS = 128 + 32;  // one consumer warpgroup and one producer warp
-constexpr int ST_SMEM = 2 * 64 * BW_ROW + 2 * ST_STAGES * ST_BK * BW_ROW + 8 * (1 + 2 * ST_STAGES);
-// Kernel KV: one block per (64 keys, head, batch), two blocks an SM; 64-query tiles.
+template <int DP>
+__host__ __device__ constexpr int st_smem() { return 2 * 64 * 2 * DP + 2 * ST_STAGES * st_bk<DP>() * 2 * DP + 8 * (1 + 2 * ST_STAGES); }
+// Kernel KV: one block per (64 keys, head, batch); 64-query tiles. One
+// consumer warpgroup, two blocks an SM, at DP = 32 and 64; at DP = 128 two
+// consumer warpgroups (each takes half of the queries of S^T and dP^T and
+// one column block of dK, dV and dQ_part), one block an SM.
 constexpr int KV_STAGES = 3;
-constexpr int KV_THREADS = 128 + 64;  // the consumer warpgroup, the TMA producer and the dQ warp
-constexpr int KV_SMEM = 2 * 64 * BW_ROW                // K, V
-                        + 2 * KV_STAGES * 64 * BW_ROW  // the Q and dO ring
-                        + 2 * 64 * BW_ROW              // P_norm^T and dS^T
-                        + 64 * 64 * 4                  // the staged fp32 dQ share
-                        + KV_STAGES * 3 * 64 * 4       // the m, il, di ring
-                        + 8 * (3 + 2 * KV_STAGES);
+template <int DP>
+__host__ __device__ constexpr int kv_groups() { return DP == 128 ? 2 : 1; }
+// the consumer warpgroups, the TMA producer and the dQ warp
+template <int DP>
+__host__ __device__ constexpr int kv_threads() { return 128 * kv_groups<DP>() + 64; }
+template <int DP>
+__host__ __device__ constexpr int kv_smem() {
+    return 2 * 64 * 2 * DP                // K, V
+           + 2 * KV_STAGES * 64 * 2 * DP  // the Q and dO ring
+           + 2 * 64 * 128                 // P_norm^T and dS^T
+           + 64 * DP * 4                  // the staged fp32 dQ share
+           + KV_STAGES * 3 * 64 * 4       // the m, il, di ring
+           + 8 * (3 + 2 * KV_STAGES);
+}
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
     return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
+// The wgmma descriptor of a column block as TMA wrote it (bw_atom).
+template <int DP>
+__device__ __forceinline__ uint64_t bw_desc(const void* p) {
+    if constexpr (bw_atom<DP>() == 64) return sw128_desc(p);
+    else return sw64_desc(p);
+}
+
+// The descriptor offset of k step kk (16 columns) of a K-major tile of ROWS
+// rows: 32 bytes along a row of a column block, whole blocks apart.
+template <int DP, int ROWS>
+__device__ __forceinline__ uint64_t bw_kstep(int kk) {
+    constexpr int KA = bw_atom<DP>() / 16;  // k steps a column block
+    return (uint64_t)((kk / KA) * (ROWS * 2 * bw_atom<DP>() >> 4) + 2 * (kk % KA));
+}
+
+// D (64 x N) [+]= A . B^T, both K-major from shared memory, N = 64 or 128.
+template <typename T, int N>
+__device__ __forceinline__ void ss_kmajor(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+    if constexpr (N == 128) Wgmma<T>::ss(d, a, b, accumulate);
+    else WgmmaSs<T, N, 0, 0>::mma(d, a, b, accumulate);
+}
+
+// Load the column blocks of rows `row` .. of one head into a tile at `dst`
+// (`rows` rows a block) on the barrier.
+template <typename T, int DP>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int rows, int row, int h,
+                                         int b) {
+#pragma unroll
+    for (int a = 0; a < DP / bw_atom<DP>(); ++a)
+        tma_load_4d(dst + a * rows * bw_atom<DP>(), map, bar, a * bw_atom<DP>(), row, h, b);
+}
+
 // Kernel S: the row statistics of one 64-query tile in one pass over the
-// keys. S = Q K^T and dP = dO V^T per 128-key tile (wgmma m64n128k16, Q and
+// keys. S = Q K^T and dP = dO V^T per BK-key tile (wgmma m64nBKk16, Q and
 // dO resident, K and V through a TMA ring); the running max m (from 0 under
 // plus1), l = sum p and r = sum p dP, both rescaled by exp(m_old - m_new)
 // when the max rises. Writes m, il = 1 / l (plus exp(-m) under plus1) and
 // di = r il for all 64 rows (up to npad) as [B*H][tiles][3][64] floats, so
 // that kernel KV takes a tile's three with one copy, and zeroes the tile's
-// dQ counter.
+// dQ counter. Columns d .. DP - 1 are zeros in every tile (TMA's fill), so
+// they add exact zeros to S and dP.
 // Accumulator layout as in attention_fwd.cu: element 4 j + e of a thread in
 // warp w is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2.
-template <typename T>
+template <typename T, int DP>
 __global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, Stats st,
     int* __restrict__ counters, int n, float scale, int plus1) {
+    constexpr int BK = st_bk<DP>();
     extern __shared__ unsigned char smem_raw[];
     unsigned char* base = align1024(smem_raw);
-    T* Qs = reinterpret_cast<T*>(base);   // [64][64]
-    T* Os = Qs + BW_TILE;                 // [64][64] dO
-    T* Ks = Os + BW_TILE;                 // [ST_STAGES][ST_BK][64]
-    T* Vs = Ks + ST_STAGES * ST_BK * 64;  // [ST_STAGES][ST_BK][64]
-    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + ST_STAGES * ST_BK * 64);
+    T* Qs = reinterpret_cast<T*>(base);   // [64][DP]
+    T* Os = Qs + 64 * DP;                 // [64][DP] dO
+    T* Ks = Os + 64 * DP;                 // [ST_STAGES][BK][DP]
+    T* Vs = Ks + ST_STAGES * BK * DP;     // [ST_STAGES][BK][DP]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + ST_STAGES * BK * DP);
     uint64_t* full = qbar + 1;            // [ST_STAGES]
     uint64_t* empty = full + ST_STAGES;   // [ST_STAGES]
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64;
     const long long bh = (long long)b * gridDim.y + h;
-    const int tiles = (n + ST_BK - 1) / ST_BK;
+    const int tiles = (n + BK - 1) / BK;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
     if (threadIdx.x == 0) {
@@ -885,15 +954,15 @@ __global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
 
     if (warp == 4) {  // the producer warp: one thread issues every copy
         if (lane == 0) {
-            mbar_expect_tx(qbar, 2 * 64 * BW_ROW);
-            tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
-            tma_load_4d(Os, &omap, qbar, 0, q0, h, b);
+            mbar_expect_tx(qbar, 2 * 64 * 2 * DP);
+            tma_tile<T, DP>(Qs, &qmap, qbar, 64, q0, h, b);
+            tma_tile<T, DP>(Os, &omap, qbar, 64, q0, h, b);
             for (int i = 0; i < tiles; ++i) {
                 const int s = i % ST_STAGES;
                 if (i >= ST_STAGES) mbar_wait(empty + s, (i / ST_STAGES - 1) & 1);
-                mbar_expect_tx(full + s, 2 * ST_BK * BW_ROW);
-                tma_load_4d(Ks + s * ST_BK * 64, &kmap, full + s, 0, i * ST_BK, h, b);
-                tma_load_4d(Vs + s * ST_BK * 64, &vmap, full + s, 0, i * ST_BK, h, b);
+                mbar_expect_tx(full + s, 2 * BK * 2 * DP);
+                tma_tile<T, DP>(Ks + s * BK * DP, &kmap, full + s, BK, i * BK, h, b);
+                tma_tile<T, DP>(Vs + s * BK * DP, &vmap, full + s, BK, i * BK, h, b);
             }
         }
         return;
@@ -904,37 +973,39 @@ __global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
     float m0 = plus1 ? 0.f : -INFINITY, m1 = m0;  // running max of rows g and g + 8, scaled
     float l0 = 0.f, l1 = 0.f;                    // this thread's share of sum p
     float r0 = 0.f, r1 = 0.f;                    // and of sum p dP
-    float s[64], dp[64];
+    float s[BK / 2], dp[BK / 2];
 
     mbar_wait(qbar, 0);
-    const uint64_t qd = sw128_desc(Qs), od = sw128_desc(Os);
+    const uint64_t qd = bw_desc<DP>(Qs), od = bw_desc<DP>(Os);
     for (int i = 0; i < tiles; ++i) {
         const int stage = i % ST_STAGES;
         mbar_wait(full + stage, (i / ST_STAGES) & 1);
-        const uint64_t kd = sw128_desc(Ks + stage * ST_BK * 64), vd = sw128_desc(Vs + stage * ST_BK * 64);
+        const uint64_t kd = bw_desc<DP>(Ks + stage * BK * DP), vd = bw_desc<DP>(Vs + stage * BK * DP);
         // S and dP as two groups: the max and the exponentials of S run while
         // dP is still in flight
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(s, qd + 2 * kk, kd + 2 * kk, kk);
+        for (int kk = 0; kk < DP / 16; ++kk)
+            ss_kmajor<T, BK>(s, qd + bw_kstep<DP, 64>(kk), kd + bw_kstep<DP, BK>(kk), kk);
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss(dp, od + 2 * kk, vd + 2 * kk, kk);
+        for (int kk = 0; kk < DP / 16; ++kk)
+            ss_kmajor<T, BK>(dp, od + bw_kstep<DP, 64>(kk), vd + bw_kstep<DP, BK>(kk), kk);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
 
-        const int k0 = i * ST_BK;
-        if (k0 + ST_BK > n) {  // the ragged last tile: keys past N get p = 0
+        const int k0 = i * BK;
+        if (k0 + BK > n) {  // the ragged last tile: keys past N get p = 0
 #pragma unroll
-            for (int j = 0; j < 16; ++j)
+            for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
                 for (int e = 0; e < 2; ++e)
                     if (k0 + 8 * j + 2 * t + e >= n) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
         }
         float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
             x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
             x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
@@ -951,7 +1022,7 @@ __global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
         const float ml0 = n0 * LOG2E, ml1 = n1 * LOG2E;
         float pl0 = 0.f, pl1 = 0.f, pr0 = 0.f, pr1 = 0.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {  // p in place of s
+        for (int j = 0; j < BK / 8; ++j) {  // p in place of s
             s[4 * j] = ex2_approx(fmaf(s[4 * j], sl2, -ml0));
             s[4 * j + 1] = ex2_approx(fmaf(s[4 * j + 1], sl2, -ml0));
             s[4 * j + 2] = ex2_approx(fmaf(s[4 * j + 2], sl2, -ml1));
@@ -965,7 +1036,7 @@ __global__ void __launch_bounds__(ST_THREADS, 2) attention_bwd_stats_kernel(
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + stage);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
             pr0 = fmaf(s[4 * j + 1], dp[4 * j + 1], fmaf(s[4 * j], dp[4 * j], pr0));
             pr1 = fmaf(s[4 * j + 3], dp[4 * j + 3], fmaf(s[4 * j + 2], dp[4 * j + 2], pr1));
         }
@@ -1023,24 +1094,37 @@ __device__ __forceinline__ int kv_position(int blk, int i, int tiles, int rotate
     return rotate ? (blk + i) % tiles : blk;
 }
 
-// A 64 x 64 fp32 dQ share as kernel KV stages it (in shared memory, and in
-// the dQ scratch in device memory): thread slot ts = 32 w + lane of the
-// consumer warpgroup holds its 32 accumulator values as 8 float4 chunks at
-// floats 32 ts + 4 (k ^ (lane & 7)), the swizzle keeping the warp's stores
-// free of bank conflicts. Chunk k of slot ts is rows r and r + 8, columns c
-// and c + 1 (r = 16 w + g, c = 8 k + 2 t, g = lane / 4, t = lane % 4).
-__device__ __forceinline__ int dq_chunk(int ts, int k) { return 32 * ts + 4 * (k ^ (ts & 7)); }
-__device__ __forceinline__ void dq_chunk_place(int ts, int k, int& r, int& c) {
+// A 64 x DP fp32 dQ share as kernel KV stages it (in shared memory, and in
+// the dQ scratch in device memory): consumer warpgroup wg's 64 x CW columns
+// (CW = DP / groups, one column block) at floats 64 CW wg on; within them
+// thread slot ts = 32 w + lane of the warpgroup holds its CW / 2
+// accumulator values as CW / 8 float4 chunks at floats
+// CW / 2 ts + 4 (k ^ (ts & (CW / 8 - 1))), the swizzle keeping the warp's
+// stores free of bank conflicts at CW = 64. Chunk k of slot ts is rows r and
+// r + 8, columns CW wg + c and + c + 1 (r = 16 w + g, c = 8 k + 2 t,
+// g = lane / 4, t = lane % 4).
+template <int CW>
+__device__ __forceinline__ int dq_chunk(int wg, int ts, int k) {
+    return 64 * CW * wg + CW / 2 * ts + 4 * (k ^ (ts & (CW / 8 - 1)));
+}
+// Chunk `idx` of a share in the dQ warp's walk (idx < 16 DP): its float
+// offset `at`, its rows r, r + 8 and its first column c.
+template <int CW>
+__device__ __forceinline__ void dq_chunk_place(int idx, int& at, int& r, int& c) {
+    constexpr int KC = CW / 8;  // chunks a slot
+    const int wg = idx / (128 * KC), ts = idx / KC % 128, k = idx % KC;
+    at = dq_chunk<CW>(wg, ts, k);
     r = 16 * (ts >> 5) + ((ts & 31) >> 2);
-    c = 8 * k + 2 * (ts & 3);
+    c = CW * wg + 8 * k + 2 * (ts & 3);
 }
 
 // Round the chunk sums x of one tile to T and store them at their rows of dq
-// (rows past n are not stored); lane `lane` of a warp takes every 32nd chunk.
-template <typename T>
-__device__ __forceinline__ void dq_store_chunk(T* dqb, long long row_stride, int q0, int n, int idx, float4 x) {
-    int r, c;
-    dq_chunk_place(idx >> 3, idx & 7, r, c);
+// (rows past n and, with PAD, columns past d are not stored); lane `lane` of
+// a warp takes every 32nd chunk.
+template <typename T, bool PAD>
+__device__ __forceinline__ void dq_store_chunk(T* dqb, long long row_stride, int q0, int n, int d, int r, int c,
+                                               float4 x) {
+    if (PAD && c >= d) return;  // the next head's columns (or k's) in the qkv layout
     if (q0 + r < n)
         *reinterpret_cast<uint32_t*>(dqb + (long long)(q0 + r) * row_stride + c) = Mma<T>::pack(x.x, x.y);
     if (q0 + r + 8 < n)
@@ -1055,33 +1139,46 @@ __device__ __forceinline__ void dq_store_chunk(T* dqb, long long row_stride, int
 //   each rounded to T into shared memory (swizzled as a TMA tile); then
 //   dV += P_norm^T dO and dK += dS^T Q (A K-major, B MN-major) and
 //   dQ_part = dS K (A and B MN-major: dS^T read transposed). Only the three
-//   accumulators are in flight during the products (96 registers a
-//   thread), not P and dS as register operands too. The consumers stage
-//   dQ_part in shared memory and go on; the dQ warp adds it to the tile's fp32 sum
+//   accumulators are in flight during the products (3 CW / 2 registers a
+//   thread), not P and dS as register operands too. At DP = 128 two
+//   consumer warpgroups share the block: warpgroup wg takes queries
+//   32 wg .. 32 wg + 31 of S^T and dP^T (each over all DP columns) and
+//   column block wg of dK, dV and dQ_part (each over all 64 queries or
+//   keys), so that each holds 96 accumulators, as at DP = 64. The
+//   consumers stage dQ_part in shared memory and go on; the dQ warp adds it
+//   to the tile's fp32 sum
 //   in a fixed order, off the consumers' path: the block at position p
 //   waits for the tile's counter to reach p (acquire); the first stores its
 //   share with a bulk copy, the others add it with a bulk fp32 add (nothing
 //   else touches the sum meanwhile, so the order is fixed) and release
 //   p + 1; the last reads the sum, adds its share, rounds and stores dQ.
-//   Keys past N get p = dS = 0; queries past N likewise.
-// Warps: the four consumers, then the TMA producer, then the dQ warp. Every
+//   Keys past N get p = dS = 0; queries past N likewise. Columns d .. DP - 1
+//   are zeros in every tile (TMA's fill), so S^T and dP^T are exact, and
+//   dK, dV and dQ are stored over d columns only (PAD: d < DP; at d = DP no
+//   column check is compiled).
+// Warps: the consumers, then the TMA producer, then the dQ warp. Every
 // mbarrier wait here traps after WAIT_LIMIT_NS rather than hang the card.
-template <typename T>
-__global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
+template <typename T, int DP, bool PAD>
+__global__ void __launch_bounds__(kv_threads<DP>(), DP == 128 ? 1 : 2) attention_bwd_kv_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, Strides dqs, Strides dks, Strides dvs,
-    Stats st, float* __restrict__ dqacc, int* __restrict__ counters, int n, float scale, int rotate) {
+    Stats st, float* __restrict__ dqacc, int* __restrict__ counters, int n, int d, float scale, int rotate) {
+    constexpr int WGS = kv_groups<DP>(), ATOM = bw_atom<DP>();
+    constexpr int QW = 64 / WGS;  // queries of S^T and dP^T a warpgroup
+    constexpr int CW = DP / WGS;  // columns of dK, dV and dQ_part a warpgroup: one column block
+    constexpr int TILE = 64 * DP; // elements of a 64-row tile
+    static_assert(CW == ATOM, "a warpgroup's columns are one column block");
     extern __shared__ unsigned char smem_raw[];
     unsigned char* base = align1024(smem_raw);
-    T* Ks = reinterpret_cast<T*>(base);  // [64][64]
-    T* Vs = Ks + BW_TILE;                // [64][64]
-    T* Qs = Vs + BW_TILE;                // [KV_STAGES][64][64]
-    T* Os = Qs + KV_STAGES * BW_TILE;    // [KV_STAGES][64][64] dO
-    T* DSs = Os + KV_STAGES * BW_TILE;   // [64 keys][64 queries] dS^T
-    T* PNs = DSs + BW_TILE;              // [64 keys][64 queries] P_norm^T
-    float* DQs = reinterpret_cast<float*>(PNs + BW_TILE);  // [64 * 64] the dQ share (dq_chunk)
-    float* Sm = DQs + BW_TILE;           // [KV_STAGES][3][64] m, il, di
+    T* Ks = reinterpret_cast<T*>(base);  // [64][DP]
+    T* Vs = Ks + TILE;                   // [64][DP]
+    T* Qs = Vs + TILE;                   // [KV_STAGES][64][DP]
+    T* Os = Qs + KV_STAGES * TILE;       // [KV_STAGES][64][DP] dO
+    T* DSs = Os + KV_STAGES * TILE;      // [64 keys][64 queries] dS^T
+    T* PNs = DSs + 64 * 64;              // [64 keys][64 queries] P_norm^T
+    float* DQs = reinterpret_cast<float*>(PNs + 64 * 64);  // [64 * DP] the dQ share (dq_chunk)
+    float* Sm = DQs + TILE;              // [KV_STAGES][3][64] m, il, di
     uint64_t* kvbar = reinterpret_cast<uint64_t*>(Sm + KV_STAGES * 3 * 64);
     uint64_t* full = kvbar + 1;           // [KV_STAGES]
     uint64_t* empty = full + KV_STAGES;   // [KV_STAGES]
@@ -1097,36 +1194,36 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
         mbar_init(kvbar, 1);
         for (int s = 0; s < KV_STAGES; ++s) {
             mbar_init(full + s, 1);
-            mbar_init(empty + s, 4);
+            mbar_init(empty + s, 4 * WGS);
         }
-        mbar_init(dqfull, 4);
+        mbar_init(dqfull, 4 * WGS);
         mbar_init(dqfree, 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
-    if (warp == 4) {  // the producer warp
+    if (warp == 4 * WGS) {  // the producer warp
         if (lane == 0) {
-            mbar_expect_tx(kvbar, 2 * 64 * BW_ROW);
-            tma_load_4d(Ks, &kmap, kvbar, 0, blk * 64, h, b);
-            tma_load_4d(Vs, &vmap, kvbar, 0, blk * 64, h, b);
+            mbar_expect_tx(kvbar, 2 * 64 * 2 * DP);
+            tma_tile<T, DP>(Ks, &kmap, kvbar, 64, blk * 64, h, b);
+            tma_tile<T, DP>(Vs, &vmap, kvbar, 64, blk * 64, h, b);
             for (int s = 0; s < tiles; ++s) {
                 const int i = kv_query_tile(blk, s, tiles, rotate), stage = s % KV_STAGES;
                 if (s >= KV_STAGES) mbar_wait_or_trap(empty + stage, (s / KV_STAGES - 1) & 1);
-                mbar_expect_tx(full + stage, 2 * 64 * BW_ROW + 3 * 64 * 4);
-                tma_load_4d(Qs + stage * BW_TILE, &qmap, full + stage, 0, i * 64, h, b);
-                tma_load_4d(Os + stage * BW_TILE, &omap, full + stage, 0, i * 64, h, b);
+                mbar_expect_tx(full + stage, 2 * 64 * 2 * DP + 3 * 64 * 4);
+                tma_tile<T, DP>(Qs + stage * TILE, &qmap, full + stage, 64, i * 64, h, b);
+                tma_tile<T, DP>(Os + stage * TILE, &omap, full + stage, 64, i * 64, h, b);
                 bulk_load(Sm + stage * 3 * 64, st.base + (bh * tiles + i) * 3 * 64, 3 * 64 * 4, full + stage);
             }
         }
         return;
     }
 
-    if (warp == 5) {  // the dQ warp: each staged share into the tile's sum, in order
+    if (warp == 4 * WGS + 1) {  // the dQ warp: each staged share into the tile's sum, in order
         T* dqb = dq + b * dqs.b + h * dqs.h;
         for (int s = 0; s < tiles; ++s) {
             const int i = kv_query_tile(blk, s, tiles, rotate);
-            float* acc = dqacc + (bh * st.npad + i * 64) * 64;
+            float* acc = dqacc + (bh * st.npad + i * 64) * DP;
             mbar_wait_or_trap(dqfull, s & 1);
             const int pos = kv_position(blk, i, tiles, rotate);
             int* count = counters + bh * tiles + i;
@@ -1136,15 +1233,43 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
             }
             __syncwarp();
             if (pos == tiles - 1) {  // the last: the sum and this share, rounded and stored
+                if constexpr (DP == 64) {
 #pragma unroll 8
-                for (int it = 0; it < 32; ++it) {
-                    const int idx = it * 32 + lane, at = dq_chunk(idx >> 3, idx & 7);
-                    float4 x = *reinterpret_cast<const float4*>(DQs + at);
-                    if (pos > 0) {
-                        const float4 y = __ldcg(reinterpret_cast<const float4*>(acc + at));
-                        x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+                    for (int it = 0; it < DP / 2; ++it) {
+                        int at, r, c;
+                        dq_chunk_place<CW>(it * 32 + lane, at, r, c);
+                        float4 x = *reinterpret_cast<const float4*>(DQs + at);
+                        if (pos > 0) {
+                            const float4 y = __ldcg(reinterpret_cast<const float4*>(acc + at));
+                            x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+                        }
+                        dq_store_chunk<T, PAD>(dqb, dqs.n, i * 64, n, d, r, c, x);
                     }
-                    dq_store_chunk<T>(dqb, dqs.n, i * 64, n, idx, x);
+                } else {
+                    // RB chunks a round, every load of a round issued before its
+                    // stores: one loop iteration a load's latency, as above, left
+                    // this pass most of the DP = 128 backward's dQ time
+                    // (tools/attention_bwd_variants no_final_pass); 16 at
+                    // DP = 128, whose one block an SM leaves registers to spare
+                    constexpr int RB = DP == 128 ? 16 : 8;
+                    for (int it0 = 0; it0 < DP / 2; it0 += RB) {
+                        float4 x[RB], y[RB];
+#pragma unroll
+                        for (int u = 0; u < RB; ++u) {
+                            int at, r, c;
+                            dq_chunk_place<CW>((it0 + u) * 32 + lane, at, r, c);
+                            x[u] = *reinterpret_cast<const float4*>(DQs + at);
+                            y[u] = pos > 0 ? __ldcg(reinterpret_cast<const float4*>(acc + at)) : make_float4(0.f, 0.f, 0.f, 0.f);
+                        }
+#pragma unroll
+                        for (int u = 0; u < RB; ++u) {
+                            int at, r, c;
+                            dq_chunk_place<CW>((it0 + u) * 32 + lane, at, r, c);
+                            if (pos > 0)
+                                x[u] = make_float4(y[u].x + x[u].x, y[u].y + x[u].y, y[u].z + x[u].z, y[u].w + x[u].w);
+                            dq_store_chunk<T, PAD>(dqb, dqs.n, i * 64, n, d, r, c, x[u]);
+                        }
+                    }
                 }
                 __syncwarp();
                 if (lane == 0) mbar_arrive(dqfree);
@@ -1152,9 +1277,9 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
             }
             if (lane == 0) {
                 if (pos == 0)
-                    bulk_store(acc, DQs, BW_TILE * 4);
+                    bulk_store(acc, DQs, TILE * 4);
                 else
-                    bulk_reduce_add(acc, DQs, BW_TILE * 4);
+                    bulk_reduce_add(acc, DQs, TILE * 4);
                 bulk_commit();
                 bulk_wait_read();
                 mbar_arrive(dqfree);
@@ -1166,48 +1291,53 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
         return;
     }
 
+    const int wg = warp >> 2, w = warp & 3;  // this consumer warp's warpgroup, and its warp there
     const int g = lane >> 2, t = lane & 3;
-    const int key0 = blk * 64 + 16 * warp + g;  // this thread's key rows: key0, key0 + 8
+    const int key0 = blk * 64 + 16 * w + g;  // this thread's key rows: key0, key0 + 8
     const bool kv0 = key0 < n, kv1 = key0 + 8 < n;
     const float sl2 = scale * LOG2E;
-    const uint64_t kd = sw128_desc(Ks), vd = sw128_desc(Vs);
+    const uint64_t kd = bw_desc<DP>(Ks), vd = bw_desc<DP>(Vs);
     // dV's and dK's A operands, K-major: P_norm^T and dS^T
     const uint64_t pnd = sw128_desc(PNs), dsd_k = sw128_desc(DSs);
-    // dQ's operands: dS^T and K as [64 keys][64] MN-major
-    const uint64_t dsd = sw128_mn_desc(DSs), kd_mn = sw128_mn_desc(Ks);
+    // dQ's operands: dS^T and K's column block wg as [64 keys][CW] MN-major
+    const uint64_t dsd = sw128_mn_desc(DSs), kd_mn = bw_desc<DP>(Ks + wg * 64 * ATOM);
     unsigned char* ds_rows = reinterpret_cast<unsigned char*>(DSs);
     unsigned char* pn_rows = reinterpret_cast<unsigned char*>(PNs);
-    float dka[32], dva[32];
+    float dka[CW / 2], dva[CW / 2];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+    for (int x = 0; x < CW / 2; ++x) dka[x] = dva[x] = 0.f;
 
     mbar_wait_or_trap(kvbar, 0);
     for (int s = 0; s < tiles; ++s) {
         const int i = kv_query_tile(blk, s, tiles, rotate), stage = s % KV_STAGES, q0 = i * 64;
         mbar_wait_or_trap(full + stage, (s / KV_STAGES) & 1);
-        const T* Qt = Qs + stage * BW_TILE;
-        const T* Ot = Os + stage * BW_TILE;
-        const uint64_t qd = sw128_desc(Qt), od = sw128_desc(Ot);          // K-major: S^T, dP^T
-        const uint64_t qd_mn = sw128_mn_desc(Qt), od_mn = sw128_mn_desc(Ot);  // MN-major: dK, dV
-        float sT[32], dpT[32];
+        const T* Qt = Qs + stage * TILE;
+        const T* Ot = Os + stage * TILE;
+        // K-major, this warpgroup's QW query rows: S^T, dP^T
+        const uint64_t qd = bw_desc<DP>(Qt + wg * QW * ATOM), od = bw_desc<DP>(Ot + wg * QW * ATOM);
+        // MN-major, column block wg: dK, dV
+        const uint64_t qd_mn = bw_desc<DP>(Qt + wg * 64 * ATOM), od_mn = bw_desc<DP>(Ot + wg * 64 * ATOM);
+        float sT[QW / 2], dpT[QW / 2];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64(sT, kd + 2 * kk, qd + 2 * kk, kk);
+        for (int kk = 0; kk < DP / 16; ++kk)
+            WgmmaSs<T, QW, 0, 0>::mma(sT, kd + bw_kstep<DP, 64>(kk), qd + bw_kstep<DP, 64>(kk), kk);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64(dpT, vd + 2 * kk, od + 2 * kk, kk);
+        for (int kk = 0; kk < DP / 16; ++kk)
+            WgmmaSs<T, QW, 0, 0>::mma(dpT, vd + bw_kstep<DP, 64>(kk), od + bw_kstep<DP, 64>(kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sT);
         fence_regs(dpT);
 
         // P_norm^T and dS^T in place of s^T and dP^T: rows are keys, columns queries
-        const float* m = Sm + stage * 3 * 64;
+        const float* m = Sm + stage * 3 * 64 + wg * QW;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < QW / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int c = 8 * j + 2 * t + e;
-                const bool qv = q0 + c < n;
+                const bool qv = q0 + wg * QW + c < n;
                 const float ml = m[c] * LOG2E, il = m[64 + c], di = m[128 + c];
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
@@ -1220,31 +1350,31 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
             }
         // P_norm^T and dS^T into shared memory, rounded to T and swizzled as a
         // TMA tile of 128-byte rows, once every product of the last step is done
-        named_bar_sync(1, 128);
+        named_bar_sync(1, 128 * WGS);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < QW / 8; ++j)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
-                const int r = 16 * warp + g + 8 * hh, at = r * BW_ROW + ((j ^ (r & 7)) << 4) + 4 * t;
+                const int r = 16 * w + g + 8 * hh, at = r * 128 + (((wg * QW / 8 + j) ^ (r & 7)) << 4) + 4 * t;
                 *reinterpret_cast<uint32_t*>(pn_rows + at) = Mma<T>::pack(sT[4 * j + 2 * hh], sT[4 * j + 2 * hh + 1]);
                 *reinterpret_cast<uint32_t*>(ds_rows + at) = Mma<T>::pack(dpT[4 * j + 2 * hh], dpT[4 * j + 2 * hh + 1]);
             }
         fence_proxy_async();
-        named_bar_sync(1, 128);
+        named_bar_sync(1, 128 * WGS);
 
         // dV += P_norm^T dO and dK += dS^T Q: 16 queries a k step, 32 bytes
-        // apart in A's rows and 2048 bytes apart in B's; then dQ_part = dS K,
+        // apart in A's rows and 16 rows apart in B's; then dQ_part = dS K,
         // 16 keys a k step
-        float dqa[32];
+        float dqa[CW / 2];
         fence_regs(dva);
         fence_regs(dka);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_bmn(dva, pnd + 2 * kk, od_mn + kk * 128, 1);
+        for (int kk = 0; kk < 4; ++kk) WgmmaSs<T, CW, 0, 1>::mma(dva, pnd + 2 * kk, od_mn + kk * (2 * ATOM), 1);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_bmn(dka, dsd_k + 2 * kk, qd_mn + kk * 128, 1);
+        for (int kk = 0; kk < 4; ++kk) WgmmaSs<T, CW, 0, 1>::mma(dka, dsd_k + 2 * kk, qd_mn + kk * (2 * ATOM), 1);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) Wgmma<T>::ss64_mn(dqa, dsd + kk * 128, kd_mn + kk * 128, kk);
+        for (int kk = 0; kk < 4; ++kk) WgmmaSs<T, CW, 1, 1>::mma(dqa, dsd + kk * 128, kd_mn + kk * (2 * ATOM), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dva);
@@ -1254,11 +1384,11 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
         fence_regs(dqa);
 
         // stage dQ_part for the dQ warp, once it has read the last share
-        const int ts = 32 * warp + lane;
+        const int ts = 32 * w + lane;
         if (s > 0) mbar_wait_or_trap(dqfree, (s - 1) & 1);
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-            *reinterpret_cast<float4*>(DQs + dq_chunk(ts, k)) =
+        for (int k = 0; k < CW / 8; ++k)
+            *reinterpret_cast<float4*>(DQs + dq_chunk<CW>(wg, ts, k)) =
                 make_float4(dqa[4 * k], dqa[4 * k + 1], dqa[4 * k + 2], dqa[4 * k + 3]);
         fence_proxy_async();
         __syncwarp();
@@ -1268,8 +1398,9 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
     T* dkb = dk + b * dks.b + h * dks.h;
     T* dvb = dv + b * dvs.b + h * dvs.h;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t;
+    for (int j = 0; j < CW / 8; ++j) {
+        const int c = CW * wg + 8 * j + 2 * t;
+        if (PAD && c >= d) break;  // the next head's columns (or k's, v's) in the qkv layout
         if (kv0) {
             *reinterpret_cast<uint32_t*>(dkb + (long long)key0 * dks.n + c) = Mma<T>::pack(dka[4 * j], dka[4 * j + 1]);
             *reinterpret_cast<uint32_t*>(dvb + (long long)key0 * dvs.n + c) = Mma<T>::pack(dva[4 * j], dva[4 * j + 1]);
@@ -1284,49 +1415,65 @@ __global__ void __launch_bounds__(KV_THREADS, 2) attention_bwd_kv_kernel(
 }
 
 // Floats of scratch the "wgmma" path takes beyond the statistics: the dQ
-// sum and the per-tile counters.
-long long wgmma_scratch(int batch, int n, int heads) {
+// sum (64 x DP floats a query tile) and the per-tile counters.
+long long wgmma_scratch(int batch, int n, int heads, int d) {
     const long long tiles = (n + 63) / 64, bh = (long long)batch * heads;
-    return bh * tiles * 64 * 64 + bh * tiles;
+    return bh * tiles * 64 * wgmma_dp(d) + bh * tiles;
 }
 
-template <typename T>
+template <typename T, int DP, bool PAD>
 int launch_wgmma(const Args& a, float* dqacc, int* counters, int sms) {
-    if (a.d != 64) return static_cast<int>(cudaErrorInvalidValue);
     const int tiles = (a.n + 63) / 64;
-    const int st_smem = ST_SMEM + 1024, kv_smem = KV_SMEM + 1024;  // 1 KB to align the swizzled tiles
-    auto ks = attention_bwd_stats_kernel<T>;
-    auto kv = attention_bwd_kv_kernel<T>;
+    const int st_bytes = st_smem<DP>() + 1024, kv_bytes = kv_smem<DP>() + 1024;  // 1 KB to align the swizzled tiles
+    auto ks = attention_bwd_stats_kernel<T, DP>;
+    auto kv = attention_bwd_kv_kernel<T, DP, PAD>;
     // runtime calls first: on a thread that has made none yet (autograd's
     // backward thread) they make the device's context current, which the
     // driver's tensor-map encoder below needs
-    int err = set_smem(ks, st_smem);
+    int err = set_smem(ks, st_bytes);
     if (err) return err;
-    err = set_smem(kv, kv_smem);
+    err = set_smem(kv, kv_bytes);
     if (err) return err;
     const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-    CUtensorMap q64, o64, k64, v64, k128, v128;
-    if (!make_map(&q64, a.q, bf16, a.batch, a.n, a.heads, a.qs, 64) ||
-        !make_map(&o64, a.dout, bf16, a.batch, a.n, a.heads, a.dos, 64) ||
-        !make_map(&k64, a.k, bf16, a.batch, a.n, a.heads, a.ks, 64) ||
-        !make_map(&v64, a.v, bf16, a.batch, a.n, a.heads, a.vs, 64) ||
-        !make_map(&k128, a.k, bf16, a.batch, a.n, a.heads, a.ks, ST_BK) ||
-        !make_map(&v128, a.v, bf16, a.batch, a.n, a.heads, a.vs, ST_BK))
+    CUtensorMap q64, o64, k64, v64, kst, vst;
+    if (!make_map(&q64, a.q, bf16, a.batch, a.n, a.heads, a.qs, 64, a.d, DP) ||
+        !make_map(&o64, a.dout, bf16, a.batch, a.n, a.heads, a.dos, 64, a.d, DP) ||
+        !make_map(&k64, a.k, bf16, a.batch, a.n, a.heads, a.ks, 64, a.d, DP) ||
+        !make_map(&v64, a.v, bf16, a.batch, a.n, a.heads, a.vs, 64, a.d, DP) ||
+        !make_map(&kst, a.k, bf16, a.batch, a.n, a.heads, a.ks, st_bk<DP>(), a.d, DP) ||
+        !make_map(&vst, a.v, bf16, a.batch, a.n, a.heads, a.vs, st_bk<DP>(), a.d, DP))
         return static_cast<int>(cudaErrorInvalidValue);
-    ks<<<dim3(tiles, a.heads, a.batch), ST_THREADS, st_smem, a.stream>>>(q64, o64, k128, v128, a.st, counters,
-                                                                          a.n, a.scale, a.plus1);
+    ks<<<dim3(tiles, a.heads, a.batch), ST_THREADS, st_bytes, a.stream>>>(q64, o64, kst, vst, a.st, counters,
+                                                                           a.n, a.scale, a.plus1);
     err = passt_launch_status();
     if (err) return err;
     // With the rotated order a block may wait on a block of its (batch,
-    // head) with a higher index, so all of them must fit on the card at
-    // once (two an SM: the launch bounds and the shared memory allow it),
-    // with room to spare: one an SM. Otherwise blocks wait only on lower
-    // indices, which the hardware dispatches first.
+    // head) with a higher index, so all of them must be on the card at once.
+    // The hardware dispatches blocks in index order, so at most the last head
+    // dispatched is resident in part, and the heads before it finish: the
+    // rule holds while one head's blocks fit the card, one an SM (kernel KV
+    // fits two an SM at DP = 32 and 64, one at DP = 128). Otherwise blocks
+    // wait only on lower indices, which the hardware dispatches first.
     const int rotate = tiles <= sms;
-    kv<<<dim3(tiles, a.heads, a.batch), KV_THREADS, kv_smem, a.stream>>>(
+    kv<<<dim3(tiles, a.heads, a.batch), kv_threads<DP>(), kv_bytes, a.stream>>>(
         q64, o64, k64, v64, static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dqs, a.dks,
-        a.dvs, a.st, dqacc, counters, a.n, a.scale, rotate);
+        a.dvs, a.st, dqacc, counters, a.n, a.d, a.scale, rotate);
     return passt_launch_status();
+}
+
+// The "wgmma" instance that takes head dim d (a multiple of 16 up to 128):
+// DP = wgmma_dp(d), with the column check (PAD) where d < DP.
+template <typename T>
+int launch_wgmma_d(const Args& a, float* dqacc, int* counters, int sms) {
+    if (a.d % 16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (wgmma_dp(a.d)) {
+        case 32: return a.d == 32 ? launch_wgmma<T, 32, false>(a, dqacc, counters, sms)
+                                  : launch_wgmma<T, 32, true>(a, dqacc, counters, sms);
+        case 64: return a.d == 64 ? launch_wgmma<T, 64, false>(a, dqacc, counters, sms)
+                                  : launch_wgmma<T, 64, true>(a, dqacc, counters, sms);
+        default: return a.d == 128 ? launch_wgmma<T, 128, false>(a, dqacc, counters, sms)
+                                   : launch_wgmma<T, 128, true>(a, dqacc, counters, sms);
+    }
 }
 
 // ---- "resident" path (bf16 / fp16, D = 32, N <= 128) -------------------------
@@ -1612,11 +1759,11 @@ enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_WGMMA = 2, PATH_RESIDENT = 4 };
 // takes on `path`: the row statistics [3][B*H][npad] (npad = n rounded up
 // to 64), and on "wgmma" the dQ sum and the per-tile counters after them;
 // none on "resident".
-extern "C" long long passt_attention_bwd_scratch(int path, int batch, int n, int heads) {
+extern "C" long long passt_attention_bwd_scratch(int path, int batch, int n, int heads, int d) {
     if (path == PATH_RESIDENT) return 0;
     const long long npad = (n + BQ - 1) / BQ * BQ;
     const long long stats = 3LL * batch * heads * npad;
-    return path == PATH_WGMMA ? stats + wgmma_scratch(batch, n, heads) : stats;
+    return path == PATH_WGMMA ? stats + wgmma_scratch(batch, n, heads, d) : stats;
 }
 
 // q, k, v, dout, dq, dk, dv: element (b, t, h, c) at ptr[b * sb + t * sn + h * sh + c].
@@ -1670,7 +1817,7 @@ extern "C" int passt_attention_bwd(const void* q, const void* k, const void* v, 
     if (path == PATH_RESIDENT) return dtype == 1 ? launch_resident<__nv_bfloat16>(a) : launch_resident<__half>(a);
     if (path != PATH_WGMMA) return static_cast<int>(cudaErrorInvalidValue);
     float* dqacc = stats + 3 * plane;
-    int* counters = reinterpret_cast<int*>(dqacc + wgmma_scratch(batch, n, heads) - (long long)batch * heads * (npad / BQ));
-    return dtype == 1 ? launch_wgmma<__nv_bfloat16>(a, dqacc, counters, sms)
-                      : launch_wgmma<__half>(a, dqacc, counters, sms);
+    int* counters = reinterpret_cast<int*>(dqacc + wgmma_scratch(batch, n, heads, d) - (long long)batch * heads * (npad / BQ));
+    return dtype == 1 ? launch_wgmma_d<__nv_bfloat16>(a, dqacc, counters, sms)
+                      : launch_wgmma_d<__half>(a, dqacc, counters, sms);
 }

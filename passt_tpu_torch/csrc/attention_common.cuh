@@ -120,6 +120,12 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
 }
 
+// The padded head dims the "wgmma" kernels are built for (attention_fwd.cu,
+// attention_bwd.cu): a call at head dim d (a multiple of 16 up to 128) runs
+// on the instance of the smallest DP >= d. Columns d .. DP - 1 arrive as
+// zeros (TMA's fill past d) and are never stored.
+__host__ __device__ constexpr int wgmma_dp(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
 // Base pointers 16-byte aligned and strides whole multiples of 8 elements:
 // what the tensor-core paths need for their 16-byte and 32-bit accesses.
 inline bool vectors_aligned(const void* p, Strides s) {

@@ -21,19 +21,21 @@
 // and the C entry launches exactly that one, or returns
 // cudaErrorInvalidValue for a shape the path cannot take (the fifth,
 // "simt", has its own source and C entry, attention_fwd_fp32.cu):
-// - "wgmma" (bf16/fp16, D = 64 at N > 64 and D = 32 at any N, 16-byte
-//   aligned strides; the model's serving and training shapes, and the
-//   convergence demo's PaSST 4 x 192 with 6 heads): attention_fwd_wgmma_kernel
-//   below, a template on D, one pass over K with an online softmax, products
-//   on wgmma, K/V tiles by TMA.
+// - "wgmma" (bf16/fp16 at every D that is a multiple of 16 but D = 64 at
+//   N <= 64, 16-byte aligned strides; the model's serving and training
+//   shapes, the convergence demo's PaSST 4 x 192 at 6 and 2 heads):
+//   attention_fwd_wgmma_kernel below, a template on the head dim padded to
+//   DP = 32, 64 or 128, one pass over K with an online softmax, products on
+//   wgmma, K/V tiles by TMA.
 // - "short" (the same inputs at N <= 64; the timestamp windows, N = 14):
 //   attention_fwd_short_kernel, mma.sync m16n8k16, one key tile, so the max
 //   is exact after one product and the scores stay in registers; at N <= 16
 //   each warp takes its own (batch, head), four heads a block, so no warp
 //   multiplies rows past N.
-// - "mma" (bf16/fp16 at a D other than 64 and 32, a multiple of 16, aligned
-//   strides; no path runs it): attention_fwd_mma_kernel, two passes (the row
-//   max, then p and PV), mma.sync m16n8k16 with cp.async K/V tiles.
+// - "mma" (bf16/fp16 at a D that is a multiple of 16 but 64, aligned
+//   strides; no call dispatches to it: ops/attention.py's private path
+//   override times it beside "wgmma"): attention_fwd_mma_kernel, two passes
+//   (the row max, then p and PV), mma.sync m16n8k16 with cp.async K/V tiles.
 // - "simt" (fp32 at D = 64 with aligned strides; every fp32 call of the
 //   model): attention_fwd_fp32.cu, one pass over K with a running max in
 //   fp32 FMA, 4 x 8 register micro-tiles fed by float4 shared loads, K and V
@@ -89,6 +91,21 @@
 //    one block an SM (registers) and measured slower; they are kept as text
 //    edits in tools/attention_variants.json (PERF.md).
 // 6. Short sequences: the "short" path above.
+// Head dims past 64 and between the instances (the calls "mma" took): the
+// kernel is a template on DP, the head dim padded to 32, 64 or 128. The
+// TMA maps take the true D as the row's extent and boxes of one swizzle
+// atom (32 columns at DP = 32, 64 otherwise, two boxes at DP = 128), so
+// columns D .. DP - 1 arrive as zeros (the box's bytes, zeros included,
+// complete the barrier) and add exact zeros to S; O's columns past D are
+// never stored (in the qkv layout they are the next head's, or k's), the
+// check compiled only where D < DP. At DP = 128 O is 64 registers a thread,
+// so the key tiles are 64 keys (S 32 registers, P 16) and Q's A fragments
+// (32 registers) come straight from device memory into registers, S being
+// m64n64k16 with A from registers: the K/V ring of three stages is then
+// 97 KB, and two blocks fit an SM. PV is m64n128k16 with V MN-major over
+// its two column blocks (sw128_mn_blocks_desc). The DP = 32 and 64
+// instances compile the D = 32 and 64 kernels as they were (their outputs
+// bit-equal, tools/attention_same_bits).
 // D = 32 (the "wgmma" instance at D = 32, a port of attention.py:171 and
 // :373 like every path here, takes the place of the "mma" kernel there,
 // which the convergence demo ran at B = 25, N = 79 and B = 50, N = 110):
@@ -114,9 +131,10 @@
 // No cap on N.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8; the most over each path's
-// instances, as chip_smoke [2] reports them): wgmma at D = 64 154
-// registers, no spills (two 160-thread blocks an SM fit up to 204); at
-// D = 32 126 registers and 144 bytes of spill stores, its wgmma serialized
+// instances, as chip_smoke [2] reports them): wgmma at DP = 128 166
+// registers and 48 bytes of spill stores, its wgmma serialized (C7512); at
+// D = 64 154 registers, no spills (two 160-thread blocks an SM fit up to
+// 204); at D = 32 126 registers and 144 bytes of spill stores, its wgmma serialized
 // (C7512) under the three-block bound, which still measured faster than
 // two blocks an SM without spills (tools/attention_variants
 // d32_two_blocks_an_sm, PERF.md row 4o); short 64 registers,
@@ -628,29 +646,48 @@ int launch_short(const void* q, const void* k, const void* v, void* o, int batch
 }
 
 
-// ---- "wgmma" path (bf16 / fp16, D = 64 and D = 32) -------------------------
+// ---- "wgmma" path (bf16 / fp16, D a multiple of 16; padded to DP = 32, 64, 128) ----
 
 constexpr int WG_STAGES = 3;     // K/V ring depth
 constexpr int WG_BQ = 64;        // query rows a block: one consumer warpgroup
-constexpr int WG_BK = 128;       // keys per tile
 constexpr int WG_THREADS = 128 + 32;  // the consumer warpgroup and one producer warp
-// Shared memory of the D-wide instance: Q, the K/V ring and the barriers. A
-// row of 2 D bytes is one swizzle span: 128 bytes at D = 64, 64 at D = 32.
-template <int D>
-constexpr int wg_smem() { return WG_BQ * 2 * D + 2 * WG_STAGES * WG_BK * 2 * D + 8 * (1 + 2 * WG_STAGES); }
+// Keys a tile: 128 at DP = 32 and 64; 64 at DP = 128, where O (64 x 128) is
+// 64 registers a thread and Q's A fragments 32 more.
+template <int DP>
+__host__ __device__ constexpr int wg_bk() { return DP == 128 ? 64 : 128; }
+// Columns of one swizzle atom: a tile of DP columns lies in shared memory as
+// DP / atom column blocks, each as one TMA box writes it, of rows of 2 atom
+// bytes (one swizzle span: 128 bytes at 64 columns, 64 at 32).
+template <int DP>
+__host__ __device__ constexpr int wg_atom() { return DP == 32 ? 32 : 64; }
+// Shared memory of the DP-wide instance: Q (at DP <= 64; at DP = 128 Q is
+// in registers), the K/V ring and the barriers.
+template <int DP>
+__host__ __device__ constexpr int wg_smem() {
+    return (DP == 128 ? 0 : WG_BQ * 2 * DP) + 2 * WG_STAGES * wg_bk<DP>() * 2 * DP + 8 * (1 + 2 * WG_STAGES);
+}
 
-// The wgmma descriptor of a tile of D-wide rows as TMA wrote it: 128-byte
-// swizzle at D = 64, 64-byte swizzle at D = 32 (8-row groups 1024 / 512
-// bytes apart). A k step of 16 along the row is 32 bytes (+ 2), of 16 rows
-// 16 x 2 D bytes.
-template <int D>
+// The wgmma descriptor of a column block of DP-padded rows as TMA wrote it:
+// 128-byte swizzle at 64 columns, 64-byte swizzle at 32 (8-row groups
+// 1024 / 512 bytes apart). A k step of 16 along the row is 32 bytes (+ 2),
+// of 16 rows 16 x 2 atom bytes.
+template <int DP>
 __device__ __forceinline__ uint64_t wg_desc(const void* p) {
-    if constexpr (D == 64) return sw128_desc(p);
+    if constexpr (wg_atom<DP>() == 64) return sw128_desc(p);
     else return sw64_desc(p);
 }
 
-// O (64 x D) += P (64 x 16, registers) . V (16 x D, MN-major) for one k step.
-template <typename T, int D> struct WgmmaPv;
+// The descriptor offset of k step kk (16 columns) of a K-major tile of ROWS
+// rows: 32 bytes along a row of a column block, whole blocks of ROWS rows
+// apart.
+template <int DP, int ROWS>
+__device__ __forceinline__ uint64_t wg_kstep(int kk) {
+    constexpr int KA = wg_atom<DP>() / 16;  // k steps a column block
+    return (uint64_t)((kk / KA) * (ROWS * 2 * wg_atom<DP>() >> 4) + 2 * (kk % KA));
+}
+
+// O (64 x DP) += P (64 x 16, registers) . V (16 x DP, MN-major) for one k step.
+template <typename T, int DP> struct WgmmaPv;
 template <typename T> struct WgmmaPv<T, 64> {
     static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
         Wgmma<T>::rs(d, a, b);
@@ -661,9 +698,14 @@ template <typename T> struct WgmmaPv<T, 32> {
         Wgmma32<T>::rs(d, a, b, 1);
     }
 };
+template <typename T> struct WgmmaPv<T, 128> {  // V's two column blocks, one N block each
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+        WgmmaRsMn<T, 128>::mma(d, a, b);
+    }
+};
 
 // S (64 x 128) = Q . K^T: D / 16 k steps of 16, 32 bytes apart inside the
-// swizzled rows; issued and committed as one group.
+// swizzled rows; issued and committed as one group (DP = 32, 64).
 template <typename T, int D>
 __device__ __forceinline__ void s_product(float (&s)[64], uint64_t qd, uint64_t kd) {
     wgmma_fence();
@@ -672,21 +714,41 @@ __device__ __forceinline__ void s_product(float (&s)[64], uint64_t qd, uint64_t 
     wgmma_commit();
 }
 
-// O (64 x D) += P (64 x 128, registers) . V (128 x D at descriptor vd):
-// eight k steps of 16 keys, 16 rows of 2 D bytes apart.
-template <typename T, int D>
-__device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (&pf)[WG_BK / 16][4], uint64_t vd) {
+// S (64 x 64) = Q . K^T at DP = 128: Q's A fragments from registers, K
+// K-major in two column blocks; eight k steps, one group.
+template <typename T>
+__device__ __forceinline__ void s_product_rq(float (&s)[32], const uint32_t (&qf)[8][4], uint64_t kd) {
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < WG_BK / 16; ++kk) WgmmaPv<T, D>::rs(acc, pf[kk], vd + kk * (2 * D));
+    for (int kk = 0; kk < 8; ++kk) WgmmaRsF32<T, 64>::mma(s, qf[kk], kd + wg_kstep<128, 64>(kk), kk);
+    wgmma_commit();
+}
+
+// S = Q . K^T at the DP-wide instance: Q from shared memory (DP = 32, 64)
+// or from registers (DP = 128).
+template <typename T, int DP>
+__device__ __forceinline__ void s_issue(float (&s)[wg_bk<DP>() / 2], const uint32_t (&qf)[DP == 128 ? 8 : 1][4],
+                                        uint64_t qd, uint64_t kd) {
+    if constexpr (DP == 128) s_product_rq<T>(s, qf, kd);
+    else s_product<T, DP>(s, qd, kd);
+}
+
+// O (64 x DP) += P (64 x BK, registers) . V (BK x DP at descriptor vd):
+// BK / 16 k steps of 16 keys, 16 rows of 2 atom bytes apart.
+template <typename T, int DP>
+__device__ __forceinline__ void pv_product(float (&acc)[DP / 2], const uint32_t (&pf)[wg_bk<DP>() / 16][4],
+                                           uint64_t vd) {
+#pragma unroll
+    for (int kk = 0; kk < wg_bk<DP>() / 16; ++kk) WgmmaPv<T, DP>::rs(acc, pf[kk], vd + kk * (2 * wg_atom<DP>()));
 }
 
 // Rescale O by the last softmax's a0 (row g) and a1 (row g + 8), then issue
 // and commit O += P V.
-template <typename T, int D>
-__device__ __forceinline__ void pv_issue(float (&acc)[D / 2], uint32_t (&pf)[WG_BK / 16][4], float a0, float a1,
-                                         uint64_t vd) {
+template <typename T, int DP>
+__device__ __forceinline__ void pv_issue(float (&acc)[DP / 2], uint32_t (&pf)[wg_bk<DP>() / 16][4], float a0,
+                                         float a1, uint64_t vd) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j] *= a0;
         acc[4 * j + 1] *= a0;
         acc[4 * j + 2] *= a1;
@@ -695,7 +757,7 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 2], uint32_t (&pf)[WG_
     fence_regs(acc);
     fence_regs(pf);
     wgmma_fence();
-    pv_product<T, D>(acc, pf, vd);
+    pv_product<T, DP>(acc, pf, vd);
     wgmma_commit();
 }
 
@@ -709,22 +771,23 @@ __device__ __forceinline__ float wg_p(float s, float sl2, float ml) {
     return ex2_approx(fmaf(s, sl2, -ml));
 }
 
-// The online softmax of one tile's scores, in place: keys past n masked,
-// the running max (m0, m1: rows g and g + 8, scaled) raised, a0 and a1 the
-// factors that carry the old max to the new one, s replaced by p and the
-// row sums (this thread's share) l0, l1 rescaled and extended.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int n, int t, float scale, float sl2,
+// The online softmax of one tile's scores (BK keys), in place: keys past n
+// masked, the running max (m0, m1: rows g and g + 8, scaled) raised, a0 and
+// a1 the factors that carry the old max to the new one, s replaced by p and
+// the row sums (this thread's share) l0, l1 rescaled and extended.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0, int n, int t, float scale, float sl2,
                                              float& m0, float& m1, float& l0, float& l1, float& a0, float& a1) {
-    if (k0 + WG_BK > n) {  // the ragged last tile: keys past N get p = 0
+    if (k0 + BK > n) {  // the ragged last tile: keys past N get p = 0
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
                 if (k0 + 8 * j + 2 * t + e >= n) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
     }
     float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
         x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
         x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -742,7 +805,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int n, int 
     const float ml0 = n0 * LOG2E, ml1 = n1 * LOG2E;
     float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
         s[4 * j] = wg_p(s[4 * j], sl2, ml0);
         s[4 * j + 1] = wg_p(s[4 * j + 1], sl2, ml0);
         s[4 * j + 2] = wg_p(s[4 * j + 2], sl2, ml1);
@@ -755,39 +818,44 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int k0, int n, int 
 }
 
 // P rounded to the input dtype as the A fragments of PV's k steps.
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[WG_BK / 16][4], const float (&s)[64]) {
+template <typename T, int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[BK / 16][4], const float (&s)[BK / 2]) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
         pf[j / 2][(j & 1) * 2 + 0] = Mma<T>::pack(s[4 * j], s[4 * j + 1]);
         pf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(s[4 * j + 2], s[4 * j + 3]);
     }
 }
 
 // One block per (64-query tile, head, batch): warps 0-3 (the consumer
-// warpgroup) take 16 query rows each, warp 4 loads. Two blocks an SM at
-// D = 64, three at D = 32 (fewer registers and 53 KB of shared memory).
+// warpgroup) take 16 query rows each, warp 4 loads. DP is the head dim
+// padded to 32, 64 or 128 (wgmma_dp): columns d .. DP - 1 of every tile are
+// zeros (TMA's fill past d, zero A fragments of Q), so they add exact zeros
+// to S, and O's columns past d are never stored (PAD: d < DP; at d = DP
+// no column check is compiled). Two blocks an SM at DP = 64 and 128, three
+// at DP = 32 (fewer registers and 53 KB of shared memory).
 // Accumulator layout (wgmma m64nN, fp32): element 4 j + e of a thread in warp
 // w is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 (g = lane / 4,
 // t = lane % 4).
-template <typename T, int D>
-__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgmma_kernel(
+template <typename T, int DP, bool PAD>
+__global__ void __launch_bounds__(WG_THREADS, DP == 32 ? 3 : 2) attention_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, Strides os, int n, float scale,
-    int plus1) {
-    constexpr int ROW = 2 * D;  // bytes of a row: one swizzle span
+    const __grid_constant__ CUtensorMap vmap, const T* __restrict__ q, Strides qs, T* __restrict__ o, Strides os,
+    int n, int d, float scale, int plus1) {
+    constexpr int BK = wg_bk<DP>(), ATOM = wg_atom<DP>();
+    constexpr bool QREGS = DP == 128;  // Q as A fragments in registers, not in shared memory
     extern __shared__ unsigned char smem_raw[];
     // the swizzled tiles want 1024-byte alignment; the launch asks for 1 KB more
     unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    T* Qs = reinterpret_cast<T*>(base);                          // [WG_BQ][D]
-    T* Ks = reinterpret_cast<T*>(base + WG_BQ * ROW);            // [WG_STAGES][WG_BK][D]
-    T* Vs = Ks + WG_STAGES * WG_BK * D;                          // [WG_STAGES][WG_BK][D]
-    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * WG_BK * D);
+    T* Qs = reinterpret_cast<T*>(base);                          // [WG_BQ][DP] (DP <= 64)
+    T* Ks = Qs + (QREGS ? 0 : WG_BQ * DP);                       // [WG_STAGES][DP / ATOM][BK][ATOM]
+    T* Vs = Ks + WG_STAGES * BK * DP;                            // [WG_STAGES][DP / ATOM][BK][ATOM]
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * BK * DP);
     uint64_t* full = qbar + 1;               // [WG_STAGES]: K and V of the stage arrived
     uint64_t* empty = full + WG_STAGES;      // [WG_STAGES]: every consumer warp is done with it
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WG_BQ;
-    const int tiles = (n + WG_BK - 1) / WG_BK;
+    const int tiles = (n + BK - 1) / BK;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
     if (threadIdx.x == 0) {
@@ -802,14 +870,20 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgm
 
     if (warp == WG_BQ / 16) {  // the producer warp: one thread issues every copy
         if (lane == 0) {
-            mbar_expect_tx(qbar, WG_BQ * ROW);
-            tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
+            if constexpr (!QREGS) {
+                mbar_expect_tx(qbar, WG_BQ * 2 * DP);
+                tma_load_4d(Qs, &qmap, qbar, 0, q0, h, b);
+            }
             for (int i = 0; i < tiles; ++i) {
                 const int st = i % WG_STAGES;
                 if (i >= WG_STAGES) mbar_wait(empty + st, (i / WG_STAGES - 1) & 1);
-                mbar_expect_tx(full + st, 2 * WG_BK * ROW);
-                tma_load_4d(Ks + st * WG_BK * D, &kmap, full + st, 0, i * WG_BK, h, b);
-                tma_load_4d(Vs + st * WG_BK * D, &vmap, full + st, 0, i * WG_BK, h, b);
+                mbar_expect_tx(full + st, 2 * BK * 2 * DP);
+#pragma unroll
+                for (int a = 0; a < DP / ATOM; ++a)
+                    tma_load_4d(Ks + st * BK * DP + a * BK * ATOM, &kmap, full + st, a * ATOM, i * BK, h, b);
+#pragma unroll
+                for (int a = 0; a < DP / ATOM; ++a)
+                    tma_load_4d(Vs + st * BK * DP + a * BK * ATOM, &vmap, full + st, a * ATOM, i * BK, h, b);
             }
         }
         return;
@@ -817,47 +891,67 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgm
 
     const int g = lane >> 2, t = lane & 3;
     const float sl2 = scale * LOG2E;
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float m0 = plus1 ? 0.f : -INFINITY, m1 = m0;  // running max of rows g and g + 8, scaled
     float l0 = 0.f, l1 = 0.f;                    // this thread's share of the row sums
     float a0 = 1.f, a1 = 1.f;                    // the last softmax's rescale of acc
-    float s[64];                                 // scores, then p in place
-    uint32_t pf[WG_BK / 16][4];                  // P as the A fragments of PV's k steps
+    float s[BK / 2];                             // scores, then p in place
+    uint32_t pf[BK / 16][4];                     // P as the A fragments of PV's k steps
+    uint32_t qf[QREGS ? 8 : 1][4];               // Q's A fragments (DP = 128)
 
-    mbar_wait(qbar, 0);
-    const uint64_t qd = wg_desc<D>(Qs);
-    auto kdesc = [&](int i) { return wg_desc<D>(Ks + (i % WG_STAGES) * WG_BK * D); };
-    auto vdesc = [&](int i) { return wg_desc<D>(Vs + (i % WG_STAGES) * WG_BK * D); };
+    if constexpr (QREGS) {  // the warp's 16 query rows; rows past n and columns past d are zeros
+        const T* qb = q + b * qs.b + h * qs.h;
+        const int r0 = q0 + warp * 16;
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+            const bool live = !PAD || kk * 16 < d;  // d is a multiple of 16
+            const int c = kk * 16 + 2 * t;
+            qf[kk][0] = live ? load_pair(qb, qs.n, r0 + g, n, c) : 0u;
+            qf[kk][1] = live ? load_pair(qb, qs.n, r0 + g + 8, n, c) : 0u;
+            qf[kk][2] = live ? load_pair(qb, qs.n, r0 + g, n, c + 8) : 0u;
+            qf[kk][3] = live ? load_pair(qb, qs.n, r0 + g + 8, n, c + 8) : 0u;
+        }
+    } else {
+        mbar_wait(qbar, 0);
+    }
+    const uint64_t qd = wg_desc<DP>(Qs);
+    auto kdesc = [&](int i) { return wg_desc<DP>(Ks + (i % WG_STAGES) * BK * DP); };
+    // V MN-major; at DP = 128 its two column blocks are N blocks BK rows apart
+    auto vdesc = [&](int i) {
+        if constexpr (DP == 128) return sw128_mn_blocks_desc(Vs + (i % WG_STAGES) * BK * DP);
+        else return wg_desc<DP>(Vs + (i % WG_STAGES) * BK * DP);
+    };
+    static_assert(!QREGS || BK * 128 == MN_BLOCK_BYTES, "V's column blocks one MN block apart");
 
     // Turn 0: S(0) alone.
     wait_tile(full, 0);
-    s_product<T, D>(s, qd, kdesc(0));
+    s_issue<T, DP>(s, qf, qd, kdesc(0));
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, 0, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
-    pack_p<T>(pf, s);
+    softmax_tile<BK>(s, 0, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
+    pack_p<T, BK>(pf, s);
     // Turn i: S(i) = Q K_i^T and O += P(i-1) V_(i-1) issued together; the
     // softmax of S(i) then runs while PV(i-1) keeps the tensor cores busy.
     // Tile i-1's stage is released once PV(i-1) is done, so the ring holds
     // tiles i-1, i and the ones in flight.
     for (int i = 1; i < tiles; ++i) {
         wait_tile(full, i);
-        s_product<T, D>(s, qd, kdesc(i));
-        pv_issue<T, D>(acc, pf, a0, a1, vdesc(i - 1));
+        s_issue<T, DP>(s, qf, qd, kdesc(i));
+        pv_issue<T, DP>(acc, pf, a0, a1, vdesc(i - 1));
         wgmma_wait<1>();  // S(i) has landed; PV(i-1) may still run
         fence_regs(s);
-        softmax_tile(s, i * WG_BK, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
+        softmax_tile<BK>(s, i * BK, n, t, scale, sl2, m0, m1, l0, l1, a0, a1);
         wgmma_wait<0>();
         fence_regs(acc);
         fence_regs(pf);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + (i - 1) % WG_STAGES);
-        pack_p<T>(pf, s);  // P(i), once PV(i-1) has read P(i-1)
+        pack_p<T, BK>(pf, s);  // P(i), once PV(i-1) has read P(i-1)
     }
     // Turn `tiles`: the last PV alone.
-    pv_issue<T, D>(acc, pf, a0, a1, vdesc(tiles - 1));
+    pv_issue<T, DP>(acc, pf, a0, a1, vdesc(tiles - 1));
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pf);
@@ -874,8 +968,9 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgm
     const int r = q0 + warp * 16 + g;
     T* ob = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
         const int c = 8 * j + 2 * t;
+        if (PAD && c >= d) break;  // columns past d belong to the next head (or to k, v) in the qkv layout
         if (r < n)
             *reinterpret_cast<uint32_t*>(ob + (long long)r * os.n + c) =
                 Mma<T>::pack(acc[4 * j] / l0, acc[4 * j + 1] / l0);
@@ -885,22 +980,40 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 3) attention_fwd_wgm
     }
 }
 
-template <typename T, int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads,
-                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1,
-                 cudaStream_t stream) {
+template <typename T, int DP, bool PAD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads, int d,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1, cudaStream_t stream) {
     const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap qm, km, vm;
-    if (!make_map(&qm, q, bf16, batch, n, heads, qs, WG_BQ, D) || !make_map(&km, k, bf16, batch, n, heads, ks, WG_BK, D) ||
-        !make_map(&vm, v, bf16, batch, n, heads, vs, WG_BK, D))
+    if (!make_map(&qm, q, bf16, batch, n, heads, qs, WG_BQ, d, DP) ||
+        !make_map(&km, k, bf16, batch, n, heads, ks, wg_bk<DP>(), d, DP) ||
+        !make_map(&vm, v, bf16, batch, n, heads, vs, wg_bk<DP>(), d, DP))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = wg_smem<D>() + 1024;
-    auto kernel = attention_fwd_wgmma_kernel<T, D>;
+    const int smem = wg_smem<DP>() + 1024;
+    auto kernel = attention_fwd_wgmma_kernel<T, DP, PAD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((n + WG_BQ - 1) / WG_BQ, heads, batch);
-    kernel<<<grid, WG_THREADS, smem, stream>>>(qm, km, vm, static_cast<T*>(o), os, n, scale, plus1);
+    kernel<<<grid, WG_THREADS, smem, stream>>>(qm, km, vm, static_cast<const T*>(q), qs, static_cast<T*>(o), os, n, d,
+                                               scale, plus1);
     return passt_launch_status();
+}
+
+// The "wgmma" instance that takes head dim d (a multiple of 16 up to 128):
+// DP = wgmma_dp(d), with the column check (PAD) where d < DP.
+template <typename T>
+int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int batch, int n, int heads, int d,
+                   Strides qs, Strides ks, Strides vs, Strides os, float scale, int plus1, cudaStream_t st) {
+    if (d % 16) return static_cast<int>(cudaErrorInvalidValue);
+#define PASST_WG_CASE(DP, PAD) \
+    return launch_wgmma<T, DP, PAD>(q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st)
+    switch (wgmma_dp(d)) {
+        case 32: if (d == 32) PASST_WG_CASE(32, false); PASST_WG_CASE(32, true);
+        case 64: if (d == 64) PASST_WG_CASE(64, false); PASST_WG_CASE(64, true);
+        default: if (d == 128) PASST_WG_CASE(128, false); PASST_WG_CASE(128, true);
+    }
+#undef PASST_WG_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 enum Path { PATH_FMA = 0, PATH_MMA = 1, PATH_SHORT = 2, PATH_WGMMA = 3 };
@@ -917,9 +1030,7 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
             if (n <= 16) return launch_short<T, 16>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
             return launch_short<T, 64>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
         case PATH_WGMMA:
-            if (d == 64) return launch_wgmma<T, 64>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
-            if (d == 32) return launch_wgmma<T, 32>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, plus1, st);
-            break;
+            return launch_wgmma_d<T>(q, k, v, o, batch, n, heads, d, qs, ks, vs, os, scale, plus1, st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,9 @@
 // products with their descriptors (K-major and MN-major, one or several
 // 64-wide MN blocks, 128-byte swizzle; 64-byte swizzle for D = 32 rows;
 // bf16/fp16 products at N = 32, 64, 128, 192 and 256 with either B layout,
-// F1's at N = 192 and 256 with A from registers, the D = 32 attention
-// kernels' at N = 32, and the GEMM's s8 ones), fences, waits and named barriers, the
+// F1's at N = 192 and 256 and the attention forward's at N = 64 and 128
+// with A from registers, the D = 32 attention kernels' at N = 32, and the
+// GEMM's s8 ones), fences, waits and named barriers, the
 // acquire / release accesses of the backward's ordered dQ sums, the
 // thread-block cluster's rank, barrier and distributed shared memory loads,
 // and the launch configuration with a cluster or programmatic dependent
@@ -234,9 +235,6 @@ template <> struct Wgmma<__nv_bfloat16> {
     static __device__ __forceinline__ void ss64_bmn(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
         PASST_WGMMA_SS_N64("bf16", "0", "1");
     }
-    static __device__ __forceinline__ void ss64_mn(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-        PASST_WGMMA_SS_N64("bf16", "1", "1");
-    }
 };
 template <> struct Wgmma<__half> {
     static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
@@ -250,9 +248,6 @@ template <> struct Wgmma<__half> {
     }
     static __device__ __forceinline__ void ss64_bmn(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
         PASST_WGMMA_SS_N64("f16", "0", "1");
-    }
-    static __device__ __forceinline__ void ss64_mn(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-        PASST_WGMMA_SS_N64("f16", "1", "1");
     }
 };
 
@@ -466,21 +461,28 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A tensor map over the (D, N, H, B) view of a [B, N, H, d] operand (d = 64
-// or 32) with (batch, token, head) strides; boxes of `rows` tokens of one
-// head, a row's bytes as the swizzle span (128-byte at d = 64, 64-byte at
-// d = 32), zero fill past N.
+// A tensor map over the (d, N, H, B) view of a [B, N, H, d] operand with
+// (batch, token, head) strides, for tiles of the head dim padded to dp (32,
+// 64 or 128; 0: dp = d, which is then 32 or 64): boxes of `rows` tokens of
+// one head by one swizzle atom of columns, 32 at dp = 32 (64-byte rows, the
+// 64-byte swizzle) and 64 otherwise (128-byte rows, the 128-byte swizzle,
+// which spans at most 64 bf16 columns; a dp = 128 tile takes two boxes, at
+// columns 0 and 64, into two atoms). The box is zero-filled past N and past
+// d, so columns d .. dp - 1 of a tile arrive as zeros; a box's bytes, its
+// zeros included, complete its barrier.
 inline bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int batch, int n, int heads, Strides s,
-                     int rows, int d = 64) {
+                     int rows, int d = 64, int dp = 0) {
+    if (dp == 0) dp = d;
     const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr || (d != 64 && d != 32)) return false;
+    if (encode == nullptr || (dp != 64 && dp != 32 && dp != 128) || d <= 0 || d > dp || d % 8) return false;
+    const int atom = dp == 32 ? 32 : 64;
     const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
     const cuuint64_t strides[3] = {(cuuint64_t)s.n * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)atom, (cuuint32_t)rows, 1, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
                   const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                  atom == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -536,10 +538,50 @@ template <typename T, int N> struct WgmmaRsF32;
                          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
         }                                                                                                  \
     };
+PASST_WGMMA_RS_F32(__nv_bfloat16, "bf16", 64, 32, "32", "33", "34", "35", "36", "37")
+PASST_WGMMA_RS_F32(__half, "f16", 64, 32, "32", "33", "34", "35", "36", "37")
 PASST_WGMMA_RS_F32(__nv_bfloat16, "bf16", 192, 96, "96", "97", "98", "99", "100", "101")
 PASST_WGMMA_RS_F32(__nv_bfloat16, "bf16", 256, 128, "128", "129", "130", "131", "132", "133")
 PASST_WGMMA_RS_F32(__half, "f16", 192, 96, "96", "97", "98", "99", "100", "101")
 PASST_WGMMA_RS_F32(__half, "f16", 256, 128, "128", "129", "130", "131", "132", "133")
+
+// D (64 x N, fp32) += A (64 x 16, registers) . B (16 x N, shared memory,
+// MN-major: the transposed-B flag; several 64-wide N blocks as
+// sw128_mn_blocks_desc describes them), T bf16 or fp16: the attention
+// forward's O += P V at the padded head dim DP = 128.
+template <typename T, int N> struct WgmmaRsMn;
+#define PASST_WGMMA_RS_MN(CT, TY, NN, NR, IA0, IA1, IA2, IA3, IB, IP)                                     \
+    template <> struct WgmmaRsMn<CT, NN> {                                                                \
+        static __device__ __forceinline__ void mma(float (&d)[NR], const uint32_t (&a)[4], uint64_t b) {   \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                  \
+                         "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TY "." TY " " PASST_WG_REGS##NR  \
+                         ", {%" IA0 ", %" IA1 ", %" IA2 ", %" IA3 "}, %" IB ", p, 1, 1, 1;\n}\n"              \
+                         : PASST_WG_ACC##NR("+f")                                                         \
+                         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                   \
+        }                                                                                                 \
+    };
+PASST_WGMMA_RS_MN(__nv_bfloat16, "bf16", 128, 64, "64", "65", "66", "67", "68", "69")
+PASST_WGMMA_RS_MN(__half, "f16", 128, 64, "64", "65", "66", "67", "68", "69")
+
+// D (64 x N, fp32) [+]= A (64 x 16) . B (16 x N), both from shared memory,
+// T bf16 or fp16, N = 32 or 64; TA and TB the transposed flags (1: the
+// operand is MN-major): the attention backward's kernel KV at every padded
+// head dim.
+template <typename T, int N, int TA, int TB> struct WgmmaSs;
+#define PASST_WGMMA_SS(CT, TY, NN, NR, IA, IB, IP, ITA, ITB)                                               \
+    template <int TA, int TB> struct WgmmaSs<CT, NN, TA, TB> {                                            \
+        static __device__ __forceinline__ void mma(float (&d)[NR], uint64_t a, uint64_t b, int accumulate) { \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                                  \
+                         "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TY "." TY " " PASST_WG_REGS##NR  \
+                         ", %" IA ", %" IB ", p, 1, 1, %" ITA ", %" ITB ";\n}\n"                              \
+                         : PASST_WG_ACC##NR("+f")                                                         \
+                         : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));                              \
+        }                                                                                                 \
+    };
+PASST_WGMMA_SS(__nv_bfloat16, "bf16", 32, 16, "16", "17", "18", "19", "20")
+PASST_WGMMA_SS(__nv_bfloat16, "bf16", 64, 32, "32", "33", "34", "35", "36")
+PASST_WGMMA_SS(__half, "f16", 32, 16, "16", "17", "18", "19", "20")
+PASST_WGMMA_SS(__half, "f16", 64, 32, "32", "33", "34", "35", "36")
 
 // The GEMM's products: D (64 x N) [+]= A (64 x 32 bytes) . B (N x 32 bytes)^T,
 // both K-major from shared memory (128-byte swizzle); int: s8 x s8 -> s32

@@ -33,26 +33,26 @@ the reference does.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises. On the card :func:`forward_path` alone picks the forward
 kernel's path from the call's shape, dtype and alignment: ``"wgmma"``
-(bf16/fp16, aligned, D = 64 with N > 64 and D = 32 at any N: one pass over
-K, wgmma fed by TMA), ``"short"`` (the same at D = 64, N <= 64: one key
-tile, four heads a block at N <= 16), ``"mma"`` (bf16/fp16, aligned, at
-another D that is a multiple of 16) and ``"simt"`` (every other call: every
-fp32 call, and bf16/fp16 at a D that is 8 mod 16 or on unaligned views; one
-pass over K in fp32 FMA with register micro-tiles,
+(bf16/fp16, aligned, at a D that is a multiple of 16 but D = 64 with
+N <= 64: one pass over K, wgmma fed by TMA, a template on the head dim
+padded to DP = 32, 64 or 128, :func:`wgmma_head_dim`), ``"short"`` (D = 64,
+N <= 64: one key tile, four heads a block at N <= 16) and ``"simt"`` (every
+other call: every fp32 call, and bf16/fp16 at a D that is 8 mod 16 or on
+unaligned views; one pass over K in fp32 FMA with register micro-tiles,
 ``csrc/attention_fwd_fp32.cu``, a template on the input dtype and on the
 head dim padded to 32, 64, 96 or 128). The C entry launches exactly that
 path or returns an error, on which the wrapper raises;
 ``FWD_PATH_LAUNCHES`` counts the launches of each. The backward's path,
 which :func:`backward_path` picks in the same way: ``"wgmma"`` (bf16/fp16,
-aligned, D = 64: a statistics kernel, then one pass per 64-key block on
-wgmma fed by TMA, dQ summed across key blocks in a fixed order),
-``"resident"`` (bf16/fp16, aligned, D = 32, N <= 128: one launch, one block
-per (batch, head) holding the whole head, exact row statistics, no
-scratch), ``"mma"`` (bf16/fp16, aligned, at another D that is a multiple of
-16, and D = 32 above N = 128) and ``"simt"`` (every other call: the "wgmma"
-order in fp32 FMA, ``csrc/attention_bwd_fp32.cu``, templates on the dtype
-and the padded head dim); ``BWD_PATH_LAUNCHES`` counts them. No call
-dispatches to the old ``"fma"`` kernels (``csrc/attention_fwd.cu``,
+aligned, at a D that is a multiple of 16 but D = 32 with N <= 128: a
+statistics kernel, then one pass per 64-key block on wgmma fed by TMA, dQ
+summed across key blocks in a fixed order; templates on DP = 32, 64, 128),
+``"resident"`` (D = 32, N <= 128: one launch, one block per (batch, head)
+holding the whole head, exact row statistics, no scratch) and ``"simt"``
+(every other call: the "wgmma" order in fp32 FMA,
+``csrc/attention_bwd_fp32.cu``, templates on the dtype and the padded head
+dim); ``BWD_PATH_LAUNCHES`` counts them. No call dispatches to the old
+``"mma"`` and ``"fma"`` kernels (``csrc/attention_fwd.cu``,
 ``csrc/attention_bwd.cu``); the private ``path=`` override still reaches
 them, so that they can be timed on the same call. A failed build or launch
 raises, and nothing falls back.
@@ -78,8 +78,8 @@ for _key in (_KEY_BNHD, _KEY_QKV, _KEY_BNHD_BWD, _KEY_QKV_BWD):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: the forward kernel's paths, by the code its C entry takes ("simt" is the
-#: kernel of ``csrc/attention_fwd_fp32.cu``, a C entry of its own; "fma" is
-#: reached only by the private override)
+#: kernel of ``csrc/attention_fwd_fp32.cu``, a C entry of its own; "fma" and
+#: "mma" are reached only by the private override)
 FWD_PATHS = {"fma": 0, "mma": 1, "short": 2, "wgmma": 3, "simt": 4}
 #: forward launches per path since the last :func:`reset_path_launches`
 #: (beside ``_build.LAUNCHES``, which counts per entry point)
@@ -99,9 +99,22 @@ def simt_head_dim(d: int) -> int:
     return next(dp for dp in SIMT_HEAD_DIMS if d <= dp)
 
 
+#: the padded head dims the "wgmma" kernels are built for (templates on DP
+#: in ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``; a call at
+#: head dim d, a multiple of 16, runs on the smallest DP >= d, ``wgmma_dp``
+#: in ``csrc/attention_common.cuh``)
+WGMMA_HEAD_DIMS = (32, 64, 128)
+
+
+def wgmma_head_dim(d: int) -> int:
+    """The padded head dim of the "wgmma" instance that takes head dim ``d``
+    (a multiple of 16 up to 128)."""
+    return next(dp for dp in WGMMA_HEAD_DIMS if d <= dp)
+
+
 #: the backward kernel's paths, by the code its C entry takes ("simt" is
 #: the kernel pair of ``csrc/attention_bwd_fp32.cu``, a C entry of its own;
-#: "fma" is reached only by the private override)
+#: "fma" and "mma" are reached only by the private override)
 BWD_PATHS = {"fma": 0, "mma": 1, "wgmma": 2, "simt": 3, "resident": 4}
 #: the most tokens the "resident" backward takes: a block holds every key
 #: and query of its head (RS_N in ``csrc/attention_bwd.cu``)
@@ -121,31 +134,23 @@ def forward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The forward kernel path for ``n`` tokens of head dim ``d`` (a
     multiple of 8 up to 128): for bf16 / fp16 with aligned operands
     (``aligned``: 16-byte aligned base pointers, strides in multiples of 8
-    elements) at a ``d`` that is a multiple of 16, ``"wgmma"`` at ``d = 32``
-    (any ``n``), ``"short"`` at ``d = 64`` and ``n <= 64``, ``"wgmma"`` at
-    ``d = 64`` above, ``"mma"`` at another ``d``; ``"simt"`` for every other
-    call (every fp32 call, any ``n``)."""
+    elements) at a ``d`` that is a multiple of 16, ``"short"`` at ``d = 64``
+    and ``n <= 64``, ``"wgmma"`` otherwise; ``"simt"`` for every other call
+    (every fp32 call, any ``n``)."""
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "simt"
-    if d == 32:
-        return "wgmma"
-    if d != 64:
-        return "mma"
-    return "short" if n <= 64 else "wgmma"
+    return "short" if d == 64 and n <= 64 else "wgmma"
 
 
 def backward_path(n: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
     """The backward kernel path for ``n`` tokens of head dim ``d`` (a
     multiple of 8 up to 128): for bf16 / fp16 with aligned operands at a
-    ``d`` that is a multiple of 16, ``"wgmma"`` at ``d = 64`` (any ``n``),
-    ``"resident"`` at ``d = 32`` and ``n <= 128``, ``"mma"`` at another
-    ``d`` and at ``d = 32`` above ``n = 128``; ``"simt"`` for every other
-    call (every fp32 call, any ``n``)."""
+    ``d`` that is a multiple of 16, ``"resident"`` at ``d = 32`` and
+    ``n <= 128``, ``"wgmma"`` otherwise; ``"simt"`` for every other call
+    (every fp32 call, any ``n``)."""
     if dtype not in (torch.bfloat16, torch.float16) or not aligned or d % 16:
         return "simt"
-    if d == 64:
-        return "wgmma"
-    return "resident" if d == 32 and n <= RESIDENT_MAX_N else "mma"
+    return "resident" if d == 32 and n <= RESIDENT_MAX_N else "wgmma"
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -276,9 +281,9 @@ def _launch(q, k, v, out, scale: float, plus1: bool, path: Optional[str] = None)
     """Launch the kernel on ``[B, N, H, D]``-shaped views (any strides with
     a contiguous last dim), on the path :func:`forward_path` picks.
     ``path`` overrides the choice (private: chip_smoke and the variants
-    tools time the old "fma" kernel beside "simt" on the same call and the
-    "mma" kernel at D = 32 beside "wgmma"); a path that cannot take the
-    call raises."""
+    tools time the old "fma" kernel beside "simt" and the old "mma" kernel
+    beside "wgmma" on the same call); a path that cannot take the call
+    raises."""
     _check_operands(dict(q=q, k=k, v=v, out=out))
     b, n, h, d = q.shape
     if path is None:
@@ -342,7 +347,7 @@ def _bwd_lib():
         [vp] * 8 + [i32] * 6 + [i64] * 21 + [ctypes.c_float, i32, i32, vp]
     )
     lib.passt_attention_bwd.restype = ctypes.c_int
-    lib.passt_attention_bwd_scratch.argtypes = [i32] * 4
+    lib.passt_attention_bwd_scratch.argtypes = [i32] * 5
     lib.passt_attention_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
@@ -378,10 +383,9 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
     """Launch the backward kernels on ``[B, N, H, D]``-shaped views (any
     strides with a contiguous last dim), on the path :func:`backward_path`
     picks; dq, dk, dv are written in place. ``path`` overrides the choice
-    (private: chip_smoke and the variants tools time the "mma" path at
-    D = 64 beside "wgmma" and at D = 32 beside "resident", and the old
-    "fma" pair beside "simt" on the same call); a path that cannot take the
-    call raises."""
+    (private: chip_smoke and the variants tools time the old "mma" pair
+    beside "wgmma" and "resident", and the old "fma" pair beside "simt", on
+    the same call); a path that cannot take the call raises."""
     _check_operands(dict(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv))
     b, n, h, d = q.shape
     if path is None:
@@ -403,7 +407,7 @@ def _launch_bwd(q, k, v, do, dq, dk, dv, scale: float, plus1: bool, path: Option
         BWD_PATH_LAUNCHES[path] += 1
         return
     lib = _bwd_lib()
-    floats = lib.passt_attention_bwd_scratch(BWD_PATHS[path], b, n, h)
+    floats = lib.passt_attention_bwd_scratch(BWD_PATHS[path], b, n, h, d)
     # "resident" takes none: no allocation on its calls
     scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     code = lib.passt_attention_bwd(

@@ -1,6 +1,7 @@
 """Time text variants of ``csrc/attention_bwd.cu`` (the attention backward's
-"wgmma" path at D = 64 and its "resident" path at D = 32) on the card, all
-in one process, to find what sets their time.
+"wgmma" path at D = 64 and at the padded head dim DP = 128, and its
+"resident" path at D = 32) on the card, all in one process, to find what
+sets their time.
 
     python3 -m passt_tpu_torch.tools.attention_bwd_variants [VARIANTS.json] [NAME ...]
 
@@ -15,8 +16,10 @@ a variant that removes work is wrong on purpose), checked to give the same
 bits twice, and timed through the qkv entry at the training shape (bf16
 B = 12, N = 474) and at B = 2, N = 1190 (H = 12, D = 64) by CUDA-graph
 replay, and at the convergence demo's shapes (bf16, 6 heads of D = 32:
-B = 25, N = 79 and B = 50, N = 110; the "resident" path) by graph replay
-and by profiled kernel time. Beside them, from the source as it is: the old
+B = 25, N = 79 and B = 50, N = 110; the "resident" path), and on the
+"wgmma" path's DP = 128 instances at 6 heads of D = 128 (B = 12, N = 474)
+and at the demo's shapes over 2 heads of D = 96, by graph replay and by
+profiled kernel time. Beside them, from the source as it is: the old
 "mma" path at the same shapes and SDPA's backward (the profiled kernel time
 of its forward and backward less its forward's). Prints the card
 (nvidia-smi name and power limit), then one line per variant with its
@@ -35,9 +38,12 @@ from passt_tpu_torch.tools import variants as V
 from passt_tpu_torch.tools.timing import gpu_line, graph_ms, kernel_ms
 
 HEADS, HEAD_DIM = 12, 64
-# (B, N, H, D): the training step's, a long sequence, and the convergence
-# demo's training and eval shapes (the "resident" path)
-SHAPES = ((12, 474, HEADS, HEAD_DIM), (2, 1190, HEADS, HEAD_DIM), (25, 79, 6, 32), (50, 110, 6, 32))
+# (B, N, H, D): the training step's, a long sequence, the convergence
+# demo's training and eval shapes (the "resident" path), and the DP = 128
+# instances at the training step's width over 6 heads and at the demo's
+# shapes over 2 heads
+SHAPES = ((12, 474, HEADS, HEAD_DIM), (2, 1190, HEADS, HEAD_DIM), (25, 79, 6, 32), (50, 110, 6, 32),
+          (12, 474, 6, 128), (25, 79, 2, 96), (50, 110, 2, 96))
 
 
 def _inputs(dev, gen, b, n, h, d):
@@ -98,10 +104,12 @@ def main(argv=None) -> int:
             paths = [p for p, c in A.BWD_PATH_LAUNCHES.items() if c]
             grads = got.reshape(b, n, 3, h, d).unbind(2)
             err = max(float((g.float() - r.float()).abs().max() / r.float().abs().max()) for g, r in zip(grads, ref))
-            profiled = f", {kernel_ms(run):.4f} of kernels" if d == 32 else ""
+            profiled = f", {kernel_ms(run):.4f} of kernels" if d != HEAD_DIM else ""
             times.append(f"B={b} N={n} D={d} {graph_ms(run):.4f} ms{profiled} (err {err:.3g}, "
                          f"{'same bits' if torch.equal(got, again) else 'BITS DIFFER'}, path {paths})")
-        regs = {k: V.registers(log, k) for k in ("stats_kernel", "kv_kernel", "dq_sum_kernel", "resident_kernel")}
+        regs = {f"{k} DP={dp}": V.registers(log, k, f"Li{dp}E") for k in ("stats_kernel", "kv_kernel", "dq_sum_kernel")
+                for dp in (64, 128)}
+        regs["resident_kernel"] = V.registers(log, "resident_kernel")
         print(f"{name}: " + "; ".join(times) + "; registers, spill stores (B): "
               + ", ".join(f"{k} {v}" for k, v in regs.items() if v != (0, 0)), flush=True)
         for note in sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines() if "Performance Loss" in ln}):

@@ -21,7 +21,12 @@ half-precision instances (their own generator, seed 23): fp32 at 2 heads
 of D = 96 (the demo's shapes), 6 of D = 128 and 16 of D = 48 (B = 2,
 N = 474), 8 of D = 24 in fp32, bf16 and fp16 (B = 25, N = 79), and fp32
 and bf16 on views one element off 16-byte alignment (B = 2, N = 474,
-12 heads of D = 64), forward and backward. Every output is made twice and
+12 heads of D = 64), forward and backward; and the "wgmma" instances at
+padded head dims (their own generator, seed 24): bf16 at B = 2, N = 474,
+6 heads of D = 128, 8 of D = 96, 16 of D = 48 and 48 of D = 16, forward
+and backward, and the D = 32 backward at N = 200 (6 heads), plus1 on and
+off (an older checkout runs these on its "mma" path, so a saved set of its
+differs there). Every output is made twice and
 must have the same bits both times. ``--compare`` prints each output's
 name and whether its bits are equal to the saved one's, names the outputs
 the saved set lacks (new cases: an older checkout's set), and exits
@@ -100,6 +105,21 @@ def outputs(dev) -> dict:
             if b != 50:
                 out[f"bwd simt {tag} plus1={plus1}"] = A.fused_attention_qkv_bwd(
                     x, do, heads=hh, head_dim=dd, scale=dd ** -0.5, plus1=plus1)
+    # the "wgmma" instances at padded head dims (C = 768: 6 heads of D = 128,
+    # 8 of 96, 16 of 48, 48 of 16) and the D = 32 backward above the
+    # "resident" path's N (a generator of their own, seed 24)
+    gen24 = torch.Generator(device=dev).manual_seed(24)
+    for hh, dd, n in ((6, 128, 474), (8, 96, 474), (16, 48, 474), (48, 16, 474), (6, 32, 200)):
+        x = torch.randn((2, n, 3 * hh * dd), device=dev, generator=gen24).to(torch.bfloat16)
+        do = torch.randn((2, n, hh * dd), device=dev, generator=gen24).to(torch.bfloat16)
+        tag = f"bfloat16 D={dd} qkv B=2 N={n}"
+        for plus1 in (False, True):
+            if dd != 32:
+                with torch.no_grad():
+                    out[f"fwd wgmma {tag} plus1={plus1}"] = A.fused_attention_qkv(
+                        x, heads=hh, head_dim=dd, scale=dd ** -0.5, plus1=plus1)
+            out[f"bwd wgmma {tag} plus1={plus1}"] = A.fused_attention_qkv_bwd(
+                x, do, heads=hh, head_dim=dd, scale=dd ** -0.5, plus1=plus1)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

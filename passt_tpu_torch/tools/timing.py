@@ -63,12 +63,13 @@ def kernel_times(fn, reps: int = 10) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches (ms, by
     kernel name), from a ``torch.profiler`` trace of ``reps`` calls after
     one warm-up call (a trace that comes back with no device events is
-    taken again, up to three times)."""
+    taken again, up to eight times: three in a row came back empty once,
+    at a 0.008-ms SDPA call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without its device events: take another
+    for _ in range(8):  # a trace now and then comes back without its device events: take another
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()

@@ -335,9 +335,7 @@ def test_fp32_backward_path(n, d, aligned, path):
 def _tensor_core_backward(n, d):
     """The bf16 / fp16 backward paths at an aligned D that is a multiple of
     16, as they stand (none of them "simt")."""
-    if d == 64:
-        return "wgmma"
-    return "resident" if d == 32 and n <= 128 else "mma"
+    return "resident" if d == 32 and n <= 128 else "wgmma"
 
 
 @pytest.mark.parametrize("aligned", [True, False])

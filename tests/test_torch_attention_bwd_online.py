@@ -283,15 +283,15 @@ def test_rotated_and_plain_orders_agree():
         (1190, 64, torch.float16, True, "wgmma"),
         (474, 64, torch.float32, True, "simt"),  # the fp32 steps (csrc/attention_bwd_fp32.cu)
         (474, 64, torch.bfloat16, False, "simt"),  # unaligned strides (was "fma")
-        (97, 16, torch.bfloat16, True, "mma"),
-        (97, 48, torch.float16, True, "mma"),
-        (97, 128, torch.float16, True, "mma"),
+        (97, 16, torch.bfloat16, True, "wgmma"),  # padded to DP = 32 (was "mma")
+        (97, 48, torch.float16, True, "wgmma"),  # DP = 64 (was "mma")
+        (97, 128, torch.float16, True, "wgmma"),  # DP = 128 (was "mma")
         (97, 24, torch.bfloat16, True, "simt"),  # 8 mod 16 (was "fma")
         (97, 56, torch.float16, True, "simt"),
         (79, 32, torch.bfloat16, True, "resident"),  # the convergence demo's training step
         (128, 32, torch.float16, True, "resident"),
         (1, 32, torch.bfloat16, True, "resident"),
-        (129, 32, torch.bfloat16, True, "mma"),  # past one block's 128 tokens
+        (129, 32, torch.bfloat16, True, "wgmma"),  # past one block's 128 tokens (was "mma")
         (79, 32, torch.float32, True, "simt"),  # fp32 D = 32: the simt template (was "fma")
         (79, 32, torch.bfloat16, False, "simt"),  # unaligned strides (was "fma")
     ],

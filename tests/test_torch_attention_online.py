@@ -189,8 +189,8 @@ def test_online_order_rescales_when_the_max_rises():
         (1, 64, torch.float32, True, "simt"),
         (474, 64, torch.float32, False, "simt"),  # unaligned views (was "fma")
         (97, 32, torch.float32, True, "simt"),  # fp32 D = 32: the simt template (was "fma")
-        (97, 16, torch.bfloat16, True, "mma"),
-        (97, 128, torch.float16, True, "mma"),
+        (97, 16, torch.bfloat16, True, "wgmma"),  # padded to DP = 32 (was "mma")
+        (97, 128, torch.float16, True, "wgmma"),  # DP = 128 (was "mma")
         (97, 24, torch.bfloat16, True, "simt"),  # 8 mod 16: the simt template on bf16 (was "fma")
         (1190, 64, torch.bfloat16, False, "simt"),  # unaligned strides (was "fma")
         (79, 32, torch.bfloat16, True, "wgmma"),  # the convergence demo's training step
@@ -216,11 +216,7 @@ def test_forward_path(n, d, dtype, aligned, path):
 def _tensor_core_forward(n, d):
     """The bf16 / fp16 forward paths at an aligned D that is a multiple of
     16, as they stand (none of them "simt")."""
-    if d == 32:
-        return "wgmma"
-    if d != 64:
-        return "mma"
-    return "short" if n <= 64 else "wgmma"
+    return "short" if d == 64 and n <= 64 else "wgmma"
 
 
 @pytest.mark.parametrize("aligned", [True, False])
