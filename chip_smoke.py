@@ -110,8 +110,7 @@ Phases (each prints one line or more; the first failure exits non-zero):
    graphed run (printed after [13]); the times, graphed and eager in
    turns: the step's best of 2 runs of 30 (the eager step's: runs of 12)
    with the spread, its first
-   calls and peak memory, a 5-step profile of each (kernel time, kernels
-   and host launch calls a step, idle share), the eager fit's steady
+   calls and peak memory, the eager fit's steady
    ms/step against the eager ``timed_steps``, and the ``Predictor``'s
    ms/call and clips/s at B = 1 and B = 20;
 15. the CLI (``python -m passt_tpu_torch.cli <experiment> <command>``,
@@ -159,8 +158,8 @@ Phases (each prints one line or more; the first failure exits non-zero):
    bf16 bound and its first moment within its bound, the launches exact;
    the four timed in turns (``tools/ab_scan_blocks``: best of 2 runs of
    30, first calls, peak memory, one eager step's own peak and what its
-   forward holds, remat's under half the loop's, device time per kernel
-   group, kernels a step, idle share, launches a step); the batched
+   forward holds, remat's under half the loop's, launches a step); the
+   batched
    weight-gradient product against float64; one fp32 B = 2 stacked step (the hand-written
    backward) with the kernels against the loop step on the plain versions
    from the same weights, under [7]'s tolerances; a stacked ``Predictor``
@@ -2710,9 +2709,9 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
     norms), its launches over replays exact; the eval step and the
     Predictor (B = 1, B = 20, timestamp windows) bit-equal; the times, in
     turns: the step's best of 2 runs of 30 with the spread, its warm-up
-    (eager call, capture) and peak memory, a profile of each (kernel time,
-    kernels and host launch calls a step, idle share), and the Predictor's
-    ms/call and clips/s."""
+    (eager call, capture) and peak memory, and the Predictor's ms/call and
+    clips/s. Where the device time goes is the benchmark's to say (its
+    traced runs read the step's phase marks)."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.hear import Predictor
     from passt_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -2762,19 +2761,13 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
             for name, rec in steps.items():
                 rec["state"], ms, _ = bench.timed_steps(rec["step"], rec["state"], rec["batch"], lengths[name], 0)
                 rec["runs"].append(ms)
-        for rec in steps.values():
-            rec["state"], rec["profile"] = bench.profile_steps(rec["step"], rec["state"], rec["batch"], 5)
         parts = []
         for name, rec in steps.items():
-            p = rec["profile"]
             parts.append(
                 f"{name} (runs of {lengths[name]}) {', '.join(f'{t:.3f}' for t in rec['runs'])} ms/step (best "
                 f"{min(rec['runs']):.3f}, spread "
                 f"{100 * (max(rec['runs']) - min(rec['runs'])) / min(rec['runs']):.2f}%), first calls "
-                f"{', '.join(f'{t:.2f}' for t in rec['warm_s'])} s, peak memory {rec['peak'] / 2**30:.2f} GiB; profiled: {p['wall_ms_per_step']:.3f} "
-                f"ms/step wall, {p['kernel_ms_per_step']:.3f} of kernels, idle {100 * p['idle_share']:.1f}%, "
-                f"{p['kernel_launches_per_step']:.0f} kernels and host launch calls "
-                f"{ {k: round(v, 1) for k, v in p['host_launch_calls_per_step'].items()} } a step")
+                f"{', '.join(f'{t:.2f}' for t in rec['warm_s'])} s, peak memory {rec['peak'] / 2**30:.2f} GiB")
         say(f"[14] bf16 train step B={TRAIN_B} ({variant}): graphed bit-equal to eager over 5 steps from step 0 and 5 "
             f"from a restored step-3 state (params, mu, nu, counts, loss, grad norms); 3 replays launch "
             f"{ {k: v // 3 for k, v in launches.items() if v} } a step; " + "; ".join(parts) + f" ({gpu})")
@@ -3414,7 +3407,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
     moments; scan restacked), stacked within the bf16 bound and its first
     moment within TOL_STACKED_MU, the launches exact; the four timed in
     turns (tools/ab_scan_blocks: best of 2 x 30, peak memory, one eager
-    step's memory, kernel groups, launches a step); the batched dW product
+    step's memory, launches a step); the batched dW product
     against float64; one fp32 B = 2 stacked
     step with the kernels against the loop step on the plain versions (as
     [7]); a stacked Predictor at B = 20, N = 1190 against the loop's
@@ -3493,15 +3486,12 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
         f"one state under each form: " + "; ".join(notes) + "; launches a step "
         + "; ".join(f"{n} { {k: v for k, v in w.items() if v} }" for n, w in BLOCK_LAUNCHES.items()))
 
-    ab = ab_scan_blocks.run(dev, steps=30, runs=2, profile=5)  # two runs of 30 keep the script in its time limit
+    ab = ab_scan_blocks.run(dev, steps=30, runs=2)  # two runs of 30 keep the script in its time limit
     for name, r in ab.items():
-        groups = ", ".join(f"{g} {t:.3f}" for g, t in r["groups_ms_per_step"].items())
         say(f"[18] {name}: {', '.join(f'{t:.3f}' for t in r['ms_per_step_runs'])} ms/step in turns (best "
             f"{r['ms_per_step']:.3f}, spread {100 * r['spread']:.2f}%), first calls "
             f"{', '.join(f'{t:.2f}' for t in r['warmup_s'])} s, peak memory {r['peak_memory_bytes'] / 2**30:.3f} GiB "
-            f"(max_memory_allocated over set-up and warm-up); launches a step {r['launches_per_step']}; profiled "
-            f"{r['kernel_ms_per_step']:.3f} ms of kernels a step, {r['kernel_launches_per_step']:.0f} kernels, idle "
-            f"{100 * r['idle_share']:.1f}%; ms a step by group: {groups} ({gpu})")
+            f"(max_memory_allocated over set-up and warm-up); launches a step {r['launches_per_step']} ({gpu})")
         check(r["launches_per_step"] == {k: v for k, v in BLOCK_LAUNCHES[name].items() if v},
               f"[18] {name}: timed launches a step {r['launches_per_step']}")
     say("[18] one eager step on a warmed state (bench.step_memory), GiB: " + "; ".join(

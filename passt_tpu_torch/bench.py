@@ -1,7 +1,7 @@
 """Training throughput of the port on one CUDA card.
 
     python3 -m passt_tpu_torch.bench [--steps 200] [--runs 3] [--warmup 2] [--eager]
-        [--ln-impl fused | --fuse-ln-qkv] [--profile N]
+        [--ln-impl fused | --fuse-ln-qkv]
 
 The workload of the JAX package's root ``bench.py``: PaSST-S (12 x 768, 12
 heads, 527 classes) in bf16 with structured patchout 40/4 (N = 474 tokens),
@@ -32,18 +32,14 @@ best run, every run's ms/step, the spread, the eager step's (with
 LayerNorm-backward kernel in every norm, or with norm1 fused into the qkv
 projection and attention (the F1 and B2 kernels). The JSON line names them.
 
-``--profile N`` runs N more steps (of each step timed) under
-``torch.profiler`` and prints, before the JSON line, where their device
-time goes: per kernel group and per kernel, the kernels run and the host's
-launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...) per step, and
-the share of the wall time the card sat idle.
+Where the device time goes is the benchmark's to say (``benchmark/``: its
+``--trace 1`` runs read the train step's phase marks, ``tracing.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import re
 import time
 from typing import Callable, Dict, List, Tuple
 
@@ -172,58 +168,6 @@ def spread(times: List[float]) -> float:
     return (max(times) - min(times)) / min(times)
 
 
-#: kernel name patterns -> group, first match wins
-GROUPS = (
-    ("LayerNorm backward kernel", r"layernorm_bwd"),
-    ("ln_qkv kernels (F1, B2)", r"ln_qkv"),
-    ("attention backward kernel", r"attention_bwd"),
-    ("attention forward kernel", r"attention_fwd"),
-    ("mel kernel", r"log_mel|mel_kernel|mel_span"),
-    ("GEMMs (cuBLAS/CUTLASS)", r"gemm|sm90_|cutlass|nvjet|cublas|xmma"),
-    ("reductions (LayerNorm means, sums)", r"reduce"),
-    ("copies, casts, indexing, cat", r"copy|cast|index|scatter|gather|cat|fill"),
-    ("elementwise (adds, muls, GELU, optimizer)", r"elementwise|foreach|multi_tensor|vectorized"),
-)
-
-
-#: the host's calls that put work on the card (`cuda*` and `cu*` launch entry points)
-HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchKernelEx|LaunchKernelExC|LaunchCooperativeKernel|GraphLaunch)")
-
-
-def profile_steps(step, state, batch, steps: int):
-    """Run ``steps`` train steps under ``torch.profiler``; returns the state
-    and a report: kernel device time per group and per kernel (ms per step),
-    the kernels run and the host's launch calls per step, the wall time per
-    step and the card's idle share of it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, ms, _ = timed_steps(step, state, batch, steps, 0)
-    kernels, host_calls = {}, {}
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.setdefault(event.name, [0.0, 0])
-            kernels[event.name][0] += event.time_range.elapsed_us() / 1000.0 / steps
-            kernels[event.name][1] += 1
-        elif HOST_LAUNCH.match(event.name):
-            host_calls[event.name] = host_calls.get(event.name, 0) + 1
-    groups = {}
-    for name, (t, _) in kernels.items():
-        group = next((g for g, pat in GROUPS if re.search(pat, name, re.I)), "other")
-        groups[group] = groups.get(group, 0.0) + t
-    busy = sum(groups.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
-    return state, {
-        "wall_ms_per_step": ms,
-        "kernel_ms_per_step": busy,
-        "idle_share": 1.0 - busy / ms,
-        "kernel_launches_per_step": sum(n for _, n in kernels.values()) / steps,
-        "host_launch_calls_per_step": {k: v / steps for k, v in sorted(host_calls.items())},
-        "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [(name[:120], t, n // steps) for name, (t, n) in top],
-    }
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=200, help="steps in each timed run")
@@ -231,8 +175,6 @@ def main(argv=None) -> int:
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--eager", action="store_true",
                         help="also time the eager step, run for run in turns with the graphed one")
-    parser.add_argument("--profile", type=int, default=0, metavar="N",
-                        help="profile N more steps and print where their device time goes")
     parser.add_argument("--ln-impl", choices=("auto", "fused"), default="auto",
                         help="the block and final LayerNorms: 'fused' takes the LayerNorm-backward kernel")
     parser.add_argument("--fuse-ln-qkv", action="store_true",
@@ -260,10 +202,6 @@ def main(argv=None) -> int:
     for name, t in times.items():
         print(f"{name} step, runs of {args.steps} steps, ms/step: {', '.join(f'{x:.3f}' for x in t)}; best "
               f"{min(t):.3f}, spread {100.0 * spread(t):.2f}% ({torch.cuda.get_device_name(0)})")
-    if args.profile:
-        for name, pair in steps.items():
-            pair[0], report = profile_steps(pair[1], pair[0], batch, args.profile)
-            print(json.dumps({"profile": dict(step=name, **report)}, indent=1))
     graph_times = times["graph"]
     record = {
         "metric": "train_throughput_b12_fwd_bwd_adamw_incl_mel",

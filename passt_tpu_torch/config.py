@@ -145,7 +145,9 @@ class TrainerConfig:
     log_grad_norm_per_block: bool = False  # one norm per top-level param group
     handle_sigterm: bool = True  # SIGTERM -> clean resumable exit
     profile_dir: Optional[str] = None  # a torch.profiler chrome trace of the
-    # training steps [profile_start_step, +profile_num_steps) in this dir
+    # training steps [profile_start_step, +profile_num_steps) in this dir,
+    # with the host spans (step.plan, graphs.key, graphs.unpack) and the
+    # step's phase marks (trace_mark_<phase> kernels; passt_tpu_torch/tracing.py)
     profile_start_step: int = 10
     profile_num_steps: int = 5
     n_data: Optional[int] = None  # data-parallel processes (one card each),

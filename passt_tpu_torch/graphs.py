@@ -33,7 +33,14 @@ of the tensors the function reads in place (arguments wrapped in
   function of the call.
 - Launch counts. Capturing runs no kernel and a replay runs no wrapper, so
   the counts that capturing added to ``ops._build``'s counters are taken
-  back, and added once per replay: a count is of kernels run.
+  back, and added once per replay: a count is of kernels run. The cache's
+  own counts, :data:`COUNTS` (``_build.COUNTERS["graphs"]``), are added
+  outside any capture: eager calls of a signature before its capture,
+  captures, replays and graphs pruned.
+- Spans. The host's work before the argument copies is one
+  ``tracing.span`` ("graphs.key": the flatten, the signature, the buffer
+  and graph lookups), and the views of the copied outputs another
+  ("graphs.unpack"); neither encloses a launch.
 
 On a CPU tensor the function runs eagerly, since the caller asked for the
 CPU. On a CUDA device a capture or replay that fails raises: nothing falls
@@ -55,10 +62,15 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from passt_tpu_torch import tracing
 from passt_tpu_torch.ops import _build
 
 #: eager calls of a signature before its capture
 WARMUP_CALLS = 1
+#: what every cache did on a device with graphs: eager (warm-up) calls,
+#: captures, replays, graphs pruned (module docstring)
+COUNTS: Dict[str, int] = {"eager": 0, "captures": 0, "replays": 0, "pruned": 0}
+_build.COUNTERS["graphs"] = COUNTS
 #: byte alignment of each output in the packed buffer
 _ALIGN = 16
 
@@ -201,61 +213,62 @@ class GraphCache:
         return len(self._graphs)
 
     def __call__(self, *args, key=()):
-        leaves, spec = pytree.tree_flatten(args)
-        device, sig, reads = None, [], []
-        for leaf in leaves:
-            if isinstance(leaf, torch.Tensor):
-                sig.append((leaf.shape, leaf.dtype, leaf.device))
-                device = leaf.device if device is None else device
-            elif isinstance(leaf, InPlace):
-                inner, inner_spec = pytree.tree_flatten(leaf.value)
-                sig.append(inner_spec)
-                for t in inner:
-                    if isinstance(t, torch.Tensor):
-                        reads.append(t)
-                        device = t.device if device is None else device
-            else:
-                sig.append(("value", leaf))
-        plain = [leaf.value if isinstance(leaf, InPlace) else leaf for leaf in leaves]
-        graph_cls = graph_type(device) if device is not None else None
+        with tracing.span("graphs.key"):
+            leaves, spec = pytree.tree_flatten(args)
+            device, sig, reads = None, [], []
+            for leaf in leaves:
+                if isinstance(leaf, torch.Tensor):
+                    sig.append((leaf.shape, leaf.dtype, leaf.device))
+                    device = leaf.device if device is None else device
+                elif isinstance(leaf, InPlace):
+                    inner, inner_spec = pytree.tree_flatten(leaf.value)
+                    sig.append(inner_spec)
+                    for t in inner:
+                        if isinstance(t, torch.Tensor):
+                            reads.append(t)
+                            device = t.device if device is None else device
+                else:
+                    sig.append(("value", leaf))
+            plain = [leaf.value if isinstance(leaf, InPlace) else leaf for leaf in leaves]
+            graph_cls = graph_type(device) if device is not None else None
+            if graph_cls is not None:
+                arg_sig = (spec, tuple(sig))
+                buffers = self._buffers.get(arg_sig)
+                if buffers is None:
+                    with torch.inference_mode(False), torch.no_grad():
+                        buffers = [torch.empty_like(leaf) if isinstance(leaf, torch.Tensor) else None
+                                   for leaf in leaves]
+                    self._buffers[arg_sig] = buffers
+                run = [value if buf is None else buf for value, buf in zip(plain, buffers)]
+                args_run = pytree.tree_unflatten(run, spec)
+                full = (arg_sig, key, tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in reads))
+                entry = self._graphs.get(full)
+                shared = self._shared.setdefault(device, {})
         if graph_cls is None:
             args_run = pytree.tree_unflatten(plain, spec)
             return self.fn(*args_run), args_run
 
-        arg_sig = (spec, tuple(sig))
-        buffers = self._buffers.get(arg_sig)
-        if buffers is None:
-            with torch.inference_mode(False), torch.no_grad():
-                buffers = [torch.empty_like(leaf) if isinstance(leaf, torch.Tensor) else None for leaf in leaves]
-            self._buffers[arg_sig] = buffers
-        run = []
         with torch.no_grad():
-            for leaf, value, buf in zip(leaves, plain, buffers):
-                if isinstance(leaf, torch.Tensor):
-                    if leaf is not buf:
-                        buf.copy_(leaf)
-                    run.append(buf)
-                else:
-                    run.append(value)
-        args_run = pytree.tree_unflatten(run, spec)
-
-        full = (arg_sig, key, tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in reads))
-        entry = self._graphs.get(full)
-        shared = self._shared.setdefault(device, {})
+            for leaf, buf in zip(leaves, buffers):
+                if buf is not None and leaf is not buf:
+                    buf.copy_(leaf)
         if entry is None:
             calls = self._calls.get(full, 0)
             if calls < WARMUP_CALLS:
                 self._calls[full] = calls + 1
+                COUNTS["eager"] += 1
                 with graph_cls.side(device, shared):
                     return self.fn(*args_run), args_run
             entry = self._capture(graph_cls, device, shared, args_run, reads)
+            COUNTS["captures"] += 1
             self._prune()
             self._graphs[full] = entry
         entry.graph.replay()
+        COUNTS["replays"] += 1
         _build.add_launches(entry.delta)
-        if entry.packed is None:
-            return _unpack(None, entry.layout), args_run
-        return _unpack(entry.packed.clone(), entry.layout), args_run
+        packed = None if entry.packed is None else entry.packed.clone()
+        with tracing.span("graphs.unpack"):
+            return _unpack(packed, entry.layout), args_run
 
     def _capture(self, graph_cls, device, shared, args_run, reads) -> _Entry:
         gens = self.generators.values() if hasattr(self.generators, "values") else self.generators
@@ -273,3 +286,4 @@ class GraphCache:
         for full in dead:
             del self._graphs[full]
             self._calls.pop(full, None)
+        COUNTS["pruned"] += len(dead)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from passt_tpu_torch import graphs
+from passt_tpu_torch import graphs, tracing
 from passt_tpu_torch.models.passt import PaSST
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
 
@@ -128,7 +128,8 @@ class Predictor:
         return self._apply
 
     def _model_tensors(self) -> list:
-        return [*self.model.parameters(), *self.model.buffers()]
+        with tracing.span("predictor.args"):
+            return [*self.model.parameters(), *self.model.buffers()]
 
     def _wave(self, wave) -> torch.Tensor:
         return torch.as_tensor(wave, dtype=torch.float32, device=self.device)

@@ -19,7 +19,9 @@ graph's replay calls none: ``passt_tpu_torch.graphs`` takes the counts that
 capturing a graph added (:func:`launch_counts` before and after), puts them
 back, and adds them once per replay (:func:`add_launches`), so a count is
 of kernels run. The attention and int8 wrappers' per-path counts are
-registered here (:data:`COUNTERS`) and follow the same rule.
+registered here (:data:`COUNTERS`) and follow the same rule, and so do the
+graph cache's own counts (``graphs``: eager calls, captures, replays,
+graphs pruned), which it adds outside any capture.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "passt_tpu
 
 #: every kernel source of the port (``csrc/<name>.cu``)
 KERNELS = ("mel_kernel", "attention_fwd", "attention_fwd_fp32", "attention_bwd", "attention_bwd_fp32",
-           "layernorm_bwd", "ln_qkv", "int8_dense", "int8_gemm", "fused_mlp")
+           "layernorm_bwd", "ln_qkv", "int8_dense", "int8_gemm", "fused_mlp", "trace_mark")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,7 +1,7 @@
 """A/B of the depth's three forms at the bench's training step on the card
 (counterpart of scripts/ab_scan_blocks.py).
 
-    python3 -m passt_tpu_torch.tools.ab_scan_blocks [--steps 200] [--runs 3] [--profile 5]
+    python3 -m passt_tpu_torch.tools.ab_scan_blocks [--steps 200] [--runs 3]
 
 The ``passt_tpu_torch.bench`` step (PaSST-S, bf16, B = 12, N = 474, mixup,
 bf16 SR AdamW and parameters), graphed, under ``blocks_impl`` "loop",
@@ -12,10 +12,9 @@ the best run counts. Per variant: each run's ms/step and the spread, the
 warm-up calls' seconds, the device memory the set-up and warm-up peaked at
 above what was allocated before, the memory of one eager step on a warmed
 state (its own peak, and what the training forward holds for the backward:
-``bench.step_memory``), the kernel launches a step (the port's
-counters over the timed replays), and with ``--profile N`` a profile of N
-steps (device time per kernel group, kernels a step, idle share; the
-bench's ``profile_steps``). Prints one line per variant and one JSON line.
+``bench.step_memory``) and the kernel launches a step (the port's
+counters over the timed replays). Prints one line per variant and one JSON
+line.
 Raises without a card; ``run()`` returns the record.
 """
 
@@ -36,7 +35,7 @@ VARIANTS: Dict[str, dict] = {
 }
 
 
-def run(device="cuda", steps: int = 200, runs: int = 3, profile: int = 5) -> dict:
+def run(device="cuda", steps: int = 200, runs: int = 3) -> dict:
     """Time the variants in turns (module docstring); returns name -> record."""
     from passt_tpu_torch import bench
     from passt_tpu_torch.ops import _build
@@ -60,15 +59,10 @@ def run(device="cuda", steps: int = 200, runs: int = 3, profile: int = 5) -> dic
             rec["launches"] = {k: v // steps for k, v in _build.LAUNCHES.items() if v}
     out = {}
     for name, rec in recs.items():
-        report = {}
-        if profile:
-            rec["state"], report = bench.profile_steps(rec["step"], rec["state"], rec["batch"], profile)
         out[name] = dict(ms_per_step=min(rec["runs"]), ms_per_step_runs=rec["runs"], spread=bench.spread(rec["runs"]),
                          warmup_s=rec["warm_s"], peak_memory_bytes=rec["peak_bytes"], loss=rec["loss"],
                          step_peak_bytes=memory[name]["step_peak"], forward_saved_bytes=memory[name]["forward_saved"],
-                         launches_per_step=rec["launches"],
-                         **{k: report[k] for k in ("groups_ms_per_step", "kernel_ms_per_step", "idle_share",
-                                                   "kernel_launches_per_step") if k in report})
+                         launches_per_step=rec["launches"])
     del recs
     return out
 
@@ -77,13 +71,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--runs", type=int, default=3)
-    parser.add_argument("--profile", type=int, default=5, metavar="N")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_scan_blocks: no CUDA device; it times the card only")
     from passt_tpu_torch.tools.timing import gpu_line
 
-    out = run("cuda", args.steps, args.runs, args.profile)
+    out = run("cuda", args.steps, args.runs)
     gpu = gpu_line()
     for name, r in out.items():
         print(f"{name}: {', '.join(f'{t:.3f}' for t in r['ms_per_step_runs'])} ms/step (best {r['ms_per_step']:.3f}, "

@@ -547,7 +547,10 @@ def fit(
     ``eval_every`` epochs on ``val_loader`` or ``val_loaders`` (several:
     metrics prefixed "<name>_"), the epoch record, and a checkpoint.
     ``profile_dir`` writes a ``torch.profiler`` chrome trace of
-    ``profile_num_steps`` steps from ``profile_start_step``;
+    ``profile_num_steps`` steps from ``profile_start_step``, which carries
+    the step's host spans and its phase marks (``passt_tpu_torch.tracing``:
+    the device kernels of each phase lie between two ``trace_mark_*``
+    kernels);
     ``dump_spectrograms`` saves the train-mode mel of the first steps, drawn
     from the step's own generators.
 

@@ -29,7 +29,7 @@ import torch
 from torch.func import functional_call
 from torch.utils import _pytree as pytree
 
-from passt_tpu_torch import graphs
+from passt_tpu_torch import graphs, tracing
 from passt_tpu_torch.models.passt import PaSST, PaSSTConfig, init_weights
 from passt_tpu_torch.models.registry import resolve_device
 from passt_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
@@ -272,6 +272,7 @@ def make_train_step(
         """One step on tensors: (params, opt_state, metrics)."""
         gens = inputs.generators
         y = batch["target"]
+        tracing.mark("ungraphed", y)
         b = y.shape[0]
         rows = None if dp is None else dp.rows(b)
         if "mel" in batch:
@@ -292,6 +293,7 @@ def make_train_step(
                 loss_rows = slice(start, start + b)
                 x = apply_mixup_rows(dp.gather_rows(x), perm, lam, loss_rows)
                 y = dp.gather_rows(y)
+        tracing.mark("frontend", x)
 
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         logits, _ = functional_call(
@@ -300,9 +302,11 @@ def make_train_step(
                  tp=tp),
         )
         loss = loss_fn(logits, y, perm, lam, rows=loss_rows)
+        tracing.mark("forward", loss)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
         grads = dict(zip(leaves, grads))
         loss = loss.detach()
+        tracing.mark("backward", loss)
 
         opt_inputs = inputs.optimizer()
         shares = None if tp is None else tp.full_shapes(params)
@@ -310,11 +314,14 @@ def make_train_step(
             opt_inputs["shares"] = shares
         if dp is not None:
             if isinstance(opt_state, optim.MultiStepsState) and not log_norms:
-                # the gradient mean is reduced once an update, inside multi_steps
+                # the gradient mean is reduced once an update, inside
+                # multi_steps: "collective" closes the loss's all-reduce
+                # alone, and the gradients' lies in the optimizer phase
                 _, (loss,) = dp.all_reduce_mean({}, [loss])
                 opt_inputs["reduce_grads"] = lambda acc: dp.all_reduce_mean(acc)[0]
             else:
                 grads, (loss,) = dp.all_reduce_mean(grads, [loss])
+            tracing.mark("collective", loss)
 
         updates, opt_state = tx.update(grads, opt_state, params, opt_inputs)
         if param_sr:
@@ -323,6 +330,7 @@ def make_train_step(
             params = apply_updates_sr(params, updates, gens["apply_updates_sr"], shares)
         else:
             params = apply_updates(params, updates)
+        tracing.mark("optimizer", loss)
         metrics = {"loss": loss}
 
         def norm(gs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -369,7 +377,8 @@ def _with_tensors(tree, tensors):
 class _TrainRunner:
     """Runs the step body on one device, eagerly or as CUDA graphs (a
     :class:`~passt_tpu_torch.graphs.GraphCache` keyed on the batch
-    signature and the optimizer's branch)."""
+    signature and the optimizer's branch). Its host work before the call's
+    first launch is one span, "step.plan"."""
 
     def __init__(self, body, tx: GradientTransformation, device: torch.device, graphed: bool, donate: bool):
         self.body, self.tx, self.donate = body, tx, donate
@@ -380,13 +389,14 @@ class _TrainRunner:
         self._opt_state = None  # the optimizer state of the call being run (its counts)
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], seeds: Dict[str, tuple]):
-        plan = self.tx.plan(state.opt_state)
+        with tracing.span("step.plan"):
+            plan = self.tx.plan(state.opt_state)
+            opt_tensors = [x for x in pytree.tree_leaves(state.opt_state) if isinstance(x, torch.Tensor)]
         self.inputs.refresh(plan.scalars, dict(seeds, **plan.seeds))
         if self.cache is None:
             params, opt_state, metrics = self.body(state.params, state.opt_state, batch, self.inputs)
             return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
         self._opt_state = state.opt_state
-        opt_tensors = [x for x in pytree.tree_leaves(state.opt_state) if isinstance(x, torch.Tensor)]
         metrics, (params, opt_tensors, _) = self.cache(state.params, opt_tensors, batch, key=plan.branch)
         if not self.donate:
             params = {k: p.clone() for k, p in params.items()}
@@ -410,6 +420,7 @@ class _TrainRunner:
         if pairs:
             with torch.no_grad():
                 torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+        tracing.mark("writeback", metrics["loss"])
         return metrics
 
 
