@@ -57,7 +57,14 @@ Phases (each prints one line or more; the first failure exits non-zero):
    and specs/s, the loss finite, the parameters moved, the step counter
    advanced, and the exact launch counts per step (and per forward and
    backward path: the bf16 steps' backward all on "wgmma", the fp32 steps'
-   of phases 7 and 9 all on "simt");
+   of phases 7 and 9 all on "simt"; the optimizer phase on the one-pass
+   kernel, ``adamw_sr``, once a step, ``foreach`` never);
+6o. the one-pass optimizer kernel (``csrc/adamw_sr.cu``) on PaSST-S's 159
+   leaves in their storage dtypes against its plain version on the card,
+   bit for bit (parameters, mu, nu), its scalars and seeds read from device
+   memory and passed by value; timed by CUDA-graph replay beside its byte
+   bound, with the plain version and the ``_foreach`` update and apply it
+   replaces by profiled kernel time;
 7. one fp32 training step at full width (B = 2) with the kernels against
    the same step on the plain versions, from the same weights and the same
    draws: the loss, every leaf's gradient and the updated parameters;
@@ -1966,13 +1973,31 @@ def want_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNEL_NAMES}
 
 
+#: the bf16-SR train step's wrappers: KERNEL_NAMES and the one-pass
+#: optimizer's, which ports no TPU kernel (XLA fuses it on the TPU)
+STEP_NAMES = KERNEL_NAMES + ("adamw_sr",)
+
+
+def step_launches() -> dict:
+    """The launch counts of STEP_NAMES since the last reset."""
+    from passt_tpu_torch.ops import _build
+
+    return {name: _build.LAUNCHES.get(name, 0) for name in STEP_NAMES}
+
+
+def want_step(**counts) -> dict:
+    """A bf16-SR step's exact launches a step: the named ones and one
+    ``adamw_sr``."""
+    return dict(want_launches(**counts), adamw_sr=1)
+
+
 #: the bench step's launches per step, by the model overrides of each variant
 STEP_LAUNCHES = {
-    "default": want_launches(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12),
-    "fuse_ln_qkv": want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12,
-                                 fused_attention_qkv_bwd=12, ln_qkv_b2=12),
-    "ln_impl=fused": want_launches(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12,
-                                   layer_norm_bwd=25),
+    "default": want_step(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12),
+    "fuse_ln_qkv": want_step(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12,
+                             fused_attention_qkv_bwd=12, ln_qkv_b2=12),
+    "ln_impl=fused": want_step(fused_log_mel=1, fused_attention_qkv=12, fused_attention_qkv_bwd=12,
+                               layer_norm_bwd=25),
 }
 VARIANTS = {"default": {}, "fuse_ln_qkv": dict(fuse_ln_qkv=True), "ln_impl=fused": dict(ln_impl="fused")}
 
@@ -1984,6 +2009,7 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     from passt_tpu_torch import bench
     from passt_tpu_torch.ops import _build
     from passt_tpu_torch.ops import attention as A
+    from passt_tpu_torch.train import optim
 
     model, state, step, batch = bench.setup(dev, **VARIANTS[variant])
     cfg = model.cfg
@@ -1994,13 +2020,16 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
     warmup, steps = 2, 10
     _build.reset_launches()
     A.reset_path_launches()
+    optim.OPTIM_PATHS.update(fused=0, foreach=0)
     state, ms, loss = bench.timed_steps(step, state, batch, steps, warmup)
     torch.cuda.synchronize()
-    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    launches = step_launches()
     paths = dict(A.FWD_PATH_LAUNCHES)
     bwd_paths = dict(A.BWD_PATH_LAUNCHES)
 
     n = warmup + steps
+    check(optim.OPTIM_PATHS == dict(fused=n, foreach=0), f"{variant}: optimizer paths {optim.OPTIM_PATHS}, "
+          f"want fused on each of {n} steps")
     check(state.step == n, f"{variant}: step counter {state.step} != {n}")
     check(bool(torch.isfinite(loss)), f"{variant}: loss {float(loss)} not finite")
     still = {k for k, v in state.params.items() if torch.equal(before[k], v)}
@@ -2025,6 +2054,100 @@ def train_steps(gpu: str, dev: torch.device, variant: str) -> dict:
         f"{ {k: v // n for k, v in paths.items() if v} }, backward paths per step "
         f"{ {k: v // n for k, v in bwd_paths.items() if v} } ({gpu})")
     return launches
+
+
+def phase_adamw_sr(gpu: str, dev: torch.device) -> None:
+    """[6o] the one-pass optimizer (train/optim.py adamw_sr,
+    csrc/adamw_sr.cu) on PaSST-S's 159 leaves in their storage dtypes (bf16
+    matrices, fp32 vectors, bf16 gradients and moments, values at the
+    trained model's scale from a seeded generator): the kernel bit-equal to
+    its plain version on the card (parameters, mu, nu), with its scalars
+    and seeds read from device memory and passed by value; its mu equal to
+    the ``_foreach`` update's, and its fp32 leaves counted where they equal
+    that apply's (no SR draws in either); its time by
+    CUDA-graph replay and profiled kernel time beside its byte bound (each
+    value read and written once), the plain version on the card, and the
+    ``_foreach`` update and apply_updates_sr it replaces, both by profiled
+    kernel time."""
+    from passt_tpu_torch.models.passt import PaSST, PaSSTConfig
+    from passt_tpu_torch.ops import _build
+    from passt_tpu_torch.train import optim
+
+    with torch.device("meta"):
+        net = PaSST(PaSSTConfig())
+    shapes = {k: tuple(p.shape) for k, p in net.named_parameters()}
+    check(len(shapes) == 159, f"[6o] PaSST-S has {len(shapes)} leaves, not 159")
+    gen = torch.Generator().manual_seed(6)
+    params = optim.cast_params_storage({k: torch.randn(s, generator=gen) * 0.02 for k, s in shapes.items()},
+                                       "bfloat16_sr")
+    mu = {k: (torch.randn(s, generator=gen) * 1e-4).to(torch.bfloat16) for k, s in shapes.items()}
+    nu = {k: (torch.rand(s, generator=gen) * 1e-8).to(torch.bfloat16) for k, s in shapes.items()}
+    grads = {k: (torch.randn(p.shape, generator=gen) * 1e-4).to(p.dtype) for k, p in params.items()}
+    names = list(shapes)
+    on_card = [[d[k].to(dev) for k in names] for d in (grads, mu, nu, params)]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+    lr, c1, c2, seeds = 2e-5, float(np.float32(0.271)), float(np.float32(0.002997)), {"nu": optim.fold_seed(
+        "adamw_bf16sr.nu", 3), "apply_updates_sr": optim.fold_seed("apply_updates_sr", 2)}
+    dev_scalars = dict(lr=torch.tensor(lr, device=dev), c1=torch.tensor(c1, device=dev),
+                       c2=torch.tensor(c2, device=dev),
+                       seeds={k: torch.tensor(v, dtype=torch.int64, device=dev) for k, v in seeds.items()})
+    by_value = dict(lr=lr, c1=c1, c2=c2, seeds=seeds)
+    want = optim.adamw_sr_plain(*on_card, names=names, **by_value, **hyper)
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+    _build.reset_launches()
+    differ = {}
+    for how, kw in (("device", dev_scalars), ("value", by_value)):
+        got = optim.adamw_sr(*on_card, names=names, **kw, **hyper)
+        for part, gs, ws in zip(("params", "mu", "nu"), got, want):
+            bad = [(k, int((bits(g) != bits(w)).sum())) for k, g, w in zip(names, gs, ws)
+                   if not torch.equal(bits(g), bits(w))]
+            if bad:
+                differ[f"{how} {part}"] = bad[:4]
+    torch.cuda.synchronize()
+    check(not differ, f"[6o] adamw_sr kernel != its plain version: {differ} (leaf, values)")
+    check(_build.LAUNCHES["adamw_sr"] == 2, f"[6o] adamw_sr launches {_build.LAUNCHES['adamw_sr']} != 2")
+    del want
+
+    def fused():
+        optim.adamw_sr(*on_card, names=names, **dev_scalars, **hyper)
+
+    def plain():
+        optim.adamw_sr_plain(*on_card, names=names, **dev_scalars, **hyper)
+
+    tx = optim.adamw_bf16sr(lr, weight_decay=hyper["weight_decay"])
+    state = optim.AdamState(2, dict(zip(names, on_card[1])), dict(zip(names, on_card[2])))
+    g_card, p_card = dict(zip(names, on_card[0])), dict(zip(names, on_card[3]))
+    sr_gen = {k: torch.Generator(device=dev).manual_seed(v) for k, v in seeds.items()}
+
+    def composition():
+        inputs = {"lr": dev_scalars["lr"], "c1": dev_scalars["c1"], "c2": dev_scalars["c2"], "nu": sr_gen["nu"]}
+        upd, new_state = tx.update(g_card, state, p_card, inputs)
+        return optim.apply_updates_sr(p_card, upd, sr_gen["apply_updates_sr"]), new_state.mu
+
+    # the composition's bits where no SR draws: mu, and the fp32 leaves' sums
+    comp_p, comp_mu = composition()
+    mu_diff = [k for k, m in zip(names, got[1]) if not torch.equal(bits(m), bits(comp_mu[k]))]
+    fp32 = [i for i, k in enumerate(names) if params[k].dtype == torch.float32]
+    fp32_same = sum(int(torch.equal(got[0][i], comp_p[names[i]])) for i in fp32)
+    check(not mu_diff, f"[6o] adamw_sr's mu != the _foreach update's in {mu_diff[:4]}")
+    del comp_p, comp_mu, got
+
+    graph = graph_ms(fused)
+    profiled = kernel_ms(fused)
+    plain_ms, foreach_ms = kernel_ms(plain, reps=3), kernel_ms(composition, reps=3)
+    values = sum(int(np.prod(s)) for s in shapes.values())
+    nbytes = sum(int(np.prod(shapes[k])) * (2 * (2 + 2) + grads[k].element_size() + 2 * params[k].element_size())
+                 for k in names)
+    b = bound(0.0, nbytes, 1.0)
+    say(f"[6o] adamw_sr on PaSST-S's {len(names)} leaves ({values:,} values, {nbytes / 1e9:.3f} GB read and "
+        f"written once): kernel bit-equal to its plain version in parameters, mu and nu, scalars and seeds from "
+        f"device memory and by value; mu bit-equal to the _foreach update's, fp32 leaves bit-equal to its apply's "
+        f"in {fp32_same}/{len(fp32)}; {graph:.4f} ms graph replay, {profiled:.4f} ms profiled, bound "
+        f"{b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / graph:.1f}% of it); plain version {plain_ms:.4f} ms "
+        f"profiled; the _foreach update + apply_updates_sr it replaces {foreach_ms:.4f} ms profiled ({gpu})")
 
 
 #: [6w] the bench's step at PaSST-S width over 6 heads (D = 128) against
@@ -2056,7 +2179,7 @@ def wide_heads_step(gpu: str, dev: torch.device) -> dict:
     A.reset_path_launches()
     state, ms, loss = bench.timed_steps(step, state, batch, steps, warmup)
     torch.cuda.synchronize()
-    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    launches = step_launches()
     paths, bwd_paths = dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
     n = warmup + steps
     want = {k: v * n for k, v in STEP_LAUNCHES["default"].items()}
@@ -2139,7 +2262,8 @@ def fp32_step(dev: torch.device, cfg_kwargs: dict, stft_method: str, init_params
     new_state, metrics = step(state, batch, bench.SEED)
     torch.cuda.synchronize()
     return dict(loss=float(metrics["loss"]), grads=grads, updates=updates, params=new_state.params,
-                launches=dict(_build.LAUNCHES), bwd_paths=dict(A.BWD_PATH_LAUNCHES),
+                launches={name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES},
+                bwd_paths=dict(A.BWD_PATH_LAUNCHES),
                 fwd_paths=dict(A.FWD_PATH_LAUNCHES), n=cfg.seq_len(train=True))
 
 
@@ -2240,7 +2364,8 @@ def phase_variant_correctness(dev: torch.device) -> list:
     A.reset_path_launches()
     ek, tk = kern.timestamp_embeddings(wave)
     torch.cuda.synchronize()
-    launches, paths = dict(_build.LAUNCHES), dict(A.FWD_PATH_LAUNCHES)
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    paths = dict(A.FWD_PATH_LAUNCHES)
     ep, tp = plain.timestamp_embeddings(wave)
     want = want_launches(fused_log_mel=1, ln_qkv_f1=12, fused_attention_qkv=12)
     check(launches == want, f"[9] fuse_ln_qkv Predictor launches {launches} != {want}")
@@ -2266,7 +2391,7 @@ def phase_int8_mlp(gpu: str, dev: torch.device) -> dict:
     I.reset_path_launches()
     results = ab_int8_mlp.run(dev)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
     check(I.PATH_LAUNCHES == dict(wgmma=sum(launches.values()), mma=0), f"[10] loops {I.PATH_LAUNCHES}")
     check([r["M"] for r in results] == [TRAIN_B * TRAIN_N, TRAIN_B * 1190], "[10] token counts")
     n = sum(r["int8_forwards"] for r in results)
@@ -2317,7 +2442,7 @@ def phase_proto_mlp(gpu: str, dev: torch.device) -> dict:
     _build.reset_launches()
     results = proto_mlp_fused.run(dev)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
     check([r["M"] for r in results] == [TRAIN_B * TRAIN_N, TRAIN_B * 1190], "[12] token counts")
     want = want_launches(fused_mlp_fwd=sum(r["fwd_calls"] for r in results),
                          fused_mlp_bwd=sum(r["bwd_calls"] for r in results))
@@ -2687,8 +2812,7 @@ def replay_launches(fn, calls: int) -> tuple:
     for _ in range(calls):
         fn()
     torch.cuda.synchronize()
-    return {name: _build.LAUNCHES.get(name, 0) for name in KERNEL_NAMES}, dict(A.FWD_PATH_LAUNCHES), \
-        dict(A.BWD_PATH_LAUNCHES)
+    return step_launches(), dict(A.FWD_PATH_LAUNCHES), dict(A.BWD_PATH_LAUNCHES)
 
 
 def in_turns(fns: dict, rounds: int, run) -> dict:
@@ -2800,7 +2924,7 @@ def phase_graphs(gpu: str, dev: torch.device) -> list:
                                                                                ev_eager(params, batch))]
     check(not diffs, f"[14] graphed serving != eager: {diffs[:8]}")
     launches, paths, _ = replay_launches(lambda: (pred(waves[20][0]), pred.timestamp_embeddings(windows[0])), 2)
-    want = want_launches(fused_log_mel=4, fused_attention=24, fused_attention_qkv=24)
+    want = dict(want_launches(fused_log_mel=4, fused_attention=24, fused_attention_qkv=24), adamw_sr=0)
     check(launches == want and paths == dict(fma=0, mma=0, short=24, wgmma=24, simt=0),
           f"[14] Predictor replay launches {launches} != {want} ({paths})")
     runs.append(launches)
@@ -3369,7 +3493,7 @@ BLOCK_LAUNCHES = {
     "loop": STEP_LAUNCHES["default"],
     "scan": STEP_LAUNCHES["default"],
     "stacked": STEP_LAUNCHES["default"],
-    "loop+remat": want_launches(fused_log_mel=1, fused_attention_qkv=24, fused_attention_qkv_bwd=12),
+    "loop+remat": want_step(fused_log_mel=1, fused_attention_qkv=24, fused_attention_qkv_bwd=12),
 }
 # stacked against loop in bf16: the stack normalises in the JAX stack's
 # order ((x - mu) rstd) s, the loop in flax's (x - mu) (rstd s), and keeps
@@ -3439,7 +3563,7 @@ def phase_blocks(gpu: str, dev: torch.device) -> tuple:
             state, m = step(state, batch, bench.SEED)
             losses.append(m["loss"].clone())
         torch.cuda.synchronize()
-        launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNEL_NAMES}
+        launches = step_launches()
         want = {k: v * BLOCK_STEPS for k, v in BLOCK_LAUNCHES[name].items()}
         check(launches == want, f"[18] {name}: launches {launches} != {want}")
         runs.append(launches)
@@ -4634,6 +4758,8 @@ def main() -> int:
     mark("[4]-[5]")
     runs.append(train_steps(gpu, dev, "default"))
     mark("[6]")
+    phase_adamw_sr(gpu, dev)
+    mark("[6o]")
     runs.append(wide_heads_step(gpu, dev))
     mark("[6w]")
     runs.append(phase_train_correctness(dev))

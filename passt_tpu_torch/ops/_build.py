@@ -42,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "passt_tpu
 
 #: every kernel source of the port (``csrc/<name>.cu``)
 KERNELS = ("mel_kernel", "attention_fwd", "attention_fwd_fp32", "attention_bwd", "attention_bwd_fp32",
-           "layernorm_bwd", "ln_qkv", "int8_dense", "int8_gemm", "fused_mlp", "trace_mark")
+           "layernorm_bwd", "ln_qkv", "int8_dense", "int8_gemm", "fused_mlp", "trace_mark", "adamw_sr")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -27,24 +27,56 @@ as host floats (the same bits).
   stacked layout (a ``blocks.block.*`` leaf has one more axis).
 - :func:`multi_steps`: optax ``MultiSteps`` (gradient accumulation).
 
-All arithmetic is fp32; only the storage is bf16. The SR bits come from a
-Philox ``torch.Generator`` seeded from the update count. They are drawn in
-the per-block layout's order whatever the layout (a stacked leaf rounds as
-its per-block leaves would) and, under tensor parallelism, for whole
-leaves. They differ from the JAX package's ``rng_bit_generator`` bits, so
-SR is held to the JAX package statistically, not bit for bit. There is no TPU kernel
-here; the moments update as ``torch._foreach_*`` ops over the leaf lists.
+All arithmetic is fp32; only the storage is bf16. SR bits are drawn in the
+per-block layout's order whatever the layout (a stacked leaf rounds as its
+per-block leaves would) and, under tensor parallelism, for whole leaves.
+They differ from the JAX package's ``rng_bit_generator`` bits, so SR is held
+to the JAX package statistically, not bit for bit.
+
+Two paths run the optimizer phase of a train step with bf16-SR storage:
+
+- :func:`adamw_sr`, one pass over every leaf (``csrc/adamw_sr.cu``, a
+  hand-written kernel that replaces no TPU kernel: XLA fuses this on the
+  TPU): the update of :func:`adamw_bf16sr` with ``sr_nu`` and the
+  :func:`apply_updates_sr` that follows it, without materialising the
+  updates. Its SR bits are Philox4x32-10 counter bits (:func:`philox_draws`)
+  keyed by the stream's seed, at the value's place in the per-block order,
+  so the kernel and its plain PyTorch version (:func:`adamw_sr_plain`, which
+  a CPU tensor takes) give the same bits. The train step takes it where its
+  leaves lie on a CUDA device, it stores bf16 parameters by SR, the
+  transformation has :attr:`GradientTransformation.update_sr` and no
+  tensor-parallel shares are given (``train/steps.py``).
+- Everywhere else the update runs as ``torch._foreach_*`` ops over the leaf
+  lists and the apply as :func:`apply_updates_sr` / :func:`apply_updates`,
+  with SR bits from a Philox ``torch.Generator`` seeded from the update
+  count (the apply's from the step).
+
+``OPTIM_PATHS`` (``_build.COUNTERS["optim_paths"]``) counts the steps of
+each: ``fused`` where :func:`adamw_sr` launches its kernel, ``foreach``
+where a step takes the composition.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from passt_tpu_torch.ops import _build
+
 Params = Dict[str, torch.Tensor]
+
+_KEY = "adamw_sr"
+_build.LAUNCHES.setdefault(_KEY, 0)
+
+#: the optimizer phase's path, counted once a step: ``fused`` (:func:`adamw_sr`
+#: launched its kernel) or ``foreach`` (the ``_foreach`` update and the apply)
+OPTIM_PATHS: Dict[str, int] = {"fused": 0, "foreach": 0}
+_build.COUNTERS["optim_paths"] = OPTIM_PATHS
 
 
 class UpdatePlan(NamedTuple):
@@ -60,6 +92,12 @@ class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
     plan: Callable
+    #: ``update_sr(grads, state, params, inputs) -> (params, state)``: the
+    #: update and :func:`apply_updates_sr` in one, through :func:`adamw_sr`;
+    #: ``inputs`` as ``update``'s, plus ``inputs["seeds"]``: the ``"nu"`` and
+    #: ``"apply_updates_sr"`` streams' seeds (ints or 0-d int64 tensors).
+    #: None where the transformation has no such pass.
+    update_sr: Optional[Callable] = None
 
 
 def host_inputs(plan: UpdatePlan, device) -> Dict[str, object]:
@@ -108,16 +146,69 @@ def _stochastic_round_bf16(x: torch.Tensor, generator: torch.Generator) -> torch
     return _sr_bits(x, torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device, dtype=torch.int32))
 
 
+#: ``draw(n, device)``: n uniform 16-bit values, int32, in a stream's order
+Draw = Callable[[int, torch.device], torch.Tensor]
+
+
+def _generator_draws(generator: torch.Generator) -> Draw:
+    return lambda n, device: torch.randint(0, 1 << 16, (n,), generator=generator, device=device, dtype=torch.int32)
+
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """The high and low 32-bit words of ``a * m`` (``a`` uint32 values in
+    int64), in 16-bit halves so that nothing overflows int64."""
+    p0 = (a & 0xFFFF) * m
+    p1 = (a >> 16) * m
+    t = p0 + ((p1 & 0xFFFF) << 16)
+    return (t >> 32) + (p1 >> 16), t & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1) -> List[torch.Tensor]:
+    """Philox4x32-10 (Salmon et al., SC'11) of the counter words c0..c3
+    under the key words k0, k1: int64 tensors (or ints) holding uint32
+    values; returns the four output words, as ``csrc/adamw_sr.cu`` computes
+    them."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return [c0, c1, c2, c3]
+
+
+def philox_draws(seed) -> Draw:
+    """The stream of 16-bit values keyed by ``seed`` (an int, or a 0-d int64
+    tensor on the device): value d is lane d % 8 of the Philox4x32-10 call at
+    the counter (d // 8, 0, 0, 0), the low half of word (d % 8) // 2 for an
+    even lane, the high half for an odd one."""
+
+    def draw(n: int, device) -> torch.Tensor:
+        counters = torch.arange((n + 7) // 8, dtype=torch.int64, device=device)
+        zero = torch.zeros_like(counters)
+        words = philox4x32(counters & _MASK32, counters >> 32, zero, zero, seed & _MASK32, seed >> 32)
+        words = torch.stack(words, dim=1)  # [counters, 4]
+        halves = torch.stack([words & 0xFFFF, words >> 16], dim=2)  # [counters, 4, 2]
+        return halves.reshape(-1)[:n].to(torch.int32)
+
+    return draw
+
+
 #: name -> (the full leaf's shape, full -> this rank's share) for leaves a
 #: tensor-parallel rank holds a share of (``TensorParallel.full_shapes``)
 Shares = Optional[Dict[str, tuple]]
 
 
-def _stochastic_round_many(xs: List[torch.Tensor], generator: torch.Generator,
+def _stochastic_round_many(xs: List[torch.Tensor], generator,
                            shares: Optional[List[Optional[tuple]]] = None,
                            names: Optional[List[str]] = None) -> List[torch.Tensor]:
-    """SR of several fp32 tensors in one pass over their concatenation;
-    returns bf16 views of one buffer in the tensors' shapes.
+    """SR of several fp32 tensors in one pass over their concatenation, with
+    values drawn from ``generator`` (a ``torch.Generator``, or a
+    :data:`Draw`); returns bf16 views of one buffer in the tensors' shapes.
 
     The bits are drawn in the per-block layout's order and put in the
     tensors' order, so that a leaf rounds alike in every layout and on every
@@ -132,8 +223,8 @@ def _stochastic_round_many(xs: List[torch.Tensor], generator: torch.Generator,
     shares = shares or [None] * len(xs)
     stacked = [bool(names) and names[i].startswith("blocks.block.") for i in range(len(xs))]
     full = [tuple(sh[0]) if sh else tuple(x.shape) for x, sh in zip(xs, shares)]
-    r = torch.randint(0, 1 << 16, (sum(int(np.prod(f)) for f in full),), generator=generator,
-                      device=xs[0].device, dtype=torch.int32)
+    draw = _generator_draws(generator) if isinstance(generator, torch.Generator) else generator
+    r = draw(sum(int(np.prod(f)) for f in full), xs[0].device)
     if any(stacked) or any(sh is not None for sh in shares):
         bits: List[torch.Tensor] = []
         at = i = 0
@@ -239,6 +330,206 @@ def _adam_direction(grads, mu, nu, params, *, b1, b2, eps, weight_decay, c1, c2,
     return torch._foreach_mul(step, -lr), m, v
 
 
+#: leaf dtypes the one-pass update takes (``mu`` and ``nu`` are bf16)
+_GRAD_DTYPES = (torch.bfloat16, torch.float32)
+_PARAM_DTYPES = (torch.bfloat16, torch.float32)
+#: the kernel's 16-byte accesses: outputs start each leaf at a multiple of 8 values
+_ALIGN = 8
+
+
+def _check_leaves(grads, mu, nu, params, names) -> None:
+    if not (len(grads) == len(mu) == len(nu) == len(params) == len(names)) or not params:
+        raise ValueError("adamw_sr takes one gradient, mu, nu and parameter per name, and at least one leaf")
+    for k, g, m, v, p in zip(names, grads, mu, nu, params):
+        if not (g.shape == m.shape == v.shape == p.shape):
+            raise ValueError(f"{k}: shapes differ: g {tuple(g.shape)}, mu {tuple(m.shape)}, nu {tuple(v.shape)}, "
+                             f"p {tuple(p.shape)}")
+        if m.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+            raise ValueError(f"{k}: adamw_sr keeps bf16 moments, got mu {m.dtype}, nu {v.dtype}")
+        if g.dtype not in _GRAD_DTYPES or p.dtype not in _PARAM_DTYPES:
+            raise ValueError(f"{k}: adamw_sr takes bf16 or fp32 gradients and parameters, got {g.dtype}, {p.dtype}")
+        if not (g.device == m.device == v.device == p.device == params[0].device):
+            raise ValueError(f"{k}: leaves on more than one device")
+
+
+def adamw_sr_plain(grads, mu, nu, params, *, names, b1, b2, eps, weight_decay, lr, c1, c2, seeds):
+    """:func:`adamw_sr` in plain PyTorch, on any device: the kernel's
+    arithmetic op by op (each a rounded fp32 op; the scalars as 0-d fp32
+    tensors) and its SR bits (:func:`philox_draws` in the per-block order of
+    :func:`_stochastic_round_many`). On a CUDA device every op rounds as the
+    kernel's, so the two agree bit for bit there. On the CPU torch's fp32
+    square root is not always correctly rounded (the ``_foreach`` update
+    takes the same op), so there a value may differ from the kernel's by the
+    rounding of one square root."""
+    _check_leaves(grads, mu, nu, params, names)
+    device = params[0].device
+
+    def scalar(x):
+        return x.to(device, torch.float32) if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.float32,
+                                                                                           device=device)
+
+    def seed(x):
+        return x.to(device) if isinstance(x, torch.Tensor) else int(x)
+
+    lr, c1, c2 = scalar(lr), scalar(c1), scalar(c2)
+    ms, vs, qs = [], [], []
+    for g, m0, v0, p in zip(grads, mu, nu, params):
+        g, p32 = g.float(), p.float()
+        m = m0.float() * b1 + g * (1.0 - b1)
+        v = v0.float() * b2 + (g * (1.0 - b2)) * g
+        step = (m / c1) / (torch.sqrt(v / c2) + eps)
+        if weight_decay:
+            step = step + p32 * weight_decay
+        ms.append(m)
+        vs.append(v)
+        qs.append(p32 + step * -lr)
+    new_nu = _stochastic_round_many(vs, philox_draws(seed(seeds["nu"])), names=list(names))
+    low = [i for i, p in enumerate(params) if p.dtype == torch.bfloat16]
+    rounded = _stochastic_round_many([qs[i] for i in low], philox_draws(seed(seeds["apply_updates_sr"])),
+                                     names=[names[i] for i in low])
+    for i, q in zip(low, rounded):
+        qs[i] = q
+    return qs, [m.to(torch.bfloat16) for m in ms], new_nu
+
+
+def _block_draws(names, shapes) -> List[List[tuple]]:
+    """Per leaf, its blocks as (first value in the leaf, values, first draw)
+    in one SR stream over these leaves, in :func:`_stochastic_round_many`'s
+    order: a run of stacked ``blocks.block.*`` leaves draws block-major, any
+    other leaf in one block."""
+    stacked = [k.startswith("blocks.block.") for k in names]
+    out, at, i = [], 0, 0
+    while i < len(names):
+        j = i + 1
+        while stacked[i] and j < len(names) and stacked[j]:
+            j += 1
+        depth = shapes[i][0] if stacked[i] else 1
+        per = [int(np.prod(f)) // depth for f in shapes[i:j]]
+        before = 0
+        for n in per:
+            out.append([(b * n, n, at + b * sum(per) + before) for b in range(depth)])
+            before += n
+        at, i = at + depth * sum(per), j
+    return out
+
+
+class _Layout(NamedTuple):
+    """Where :func:`adamw_sr`'s kernel reads and writes, from the leaves'
+    names, shapes and parameter dtypes alone."""
+
+    segments: np.ndarray  # [S, 5] int64: leaf, first value in it, values, nu draw, apply draw
+    out_offset: np.ndarray  # [L] a leaf's first value in the moments' buffers
+    p_offset: np.ndarray  # [L] ... in its parameter dtype's buffer
+    sizes: tuple  # values of the moments' buffers, the bf16 and the fp32 parameters' buffers
+
+
+def _pad(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+@functools.lru_cache(maxsize=8)
+def _layout(names: tuple, shapes: tuple, low: tuple) -> _Layout:
+    nu_blocks = _block_draws(names, shapes)
+    p_blocks = iter(_block_draws([k for k, b in zip(names, low) if b], [f for f, b in zip(shapes, low) if b]))
+    rows = []
+    for i, blocks in enumerate(nu_blocks):
+        p_draws = [d for _, _, d in next(p_blocks)] if low[i] else [0] * len(blocks)
+        rows += [(i, off, n, d, pd) for (off, n, d), pd in zip(blocks, p_draws) if n]
+    numels = [_pad(int(np.prod(f))) for f in shapes]
+    out_offset = np.cumsum([0] + numels)
+    p_offset, sizes = np.zeros(len(names), np.int64), [0, 0]
+    for i, n in enumerate(numels):
+        p_offset[i] = sizes[0 if low[i] else 1]
+        sizes[0 if low[i] else 1] += n
+    return _Layout(np.array(rows, np.int64).reshape(-1, 5), out_offset[:-1], p_offset,
+                   (int(out_offset[-1]), sizes[0], sizes[1]))
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("adamw_sr")
+    vp = ctypes.c_void_p
+    lib.passt_adamw_sr.argtypes = [vp, ctypes.c_int] + [vp] * 8
+    lib.passt_adamw_sr.restype = ctypes.c_int
+    return lib
+
+
+def _view(buf: torch.Tensor, offset, shape: tuple) -> torch.Tensor:
+    """The contiguous ``shape`` in ``buf`` from value ``offset`` on."""
+    strides = np.cumprod((1,) + shape[:0:-1])[::-1] if shape else ()
+    return buf.as_strided(shape, tuple(int(x) for x in strides), int(offset))
+
+
+def adamw_sr(grads, mu, nu, params, *, names, b1, b2, eps, weight_decay, lr, c1, c2, seeds):
+    """One pass of :func:`adamw_bf16sr`'s update (``sr_nu``) and
+    :func:`apply_updates_sr` over leaf lists: returns (new parameters, new
+    mu, new nu) as lists, the parameters in their dtypes (bf16 rounded by
+    SR, fp32 as the fp32 sum), the moments in bf16 (mu rounded to nearest,
+    nu by SR). ``names``: the leaves' names (the stacked layout's draw
+    order); ``lr``, ``c1``, ``c2``: host floats or 0-d fp32 tensors on the
+    leaves' device; ``seeds``: the ``"nu"`` and ``"apply_updates_sr"``
+    streams' seeds, ints or 0-d int64 tensors there.
+
+    On CUDA leaves it launches ``csrc/adamw_sr.cu`` (once, or once per 240
+    segments) or raises; on CPU leaves it runs :func:`adamw_sr_plain`. Its
+    mu and its fp32 parameters equal the ``_foreach`` update's and the
+    apply's bit for bit; the SR stores draw other bits than theirs."""
+    if params[0].device.type != "cuda":
+        return adamw_sr_plain(grads, mu, nu, params, names=names, b1=b1, b2=b2, eps=eps,
+                              weight_decay=weight_decay, lr=lr, c1=c1, c2=c2, seeds=seeds)
+    _check_leaves(grads, mu, nu, params, names)
+    device = params[0].device
+    grads, mu, nu, params = ([t.contiguous() for t in ts] for ts in (grads, mu, nu, params))
+    shapes = tuple(tuple(p.shape) for p in params)
+    low = tuple(p.dtype == torch.bfloat16 for p in params)
+    lay = _layout(tuple(names), shapes, low)
+    mu_buf = torch.empty(lay.sizes[0], dtype=torch.bfloat16, device=device)
+    nu_buf = torch.empty(lay.sizes[0], dtype=torch.bfloat16, device=device)
+    p_bufs = (torch.empty(lay.sizes[1], dtype=torch.bfloat16, device=device),
+              torch.empty(lay.sizes[2], dtype=torch.float32, device=device))
+
+    # the segments' rows (csrc/adamw_sr.cu: seven pointers, two first draws, n | flags << 32)
+    u64 = np.uint64
+    leaf, first = lay.segments[:, 0], lay.segments[:, 1].astype(u64)
+    sizes = np.array([[t.element_size() for t in ts] for ts in (grads, mu, nu, params)], u64)
+    ptrs = np.array([[t.data_ptr() for t in ts] for ts in (grads, mu, nu, params)], u64)
+    p_size = np.where(low, 2, 4).astype(u64)
+    p_out = np.array([p_bufs[0 if b else 1].data_ptr() for b in low], u64) + lay.p_offset.astype(u64) * p_size
+    out_first = lay.out_offset.astype(u64)[leaf] + first
+    table = np.empty((len(leaf), 10), u64)
+    table[:, :4] = (ptrs[:, leaf] + first * sizes[:, leaf]).T
+    table[:, 4] = u64(mu_buf.data_ptr()) + u64(2) * out_first
+    table[:, 5] = u64(nu_buf.data_ptr()) + u64(2) * out_first
+    table[:, 6] = p_out[leaf] + first * p_size[leaf]
+    table[:, 7:9] = lay.segments[:, 3:5].astype(u64)
+    g32 = np.array([g.dtype == torch.float32 for g in grads])[leaf]
+    aligned = np.all(table[:, :7] % u64(16) == 0, axis=1)
+    flags = g32 | (~np.array(low)[leaf] << 1) | (aligned << 2)
+    table[:, 9] = lay.segments[:, 2].astype(u64) | (flags.astype(u64) << u64(32))
+
+    def operand(x, dtype):
+        if isinstance(x, torch.Tensor):
+            if x.device != device or x.dtype != dtype or x.numel() != 1:
+                raise ValueError(f"adamw_sr: a device operand must be a 0-d {dtype} tensor on {device}, got "
+                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+            return ctypes.c_void_p(x.data_ptr()), 0
+        return None, x
+
+    (lr_p, lr_v), (c1_p, c1_v), (c2_p, c2_v) = (operand(x, torch.float32) for x in (lr, c1, c2))
+    (nu_p, nu_v), (ap_p, ap_v) = (operand(seeds[k], torch.int64) for k in ("nu", "apply_updates_sr"))
+    consts = np.array([b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay, lr_v, c1_v, c2_v], np.float32)
+    seed_vals = np.array([int(nu_v) & (2**64 - 1), int(ap_v) & (2**64 - 1)], np.uint64)
+    lib = _lib()
+    code = lib.passt_adamw_sr(table.ctypes.data, len(table), consts.ctypes.data, seed_vals.ctypes.data,
+                              lr_p, c1_p, c2_p, nu_p, ap_p, _build.stream_of(params[0]))
+    _build.check(lib, code, "adamw_sr kernel launch")
+    _build.LAUNCHES[_KEY] += 1
+    OPTIM_PATHS["fused"] += 1
+    return ([_view(p_bufs[0 if b else 1], o, f) for b, o, f in zip(low, lay.p_offset, shapes)],
+            [_view(mu_buf, o, f) for o, f in zip(lay.out_offset, shapes)],
+            [_view(nu_buf, o, f) for o, f in zip(lay.out_offset, shapes)])
+
+
 def adamw(
     learning_rate,
     *,
@@ -295,7 +586,8 @@ def adamw_bf16sr(
     module docstring). ``learning_rate`` is a float or a step schedule,
     evaluated at the pre-update count. Updates are fp32 for every leaf.
     ``inputs["shares"]`` (:data:`Shares`): a tensor-parallel rank's leaves,
-    rounded as the whole leaves would be."""
+    rounded as the whole leaves would be. With ``sr_nu``, ``update_sr``
+    runs the update and the SR apply as :func:`adamw_sr` (no shares)."""
     sched = _schedule(learning_rate)
 
     def init(params: Params) -> AdamState:
@@ -326,7 +618,17 @@ def adamw_bf16sr(
         return dict(zip(keys, upd)), AdamState(count=state.count + 1, mu=dict(zip(keys, mu)),
                                                nu=dict(zip(keys, nu)))
 
-    return GradientTransformation(init, update, plan)
+    def update_sr(grads: Params, state: AdamState, params: Params, inputs):
+        keys = list(params)
+        new_p, mu, nu = adamw_sr(
+            [grads[k] for k in keys], [state.mu[k] for k in keys], [state.nu[k] for k in keys],
+            [params[k] for k in keys], names=keys, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+            lr=inputs["lr"], c1=inputs["c1"], c2=inputs["c2"], seeds=inputs["seeds"],
+        )
+        return dict(zip(keys, new_p)), AdamState(count=state.count + 1, mu=dict(zip(keys, mu)),
+                                                 nu=dict(zip(keys, nu)))
+
+    return GradientTransformation(init, update, plan, update_sr if sr_nu else None)
 
 
 class MultiStepsState(NamedTuple):
@@ -350,7 +652,10 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
     state's ``mini_step``: a graph of the step is captured once per branch.
     The divisor ``n + 1`` is the scalar ``"div"``. ``inputs["reduce_grads"]``,
     where given, maps the accumulated mean before the inner update (the
-    data-parallel step's all-reduce: once an update, not once a micro-step)."""
+    data-parallel step's all-reduce: once an update, not once a micro-step).
+    ``update_sr``, where the inner optimizer has one, runs the update
+    branch's inner update and apply as one pass and the accumulate branch
+    as ``update`` and :func:`apply_updates_sr`."""
 
     def init(params: Params) -> MultiStepsState:
         return MultiStepsState(
@@ -367,15 +672,19 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
         after = state._replace(mini_step=state.mini_step + 1)
         return UpdatePlan(("accumulate",), div, {}, after)
 
-    def update(grads: Params, state: MultiStepsState, params: Params, inputs=None):
-        if inputs is None:
-            inputs = host_inputs(plan(state), _device_of(params))
+    def mean(grads: Params, state: MultiStepsState, inputs) -> Params:
+        """The running mean with this micro-step's gradients folded in."""
         keys = list(state.acc_grads)
         acc = [state.acc_grads[k] for k in keys]
         g = [grads[k].to(torch.promote_types(grads[k].dtype, a.dtype)) for k, a in zip(keys, acc)]
         delta = torch._foreach_sub(g, acc)
         torch._foreach_div_(delta, inputs["div"])
-        acc = dict(zip(keys, torch._foreach_add(acc, delta)))
+        return dict(zip(keys, torch._foreach_add(acc, delta)))
+
+    def update(grads: Params, state: MultiStepsState, params: Params, inputs=None):
+        if inputs is None:
+            inputs = host_inputs(plan(state), _device_of(params))
+        acc = mean(grads, state, inputs)
         if state.mini_step == every_k - 1:
             if "reduce_grads" in inputs:
                 acc = inputs["reduce_grads"](acc)
@@ -387,7 +696,20 @@ def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransfor
         updates = {k: torch.zeros_like(a, dtype=torch.float32) for k, a in acc.items()}
         return updates, MultiStepsState(state.mini_step + 1, state.gradient_step, state.inner_opt_state, acc)
 
-    return GradientTransformation(init, update, plan)
+    def update_sr(grads: Params, state: MultiStepsState, params: Params, inputs):
+        if state.mini_step != every_k - 1:
+            OPTIM_PATHS["foreach"] += 1
+            updates, state = update(grads, state, params, inputs)
+            return apply_updates_sr(params, updates, inputs["apply_updates_sr"]), state
+        acc = mean(grads, state, inputs)
+        if "reduce_grads" in inputs:
+            acc = inputs["reduce_grads"](acc)
+        params, inner_state = inner.update_sr(acc, state.inner_opt_state, params, inputs)
+        # the inner update's dtype, fp32, as update's zeros
+        zeros = {k: torch.zeros_like(a, dtype=torch.float32) for k, a in acc.items()}
+        return params, MultiStepsState(0, state.gradient_step + 1, inner_state, zeros)
+
+    return GradientTransformation(init, update, plan, update_sr if inner.update_sr is not None else None)
 
 
 def map_param_dicts(tree, names, fn):

@@ -6,14 +6,17 @@ The JAX package jits this as one graph (with the state donated); here one
 body, in the same order of operations, runs as CUDA graphs on a CUDA device
 (``passt_tpu_torch.graphs``, ``jit=True``, the default) or eagerly
 (``jit=False``, or on the CPU), and on the card it goes through the Hopper
-mel kernel and the attention forward and backward kernels. Nothing in the
+mel kernel, the attention forward and backward kernels and, where the
+parameters are stored in bf16 by SR, the one-pass optimizer kernel
+(:func:`fused_optimizer`, ``optim.adamw_sr``). Nothing in the
 step waits on the host: the step count is a Python int, and what the body
 reads from the host (:class:`StepInputs`) is set before each call: the
 optimizer's learning rate, bias corrections and divisor as 0-d fp32 tensors
-on the device, and one persistent ``torch.Generator`` per random stream,
+on the device, one persistent ``torch.Generator`` per random stream,
 reseeded from ``(seed, step, stream)`` (the stand-in for the JAX package's
-``step_keys``; :func:`step_generators` makes the same generators anew), so
-resuming at step k reproduces the draws.
+``step_keys``; :func:`step_generators` makes the same generators anew), and
+the seeds of the streams that kernel draws from as 0-d int64 tensors
+(:data:`SR_SEEDS`), so resuming at step k reproduces the draws.
 
 Parameters live in :class:`TrainState` as a dict of tensors keyed by the
 module's parameter names; the step runs the module on them with
@@ -48,6 +51,9 @@ from passt_tpu_torch.train.schedules import get_scheduler_lambda, make_lr_schedu
 
 #: the per-step random streams, in the JAX package's ``step_keys`` order
 STREAMS = ("mel", "mix", "patchout", "dropout", "droppath")
+#: the streams whose seeds the one-pass optimizer reads on the device
+#: (``optim.adamw_sr``): the second moment's SR and the parameters' SR apply
+SR_SEEDS = ("nu", "apply_updates_sr")
 
 
 @dataclasses.dataclass
@@ -154,16 +160,19 @@ def _stream_seeds(seed: int, step: int) -> Dict[str, tuple]:
 
 class StepInputs:
     """What a step reads besides its state and batch, on the step's device:
-    the optimizer's per-update scalars as 0-d fp32 tensors and one
-    persistent generator per random stream. :meth:`refresh` sets them on
-    the host before each call, so an eager call and a graph replay read the
-    same values; a step's draws stay a function of ``(seed, step, stream)``.
+    the optimizer's per-update scalars as 0-d fp32 tensors, one persistent
+    generator per random stream, and, for the streams named in
+    ``device_seeds``, the seed as a 0-d int64 tensor (what a kernel that
+    draws its own bits reads). :meth:`refresh` sets them on the host before
+    each call, so an eager call and a graph replay read the same values; a
+    step's draws stay a function of ``(seed, step, stream)``.
     """
 
-    def __init__(self, device):
+    def __init__(self, device, device_seeds: Tuple[str, ...] = ()):
         self.device = torch.device(device)
         self.scalars: Dict[str, torch.Tensor] = {}
         self.generators: Dict[str, torch.Generator] = {}
+        self.seeds = {name: torch.zeros((), dtype=torch.int64, device=self.device) for name in device_seeds}
 
     def refresh(self, scalars: Dict[str, float], seeds: Dict[str, tuple]) -> None:
         for name, value in scalars.items():
@@ -174,10 +183,17 @@ class StepInputs:
             if name not in self.generators:
                 self.generators[name] = torch.Generator(device=self.device)
             self.generators[name].manual_seed(fold_seed(*parts))
+        for name, tensor in self.seeds.items():
+            if name in seeds:  # gradient accumulation's accumulate branch draws for no moment
+                tensor.fill_(fold_seed(*seeds[name]))
 
     def optimizer(self) -> Dict[str, object]:
-        """The ``inputs`` of the optimizer's update."""
-        return {**self.scalars, **self.generators}
+        """The ``inputs`` of the optimizer's update (``"seeds"``: the device
+        seeds, where there are any)."""
+        inputs: Dict[str, object] = {**self.scalars, **self.generators}
+        if self.seeds:
+            inputs["seeds"] = dict(self.seeds)
+        return inputs
 
 
 LOSS_FNS: Dict[str, Callable] = {
@@ -185,6 +201,15 @@ LOSS_FNS: Dict[str, Callable] = {
     "single_label": L.single_label_mixup_loss,  # ESC-50
     "masked": L.masked_bce_loss,  # OpenMIC
 }
+
+
+def fused_optimizer(tx: GradientTransformation, param_sr: bool, tensor_parallel, device) -> bool:
+    """Whether a step's optimizer phase runs as one pass (``tx.update_sr``,
+    :func:`optim.adamw_sr`): bf16 parameters stored by SR, a transformation
+    that has the pass, no tensor-parallel shares, and the leaves on a CUDA
+    device. Elsewhere the step runs ``tx.update`` and then the apply."""
+    return (bool(param_sr) and tensor_parallel is None and tx.update_sr is not None
+            and torch.device(device).type == "cuda")
 
 
 def _param_group(name: str) -> str:
@@ -323,13 +348,17 @@ def make_train_step(
                 grads, (loss,) = dp.all_reduce_mean(grads, [loss])
             tracing.mark("collective", loss)
 
-        updates, opt_state = tx.update(grads, opt_state, params, opt_inputs)
-        if param_sr:
-            # bf16 storage: fp32 add, stochastically rounded store, from a
-            # stream apart from the augmentation's and the optimizer's
-            params = apply_updates_sr(params, updates, gens["apply_updates_sr"], shares)
+        if fused_optimizer(tx, param_sr, tp, loss.device):
+            params, opt_state = tx.update_sr(grads, opt_state, params, opt_inputs)
         else:
-            params = apply_updates(params, updates)
+            optim.OPTIM_PATHS["foreach"] += 1
+            updates, opt_state = tx.update(grads, opt_state, params, opt_inputs)
+            if param_sr:
+                # bf16 storage: fp32 add, stochastically rounded store, from a
+                # stream apart from the augmentation's and the optimizer's
+                params = apply_updates_sr(params, updates, gens["apply_updates_sr"], shares)
+            else:
+                params = apply_updates(params, updates)
         tracing.mark("optimizer", loss)
         metrics = {"loss": loss}
 
@@ -351,7 +380,8 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         device = batch["target"].device
         if device not in runners:
-            runners[device] = _TrainRunner(body, tx, device, graphed=jit, donate=donate)
+            device_seeds = SR_SEEDS if fused_optimizer(tx, param_sr, tp, device) else ()
+            runners[device] = _TrainRunner(body, tx, device, graphed=jit, donate=donate, device_seeds=device_seeds)
         seeds = _stream_seeds(seed, state.step)
         if param_sr:
             seeds["apply_updates_sr"] = ("apply_updates_sr", state.step)
@@ -380,9 +410,10 @@ class _TrainRunner:
     signature and the optimizer's branch). Its host work before the call's
     first launch is one span, "step.plan"."""
 
-    def __init__(self, body, tx: GradientTransformation, device: torch.device, graphed: bool, donate: bool):
+    def __init__(self, body, tx: GradientTransformation, device: torch.device, graphed: bool, donate: bool,
+                 device_seeds: Tuple[str, ...] = ()):
         self.body, self.tx, self.donate = body, tx, donate
-        self.inputs = StepInputs(device)
+        self.inputs = StepInputs(device, device_seeds)
         self.cache = None
         if graphed and graphs.graph_type(device) is not None:
             self.cache = graphs.GraphCache(self._graphed_body, generators=self.inputs.generators)
